@@ -1,0 +1,135 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). Each source is
+compiled by its own ``nvcc`` process, all started together, then linked.
+The library lands in ``build/kernels/`` at the checkout's root, named by a
+hash of the sources and flags, so an edited source is never served stale.
+Nothing here runs at import time: the CPU tests import every module.
+
+``launches`` counts kernel launches per kernel. Each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    found = [str(Path(home, "bin", "nvcc"))] if home else []
+    found += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for path in found:
+        if path and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> Path:
+    """Compile the kernels (if this exact source set is not built yet) and
+    return the shared library's path. The compiler's output, register and
+    spill counts included, goes to ``build/kernels/build.log``."""
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    tag = digest.hexdigest()[:16]
+    lib = BUILD_DIR / f"librepro_kernels_{tag}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
+    procs = [subprocess.Popen([compiler, *NVCC_FLAGS, "-c", str(src), "-o",
+                               str(obj)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0].decode(errors="replace") for p in procs]
+    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    for src, proc, log in zip(sources, procs, logs):
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    link = subprocess.run(
+        [compiler, "-shared", *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout.decode()}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            handle.repro_paged_decode.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+            handle.repro_paged_decode.restype = i32
+            handle.repro_flash_attention.argtypes = (
+                [ptr] * 4 + [i32] * 10 + [ctypes.c_float, i32, i32, ptr])
+            handle.repro_flash_attention.restype = i32
+            handle.repro_error_string.argtypes = [i32]
+            handle.repro_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launch was refused; count it otherwise."""
+    if err:
+        msg = lib().repro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
+    launches[name] += 1
+
+
+def check_cuda_tensors(name, tensors, dtypes):
+    """Wrapper-side validation before handing raw pointers to a kernel:
+    every tensor on one CUDA device, contiguous, of an accepted dtype."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype not in dt:
+            raise TypeError(f"{name}: dtype {t.dtype} not in {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return dev
+
+
+def device_and_stream(device: torch.device):
+    """The (device index, current stream) a launch on ``device`` takes."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return index, ctypes.c_void_p(torch.cuda.current_stream(index).cuda_stream)

@@ -1,0 +1,37 @@
+"""Dispatchers from model layout to the kernels' layouts.
+
+Model code calls these with model-layout tensors; each converts to the
+kernel layout and calls the kernel wrapper, which takes the plain version
+for a CPU tensor and launches the CUDA kernel for a CUDA tensor (or
+raises). ``launches`` holds one plain-integer launch count per kernel.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels._cuda import launches, reset_launches  # noqa: F401
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Model layout: q (B,S,H,hd); k/v (B,T,KV,hd). Returns (B,S,H,hd)."""
+    out = _fa.flash_attention_bhsd(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal, window=window,
+        softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                           page_size):
+    """Single-token decode over a paged KV cache.
+
+    Model layout: q (B,1,H,hd); k/v_pages (P,KV,page_size,hd);
+    block_tables (B,maxp) i32; lengths (B,) i32 valid entries per row
+    (0 = inactive slot, output row is zero). Returns (B,1,H,hd)."""
+    B, _, H, hd = q.shape
+    KV = k_pages.shape[1]
+    qk = q[:, 0].reshape(B, KV, H // KV, hd).contiguous()  # h = kv*G + g
+    out = _pa.paged_decode_bkgh(qk, k_pages, v_pages, block_tables, lengths,
+                                page_size=page_size)
+    return out.reshape(B, 1, H, hd)

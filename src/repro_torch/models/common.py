@@ -1,0 +1,125 @@
+"""Shared model building blocks: init helper, norms, embeddings, RoPE.
+
+Parameters live in ``nn.Module``s in the reference's layouts (so the bridge
+from the JAX package is a plain copy), created in ``cfg.param_dtype`` and
+cast to ``cfg.compute_dtype`` at use. The forward functions are plain
+functions on tensors that take those modules, like the reference's
+functions take its parameter dicts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"float32"`` / ``"bfloat16"`` -> the torch dtype."""
+    return getattr(torch, name)
+
+
+def dense_init(gen, shape, in_axis_size, dtype=torch.float32):
+    """Fan-in scaled normal init drawn from ``gen``, a CPU
+    ``torch.Generator``: one seed gives the same weights on every device."""
+    scale = 1.0 / np.sqrt(max(in_axis_size, 1))
+    return (scale * torch.randn(shape, generator=gen)).to(dtype)
+
+
+def weight(gen, shape, in_axis_size, dtype) -> nn.Parameter:
+    """A parameter from ``dense_init``, or zeros to be filled by a copy (the
+    bridge) when ``gen`` is None. Inference-only for now: no gradients."""
+    data = (dense_init(gen, shape, in_axis_size, dtype) if gen is not None
+            else torch.zeros(shape, dtype=dtype))
+    return nn.Parameter(data, requires_grad=False)
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg, dim=None):
+        super().__init__()
+        d = dim or cfg.d_model
+        dt = torch_dtype(cfg.param_dtype)
+        self.scale = nn.Parameter(torch.ones(d, dtype=dt), requires_grad=False)
+        if cfg.norm_type == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(d, dtype=dt),
+                                     requires_grad=False)
+
+
+class Embedding(nn.Module):
+    def __init__(self, cfg, gen=None):
+        super().__init__()
+        self.tok = weight(gen, (cfg.padded_vocab, cfg.d_model), cfg.d_model,
+                          torch_dtype(cfg.param_dtype))
+
+
+class Dense(nn.Module):
+    """One weight ``w`` (the LM head, the structure projection)."""
+
+    def __init__(self, shape, in_axis_size, dtype, gen=None):
+        super().__init__()
+        self.w = weight(gen, shape, in_axis_size, dtype)
+
+
+def norm_fwd(p, x, cfg):
+    dt = x.dtype
+    x = x.float()
+    if cfg.norm_type == "layernorm":
+        x = x - x.mean(-1, keepdim=True)
+    var = x.square().mean(-1, keepdim=True)
+    x = x * torch.rsqrt(var + cfg.norm_eps)
+    x = x * p.scale.float()
+    if cfg.norm_type == "layernorm":
+        x = x + p.bias.float()
+    return x.to(dt)
+
+
+def rms_norm(x, scale, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def embed_tokens(p, tokens, cfg):
+    x = p.tok[tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    if cfg.emb_scale:
+        x = x * np.float32(np.sqrt(cfg.d_model))
+    return x
+
+
+def logits_fwd(params, x, cfg):
+    """Final norm + LM head. ``params`` is the top-level LM module."""
+    x = norm_fwd(params.final_norm, x, cfg)
+    cdt = torch_dtype(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        return x @ params.embedding.tok.to(cdt).T
+    return x @ params.lm_head.w.to(cdt)
+
+
+def rope_angles(positions, head_dim, cfg):
+    """positions (..., S) int -> ((..., S, rot/2) fp32 angles, rot)."""
+    rot = int(head_dim * cfg.rope_fraction)
+    rot -= rot % 2
+    inv = 1.0 / (cfg.rope_theta ** (np.arange(0, rot, 2, np.float32) / rot))
+    inv = torch.from_numpy(np.asarray(inv, np.float32)).to(positions.device)
+    return positions[..., None].float() * inv, rot
+
+
+def apply_rope(x, positions, cfg):
+    """"half" (llama) style rotation. x: (B, S, H, hd); positions: (S,) or
+    per-row (B, S)."""
+    if cfg.rope_style != "half":
+        raise ValueError(f"rope style {cfg.rope_style!r} is not ported")
+    ang, rot = rope_angles(positions, x.shape[-1], cfg)
+    if rot == 0:
+        return x
+    sin, cos = torch.sin(ang), torch.cos(ang)        # (..., S, rot/2)
+    if positions.dim() == 1:
+        sin, cos = sin[None, :, None, :], cos[None, :, None, :]
+    else:
+        sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    xr, xp = x[..., :rot].float(), x[..., rot:]
+    half = rot // 2
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)

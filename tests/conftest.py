@@ -37,3 +37,8 @@ class _StrategyStub:
 
 
 st = _StrategyStub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")

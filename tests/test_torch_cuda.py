@@ -1,0 +1,97 @@
+"""The port's CUDA kernels and its main path on the card, against their
+plain versions. Every test here is marked ``cuda`` and skips without a
+CUDA device; the file imports torch and numpy only, so it also runs on a
+machine without JAX:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: paged decode 1e-5 in fp32, flash 2e-5 in fp32, both 2e-2 in
+bf16 (the CPU tests' own); log-likelihoods 1e-3 (sums of 24 fp32
+log-probs computed in two orders)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro_torch.kernels import _cuda  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_and_count_launches(cuda, dtype):
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dt)
+    B, KV, G, hd, page, maxp = 24, 4, 2, 32, 8, 11
+    P = B * maxp + 1
+    q, kp, vp = mk(B, KV, G, hd), mk(P, KV, page, hd), mk(P, KV, page, hd)
+    bt = torch.randperm(P - 1, generator=g, device=cuda)[:B * maxp] \
+        .reshape(B, maxp).int()
+    lens = torch.randint(0, maxp * page + 1, (B,), generator=g,
+                         device=cuda).int()
+    lens[::5] = 0
+    before = dict(_cuda.launches)
+    got = pa.paged_decode_bkgh(q, kp, vp, bt, lens, page_size=page)
+    want = pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page)
+    t = 1e-5 if dtype == "float32" else 2e-2
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    atol=t, rtol=t)
+    assert bool((got[lens == 0] == 0).all())
+    t = 2e-5 if dtype == "float32" else 2e-2
+    for S, kw in ((32, {}), (65, {"window": 24}), (48, {"softcap": 20.0})):
+        q, k, v = mk(4, 8, S, 32), mk(4, 4, S, 32), mk(4, 4, S, 32)
+        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        want = fa.attention_ref(q, k, v, **kw)
+        assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), atol=t, rtol=t)
+    assert _cuda.launches["paged_decode_bkgh"] == \
+        before["paged_decode_bkgh"] + 1
+    assert _cuda.launches["flash_attention_bhsd"] == \
+        before["flash_attention_bhsd"] + 3
+
+
+def test_kernels_reject_bad_inputs(cuda):
+    q = torch.zeros(1, 2, 8, 24, device=cuda)          # head dim 24
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhsd(q, q, q)
+    q = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(TypeError):                     # mixed dtypes
+        fa.flash_attention_bhsd(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):                    # not contiguous
+        fa.flash_attention_bhsd(q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), q, q)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """The reduced fp32 engine on the card (kernels) and on the CPU (plain
+    versions), same weights and noise: the same tokens."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import protein as prot
+    cfg = get_reduced("progen-s").replace(compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    specs = [dict(backbone=rng.normal(size=(rows, 16)), seed=0, length=6,
+                  tag=i, noise=rng.gumbel(size=(6, cfg.padded_vocab)))
+             for i, rows in enumerate((8, 5, 8))]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = prot.init_progen(cfg, seed=1, device=dev)
+        eng = prot.PagedDecodeEngine(cfg, slots=2, max_new=6, device=dev)
+        out[dev.type] = eng.run(params, 1.0, specs)
+    for tag in range(3):
+        np.testing.assert_array_equal(out["cuda"][tag][0],
+                                      out["cpu"][tag][0])
+        assert abs(out["cuda"][tag][1] - out["cpu"][tag][1]) < 1e-3
