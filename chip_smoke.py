@@ -27,8 +27,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    per ``predict_batch``.
 5. Where the time goes: one more design cycle under ``torch.profiler``,
    device time by kernel and the device's busy share.
-6. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
+6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
+   layers, d 4096, bf16 compute, seeded weights drawn on the card), one
+   prefill of 8 x 512 tokens and 31 greedy decode steps through the
+   RWKV-6 state. The counters are zeroed just before and read just after:
+   the wkv6 kernel must have run once per layer per prefill and per decode
+   step, the attention kernels not at all. Then a full-width fp32 check
+   that the T=1 decode path agrees with one prefill over the same tokens,
+   and one decode step under ``torch.profiler``.
+7. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Phase 2 also holds the wkv6 kernel against its plain version and times
+both; phase 3 also holds the reduced rwkv6 model on the card against the
+CPU.
 
 Imports neither jax nor the reference package. Exits non-zero without a
 CUDA device.
@@ -36,6 +48,8 @@ CUDA device.
 
 from __future__ import annotations
 
+import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -48,6 +62,9 @@ HBM_BYTES_PER_S = 3.35e12                        # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}        # flash, as the CPU tests
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+WKV_STATE_TOL = {"atol": 1e-4, "rtol": 1e-3}       # test_kernels.py's own
+# rwkv6-7b serving (phase 6): batch x prompt tokens, tokens generated
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
 
@@ -125,6 +142,20 @@ def bound_ms(n_bytes, n_ops, dtype):
 
 def max_err(got, want):
     return float((got.float() - want.float()).abs().max())
+
+
+def check_close(label, got, want, atol, rtol):
+    """``|got - want| <= atol + rtol |want|`` everywhere (numpy's
+    ``assert_allclose``, as the CPU tests hold it); returns the max abs
+    error."""
+    got, want = got.float(), want.float()
+    excess = float(((got - want).abs() - rtol * want.abs()).max())
+    err = max_err(got, want)
+    print(f"  {label}: max_abs_err {err:.3e} (atol {atol:.0e}, rtol "
+          f"{rtol:.0e})", flush=True)
+    expect(excess <= atol, f"{label}: error exceeds atol {atol} + rtol "
+           f"{rtol} |want| by {excess - atol}")
+    return err
 
 
 def dtype_name(dt):
@@ -254,6 +285,164 @@ def phase_kernels(torch):
                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib})
     return records
+
+
+def wkv_inputs(torch, g, B, H, T, K, dtype, s0=True, logw_ends=False):
+    """wkv6 inputs on the card: r/k/v 0.5 N(0,1) in ``dtype``, logw
+    -exp(N(0,1)) in fp32 (or alternating -e^5 and -1e-6, the two ends
+    ``rwkv_streams`` clips to), u 0.3 + 0.1 N(0,1), s0 0.1 N(0,1) or zero
+    (a fresh prefill's)."""
+    import numpy as np
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    r, k, v = ((0.5 * mk(B, H, T, K)).to(dtype) for _ in range(3))
+    logw = -torch.exp(mk(B, H, T, K))
+    if logw_ends:
+        logw[..., ::2] = -float(np.exp(5.0))
+        logw[..., 1::2] = -1e-6
+    s = 0.1 * mk(B, H, K, K) if s0 else torch.zeros(B, H, K, K,
+                                                     device="cuda")
+    return r, k, v, logw, 0.3 + 0.1 * mk(H, K), s
+
+
+def wkv_bound(B, H, T, K, elem):
+    """(bound ms, what bounds it, bytes) of one wkv6 call. Bytes: r/k/v
+    read and y written in the compute dtype, logw read in fp32, u read, s0
+    read and s_T written in fp32. Operations: two fp32 multiply-adds per
+    state element per token (the output and the state update)."""
+    n = B * H * T * K
+    n_bytes = 4 * n * elem + 4 * n + 4 * H * K + 2 * 4 * B * H * K * K
+    return (*bound_ms(n_bytes, 4 * B * H * T * K * K, "float32"), n_bytes)
+
+
+def phase_wkv6(torch):
+    """Parity of the wkv6 kernel against its plain version on the card,
+    then its and the plain version's device time at the serving path's
+    prefill and decode shapes. Returns the kernel's JSON record."""
+    from repro_torch.kernels import rwkv6
+
+    print("phase 2b: wkv6 parity on the card", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, H, K = SERVE_BATCH, 64, 64
+    cases = [  # label, (B, H, T, K), kwargs
+        ("prefill 8x64x512x64, s0 = 0", (B, H, SERVE_PROMPT, K),
+         {"s0": False}),
+        ("decode 8x64x1x64", (B, H, 1, K), {}),
+        ("ragged T=33", (2, 8, 33, K), {}),
+        ("prime T=31", (2, 8, 31, K), {}),
+        ("reduced K=16, T=70", (2, 4, 70, 16), {}),
+        ("nonzero s0, T=100", (4, 16, 100, K), {}),
+        ("logw at -e^5 and -1e-6, T=40", (2, 8, 40, K), {"logw_ends": True}),
+    ]
+    for label, shape, kw in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            args = wkv_inputs(torch, g, *shape, dt, **kw)
+            y, s = rwkv6.wkv6_bhtk(*args)
+            y_ref, s_ref = rwkv6.wkv6_ref(*args)
+            torch.cuda.synchronize()
+            expect(y.dtype == dt and s.dtype == torch.float32,
+                   f"wkv6 dtypes {y.dtype} {s.dtype}")
+            name = dtype_name(dt)
+            check_close(f"wkv6 {label} {name} y", y, y_ref, TOL[name],
+                        TOL[name])
+            check_close(f"wkv6 {label} {name} s_T", s, s_ref,
+                        **WKV_STATE_TOL)
+
+    # timings at the serving path's shapes, in bf16 as the path runs them.
+    # Calls rotate over enough input sets to fill twice the 50 MB L2, as
+    # the path's calls find their state cold (a layer's weights pass
+    # through L2 between two calls).
+    dt, record = torch.bfloat16, None
+    for label, T in (("prefill", SERVE_PROMPT), ("decode", 1)):
+        b_ms, b_by, n_bytes = wkv_bound(B, H, T, K, 2)
+        sets = [wkv_inputs(torch, g, B, H, T, K, dt, s0=T == 1)
+                for _ in range(-(-100_000_000 // n_bytes))]
+        err = max_err(rwkv6.wkv6_bhtk(*sets[0])[0],
+                      rwkv6.wkv6_ref(*sets[0])[0])
+        turn = itertools.cycle(sets)
+        run_k = lambda: rwkv6.wkv6_bhtk(*next(turn))
+        run_p = lambda: rwkv6.wkv6_ref(*next(turn))
+        ms = graph_ms(torch, run_k)
+        plain = graph_ms(torch, run_p, iters=4, replays=3)
+        print(f"  wkv6 {label} {B}x{H}x{T}x{K} bf16, device ms per call: "
+              f"kernel {ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} "
+              f"({b_by}); wall per back-to-back call: kernel "
+              f"{wall_ms(torch, run_k):.4f}; err {err:.3e}", flush=True)
+        if record is None:             # the record holds the prefill shape
+            record = {"name": "wkv6_bhtk", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+                      "replaces": "src/repro/kernels/rwkv6.py:69",
+                      "launches": 0, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None}
+    return record
+
+
+def greedy(torch, params, prompts, cfg, steps):
+    """Greedy tokens (B, steps) through prefill + decode_step, and the
+    logits of the last decode step."""
+    from repro_torch.models import lm
+    logits, caches, t = lm.prefill(params, {"inputs": prompts}, cfg)
+    toks = [lm.sample_tokens(logits, 0.0)]
+    for i in range(1, steps):
+        logits, caches = lm.decode_step(params, caches, toks[-1], t + i - 1,
+                                        cfg)
+        toks.append(lm.sample_tokens(logits, 0.0))
+    return torch.cat(toks, dim=1), logits
+
+
+def layer_consistency(torch, params, seq, n_prompt, cfg):
+    """Every layer fed the input the prefill gives it: its outputs at the
+    positions after ``n_prompt`` through its own prefill over the first
+    ``n_prompt`` tokens and T=1 decode steps, against its outputs in one
+    prefill over all of ``seq``. Returns the largest error, each layer's
+    relative to the largest magnitude of its prefill output."""
+    from repro_torch.models import blocks
+    from repro_torch.models.common import embed_tokens
+    B, S = seq.shape
+    x = embed_tokens(params.embedding, seq, cfg)
+    ctx = {}                                 # rwkv layers take no positions
+    worst = 0.0
+    for layer, kind in zip(params.layers, cfg.layer_kinds):
+        def fresh():
+            return blocks.init_layer_cache(kind, cfg, B, S, device=x.device)
+        full, _ = blocks.layer_prefill(kind, layer, x, ctx, cfg, fresh())
+        _, state = blocks.layer_prefill(kind, layer, x[:, :n_prompt], ctx,
+                                        cfg, fresh())
+        for i in range(n_prompt, S):
+            h, state = blocks.layer_decode(kind, layer, x[:, i:i + 1], i, cfg,
+                                           state)
+            worst = max(worst, max_err(h[:, 0], full[:, i])
+                        / float(full.abs().max()))
+        x = full
+    return worst
+
+
+def phase_rwkv_agreement(torch):
+    """Reduced rwkv6, fp32: one model built on the CPU and copied to the
+    card, the same prompts, greedy decoding on the card (wkv6 kernel) and
+    on the CPU (plain version)."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import lm
+
+    print("phase 3b: small-input agreement, rwkv6 card vs CPU (reduced, "
+          "fp32)", flush=True)
+    cfg = get_reduced("rwkv6-7b").replace(compute_dtype="float32")
+    cpu = lm.init_lm(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    prompts = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, size=(4, 40)))
+    with torch.inference_mode():
+        toks_g, last_g = greedy(torch, card, prompts.cuda(), cfg, 12)
+        toks_c, last_c = greedy(torch, cpu, prompts, cfg, 12)
+        gen_g = lm.generate(card, {"inputs": prompts.cuda()}, cfg, 12)
+    expect(torch.equal(toks_g.cpu(), toks_c), "greedy tokens differ, card vs "
+           "CPU")
+    expect(torch.equal(gen_g.cpu(), toks_c), "lm.generate differs from the "
+           "prefill + decode_step loop")
+    check("last-step logits card vs CPU", max_err(last_g.cpu(), last_c), 1e-4)
 
 
 def new_pipelines(rng, n):
@@ -416,7 +605,8 @@ def phase_main_path(torch, pp):
     expect(all(p["accepted"] and p["accepted"][0][0] == 0 for p in pipes),
            "a pipeline accepted nothing in its first cycle")
     want = {"paged_decode_bkgh": g.n_layers * steps,
-            "flash_attention_bhsd": g.n_layers * admits + f.n_layers * n_pred}
+            "flash_attention_bhsd": g.n_layers * admits + f.n_layers * n_pred,
+            "wkv6_bhtk": 0}
     expect(counts == want, f"launches {counts}, expected {want}")
     return counts
 
@@ -425,7 +615,6 @@ def phase_profile(torch, pp):
     """One design cycle under torch.profiler: device time by kernel and the
     device's busy share of the cycle's wall time."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.allocator import SubMesh
 
     print("phase 5: where the time goes (one design cycle, torch.profiler)",
@@ -435,21 +624,120 @@ def phase_profile(torch, pp):
     peptide = rng.integers(1, 21, size=PEPTIDE).astype(np.int32)
     aa_emb = rng.normal(size=(32, 16)).astype(np.float32)
     pipes = new_pipelines(rng, 4)
+    profile_step(torch, lambda: design_cycle(torch, pp, mesh, pipes, 0,
+                                             aa_emb, peptide), "cycle")
+
+
+def profile_step(torch, fn, label, top=12):
+    """Run ``fn`` once under torch.profiler: device time by kernel and the
+    device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        design_cycle(torch, pp, mesh, pipes, 0, aa_emb, peptide)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     kernels = kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3      # ms
-    print(f"  cycle wall {wall * 1e3:.1f} ms (profiled), device busy "
+    print(f"  {label} wall {wall * 1e3:.1f} ms (profiled), device busy "
           f"{busy:.2f} ms = {100 * busy / (wall * 1e3):.1f}% of wall, "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
               f" {e.key[:100]}", flush=True)
+
+
+def phase_serving(torch):
+    """rwkv6-7b LM serving at full width through ``serve_batch``; returns
+    the launch counts of the counted window."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+
+    import numpy as np
+
+    cfg = get_config("rwkv6-7b")
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    print(f"phase 6: LM serving, {cfg.name} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads of "
+          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype} weights, {cfg.compute_dtype} compute): "
+          f"{B} x {P} prompt tokens, {G} generated", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"  weights drawn on the card in {time.perf_counter() - t0:.2f} s:"
+          f" {sum(p.numel() for p in params.parameters())} parameters, "
+          f"{n_bytes / 1e9:.2f} GB", flush=True)
+    # one short request first: library handles and first-call allocations
+    serve_batch(cfg, batch=B, prompt_len=16, gen=2, params=params)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    r = serve_batch(cfg, batch=B, prompt_len=P, gen=G, params=params)
+    counts = dict(ops.launches)
+    toks = r["tokens"]
+    print(f"  prefill {r['prefill_s'] * 1e3:.1f} ms ({r['prefill_tok_s']:.0f}"
+          f" tokens/s); decode {r['decode_s'] / (G - 1) * 1e3:.1f} ms per "
+          f"step ({r['decode_tok_s']:.1f} tokens/s over {G - 1} steps); peak"
+          f" memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    print(f"  launches {counts}; row 0 tokens {toks[0, :8].tolist()}",
+          flush=True)
+    expect(toks.shape == (B, G), f"tokens {tuple(toks.shape)}")
+    expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+           "a token outside the vocabulary")
+    expect(r["logits_finite"], "a logit is not finite")
+    want = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
+            "wkv6_bhtk": cfg.n_layers * G}
+    expect(counts == want, f"launches {counts}, expected {want}")
+
+    # T=1 decode vs one prefill over the same 72 tokens, at full width and
+    # depth in fp32: 64 prompt tokens, then 8 greedy decode steps.
+    c32 = cfg.replace(compute_dtype="float32")
+    prompts = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, size=(2, 64))).cuda()
+    with torch.inference_mode():
+        toks32, last = greedy(torch, params, prompts, c32, 9)
+        seq = torch.cat([prompts, toks32[:, :-1]], dim=1)
+        full, _, _ = lm.prefill(params, {"inputs": seq}, c32)
+        per_layer = layer_consistency(torch, params, seq, 64, c32)
+    expect(bool(torch.isfinite(last).all()), "fp32 logits not finite")
+    # Each layer, fed the prefill's input, gives the same outputs through
+    # its state at T=1 as in the prefill, to 1e-4 of the layer's largest
+    # output (the residual stream grows from ~3 to ~20 over the 32 layers):
+    # room for fp32 products over d 4096 and d_ff 14336 summed in another
+    # order (cuBLAS picks other kernels for 2 rows than for 144), carried
+    # through 8 steps of state.
+    check("full-width fp32, every layer: 8 decode steps vs one prefill over "
+          "72 tokens, relative to the layer's output scale", per_layer, 1e-4)
+    # End to end, the two paths are two fp32 chains through 32 random
+    # layers: their rounding differences grow from layer to layer (a head
+    # whose output has a small spread is divided by it in the group norm),
+    # so the logits are held only to a quarter of their own scale, which a
+    # lost or stale state would exceed.
+    scale = float(full.abs().max())
+    check(f"full-width fp32, end to end: last decode step vs prefill over "
+          f"72 tokens (logits up to {scale:.2f})", max_err(last, full),
+          0.25 * scale)
+
+    with torch.inference_mode():
+        _, caches, t = lm.prefill(params, {"inputs": prompts.new_ones(
+            (B, 16))}, cfg)
+        tok = prompts.new_ones((B, 1))
+        lm.decode_step(params, caches, tok, t, cfg)        # warm
+        profile_step(torch, lambda: lm.decode_step(params, caches, tok, t,
+                                                   cfg),
+                     f"one decode step ({B} rows)")
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main():
@@ -484,13 +772,17 @@ def main():
             print("  ptxas:", line.split(":", 1)[-1].strip(), flush=True)
 
     records = phase_kernels(torch)
+    records.append(phase_wkv6(torch))
     phase_agreement(torch)
+    phase_rwkv_agreement(torch)
     t0 = time.perf_counter()
     pp = ProteinPayload(seed=0, device="cuda")
     print(f"  full-width payload built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     counts = phase_main_path(torch, pp)
     phase_profile(torch, pp)
+    del pp
+    counts.update(wkv6_bhtk=phase_serving(torch)["wkv6_bhtk"])
     for rec in records:
         rec["launches"] = counts[rec["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the IMPRESS reproduction (``src/repro``).
 
 Laid out like the JAX package: ``configs/``, ``models/``, ``kernels/``,
-``core/``, ``runtime/``, each module beside its reference counterpart.
+``core/``, ``runtime/``, ``launch/``, each module beside its reference
+counterpart.
 Imports torch and numpy only, never jax or the reference package.
 
 Numerics: parameters are fp32 and compute is ``cfg.compute_dtype`` (bf16 by

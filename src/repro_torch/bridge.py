@@ -1,10 +1,11 @@
 """Reference weights -> the port's modules.
 
 Takes the JAX package's parameter pytree as numpy arrays (the output of
-its ``init_progen`` / ``init_foldscore`` after ``np.asarray`` on every
-leaf) and returns the port's ``ProGen`` / ``FoldScore`` module holding the
-same values. Every leaf is a plain copy: the port keeps the reference's
-layouts. Each segment leaf stacked on a leading ``repeats`` axis is split
+its ``init_lm`` / ``init_progen`` / ``init_foldscore`` after ``np.asarray``
+on every leaf) and returns the port's ``LM`` / ``ProGen`` / ``FoldScore``
+module holding the same values. Every leaf is a plain copy: the port
+keeps the reference's layouts and keys (an ``rwkv`` layer's ``tm`` dict is
+its ``ssm.Rwkv`` module). Each segment leaf stacked on a leading ``repeats`` axis is split
 into per-layer tensors, in the order ``cfg.layer_kinds`` lists the layers.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.lm import LM
 from repro_torch.models.protein import FoldScore, ProGen
 
 
@@ -48,6 +50,11 @@ def _from_ref(module, params, cfg):
     if missing:
         raise ValueError(f"reference params leave {sorted(missing)} unset")
     return module
+
+
+def lm_from_ref(params, cfg) -> LM:
+    """The reference's ``init_lm`` params (numpy leaves) as an LM."""
+    return _from_ref(LM(cfg), params, cfg)
 
 
 def progen_from_ref(params, cfg) -> ProGen:

@@ -1,12 +1,15 @@
-"""Config lookup for the two payload models this slice of the port runs."""
+"""Config lookup for the models the port runs: the two payload models of
+the design cycle and the rwkv6-7b language model."""
 
 from __future__ import annotations
 
 from repro_torch.configs import protein_impress as _pi
+from repro_torch.configs import rwkv6_7b as _rwkv
 
-_FULL = {"progen-s": _pi.progen_config, "foldscore-s": _pi.foldscore_config}
+_FULL = {"progen-s": _pi.progen_config, "foldscore-s": _pi.foldscore_config,
+         "rwkv6-7b": _rwkv.config}
 _REDUCED = {"progen-s": _pi.progen_reduced,
-            "foldscore-s": _pi.foldscore_reduced}
+            "foldscore-s": _pi.foldscore_reduced, "rwkv6-7b": _rwkv.reduced}
 
 
 def get_config(arch_id: str):

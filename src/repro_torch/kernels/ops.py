@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv6 as _wk
 from repro_torch.kernels._cuda import launches, reset_launches  # noqa: F401
 
 
@@ -35,3 +36,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     out = _pa.paged_decode_bkgh(qk, k_pages, v_pages, block_tables, lengths,
                                 page_size=page_size)
     return out.reshape(B, 1, H, hd)
+
+
+def wkv6(r, k, v, logw, u, s0):
+    """r/k/v/logw (B,H,T,K), any T >= 1; u (H,K); s0 (B,H,K,K).
+    Returns y (B,H,T,K) in r's dtype, s_T (B,H,K,K) fp32."""
+    return _wk.wkv6_bhtk(r, k, v, logw.float().contiguous(), u.float(),
+                         s0.float().contiguous())

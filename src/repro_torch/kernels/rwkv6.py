@@ -1,0 +1,104 @@
+"""RWKV-6 (Finch) WKV recurrence.
+
+  y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+  S_t = diag(exp(logw_t)) S_{t-1} + k_t v_tᵀ
+
+Layouts (the TPU kernel's):
+  r/k/v  (B, H, T, K)   compute dtype (fp32 or bf16)
+  logw   (B, H, T, K)   fp32 log-decay, <= -1e-6
+  u      (H, K)         fp32 bonus for the current token
+  s0     (B, H, K, K)   fp32 incoming state
+Returns y (B, H, T, K) in r's dtype and s_T (B, H, K, K) in fp32.
+
+``wkv6_bhtk`` takes the plain version for CPU tensors and launches the CUDA
+kernel (``csrc/wkv6.cu``, token-serial, any T >= 1) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _cuda
+
+HEAD_DIMS = (16, 64)   # the CUDA kernel's templates: reduced and full rwkv6
+
+
+def wkv6_ref(r, k, v, logw, u, s0, chunk=32):
+    """Plain version of ``wkv6_bhtk``: the reference's chunked fp32 form
+    (``repro.models.ssm.wkv6_chunked``). Within a chunk the pairwise decay
+    from token j to token t is exp of the sum of logw over the tokens
+    between them (exponent <= 0); the state is carried from chunk to chunk.
+    The last chunk is short where ``chunk`` does not divide T.
+
+    Each decay exponent is summed over its own tokens (reverse cumulative
+    sums), not taken as a difference of prefix sums as the reference does:
+    near logw = -e^5 a prefix sum reaches ~-4700 within 32 tokens, and
+    differences of such sums lose ~5e-4 to fp32 rounding."""
+    B, H, T, K = r.shape
+    S = s0.float()
+    uf = u.float()[None, :, None, :]                              # (1,H,1,K)
+    ys = []
+    for t0 in range(0, T, chunk):
+        rr, kk, vv, lw = (x[:, :, t0:t0 + chunk].float()
+                          for x in (r, k, v, logw))               # (B,H,C,K)
+        C = rr.shape[2]
+        before = torch.ones(C, C, dtype=torch.bool, device=r.device).tril(-1)
+        # carry-in: r_t decayed over the chunk's tokens before t
+        ecl = torch.cat([torch.zeros_like(lw[:, :, :1]),
+                         lw.cumsum(2)[:, :, :-1]], dim=2)
+        y = (rr * ecl.exp()) @ S
+        # D[t, j] = exp(sum of logw_i, j < i < t), for j < t
+        m = lw[:, :, None, :, :] * before[:, :, None]            # [t, i<t]
+        tail = m.flip(3).cumsum(3).flip(3)                    # sum over i>=j
+        D = torch.cat([tail[:, :, :, 1:], torch.zeros_like(tail[:, :, :, :1])],
+                      dim=3).exp()
+        scores = (rr[:, :, :, None, :] * kk[:, :, None, :, :] * D).sum(-1)
+        scores = scores * before
+        bonus = (rr * uf * kk).sum(-1, keepdim=True)              # (B,H,C,1)
+        y = y + scores @ vv + bonus * vv
+        # state: S decays over the whole chunk, k_j over the tokens after j
+        after = lw.flip(2).cumsum(2).flip(2)
+        after = torch.cat([after[:, :, 1:], torch.zeros_like(lw[:, :, :1])],
+                          dim=2)
+        S = S * lw.sum(2)[..., None].exp() \
+            + (kk * after.exp()).transpose(-1, -2) @ vv
+        ys.append(y)
+    return torch.cat(ys, dim=2).to(r.dtype), S
+
+
+def wkv6_bhtk(r, k, v, logw, u, s0):
+    """r/k/v/logw (B,H,T,K); u (H,K); s0 (B,H,K,K) fp32. Returns y
+    (B,H,T,K) in r's dtype and s_T (B,H,K,K) fp32."""
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, logw, u, s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bhtk: no kernel for {r.device}")
+    return _launch(r, k, v, logw, u, s0)
+
+
+def _launch(r, k, v, logw, u, s0):
+    name = "wkv6_bhtk"
+    f32 = (torch.float32,)
+    dev = _cuda.check_cuda_tensors(
+        name, (r, k, v, logw, u, s0),
+        ((torch.float32, torch.bfloat16), (r.dtype,), (r.dtype,), f32, f32,
+         f32))
+    B, H, T, K = r.shape
+    if k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape \
+            or u.shape != (H, K) or s0.shape != (B, H, K, K):
+        raise ValueError(
+            f"{name}: shapes r {tuple(r.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, logw {tuple(logw.shape)}, u {tuple(u.shape)},"
+            f" s0 {tuple(s0.shape)}")
+    if K not in HEAD_DIMS or T < 1:
+        raise ValueError(f"{name}: head dim {K} not in {HEAD_DIMS} or T={T}")
+    y = torch.empty_like(r)
+    s_T = torch.empty_like(s0)
+    if B * H == 0:
+        return y, s_T
+    err = _cuda.lib().repro_wkv6(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_T.data_ptr(), B, H, T, K,
+        _cuda.DTYPE_CODES[r.dtype], *_cuda.device_and_stream(dev))
+    _cuda.check_launch(name, err)
+    return y, s_T

@@ -1,46 +1,85 @@
-"""Transformer layers. The reference stacks each segment's layers on a
-``repeats`` axis and runs them with ``lax.scan``; the port keeps one
-``Layer`` module per layer in an ``nn.ModuleList`` walked by a Python loop
-(``cfg.layer_kinds`` gives each layer's kind). Only the dense causal
-``"attn"`` kind is ported, the one the protein models and the paged decode
-path use."""
+"""Transformer and recurrent layers. The reference stacks each segment's
+layers on a ``repeats`` axis and runs them with ``lax.scan``; the port keeps
+one ``Layer`` module per layer in an ``nn.ModuleList`` walked by a Python
+loop (``cfg.layer_kinds`` gives each layer's kind). Two kinds are ported:
+the dense causal ``"attn"`` kind (the protein models, with its paged decode
+path) and the ``"rwkv"`` kind (RWKV-6 time mix + channel mix, with its
+recurrent state as the decode cache)."""
 
 from __future__ import annotations
 
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.common import Norm, norm_fwd
 from repro_torch.models.mlp import Mlp, mlp_fwd
 
-PAGED_KINDS = ("attn",)
+KINDS = ("attn", "rwkv")
+PAGED_KINDS = ("attn",)          # kinds with a paged KV cache
+CACHE_KINDS = ("rwkv",)          # kinds with a ported dense decode cache
 
 
-def check_kind(kind):
-    if kind not in PAGED_KINDS:
-        raise ValueError(f"layer kind {kind!r} is not ported "
-                         f"(ported: {PAGED_KINDS})")
+def check_kind(kind, ported=PAGED_KINDS):
+    if kind not in ported:
+        raise ValueError(f"layer kind {kind!r} is not ported for this path "
+                         f"(ported: {ported})")
 
 
 class Layer(nn.Module):
-    """Pre-norm causal self-attention + SwiGLU MLP."""
+    """``attn``: pre-norm causal self-attention + SwiGLU MLP. ``rwkv``:
+    pre-norm time mix + channel mix, both in ``tm``."""
 
     def __init__(self, kind, cfg, gen=None):
         super().__init__()
-        check_kind(kind)
+        check_kind(kind, KINDS)
         self.norm1 = Norm(cfg)
         self.norm2 = Norm(cfg)
-        self.attn = attn.Attention(cfg, gen)
-        self.mlp = Mlp(cfg, gen)
+        if kind == "attn":
+            self.attn = attn.Attention(cfg, gen)
+            self.mlp = Mlp(cfg, gen)
+        else:
+            self.tm = ssm.Rwkv(cfg, gen)
+
+
+def _rwkv(p, x, cfg, state):
+    h, state = ssm.rwkv_timemix(p.tm, norm_fwd(p.norm1, x, cfg), state, cfg)
+    x = x + h
+    h, state = ssm.rwkv_channelmix(p.tm, norm_fwd(p.norm2, x, cfg), state,
+                                   cfg)
+    return x + h, state
 
 
 def layer_fwd(kind, p, x, ctx, cfg):
     """Full-sequence forward. ctx: positions (S,). Returns x."""
-    check_kind(kind)
+    check_kind(kind, KINDS)
+    if kind == "rwkv":
+        return _rwkv(p, x, cfg, ssm.init_rwkv_state(cfg, x.shape[0],
+                                                    device=x.device))[0]
     h = attn.attn_fwd(p.attn, norm_fwd(p.norm1, x, cfg), ctx["positions"],
                       cfg)
     x = x + h
     return x + mlp_fwd(p.mlp, norm_fwd(p.norm2, x, cfg), cfg)
+
+
+def init_layer_cache(kind, cfg, batch, length, device=None):
+    """The decode cache of one layer. Only the ``rwkv`` state is ported;
+    ``attn``'s dense KV cache comes with the dense sampler (its paged
+    cache is ``attention.init_paged_cache``)."""
+    check_kind(kind, CACHE_KINDS)
+    return ssm.init_rwkv_state(cfg, batch, device=device)
+
+
+def layer_prefill(kind, p, x, ctx, cfg, cache):
+    """Prompt forward from the cache's state. Returns (x, cache)."""
+    check_kind(kind, CACHE_KINDS)
+    return _rwkv(p, x, cfg, cache)
+
+
+def layer_decode(kind, p, x, t, cfg, cache):
+    """Single-token step. x (B,1,d). Returns (x, cache)."""
+    check_kind(kind, CACHE_KINDS)
+    return _rwkv(p, x, cfg, cache)
 
 
 def layer_paged_prefill(kind, p, x, ctx, cfg, cache):

@@ -20,10 +20,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def dense_init(gen, shape, in_axis_size, dtype=torch.float32):
-    """Fan-in scaled normal init drawn from ``gen``, a CPU
-    ``torch.Generator``: one seed gives the same weights on every device."""
+    """Fan-in scaled normal init drawn from ``gen`` on the generator's own
+    device: a CPU generator gives the same weights wherever they are copied
+    to, a CUDA one draws them on the card without a host copy."""
     scale = 1.0 / np.sqrt(max(in_axis_size, 1))
-    return (scale * torch.randn(shape, generator=gen)).to(dtype)
+    w = torch.randn(shape, generator=gen, device=gen.device)
+    return w.mul_(float(scale)).to(dtype)
 
 
 def weight(gen, shape, in_axis_size, dtype) -> nn.Parameter:
@@ -78,6 +80,13 @@ def rms_norm(x, scale, eps=1e-6):
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
     return (x * scale.float()).to(dt)
+
+
+def gumbel_noise(gen, shape, device):
+    """Standard Gumbel draws from ``gen`` on ``device`` (fp32)."""
+    u = torch.rand(shape, generator=gen, device=device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def embed_tokens(p, tokens, cfg):

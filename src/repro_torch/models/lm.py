@@ -1,7 +1,12 @@
 """Decoder-only LM with an optional patch prefix (the ``vision_patches``
-frontend the ProGen structure prefix uses): forward and paged serving.
+frontend the ProGen structure prefix uses): forward, dense serving over
+recurrent states (``rwkv`` layers) and paged serving (``attn`` layers).
 
 Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) optional}.
+
+Serving:
+  prefill(params, batch, cfg)  -> logits_last (B,V), caches, t_next
+  decode_step(params, caches, token (B,1), t, cfg) -> logits (B,V), caches
 """
 
 from __future__ import annotations
@@ -9,10 +14,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
-                                       logits_fwd, torch_dtype)
+                                       gumbel_noise, logits_fwd, torch_dtype)
 
 
 class LM(nn.Module):
@@ -27,6 +33,17 @@ class LM(nn.Module):
                                  torch_dtype(cfg.param_dtype), gen)
         self.layers = nn.ModuleList(blocks.Layer(kind, cfg, gen)
                                     for kind in cfg.layer_kinds)
+
+
+def init_lm(cfg, seed=0, device="cuda") -> LM:
+    """Seeded LM: fan-in scaled normal weights in the reference's shapes,
+    drawn by a generator on ``device`` itself (the CUDA Philox stream on
+    the card), so a full-width model is never built in host memory. The
+    same seed gives other weights on the CPU than on the card."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    with dev:
+        return LM(cfg, gen)
 
 
 def _prefix_embed(params, batch, cfg):
@@ -54,6 +71,66 @@ def lm_hidden(params, batch, cfg):
 def lm_logits(params, batch, cfg):
     """Full-sequence forward -> logits (B,S,padded_vocab)."""
     return logits_fwd(params, lm_hidden(params, batch, cfg), cfg)
+
+
+def init_caches(cfg, batch, length, device=None):
+    """One decode cache per layer (``rwkv``: its recurrent state dict)."""
+    return [blocks.init_layer_cache(kind, cfg, batch, length, device=device)
+            for kind in cfg.layer_kinds]
+
+
+def prefill(params, batch, cfg, cache_len: int = 0):
+    """Run the prompt from fresh caches; returns (last-position logits
+    (B,V), caches, t_next)."""
+    x, positions, _ = _prefix_embed(params, batch, cfg)
+    S = x.shape[1]
+    caches = init_caches(cfg, x.shape[0], max(cache_len, S), device=x.device)
+    ctx = {"positions": positions}
+    new_caches = []
+    for layer, kind, cache in zip(params.layers, cfg.layer_kinds, caches):
+        x, cache = blocks.layer_prefill(kind, layer, x, ctx, cfg, cache)
+        new_caches.append(cache)
+    return logits_fwd(params, x[:, -1:], cfg)[:, 0], new_caches, S
+
+
+def decode_step(params, caches, token, t, cfg):
+    """token (B,1) int; t the position it takes. Returns (logits (B,V),
+    caches)."""
+    x = embed_tokens(params.embedding, token, cfg)
+    new_caches = []
+    for layer, kind, cache in zip(params.layers, cfg.layer_kinds, caches):
+        x, cache = blocks.layer_decode(kind, layer, x, t, cfg, cache)
+        new_caches.append(cache)
+    return logits_fwd(params, x, cfg)[:, 0], new_caches
+
+
+def generate(params, batch, cfg, steps, cache_len=0, temperature=0.0,
+             gen=None):
+    """Greedy (``temperature <= 0``) or temperature sampling loop: one
+    prefill, then ``steps - 1`` decode steps. Sampling takes
+    ``argmax(logits / temperature + g)`` with Gumbel noise ``g`` from
+    ``gen`` (a ``torch.Generator`` on the logits' device). Returns the
+    tokens (B, steps)."""
+    logits, caches, t = prefill(
+        params, batch, cfg,
+        cache_len=cache_len or (batch["inputs"].shape[1] + steps))
+    tok = sample_tokens(logits, temperature, gen)
+    toks = [tok]
+    for i in range(1, steps):
+        logits, caches = decode_step(params, caches, tok, t + i - 1, cfg)
+        tok = sample_tokens(logits, temperature, gen)
+        toks.append(tok)
+    return torch.cat(toks, dim=1)
+
+
+def sample_tokens(logits, temperature, gen=None):
+    """logits (B,V) -> next tokens (B,1): argmax, or with ``temperature >
+    0`` the Gumbel-max draw ``argmax(logits / temperature + g)`` (the form
+    ``jax.random.categorical`` takes), ``g`` from ``gen``."""
+    if temperature <= 0.0:
+        return logits.argmax(-1)[:, None]
+    g = gumbel_noise(gen, logits.shape, logits.device)
+    return (logits.float() / temperature + g).argmax(-1)[:, None]
 
 
 def init_paged_caches(cfg, n_pages, page_size, dtype=None, device=None):

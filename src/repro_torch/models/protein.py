@@ -32,8 +32,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.common import (Dense, embed_tokens, norm_fwd,
-                                       torch_dtype, weight)
+from repro_torch.models.common import (Dense, embed_tokens, gumbel_noise,
+                                       norm_fwd, torch_dtype, weight)
 
 
 class FoldMetrics(NamedTuple):
@@ -95,13 +95,6 @@ def progen_logprobs(params, backbone, seqs, cfg, seq_lens=None):
     valid = (torch.arange(seqs.shape[1], device=seqs.device)[None, :]
              < seq_lens[:, None]).to(tok_lp.dtype)
     return (tok_lp * valid).sum(-1)
-
-
-def gumbel_noise(gen, shape, device):
-    """Standard Gumbel draws from ``gen`` on ``device`` (fp32)."""
-    u = torch.rand(shape, generator=gen, device=device)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
 
 
 def _masked_logits(logits, cfg):

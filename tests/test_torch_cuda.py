@@ -5,9 +5,9 @@ machine without JAX:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: paged decode 1e-5 in fp32, flash 2e-5 in fp32, both 2e-2 in
-bf16 (the CPU tests' own); log-likelihoods 1e-3 (sums of 24 fp32
-log-probs computed in two orders)."""
+Tolerances: paged decode 1e-5 in fp32, flash and wkv6 y 2e-5 in fp32, all
+2e-2 in bf16, the wkv6 state atol 1e-4 / rtol 1e-3 (the CPU tests' own);
+log-likelihoods 1e-3 (sums of 24 fp32 log-probs computed in two orders)."""
 
 import numpy as np
 import pytest
@@ -19,6 +19,7 @@ from numpy.testing import assert_allclose  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rwkv6  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -74,6 +75,51 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):                    # not contiguous
         fa.flash_attention_bhsd(q.transpose(2, 3).contiguous()
                                 .transpose(2, 3), q, q)
+
+
+def wkv_inputs(g, device, B, H, T, K, dtype):
+    mk = lambda *s: torch.randn(*s, generator=g, device=device)
+    r, k, v = (0.5 * mk(B, H, T, K)).to(dtype), (0.5 * mk(B, H, T, K)).to(
+        dtype), (0.5 * mk(B, H, T, K)).to(dtype)
+    logw = -torch.exp(mk(B, H, T, K))
+    return r, k, v, logw, 0.3 + 0.1 * mk(H, K), 0.1 * mk(B, H, K, K)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,K", [(8, 64, 33, 64), (2, 4, 70, 16)])
+def test_wkv6_matches_plain_and_counts_launches(cuda, dtype, B, H, T, K):
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(T)
+    args = wkv_inputs(g, cuda, B, H, T, K, dt)
+    before = _cuda.launches["wkv6_bhtk"]
+    y, s = rwkv6.wkv6_bhtk(*args)
+    assert _cuda.launches["wkv6_bhtk"] == before + 1
+    y_ref, s_ref = rwkv6.wkv6_ref(*args)
+    assert _cuda.launches["wkv6_bhtk"] == before + 1
+    assert y.dtype == dt and s.dtype == torch.float32
+    t = 2e-5 if dtype == "float32" else 2e-2
+    assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                    atol=t, rtol=t)
+    assert_allclose(s.cpu().numpy(), s_ref.cpu().numpy(), atol=1e-4,
+                    rtol=1e-3)
+
+
+def test_wkv6_rejects_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    r, k, v, logw, u, s0 = wkv_inputs(g, cuda, 1, 2, 5, 16, torch.float32)
+    before = _cuda.launches["wkv6_bhtk"]
+    with pytest.raises(TypeError):                     # bf16 logw
+        rwkv6.wkv6_bhtk(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(TypeError):                     # mixed r/k dtypes
+        rwkv6.wkv6_bhtk(r, k.bfloat16(), v, logw, u, s0)
+    with pytest.raises(ValueError):                    # not contiguous
+        rwkv6.wkv6_bhtk(r.transpose(2, 3).contiguous().transpose(2, 3), k,
+                        v, logw, u, s0)
+    with pytest.raises(ValueError):                    # head dim 24
+        x = torch.zeros(1, 2, 5, 24, device=cuda)
+        rwkv6.wkv6_bhtk(x, x, x, x, x[0, :, 0], torch.zeros(1, 2, 24, 24,
+                                                             device=cuda))
+    assert _cuda.launches["wkv6_bhtk"] == before
 
 
 def test_engine_on_card_matches_cpu(cuda):

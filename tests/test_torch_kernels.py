@@ -23,6 +23,7 @@ from repro.kernels import ref as ref_oracles  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rwkv6  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -163,6 +164,8 @@ def test_kernels_refuse_other_devices():
         fa.flash_attention_bhsd(q, q, q)
     with pytest.raises(ValueError):
         pa.paged_decode_bkgh(q, q, q, q, q, page_size=1)
+    with pytest.raises(ValueError):
+        rwkv6.wkv6_bhtk(q, q, q, q, q[0, 0], q)
 
 
 # ---------------------------------------------------------------------------
