@@ -35,12 +35,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    step, the attention kernels not at all. Then a full-width fp32 check
    that the T=1 decode path agrees with one prefill over the same tokens,
    and one decode step under ``torch.profiler``.
-7. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
+7. recurrentgemma-2b serving at full width: ``serve_batch`` (26 layers,
+   18 RG-LRU and 8 local-attention, d 2560, seeded weights drawn on the
+   card), one prefill of 8 x 2560 tokens (past the 2048 window, so the
+   window mask, the ring's rotation and its wrap at decode all run) and 31
+   greedy decode steps. The counters must show the rglru kernel once per
+   RG-LRU layer and the flash kernel once per local-attention layer, per
+   prefill and per decode step, and the other two kernels not at all.
+   Then the full-width fp32 per-layer check over a prompt past the window,
+   and one decode step over a full ring under ``torch.profiler``.
+8. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds the wkv6 kernel against its plain version and times
-both; phase 3 also holds the reduced rwkv6 model on the card against the
-CPU.
+Phase 2 also holds the wkv6 kernel (2b), the rglru kernel and the flash
+kernel at head dim 256 (2c) against their plain versions and times them;
+phase 3 also holds the reduced rwkv6 (3b) and recurrentgemma (3c) models on
+the card against the CPU.
 
 Imports neither jax nor the reference package. Exits non-zero without a
 CUDA device.
@@ -65,6 +75,10 @@ PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 WKV_STATE_TOL = {"atol": 1e-4, "rtol": 1e-3}       # test_kernels.py's own
 # rwkv6-7b serving (phase 6): batch x prompt tokens, tokens generated
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+# recurrentgemma-2b serving (phase 7): a prompt past the 2048 window, not a
+# multiple of it
+RG_BATCH, RG_PROMPT, RG_GEN = 8, 2560, 32
+RGLRU_TOL = 1e-5                                 # test_kernels.py's own
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
 
@@ -377,11 +391,155 @@ def phase_wkv6(torch):
     return record
 
 
+def rglru_inputs(torch, g, B, T, C, h0=True):
+    """rglru inputs on the card: a = sigmoid(N(0,1)), b = 0.3 N(0,1) (the
+    reference kernel test's draws), h0 N(0,1) or zero (a fresh prefill's)."""
+    a = torch.sigmoid(torch.randn(B, T, C, generator=g, device="cuda"))
+    b = 0.3 * torch.randn(B, T, C, generator=g, device="cuda")
+    h = torch.randn(B, C, generator=g, device="cuda") if h0 else \
+        torch.zeros(B, C, device="cuda")
+    return a, b, h
+
+
+def live_pairs(Sq, Sk, causal, window):
+    """(q, k) pairs a mask leaves live, queries and keys indexed from 0."""
+    n = 0
+    for r in range(Sq):
+        lo = max(0, r - window + 1) if window > 0 else 0
+        hi = min(r, Sk - 1) if causal else Sk - 1
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def phase_rglru_flash256(torch):
+    """Parity of the rglru kernel and of the flash kernel at head dim 256
+    against their plain versions on the card, then their device times at
+    recurrentgemma-2b's prefill and decode shapes, in fp32 as the path runs
+    them. Returns the two kernel records for the JSON line."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru
+    from repro_torch.models.attention import make_mask
+
+    print("phase 2c: rglru and flash head dim 256 parity on the card",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, P, C = RG_BATCH, RG_PROMPT, 2560
+    cases = [  # label, (B, T, C), kwargs
+        (f"prefill {B}x{P}x{C}, h0 = 0", (B, P, C), {"h0": False}),
+        (f"decode {B}x1x{C}", (B, 1, C), {}),
+        ("T=32 C=8", (1, 32, 8), {}), ("T=96 C=40", (2, 96, 40), {}),
+        ("T=64 C=128", (2, 64, 128), {}), ("T=50 C=24", (1, 50, 24), {}),
+        ("ragged T=17 C=130", (3, 17, 130), {}),
+    ]
+    for label, shape, kw in cases:
+        args = rglru_inputs(torch, g, *shape, **kw)
+        h, h_T = rglru.rglru_btc(*args)
+        h_ref, hT_ref = rglru.rglru_ref(*args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(h, h_ref) and torch.equal(h_T, hT_ref))
+        check_close(f"rglru {label} h (bitwise equal: {same})", h, h_ref,
+                    RGLRU_TOL, RGLRU_TOL)
+        check_close(f"rglru {label} h_T", h_T, hT_ref, RGLRU_TOL, RGLRU_TOL)
+
+    W, H = 2048, 10
+    flash_cases = [  # label, (B, Sq, Sk), kwargs
+        (f"prefill {B}x{H}x{P} MQA window {W}", (B, P, P), {"window": W}),
+        ("causal 2x600 MQA", (2, 600, 600), {}),
+        ("window 100, 2x333", (2, 333, 333), {"window": 100}),
+        (f"decode {B}x{H}x1 over {W} keys", (B, 1, W), {"causal": False}),
+        ("decode 3x1 over 1337 keys", (3, 1, 1337), {"causal": False}),
+        ("decode 2x1 over 1 key", (2, 1, 1), {"causal": False}),
+    ]
+    for label, (b, Sq, Sk), kw in flash_cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, H, Sq, 256, generator=g, device="cuda").to(dt)
+            k = torch.randn(b, 1, Sk, 256, generator=g, device="cuda").to(dt)
+            v = torch.randn(b, 1, Sk, 256, generator=g, device="cuda").to(dt)
+            got = fa.flash_attention_bhsd(q, k, v, **kw)
+            want = fa.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            check(f"flash hd 256 {label} {dtype_name(dt)}",
+                  max_err(got, want), TOL[dtype_name(dt)])
+            del q, k, v, got, want
+
+    # timings, in fp32 as the path runs them; inputs rotate past 100 MB as
+    # in phase 2b
+    records = []
+    for label, T in (("prefill", P), ("decode", 1)):
+        n_bytes = 4 * (3 * B * T * C + 2 * B * C)
+        b_ms, b_by = bound_ms(n_bytes, 2 * B * T * C, "float32")
+        sets = [rglru_inputs(torch, g, B, T, C, h0=T == 1)
+                for _ in range(-(-100_000_000 // n_bytes))]
+        err = max_err(rglru.rglru_btc(*sets[0])[0],
+                      rglru.rglru_ref(*sets[0])[0])
+        turn = itertools.cycle(sets)
+        run_k = lambda: rglru.rglru_btc(*next(turn))
+        run_p = lambda: rglru.rglru_ref(*next(turn))
+        ms = graph_ms(torch, run_k)
+        plain = graph_ms(torch, run_p, iters=2, replays=2)
+        print(f"  rglru {label} {B}x{T}x{C} fp32, device ms per call: kernel "
+              f"{ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} ({b_by}); wall "
+              f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}; "
+              f"err {err:.3e}", flush=True)
+        if not records:                # the record holds the prefill shape
+            records.append({"name": "rglru_btc", "route": "cuda",
+                            "source": "src/repro_torch/kernels/csrc/rglru.cu",
+                            "replaces": "src/repro/kernels/rglru.py:44",
+                            "launches": 0, "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None})
+        del sets
+
+    for label, (Sq, Sk, causal, window) in (
+            (f"prefill {B}x{H}x{P} window {W}", (P, P, True, W)),
+            (f"decode {B}x{H}x1 over {W} keys", (1, W, False, 0))):
+        hd = 256
+        n_bytes = 4 * (2 * B * H * Sq * hd + 2 * B * Sk * hd)
+        n_ops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        sets = [tuple(torch.randn(B, n, s, hd, generator=g, device="cuda")
+                      for n, s in ((H, Sq), (1, Sk), (1, Sk)))
+                for _ in range(-(-100_000_000 // n_bytes))]
+        pos_q = torch.arange(Sk - Sq, Sk, device="cuda")
+        mask = make_mask(pos_q, torch.arange(Sk, device="cuda"), causal,
+                         window)
+        kw = dict(causal=causal, window=window)
+        err = max_err(fa.flash_attention_bhsd(*sets[0], **kw),
+                      fa.attention_ref(*sets[0], **kw))
+        turn = itertools.cycle(sets)
+        run_k = lambda: fa.flash_attention_bhsd(*next(turn), **kw)
+        run_p = lambda: fa.attention_ref(*next(turn), **kw)
+        run_l = lambda: F.scaled_dot_product_attention(
+            *next(turn), attn_mask=mask, enable_gqa=True)
+        reps = dict(iters=2, replays=2) if Sq > 1 else {}
+        ms, plain, lib = (graph_ms(torch, run_k, **reps),
+                          graph_ms(torch, run_p, **reps),
+                          graph_ms(torch, run_l, **reps))
+        print(f"  flash hd 256 {label} MQA fp32, device ms per call: kernel "
+              f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, bound "
+              f"{b_ms:.6f} ({b_by}); err {err:.3e}", flush=True)
+        if len(records) == 1:          # the record holds the prefill shape
+            records.append({
+                "name": "flash_attention_bhsd_hd256", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:82",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib})
+        del sets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
 def greedy(torch, params, prompts, cfg, steps):
     """Greedy tokens (B, steps) through prefill + decode_step, and the
     logits of the last decode step."""
     from repro_torch.models import lm
-    logits, caches, t = lm.prefill(params, {"inputs": prompts}, cfg)
+    logits, caches, t = lm.prefill(params, {"inputs": prompts}, cfg,
+                                   cache_len=prompts.shape[1] + steps)
     toks = [lm.sample_tokens(logits, 0.0)]
     for i in range(1, steps):
         logits, caches = lm.decode_step(params, caches, toks[-1], t + i - 1,
@@ -400,14 +558,17 @@ def layer_consistency(torch, params, seq, n_prompt, cfg):
     from repro_torch.models.common import embed_tokens
     B, S = seq.shape
     x = embed_tokens(params.embedding, seq, cfg)
-    ctx = {}                                 # rwkv layers take no positions
+    positions = torch.arange(S, device=x.device)
     worst = 0.0
     for layer, kind in zip(params.layers, cfg.layer_kinds):
         def fresh():
             return blocks.init_layer_cache(kind, cfg, B, S, device=x.device)
-        full, _ = blocks.layer_prefill(kind, layer, x, ctx, cfg, fresh())
-        _, state = blocks.layer_prefill(kind, layer, x[:, :n_prompt], ctx,
-                                        cfg, fresh())
+        full, _ = blocks.layer_prefill(kind, layer, x,
+                                       {"positions": positions}, cfg,
+                                       fresh())
+        _, state = blocks.layer_prefill(
+            kind, layer, x[:, :n_prompt],
+            {"positions": positions[:n_prompt]}, cfg, fresh())
         for i in range(n_prompt, S):
             h, state = blocks.layer_decode(kind, layer, x[:, i:i + 1], i, cfg,
                                            state)
@@ -417,23 +578,23 @@ def layer_consistency(torch, params, seq, n_prompt, cfg):
     return worst
 
 
-def phase_rwkv_agreement(torch):
-    """Reduced rwkv6, fp32: one model built on the CPU and copied to the
-    card, the same prompts, greedy decoding on the card (wkv6 kernel) and
-    on the CPU (plain version)."""
+def phase_lm_agreement(torch, label, arch, prompt_len):
+    """A reduced LM in fp32: one model built on the CPU and copied to the
+    card, the same prompts, greedy decoding on the card (kernels) and on
+    the CPU (plain versions)."""
     import copy
 
     import numpy as np
     from repro_torch.configs.registry import get_reduced
     from repro_torch.models import lm
 
-    print("phase 3b: small-input agreement, rwkv6 card vs CPU (reduced, "
-          "fp32)", flush=True)
-    cfg = get_reduced("rwkv6-7b").replace(compute_dtype="float32")
+    cfg = get_reduced(arch).replace(compute_dtype="float32")
+    print(f"{label}: small-input agreement, {arch} card vs CPU (reduced, "
+          f"fp32, {prompt_len}-token prompts)", flush=True)
     cpu = lm.init_lm(cfg, seed=0, device="cpu")
     card = copy.deepcopy(cpu).to("cuda")
     prompts = torch.from_numpy(np.random.default_rng(4).integers(
-        1, cfg.vocab_size, size=(4, 40)))
+        1, cfg.vocab_size, size=(4, prompt_len)))
     with torch.inference_mode():
         toks_g, last_g = greedy(torch, card, prompts.cuda(), cfg, 12)
         toks_c, last_c = greedy(torch, cpu, prompts, cfg, 12)
@@ -606,7 +767,7 @@ def phase_main_path(torch, pp):
            "a pipeline accepted nothing in its first cycle")
     want = {"paged_decode_bkgh": g.n_layers * steps,
             "flash_attention_bhsd": g.n_layers * admits + f.n_layers * n_pred,
-            "wkv6_bhtk": 0}
+            "wkv6_bhtk": 0, "rglru_btc": 0}
     expect(counts == want, f"launches {counts}, expected {want}")
     return counts
 
@@ -694,7 +855,7 @@ def phase_serving(torch):
            "a token outside the vocabulary")
     expect(r["logits_finite"], "a logit is not finite")
     want = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
-            "wkv6_bhtk": cfg.n_layers * G}
+            "wkv6_bhtk": cfg.n_layers * G, "rglru_btc": 0}
     expect(counts == want, f"launches {counts}, expected {want}")
 
     # T=1 decode vs one prefill over the same 72 tokens, at full width and
@@ -740,6 +901,104 @@ def phase_serving(torch):
     return counts
 
 
+def phase_rg_serving(torch):
+    """recurrentgemma-2b LM serving at full width through ``serve_batch``;
+    returns the launch counts of the counted window."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+
+    cfg = get_config("recurrentgemma-2b")
+    B, P, G = RG_BATCH, RG_PROMPT, RG_GEN
+    kinds = cfg.layer_kinds
+    print(f"phase 7: LM serving, {cfg.name} ({cfg.n_layers} layers: "
+          f"{kinds.count('rglru')} rglru + {kinds.count('attn_local')} "
+          f"attn_local, window {cfg.attn_window}; d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, lru {cfg.lru_width}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype} weights, {cfg.compute_dtype} compute with the "
+          f"reference's fp32 residual stream): {B} x {P} prompt tokens, {G} "
+          f"generated", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"  weights drawn on the card in {time.perf_counter() - t0:.2f} s:"
+          f" {sum(p.numel() for p in params.parameters())} parameters, "
+          f"{n_bytes / 1e9:.2f} GB", flush=True)
+    serve_batch(cfg, batch=B, prompt_len=16, gen=2, params=params)   # warm
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    r = serve_batch(cfg, batch=B, prompt_len=P, gen=G, params=params)
+    counts = dict(ops.launches)
+    toks = r["tokens"]
+    print(f"  prefill {r['prefill_s'] * 1e3:.1f} ms ({r['prefill_tok_s']:.0f}"
+          f" tokens/s); decode {r['decode_s'] / (G - 1) * 1e3:.1f} ms per "
+          f"step ({r['decode_tok_s']:.1f} tokens/s over {G - 1} steps); peak"
+          f" memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    print(f"  launches {counts}; row 0 tokens {toks[0, :8].tolist()}",
+          flush=True)
+    expect(toks.shape == (B, G), f"tokens {tuple(toks.shape)}")
+    expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+           "a token outside the vocabulary")
+    expect(r["logits_finite"], "a logit is not finite")
+    want = {"paged_decode_bkgh": 0,
+            "flash_attention_bhsd": kinds.count("attn_local") * G,
+            "wkv6_bhtk": 0, "rglru_btc": kinds.count("rglru") * G}
+    expect(counts == want, f"launches {counts}, expected {want}")
+
+    # T=1 decode vs one prefill over the same tokens, at full width and
+    # depth in fp32: 2100 prompt tokens (past the window, not a multiple of
+    # it), then 8 greedy decode steps.
+    n_prompt, n_dec = 2100, 8
+    c32 = cfg.replace(compute_dtype="float32")
+    prompts = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, size=(2, n_prompt))).cuda()
+    with torch.inference_mode():
+        toks32, last = greedy(torch, params, prompts, c32, n_dec + 1)
+        seq = torch.cat([prompts, toks32[:, :-1]], dim=1)
+        full, _, _ = lm.prefill(params, {"inputs": seq}, c32)
+        per_layer = layer_consistency(torch, params, seq, n_prompt, c32)
+    expect(bool(torch.isfinite(last).all()), "fp32 logits not finite")
+    # Each layer, fed the prefill's input, gives the same outputs through
+    # its recurrent state or ring cache at T=1 as in the prefill, to 1e-4
+    # of the layer's largest output: room for fp32 products summed in
+    # another order (other GEMM kernels for 2 rows than for 4,216; the
+    # ring's keys in slot order, not position order).
+    check(f"full-width fp32, every layer: {n_dec} decode steps vs one "
+          f"prefill over {n_prompt + n_dec} tokens, relative to the layer's "
+          f"output scale", per_layer, 1e-4)
+    # End to end, two fp32 chains through 26 random layers: held to a
+    # quarter of the logits' scale, which a lost state or a stale or
+    # misplaced ring entry would exceed.
+    scale = float(full.abs().max())
+    check(f"full-width fp32, end to end: last decode step vs prefill over "
+          f"{n_prompt + n_dec} tokens (logits up to {scale:.2f})",
+          max_err(last, full), 0.25 * scale)
+    del full, last
+
+    # one decode step over a full ring (position P, the 2048 slots filled)
+    with torch.inference_mode():
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            1, cfg.vocab_size, size=(B, P))).cuda()
+        _, caches, t = lm.prefill(params, {"inputs": prompt}, cfg,
+                                  cache_len=P + 2)
+        tok = prompt[:, -1:]
+        lm.decode_step(params, caches, tok, t, cfg)        # warm
+        profile_step(torch, lambda: lm.decode_step(params, caches, tok, t,
+                                                   cfg),
+                     f"one decode step ({B} rows, ring of {cfg.attn_window} "
+                     f"filled)")
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -767,14 +1026,22 @@ def main():
     _cuda.lib()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    name = spill = ""                 # ptxas -v: entry, frame/spills, usage
     for line in (_cuda.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line:
-            print("  ptxas:", line.split(":", 1)[-1].strip(), flush=True)
+        if "Compiling entry function" in line:
+            name = line.split("'")[1][:64]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}; "
+                  f"{spill}", flush=True)
 
     records = phase_kernels(torch)
     records.append(phase_wkv6(torch))
+    records += phase_rglru_flash256(torch)
     phase_agreement(torch)
-    phase_rwkv_agreement(torch)
+    phase_lm_agreement(torch, "phase 3b", "rwkv6-7b", 40)
+    phase_lm_agreement(torch, "phase 3c", "recurrentgemma-2b", 20)
     t0 = time.perf_counter()
     pp = ProteinPayload(seed=0, device="cuda")
     print(f"  full-width payload built in {time.perf_counter() - t0:.2f} s",
@@ -783,6 +1050,9 @@ def main():
     phase_profile(torch, pp)
     del pp
     counts.update(wkv6_bhtk=phase_serving(torch)["wkv6_bhtk"])
+    rg = phase_rg_serving(torch)
+    counts.update(rglru_btc=rg["rglru_btc"],
+                  flash_attention_bhsd_hd256=rg["flash_attention_bhsd"])
     for rec in records:
         rec["launches"] = counts[rec["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -5,7 +5,8 @@ where ``kinds`` is a tuple of layer-kind strings making up one repeating
 block. The reference scans each segment over stacked parameters; the port
 flattens the segments into one list of layers walked by a Python loop
 (``layer_kinds``). The fields are the reference's, so a config converts
-field by field; the port runs the ``attn`` and ``rwkv`` kinds.
+field by field; the port runs the ``attn``, ``attn_local``, ``rwkv`` and
+``rglru`` kinds.
 """
 
 from __future__ import annotations

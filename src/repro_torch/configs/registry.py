@@ -1,15 +1,18 @@
 """Config lookup for the models the port runs: the two payload models of
-the design cycle and the rwkv6-7b language model."""
+the design cycle and the rwkv6-7b and recurrentgemma-2b language
+models."""
 
 from __future__ import annotations
 
 from repro_torch.configs import protein_impress as _pi
+from repro_torch.configs import recurrentgemma_2b as _rg
 from repro_torch.configs import rwkv6_7b as _rwkv
 
 _FULL = {"progen-s": _pi.progen_config, "foldscore-s": _pi.foldscore_config,
-         "rwkv6-7b": _rwkv.config}
+         "rwkv6-7b": _rwkv.config, "recurrentgemma-2b": _rg.config}
 _REDUCED = {"progen-s": _pi.progen_reduced,
-            "foldscore-s": _pi.foldscore_reduced, "rwkv6-7b": _rwkv.reduced}
+            "foldscore-s": _pi.foldscore_reduced, "rwkv6-7b": _rwkv.reduced,
+            "recurrentgemma-2b": _rg.reduced}
 
 
 def get_config(arch_id: str):

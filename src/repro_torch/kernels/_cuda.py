@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
-            "wkv6_bhtk": 0}
+            "wkv6_bhtk": 0, "rglru_btc": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -103,6 +103,8 @@ def lib() -> ctypes.CDLL:
             handle.repro_flash_attention.restype = i32
             handle.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             handle.repro_wkv6.restype = i32
+            handle.repro_rglru.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+            handle.repro_rglru.restype = i32
             handle.repro_error_string.argtypes = [i32]
             handle.repro_error_string.restype = ctypes.c_char_p
             _lib = handle

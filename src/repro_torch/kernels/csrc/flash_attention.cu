@@ -12,16 +12,23 @@
 // neither bytes nor operations. A FoldScore launch (4-24 rows x 8 heads x 32
 // tokens) moves well under 2 MB and does under 0.1 GFLOP, so it is far from
 // both the 3.35 TB/s and the tensor-core rate; the launch and the host set
-// its time. At long sequences it would be bound by operations, and the
-// products below run on the CUDA cores in fp32, not on the tensor cores.
+// its time. At long sequences it is bound by operations, and the products
+// below run on the CUDA cores in fp32, not on the tensor cores: at
+// recurrentgemma-2b's prefill (8 rows x 10 heads x 2560 queries, hd 256,
+// MQA, window 2048) a launch does ~0.26 TFLOP on live (q, k) pairs. Its
+// decode form (Sq = 1 over up to 2048 cached keys) is bound by the K/V
+// bytes, ~4 MB per row, read once per head.
 //
 // Design: the TPU grid (B, H, q-blocks, k-blocks) carried (m, l, acc) across
 // its sequential k-block axis. Here one block owns one (b, h, q-block) and
 // loops over k-blocks itself, stopping at the causal limit and skipping
 // blocks wholly outside the window. Q, the K/V tile, the score tile and acc
 // live in shared memory in fp32; Q.K^T and P.V are plain loops over shared
-// memory (K rows padded by one float against bank conflicts). A later PR can
-// move the two products onto wgmma; this one keeps the kernel simple.
+// memory (K rows padded by one float against bank conflicts). Tiles are
+// templated per head dim so that static shared memory stays under 48 KB;
+// head dim 256 takes 8 x 8 tiles. A later PR can move the two products onto
+// wgmma (and pack the heads of one KV head into a block for MQA decode);
+// this one keeps the kernel simple.
 
 #include "common.cuh"
 
@@ -176,6 +183,10 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     case 128:
       launch<T, 128, 16, 16>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
                              causal, window, softcap, s);
+      break;
+    case 256:   // 8 x 8 tiles: ~33 KB (16 x 16 would take ~66 KB)
+      launch<T, 256, 8, 8>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
+                           causal, window, softcap, s);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _cuda
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's compiled head dims
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's compiled head dims
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _wk
 from repro_torch.kernels._cuda import launches, reset_launches  # noqa: F401
 
@@ -43,3 +44,10 @@ def wkv6(r, k, v, logw, u, s0):
     Returns y (B,H,T,K) in r's dtype, s_T (B,H,K,K) fp32."""
     return _wk.wkv6_bhtk(r, k, v, logw.float().contiguous(), u.float(),
                          s0.float().contiguous())
+
+
+def rglru(a, b, h0):
+    """a/b (B,T,C), any T >= 1; h0 (B,C). Returns h (B,T,C) fp32, h_T (B,C)
+    fp32."""
+    return _rg.rglru_btc(a.float().contiguous(), b.float().contiguous(),
+                         h0.float().contiguous())

@@ -1,0 +1,61 @@
+"""RG-LRU gated linear recurrence (the Griffin recurrent block's scan).
+
+  h_t = a_t ⊙ h_{t-1} + b_t, per channel, in fp32.
+
+Layouts (the TPU kernel's):
+  a, b  (B, T, C)  fp32 decay and gated input
+  h0    (B, C)     fp32 incoming state
+Returns h (B, T, C) and h_T (B, C), both fp32.
+
+``rglru_btc`` takes the plain version for CPU tensors and launches the CUDA
+kernel (``csrc/rglru.cu``, one thread per channel walking the tokens in
+order, any T >= 1) for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _cuda
+
+
+def rglru_ref(a, b, h0):
+    """Plain version of ``rglru_btc``: the token-serial recurrence of
+    ``repro.kernels.ref.rglru_ref``, a multiply then an add per token (each
+    rounded on its own, as the kernel rounds them)."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def rglru_btc(a, b, h0):
+    """a/b (B,T,C) fp32; h0 (B,C) fp32. Returns h (B,T,C) fp32 and h_T
+    (B,C) fp32."""
+    if a.device.type == "cpu":
+        return rglru_ref(a, b, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_btc: no kernel for {a.device}")
+    return _launch(a, b, h0)
+
+
+def _launch(a, b, h0):
+    name = "rglru_btc"
+    f32 = (torch.float32,)
+    dev = _cuda.check_cuda_tensors(name, (a, b, h0), (f32, f32, f32))
+    B, T, C = a.shape
+    if b.shape != a.shape or h0.shape != (B, C) or T < 1 or B > 65535:
+        raise ValueError(f"{name}: shapes a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, h0 {tuple(h0.shape)}")
+    h = torch.empty_like(a)
+    h_T = torch.empty_like(h0)
+    if B * C == 0:
+        return h, h_T
+    err = _cuda.lib().repro_rglru(
+        a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
+        h_T.data_ptr(), B, T, C, *_cuda.device_and_stream(dev))
+    _cuda.check_launch(name, err)
+    return h, h_T

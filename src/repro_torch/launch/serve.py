@@ -1,8 +1,11 @@
 """LM token serving: prefill a batch of prompts, then decode greedily
-through the layers' decode caches (for rwkv6-7b, the RWKV-6 state).
+through the layers' decode caches (for rwkv6-7b, the RWKV-6 state; for
+recurrentgemma-2b, the RG-LRU states and the local-attention ring caches).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-2b --batch 8 --prompt-len 2560 --gen 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given. The reference's campaign
 and gateway modes are not ported yet.

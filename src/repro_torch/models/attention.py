@@ -1,12 +1,13 @@
-"""GQA causal self-attention: full-sequence, paged prefill and paged decode.
+"""GQA causal self-attention: full-sequence, dense (ring) cache prefill and
+decode, paged prefill and paged decode.
 
 Layouts: q proj (d, H, hd); k/v proj (d, KV, hd); o proj (H, hd, d).
 
 The sequence mixing always goes through ``kernels.ops``: the flash kernel
-for full sequences and prompts (the reference's ``attn_impl="pallas"``
-branch; its prompt prefill uses a dense causal softmax, the same function)
-and the paged decode kernel for one token. On CPU tensors those run their
-plain versions.
+for full sequences, prompts and one token over a dense cache (the
+reference's ``attn_impl="pallas"`` branch; its prompt prefill and dense
+decode use a masked softmax, the same function) and the paged decode kernel
+for one token over pages. On CPU tensors those run their plain versions.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import apply_rope, torch_dtype, weight
+from repro_torch.models.common import apply_rope, at_use, torch_dtype, weight
 
 
 class Attention(nn.Module):
@@ -32,16 +33,27 @@ class Attention(nn.Module):
 
 
 def _qkv(p, x, positions, cfg):
-    cdt = torch_dtype(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(cdt))
+    q = torch.einsum("bsd,dhk->bshk", x, at_use(p.wq, x, cfg))
+    k = torch.einsum("bsd,dhk->bshk", x, at_use(p.wk, x, cfg))
+    v = torch.einsum("bsd,dhk->bshk", x, at_use(p.wv, x, cfg))
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
 
 
 def _proj_out(p, out, cfg):
-    cdt = torch_dtype(cfg.compute_dtype)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
+    return torch.einsum("bshk,hkd->bsd", out, at_use(p.wo, out, cfg))
+
+
+def make_mask(q_pos, k_pos, causal: bool, window: int):
+    """Boolean mask (..., S, T): True = attend. Positions may be (S,)/(T,)
+    or batched (B, S)/(B, T); invalid cache slots carry position -1."""
+    q = q_pos[..., :, None]
+    kk = k_pos[..., None, :]
+    m = kk >= 0
+    if causal:
+        m = m & (kk <= q)
+    if window > 0:
+        m = m & (kk > q - window)
+    return m
 
 
 def attn_fwd(p, x, positions, cfg, *, causal=True, window=0):
@@ -52,6 +64,59 @@ def attn_fwd(p, x, positions, cfg, *, causal=True, window=0):
     out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=cfg.attn_logit_softcap)
     return _proj_out(p, out, cfg)
+
+
+def init_cache(cfg, batch, length, window=0, dtype=None, device=None):
+    """Dense cache for one attention layer: K/V (B, L, KV, hd) in the
+    compute dtype, a ring of L = min(window, length) slots when
+    ``window > 0``. Position p lives in slot p % L (for a full cache,
+    L > p)."""
+    dt = dtype or torch_dtype(cfg.compute_dtype)
+    L = min(window, length) if window > 0 else length
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def attn_prefill(p, x, positions, cfg, *, cache, window=0):
+    """Causal (windowed) attention over the prompt through the flash
+    kernel, writing K/V into the fresh cache in place. x (B,S,d); positions
+    (S,) = arange(S). A prompt longer than the ring keeps its last L
+    positions, rotated so that position p sits in slot p % L, the slot
+    ``attn_decode`` reads and overwrites (the reference keeps them in slots
+    0..L-1, which decode only agrees with when L divides S). Returns
+    (out (B,S,d), cache)."""
+    q, k, v = _qkv(p, x, positions, cfg)
+    S = x.shape[1]
+    L = cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        if L >= S:
+            cache[name][:, :S] = new
+        else:
+            cache[name].copy_(torch.roll(new[:, S - L:], S % L, dims=1))
+    out = kops.flash_attention(q, k, v, causal=True, window=window,
+                               softcap=cfg.attn_logit_softcap)
+    return _proj_out(p, out, cfg), cache
+
+
+def attn_decode(p, x, t, cfg, *, cache):
+    """One-token decode over the dense cache. x (B,1,d); t the token's
+    position. Writes K/V at slot t % L in place (t itself for a full
+    cache, L > t), then attends over the filled slots, n = min(t + 1, L):
+    every one of them lies inside the window, and the softmax does not
+    depend on the slots' order, so the flash kernel runs unmasked with one
+    query over them. The cache's K/V are read back in the query's dtype
+    (fp32 for recurrentgemma, as the reference's products promote).
+    Returns (out (B,1,d), cache)."""
+    q, k, v = _qkv(p, x, torch.full((1,), t, device=x.device), cfg)
+    L = cache["k"].shape[1]
+    cache["k"][:, t % L] = k[:, 0]
+    cache["v"][:, t % L] = v[:, 0]
+    n = min(t + 1, L)
+    out = kops.flash_attention(q, cache["k"][:, :n].to(q.dtype),
+                               cache["v"][:, :n].to(q.dtype), causal=False,
+                               softcap=cfg.attn_logit_softcap)
+    return _proj_out(p, out, cfg), cache
 
 
 def init_paged_cache(cfg, n_pages, page_size, dtype=None, device=None):

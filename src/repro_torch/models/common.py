@@ -89,20 +89,35 @@ def gumbel_noise(gen, shape, device):
     return -torch.log(-torch.log(u))
 
 
+def at_use(w, x, cfg):
+    """Weight ``w`` as the reference uses it against activation ``x``: cast
+    to ``cfg.compute_dtype``, then promoted with ``x``'s dtype as JAX
+    promotes a product. The identity beyond the cast when ``x`` is already
+    in the compute dtype; with fp32 ``x`` and bf16 compute (recurrentgemma's
+    residual stream, see ``embed_tokens``) the weight is rounded to bf16 and
+    the product runs in fp32."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    return w.to(cdt).to(torch.promote_types(x.dtype, cdt))
+
+
 def embed_tokens(p, tokens, cfg):
+    """Token embeddings in the compute dtype. With ``emb_scale`` the
+    reference multiplies them by ``np.sqrt(d).astype(np.float32)``, a numpy
+    scalar, which JAX promotes as an fp32 array: the result is fp32 (the
+    embedding rounded to the compute dtype, then scaled in fp32), and the
+    model's residual stream stays fp32 from there on."""
     x = p.tok[tokens.long()].to(torch_dtype(cfg.compute_dtype))
     if cfg.emb_scale:
-        x = x * np.float32(np.sqrt(cfg.d_model))
+        x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return x
 
 
 def logits_fwd(params, x, cfg):
     """Final norm + LM head. ``params`` is the top-level LM module."""
     x = norm_fwd(params.final_norm, x, cfg)
-    cdt = torch_dtype(cfg.compute_dtype)
     if cfg.tie_embeddings:
-        return x @ params.embedding.tok.to(cdt).T
-    return x @ params.lm_head.w.to(cdt)
+        return x @ at_use(params.embedding.tok, x, cfg).T
+    return x @ at_use(params.lm_head.w, x, cfg)
 
 
 def rope_angles(positions, head_dim, cfg):

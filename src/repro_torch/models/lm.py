@@ -1,6 +1,8 @@
 """Decoder-only LM with an optional patch prefix (the ``vision_patches``
 frontend the ProGen structure prefix uses): forward, dense serving over
-recurrent states (``rwkv`` layers) and paged serving (``attn`` layers).
+each layer's decode cache (recurrent states of ``rwkv`` and ``rglru``
+layers, ring K/V caches of ``attn_local`` layers) and paged serving
+(``attn`` layers).
 
 Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) optional}.
 
@@ -22,7 +24,8 @@ from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
 
 
 class LM(nn.Module):
-    """Embedding, layers, final norm and (untied) LM head."""
+    """Embedding, layers, final norm and, unless the embedding is tied to
+    it, the LM head."""
 
     def __init__(self, cfg, gen=None):
         super().__init__()
@@ -74,7 +77,8 @@ def lm_logits(params, batch, cfg):
 
 
 def init_caches(cfg, batch, length, device=None):
-    """One decode cache per layer (``rwkv``: its recurrent state dict)."""
+    """One decode cache per layer (``blocks.init_layer_cache``); ``length``
+    sizes the ring caches of ``attn_local`` layers."""
     return [blocks.init_layer_cache(kind, cfg, batch, length, device=device)
             for kind in cfg.layer_kinds]
 

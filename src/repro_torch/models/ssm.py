@@ -1,13 +1,14 @@
-"""RWKV-6 (Finch) time mix and channel mix.
+"""RWKV-6 (Finch) time mix and channel mix; the Griffin recurrent block
+(temporal conv + RG-LRU).
 
-Projections run over the whole sequence; the WKV recurrence always goes
-through ``kernels.ops.wkv6`` (the CUDA kernel on the card, its plain
-chunked version on the CPU), the reference's ``ssm_impl="pallas"`` branch.
+Projections run over the whole sequence; the recurrences always go through
+``kernels.ops`` (the CUDA kernels on the card, their plain versions on the
+CPU), the reference's ``ssm_impl="pallas"`` branch: ``ops.wkv6`` for
+RWKV-6, ``ops.rglru`` for the RG-LRU.
 
-State dict (decode cache and prefill output), one per layer:
-  {"S": (B,H,K,K) fp32, "shift_tm": (B,d) fp32, "shift_cm": (B,d) fp32}
-
-The Griffin / RG-LRU half of the reference module is not ported yet.
+State dicts (decode cache and prefill output), one per layer:
+  rwkv:  {"S": (B,H,K,K) fp32, "shift_tm": (B,d) fp32, "shift_cm": (B,d) fp32}
+  rglru: {"h": (B,C) fp32, "conv": (B,W-1,C) fp32}
 """
 
 from __future__ import annotations
@@ -137,3 +138,85 @@ def rwkv_channelmix(p, x, state, cfg):
     kk = torch.square(torch.relu(xk @ p.wck.to(cdt)))
     y = torch.sigmoid(xr @ p.wcr.to(cdt)) * (kk @ p.wcv.to(cdt))
     return y, dict(state, shift_cm=x[:, -1].float())
+
+
+# ---------------------------------------------------------------------------
+# Griffin recurrent block (temporal conv + RG-LRU)
+# ---------------------------------------------------------------------------
+
+RGLRU_C = 8.0
+
+
+class Rglru(nn.Module):
+    """The reference's ``init_rglru`` leaves, under its keys: the input and
+    gate projections ``win``/``wgate``, the depthwise conv ``conv_w``/
+    ``conv_b``, the recurrence and input gates ``wr``/``br``, ``wi``/``bi``,
+    ``lam`` (the logit of a ~ U(0.9, 0.999)) and the output ``wout``."""
+
+    def __init__(self, cfg, gen=None):
+        super().__init__()
+        d, C, W = cfg.d_model, cfg.lru_width, cfg.conv_width
+        dt = torch_dtype(cfg.param_dtype)
+
+        def zeros(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dt),
+                                requires_grad=False)
+
+        self.win = weight(gen, (d, C), d, dt)
+        self.wgate = weight(gen, (d, C), d, dt)
+        self.conv_w = weight(gen, (W, C), W, dt)
+        self.conv_b = zeros(C)
+        self.wr = weight(gen, (C, C), C, dt)
+        self.br = zeros(C)
+        self.wi = weight(gen, (C, C), C, dt)
+        self.bi = zeros(C)
+        self.lam = zeros(C)
+        if gen is not None:
+            a = torch.rand(C, generator=gen, device=gen.device)
+            a = a.mul_(0.999 - 0.9).add_(0.9)
+            self.lam.data.copy_(torch.log(a / (1 - a)))
+        self.wout = weight(gen, (C, d), C, dt)
+
+
+def init_rglru_state(cfg, batch, device=None, dtype=torch.float32):
+    return {"h": torch.zeros((batch, cfg.lru_width), dtype=dtype,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.lru_width),
+                                dtype=dtype, device=device)}
+
+
+def _rglru_gates(p, u):
+    """u (B,T,C) post-conv branch -> (a fp32, gated input b fp32)."""
+    r = torch.sigmoid(u @ p.wr.to(u.dtype) + p.br.to(u.dtype))
+    i = torch.sigmoid(u @ p.wi.to(u.dtype) + p.bi.to(u.dtype))
+    log_a0 = F.logsigmoid(p.lam.float())                           # (C,)
+    log_a = RGLRU_C * r.float() * log_a0                           # <= 0
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) \
+        * (i * u).float()
+    return a, b
+
+
+def causal_conv1d(u, w, b, prev):
+    """Depthwise causal conv as the reference writes it: a sum of W
+    shifted products plus the bias. u (B,T,C); w (W,C); prev (B,W-1,C) the
+    inputs before u[:, 0]. Returns (out (B,T,C), the last W-1 inputs)."""
+    W, T = w.shape[0], u.shape[1]
+    x = torch.cat([prev.to(u.dtype), u], dim=1)
+    out = sum(x[:, i:i + T] * w[i].to(u.dtype) for i in range(W))
+    return out + b.to(u.dtype), x[:, -(W - 1):]
+
+
+def rglru_block(p, x, state, cfg):
+    """The Griffin recurrent block over a sequence (any T >= 1: a prompt or
+    one decode token). x (B,T,d); products in x's dtype with the weights
+    cast to it, as the reference computes (fp32 for recurrentgemma, whose
+    residual stream is fp32). Returns (y, new_state)."""
+    cdt = x.dtype
+    gate = F.gelu(x @ p.wgate.to(cdt), approximate="tanh")
+    u = x @ p.win.to(cdt)
+    u, conv_state = causal_conv1d(u, p.conv_w, p.conv_b, state["conv"])
+    a, b = _rglru_gates(p, u)
+    h, h_T = kops.rglru(a, b, state["h"])
+    y = (gate * h.to(cdt)) @ p.wout.to(cdt)
+    return y, {"h": h_T, "conv": conv_state.float()}

@@ -5,9 +5,10 @@ machine without JAX:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: paged decode 1e-5 in fp32, flash and wkv6 y 2e-5 in fp32, all
-2e-2 in bf16, the wkv6 state atol 1e-4 / rtol 1e-3 (the CPU tests' own);
-log-likelihoods 1e-3 (sums of 24 fp32 log-probs computed in two orders)."""
+Tolerances: paged decode and rglru 1e-5 in fp32, flash and wkv6 y 2e-5 in
+fp32, all 2e-2 in bf16, the wkv6 state atol 1e-4 / rtol 1e-3 (the CPU
+tests' own); log-likelihoods 1e-3 (sums of 24 fp32 log-probs computed in
+two orders)."""
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from numpy.testing import assert_allclose  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import rglru  # noqa: E402
 from repro_torch.kernels import rwkv6  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +124,64 @@ def test_wkv6_rejects_bad_inputs(cuda):
     assert _cuda.launches["wkv6_bhtk"] == before
 
 
+@pytest.mark.parametrize("B,T,C", [(8, 2560, 2560), (8, 1, 2560),
+                                   (1, 32, 8), (2, 96, 40), (2, 64, 128),
+                                   (1, 50, 24), (3, 17, 130)])
+def test_rglru_matches_plain_and_counts_launches(cuda, B, T, C):
+    """recurrentgemma-2b's prefill and decode shapes, the reference kernel
+    test's edge shapes and a ragged one, from a nonzero h0."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    a = torch.sigmoid(torch.randn(B, T, C, generator=g, device=cuda))
+    b = 0.3 * torch.randn(B, T, C, generator=g, device=cuda)
+    h0 = torch.randn(B, C, generator=g, device=cuda)
+    before = _cuda.launches["rglru_btc"]
+    h, h_T = rglru.rglru_btc(a, b, h0)
+    assert _cuda.launches["rglru_btc"] == before + 1
+    h_ref, hT_ref = rglru.rglru_ref(a, b, h0)
+    assert _cuda.launches["rglru_btc"] == before + 1
+    assert h.dtype == h_T.dtype == torch.float32
+    assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(), atol=1e-5,
+                    rtol=1e-5)
+    assert_allclose(h_T.cpu().numpy(), hT_ref.cpu().numpy(), atol=1e-5,
+                    rtol=1e-5)
+
+
+def test_rglru_rejects_bad_inputs(cuda):
+    a = torch.zeros(2, 5, 16, device=cuda)
+    h0 = torch.zeros(2, 16, device=cuda)
+    before = _cuda.launches["rglru_btc"]
+    with pytest.raises(TypeError):                     # bf16 input
+        rglru.rglru_btc(a.bfloat16(), a, h0)
+    with pytest.raises(ValueError):                    # h0 of another width
+        rglru.rglru_btc(a, a, h0[:, :8])
+    with pytest.raises(ValueError):                    # not contiguous
+        rglru.rglru_btc(a.transpose(1, 2).contiguous().transpose(1, 2), a,
+                        h0)
+    assert _cuda.launches["rglru_btc"] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_hd256_matches_plain(cuda, dtype):
+    """Head dim 256 with MQA (10 heads, 1 KV head): causal with a window
+    and without, and the decode form (one query, unmasked, over a ragged
+    number of cached keys)."""
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dt)
+    t = 2e-5 if dtype == "float32" else 2e-2
+    cases = [((2, 300, 300), dict(window=128)), ((2, 100, 100), {}),
+             ((8, 1, 77), dict(causal=False)),
+             ((3, 1, 2048), dict(causal=False))]
+    before = _cuda.launches["flash_attention_bhsd"]
+    for (B, Sq, Sk), kw in cases:
+        q, k, v = mk(B, 10, Sq, 256), mk(B, 1, Sk, 256), mk(B, 1, Sk, 256)
+        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        want = fa.attention_ref(q, k, v, **kw)
+        assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), atol=t, rtol=t)
+    assert _cuda.launches["flash_attention_bhsd"] == before + len(cases)
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """The reduced fp32 engine on the card (kernels) and on the CPU (plain
     versions), same weights and noise: the same tokens."""
@@ -141,3 +201,21 @@ def test_engine_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(out["cuda"][tag][0],
                                       out["cpu"][tag][0])
         assert abs(out["cuda"][tag][1] - out["cpu"][tag][1]) < 1e-3
+
+
+def test_recurrentgemma_on_card_matches_cpu(cuda):
+    """The reduced fp32 recurrentgemma, one model on both devices, a prompt
+    of 20 tokens past its window of 16: the same greedy tokens."""
+    import copy
+
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import lm
+    cfg = get_reduced("recurrentgemma-2b").replace(compute_dtype="float32")
+    cpu = lm.init_lm(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    prompts = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, size=(3, 20)))
+    with torch.inference_mode():
+        got = lm.generate(card, {"inputs": prompts.to(cuda)}, cfg, 10)
+        want = lm.generate(cpu, {"inputs": prompts}, cfg, 10)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
