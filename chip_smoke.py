@@ -41,7 +41,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    window mask, the ring's rotation and its wrap at decode all run) and 31
    greedy decode steps. The counters must show the rglru kernel once per
    RG-LRU layer and the flash kernel once per local-attention layer, per
-   prefill and per decode step, and the other two kernels not at all.
+   prefill (its fp32 sequence form) and per decode step (its decode form,
+   over the bf16 ring in place), and the other two kernels not at all.
    Then the full-width fp32 per-layer check over a prompt past the window,
    and one decode step over a full ring under ``torch.profiler``.
 8. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
@@ -49,8 +50,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 Phase 2 also holds the wkv6 kernel (2b), the rglru kernel and the flash
 kernel at head dim 256 (2c) against their plain versions and times them;
-phase 3 also holds the reduced rwkv6 (3b) and recurrentgemma (3c) models on
-the card against the CPU.
+2c also holds the flash kernel's decode form (one query over strided ring
+views, bf16 K/V beside an fp32 q, every head dim, groups of 1 to 20 query
+heads) and its fp32 sequence form (every head dim, ragged lengths, window,
+softcap, no mask), and times both at recurrentgemma-2b's shapes. Phase 3
+also holds the reduced rwkv6 (3b) and recurrentgemma (3c) models on the
+card against the CPU.
 
 Imports neither jax nor the reference package. Exits non-zero without a
 CUDA device.
@@ -61,6 +66,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -411,6 +417,124 @@ def live_pairs(Sq, Sk, causal, window):
     return n
 
 
+def ring_view(torch, g, B, L, KV, n, hd, dtype):
+    """The first n slots of a (B, L, KV, hd) ring cache as the (B, KV, n,
+    hd) strided view ``ops.flash_attention`` hands the decode form."""
+    ring = torch.randn(B, L, KV, hd, generator=g, device="cuda").to(dtype)
+    return ring[:, :n].transpose(1, 2)
+
+
+def flash_form_parity(torch, g):
+    """The flash kernel's decode form and fp32 sequence form against the
+    plain version: the decode form over strided ring views, as
+    ``attn_decode`` calls it, at every head dim; the sequence form at
+    every head dim with ragged lengths, a window, softcap and no mask."""
+    from repro_torch.kernels import flash_attention as fa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    decode_cases = [  # (B, H, KV, L, n, hd): n of a ring of L slots
+        (8, 10, 1, 2048, 2048, 256),   # recurrentgemma-2b, ring filled
+        (2, 10, 1, 2048, 1, 256),      # 1 key, 64 ranges
+        (3, 2, 1, 2048, 127, 256),     # G 2
+        (2, 4, 4, 2048, 1337, 256),    # G 1
+        (1, 20, 1, 300, 300, 256),     # G 20: two blocks of query rows
+        (2, 8, 4, 96, 43, 32), (2, 4, 2, 64, 64, 16), (3, 4, 1, 500, 333, 64),
+        (2, 6, 3, 200, 150, 128),
+    ]
+    for B, H, KV, L, n, hd in decode_cases:
+        for qdt, kvdt in ((f32, bf16), (f32, f32), (bf16, bf16)):
+            q = torch.randn(B, H, 1, hd, generator=g, device="cuda").to(qdt)
+            k, v = (ring_view(torch, g, B, L, KV, n, hd, kvdt)
+                    for _ in range(2))
+            got = fa.flash_attention_bhsd(q, k, v, causal=False)
+            want = fa.attention_ref(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            check(f"flash decode {B}x{H}/{KV} over {n} of {L} keys hd {hd}, "
+                  f"q {dtype_name(qdt)} K/V {dtype_name(kvdt)}",
+                  max_err(got, want), TOL[dtype_name(qdt)])
+    q = torch.randn(2, 4, 1, 64, generator=g, device="cuda")
+    k = ring_view(torch, g, 2, 90, 2, 90, 64, f32)
+    for kw in ({"softcap": 5.0, "causal": False}, {}, {"seq_q": 0}):
+        check(f"flash decode {kw}", max_err(
+            fa.flash_attention_bhsd(q, k, k, **kw),
+            fa.attention_ref(q, k, k, **kw)), TOL["float32"])
+
+    seq_cases = [  # label, (B, H, KV, S), kwargs
+        ("seq_q 70, seq_k 61 of 77", (2, 4, 2, 77),
+         {"seq_q": 70, "seq_k": 61}),
+        ("window 33, softcap 10", (1, 4, 1, 130), {"window": 33,
+                                                   "softcap": 10.0}),
+        ("non-causal", (2, 2, 2, 65), {"causal": False}),
+        ("non-causal seq_k 40 window 9", (1, 3, 1, 100),
+         {"causal": False, "seq_k": 40, "window": 9}),
+    ]
+    for hd in fa.HEAD_DIMS:
+        for label, (B, H, KV, S), kw in seq_cases:
+            q = torch.randn(B, H, S, hd, generator=g, device="cuda")
+            k = torch.randn(B, KV, S, hd, generator=g, device="cuda")
+            v = torch.randn(B, KV, S, hd, generator=g, device="cuda")
+            got = fa.flash_attention_bhsd(q, k, v, **kw)
+            want = fa.attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if "seq_q" in kw:
+                expect(bool((got[:, :, kw["seq_q"]:] == 0).all()),
+                       "flash: rows past seq_q are not exactly zero")
+            check(f"flash fp32 sequence hd {hd} {label}", max_err(got, want),
+                  TOL["float32"])
+
+
+def time_flash_decode(torch, g, B, H, L, hd):
+    """The decode form as the recurrentgemma-2b path calls it: an fp32
+    query a head over the bf16 ring's L filled slots, read in place; then
+    the same over fp32 K/V. Device time of the kernel, the plain version
+    and sdpa (fp32, no mask: every key is live, so it is the same
+    function; sdpa takes one dtype, so it gets the ring widened to fp32).
+    Returns the kernel's JSON record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    record = None
+    for kvdt in (torch.bfloat16, torch.float32):
+        kv_elem = 2 if kvdt == torch.bfloat16 else 4
+        n_bytes = 2 * B * H * hd * 4 + 2 * B * L * hd * kv_elem
+        b_ms, b_by = bound_ms(n_bytes, 4 * hd * B * H * L, "float32")
+        sets = []
+        for _ in range(-(-100_000_000 // n_bytes)):
+            q = torch.randn(B, H, 1, hd, generator=g, device="cuda")
+            k, v = (ring_view(torch, g, B, L, 1, L, hd, kvdt)
+                    for _ in range(2))
+            sets.append((q, k, v, k.float(), v.float()))
+        err = max_err(fa.flash_attention_bhsd(*sets[0][:3], causal=False),
+                      fa.attention_ref(*sets[0][:3], causal=False))
+        turn = itertools.cycle(sets)
+        run_k = lambda: fa.flash_attention_bhsd(*next(turn)[:3],
+                                                causal=False)
+        run_p = lambda: fa.attention_ref(*next(turn)[:3], causal=False)
+
+        def run_l():
+            q, _, _, k32, v32 = next(turn)
+            return F.scaled_dot_product_attention(q, k32, v32,
+                                                  enable_gqa=True)
+        ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
+                          graph_ms(torch, run_l))
+        print(f"  flash hd 256 decode {B}x{H}x1 over {L} {dtype_name(kvdt)} "
+              f"ring keys in place, fp32 q (split-KV form), device ms per "
+              f"call: kernel {ms:.4f}, plain {plain:.4f}, sdpa (fp32 K/V, no "
+              f"mask) {lib:.4f}, bound {b_ms:.6f} ({b_by}); wall per "
+              f"back-to-back call: kernel {wall_ms(torch, run_k):.4f}, sdpa "
+              f"{wall_ms(torch, run_l):.4f}; err {err:.3e}", flush=True)
+        if record is None:             # the record holds the path's dtypes
+            record = {
+                "name": "flash_attention_bhsd_hd256_decode", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:82",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib}
+        del sets, turn
+    return record
+
+
 def phase_rglru_flash256(torch):
     """Parity of the rglru kernel and of the flash kernel at head dim 256
     against their plain versions on the card, then their device times at
@@ -463,6 +587,7 @@ def phase_rglru_flash256(torch):
             check(f"flash hd 256 {label} {dtype_name(dt)}",
                   max_err(got, want), TOL[dtype_name(dt)])
             del q, k, v, got, want
+    flash_form_parity(torch, g)
 
     # timings, in fp32 as the path runs them; inputs rotate past 100 MB as
     # in phase 2b
@@ -492,43 +617,40 @@ def phase_rglru_flash256(torch):
                             "bound_by": b_by, "library_ms": None})
         del sets
 
-    for label, (Sq, Sk, causal, window) in (
-            (f"prefill {B}x{H}x{P} window {W}", (P, P, True, W)),
-            (f"decode {B}x{H}x1 over {W} keys", (1, W, False, 0))):
-        hd = 256
-        n_bytes = 4 * (2 * B * H * Sq * hd + 2 * B * Sk * hd)
-        n_ops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
-        sets = [tuple(torch.randn(B, n, s, hd, generator=g, device="cuda")
-                      for n, s in ((H, Sq), (1, Sk), (1, Sk)))
-                for _ in range(-(-100_000_000 // n_bytes))]
-        pos_q = torch.arange(Sk - Sq, Sk, device="cuda")
-        mask = make_mask(pos_q, torch.arange(Sk, device="cuda"), causal,
-                         window)
-        kw = dict(causal=causal, window=window)
-        err = max_err(fa.flash_attention_bhsd(*sets[0], **kw),
-                      fa.attention_ref(*sets[0], **kw))
-        turn = itertools.cycle(sets)
-        run_k = lambda: fa.flash_attention_bhsd(*next(turn), **kw)
-        run_p = lambda: fa.attention_ref(*next(turn), **kw)
-        run_l = lambda: F.scaled_dot_product_attention(
-            *next(turn), attn_mask=mask, enable_gqa=True)
-        reps = dict(iters=2, replays=2) if Sq > 1 else {}
-        ms, plain, lib = (graph_ms(torch, run_k, **reps),
-                          graph_ms(torch, run_p, **reps),
-                          graph_ms(torch, run_l, **reps))
-        print(f"  flash hd 256 {label} MQA fp32, device ms per call: kernel "
-              f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, bound "
-              f"{b_ms:.6f} ({b_by}); err {err:.3e}", flush=True)
-        if len(records) == 1:          # the record holds the prefill shape
-            records.append({
-                "name": "flash_attention_bhsd_hd256", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:82",
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib})
-        del sets
+    # the fp32 sequence form at the prefill: 8 x 10 x 2560, MQA, window 2048
+    hd, S = 256, P
+    n_bytes = 4 * (2 * B * H * S * hd + 2 * B * S * hd)
+    n_ops = 4 * hd * B * H * live_pairs(S, S, True, W)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+    sets = [tuple(torch.randn(B, n, S, hd, generator=g, device="cuda")
+                  for n in (H, 1, 1))
+            for _ in range(-(-100_000_000 // n_bytes))]
+    mask = make_mask(torch.arange(S, device="cuda"),
+                     torch.arange(S, device="cuda"), True, W)
+    kw = dict(causal=True, window=W)
+    err = max_err(fa.flash_attention_bhsd(*sets[0], **kw),
+                  fa.attention_ref(*sets[0], **kw))
+    turn = itertools.cycle(sets)
+    run_k = lambda: fa.flash_attention_bhsd(*next(turn), **kw)
+    run_p = lambda: fa.attention_ref(*next(turn), **kw)
+    run_l = lambda: F.scaled_dot_product_attention(
+        *next(turn), attn_mask=mask, enable_gqa=True)
+    reps = dict(iters=2, replays=2)
+    ms, plain, lib = (graph_ms(torch, run_k, **reps),
+                      graph_ms(torch, run_p, **reps),
+                      graph_ms(torch, run_l, **reps))
+    print(f"  flash hd 256 prefill {B}x{H}x{S} window {W} MQA fp32 "
+          f"(register-tiled form), device ms per call: kernel {ms:.4f}, "
+          f"plain {plain:.4f}, sdpa {lib:.4f}, bound {b_ms:.6f} ({b_by}); "
+          f"err {err:.3e}", flush=True)
+    records.append({
+        "name": "flash_attention_bhsd_hd256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:82",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+    del sets, turn
+    records.append(time_flash_decode(torch, g, B, H, W, hd))
     gc.collect()
     torch.cuda.empty_cache()
     return records
@@ -769,6 +891,11 @@ def phase_main_path(torch, pp):
             "flash_attention_bhsd": g.n_layers * admits + f.n_layers * n_pred,
             "wkv6_bhtk": 0, "rglru_btc": 0}
     expect(counts == want, f"launches {counts}, expected {want}")
+    forms = dict(ops.forms["flash_attention_bhsd"])
+    print(f"  flash launches by form {forms}", flush=True)
+    expect(forms == {"decode": 0, "seq_f32": 0,
+                     "seq_bf16": want["flash_attention_bhsd"]},
+           f"flash forms {forms}: the protein path runs bf16 sequences")
     return counts
 
 
@@ -934,14 +1061,15 @@ def phase_rg_serving(torch):
     ops.reset_launches()
     r = serve_batch(cfg, batch=B, prompt_len=P, gen=G, params=params)
     counts = dict(ops.launches)
+    forms = dict(ops.forms["flash_attention_bhsd"])
     toks = r["tokens"]
     print(f"  prefill {r['prefill_s'] * 1e3:.1f} ms ({r['prefill_tok_s']:.0f}"
           f" tokens/s); decode {r['decode_s'] / (G - 1) * 1e3:.1f} ms per "
           f"step ({r['decode_tok_s']:.1f} tokens/s over {G - 1} steps); peak"
           f" memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
-    print(f"  launches {counts}; row 0 tokens {toks[0, :8].tolist()}",
-          flush=True)
+    print(f"  launches {counts}, flash by form {forms}; row 0 tokens "
+          f"{toks[0, :8].tolist()}", flush=True)
     expect(toks.shape == (B, G), f"tokens {tuple(toks.shape)}")
     expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
            "a token outside the vocabulary")
@@ -950,6 +1078,11 @@ def phase_rg_serving(torch):
             "flash_attention_bhsd": kinds.count("attn_local") * G,
             "wkv6_bhtk": 0, "rglru_btc": kinds.count("rglru") * G}
     expect(counts == want, f"launches {counts}, expected {want}")
+    want = {"decode": kinds.count("attn_local") * (G - 1),
+            "seq_f32": kinds.count("attn_local"), "seq_bf16": 0}
+    expect(forms == want, f"flash forms {forms}, expected {want}")
+    counts.update(flash_attention_bhsd_hd256=forms["seq_f32"],
+                  flash_attention_bhsd_hd256_decode=forms["decode"])
 
     # T=1 decode vs one prefill over the same tokens, at full width and
     # depth in fp32: 2100 prompt tokens (past the window, not a multiple of
@@ -1028,8 +1161,9 @@ def main():
           flush=True)
     name = spill = ""                 # ptxas -v: entry, frame/spills, usage
     for line in (_cuda.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1][:64]
+        if "Compiling entry function" in line:   # drop the file's prefix
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_"
+                          r"[0-9a-f]{8}", "", line.split("'")[1])[:72]
         elif "spill stores" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -1052,7 +1186,9 @@ def main():
     counts.update(wkv6_bhtk=phase_serving(torch)["wkv6_bhtk"])
     rg = phase_rg_serving(torch)
     counts.update(rglru_btc=rg["rglru_btc"],
-                  flash_attention_bhsd_hd256=rg["flash_attention_bhsd"])
+                  flash_attention_bhsd_hd256=rg["flash_attention_bhsd_hd256"],
+                  flash_attention_bhsd_hd256_decode=rg[
+                      "flash_attention_bhsd_hd256_decode"])
     for rec in records:
         rec["launches"] = counts[rec["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -10,7 +10,8 @@ Nothing here runs at import time: the CPU tests import every module.
 
 ``launches`` counts kernel launches per kernel. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels. ``forms`` splits a kernel's count by the
+form it took (flash: the decode form or the fp32 / bf16 sequence form).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
+forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0}}
 
 _lib = None
 _lock = threading.Lock()
@@ -41,6 +43,9 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in forms.values():
+        for form in counts:
+            counts[form] = 0
 
 
 def nvcc() -> str:
@@ -101,6 +106,10 @@ def lib() -> ctypes.CDLL:
             handle.repro_flash_attention.argtypes = (
                 [ptr] * 4 + [i32] * 10 + [ctypes.c_float, i32, i32, ptr])
             handle.repro_flash_attention.restype = i32
+            handle.repro_flash_decode.argtypes = (
+                [ptr] * 5 + [i32] * 5 + [ctypes.c_longlong] * 6
+                + [i32, ctypes.c_float, i32, i32, i32, ptr])
+            handle.repro_flash_decode.restype = i32
             handle.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             handle.repro_wkv6.restype = i32
             handle.repro_rglru.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
@@ -111,12 +120,14 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check_launch(name: str, err: int) -> None:
-    """Raise if a launch was refused; count it otherwise."""
+def check_launch(name: str, err: int, form: str | None = None) -> None:
+    """Raise if a launch was refused; count it (and its form) otherwise."""
     if err:
         msg = lib().repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
     launches[name] += 1
+    if form is not None:
+        forms[name][form] += 1
 
 
 def check_cuda_tensors(name, tensors, dtypes):
@@ -131,6 +142,29 @@ def check_cuda_tensors(name, tensors, dtypes):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return dev
+
+
+def check_cuda_views(name, tensors, dtypes, device):
+    """Validation for strided views a kernel reads in place through their
+    strides: on ``device``, of an accepted dtype, the last dim of stride 1,
+    the base address and every other stride (of a dim longer than 1) a
+    multiple of 16 bytes, so that each row can be fetched in 16-byte
+    pieces."""
+    for t, dt in zip(tensors, dtypes):
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+        if t.dtype not in dt:
+            raise TypeError(f"{name}: dtype {t.dtype} not in {dt}")
+        size = t.element_size()
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the last dim must have stride 1, not "
+                             f"{t.stride(-1)}")
+        if t.data_ptr() % 16 or any(
+                n > 1 and st * size % 16
+                for n, st in zip(t.shape[:-1], t.stride()[:-1])) \
+                or t.shape[-1] * size % 16:
+            raise ValueError(f"{name}: base address or strides "
+                             f"{t.stride()} not 16-byte aligned")
 
 
 def device_and_stream(device: torch.device):

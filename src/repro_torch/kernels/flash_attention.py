@@ -1,13 +1,19 @@
 """Blocked online-softmax (flash) attention forward.
 
 ``flash_attention_bhsd`` takes the plain version (``attention_ref``) for CPU
-tensors and launches the CUDA kernel (``csrc/flash_attention.cu``) for CUDA
-tensors. Contract, shared by both: q (B,H,Sq,hd), k/v (B,KV,Sk,hd) with GQA
-kv head = h // (H // KV); scale 1/sqrt(hd); optional causal mask, local
-``window`` and tanh ``softcap``; ``seq_q``/``seq_k`` (default Sq/Sk) mask
-rows and columns past the real lengths; a q row with no live key writes
-zeros. Unlike the TPU kernel, no input needs padding to a block multiple:
-the CUDA kernel masks its ragged edge itself.
+tensors and launches a CUDA kernel for CUDA tensors, chosen by shape and
+dtype: one query (Sq == 1) goes to the split-KV decode kernel
+(``csrc/flash_decode.cu``), which reads K/V in place through their strides
+and in their stored dtype; longer fp32 queries to the register-tiled kernel
+and bf16 ones to the shared-memory kernel (both ``csrc/flash_attention.cu``).
+Contract, shared by all: q (B,H,Sq,hd), k/v (B,KV,Sk,hd) with GQA kv head =
+h // (H // KV); scale 1/sqrt(hd); optional causal mask, local ``window``
+and tanh ``softcap``; ``seq_q``/``seq_k`` (default Sq/Sk) mask rows and
+columns past the real lengths; a q row with no live key writes zeros. K/V
+have q's dtype, or are bf16 beside an fp32 q (the ring cache beside
+recurrentgemma's fp32 queries), promoted exactly as the products promote
+them. Unlike the TPU kernel, no input needs padding to a block multiple: the
+kernels mask their ragged edges themselves.
 """
 
 from __future__ import annotations
@@ -18,20 +24,24 @@ import torch
 
 from repro_torch.kernels import _cuda
 
+NAME = "flash_attention_bhsd"
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's compiled head dims
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' compiled head dims
+DTYPES = (torch.float32, torch.bfloat16)
+DECODE_GROUP = 16    # query rows a decode block holds
+MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
+
+_sm_count: dict[int, int] = {}
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                  seq_q=None, seq_k=None):
-    """Plain version of ``flash_attention_bhsd``: one masked fp32 softmax
-    over the whole score matrix."""
+def _scores(q, k, causal, window, softcap, seq_q, seq_k):
+    """Masked fp32 scores (B,H,Sq,Sk), NEG_INF where masked, and the mask
+    (Sq,Sk)."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     seq_q = Sq if seq_q is None else seq_q
     seq_k = Sk if seq_k is None else seq_k
     kf = k.float().repeat_interleave(H // KV, dim=1)
-    vf = v.float().repeat_interleave(H // KV, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
@@ -42,10 +52,52 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
         mask &= cols <= rows
     if window > 0:
         mask &= cols > rows - window
-    s = s.masked_fill(~mask, NEG_INF)
+    return s.masked_fill(~mask, NEG_INF), mask
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  seq_q=None, seq_k=None):
+    """Plain version of ``flash_attention_bhsd``: one masked fp32 softmax
+    over the whole score matrix."""
+    s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k)
+    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
     return (torch.einsum("bhqk,bhkd->bhqd", p, vf) / l).to(q.dtype)
+
+
+def attention_split_ref(q, k, v, n_split, *, causal=True, window=0,
+                        softcap=0.0, seq_q=None, seq_k=None):
+    """The decode kernel's split-and-combine algebra in plain PyTorch, for
+    any Sq: the keys cut into ``n_split`` contiguous ranges of
+    ceil(Sk / n_split) (the last ones may be empty), a partial (m, l, acc)
+    per range, then the partials rescaled to their common max and summed.
+    The same function as ``attention_ref``; the tests hold one to the
+    other."""
+    s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k)
+    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    Sk = k.shape[2]
+    per = -(-Sk // n_split) if Sk else 0
+    parts = []
+    for i in range(n_split):
+        lo, hi = min(Sk, i * per), min(Sk, (i + 1) * per)
+        si = s[..., lo:hi]
+        m = si.amax(-1, keepdim=True) if hi > lo else \
+            s.new_full((*s.shape[:-1], 1), NEG_INF)
+        p = torch.exp(si - m) * mask[:, lo:hi]
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum("bhqk,bhkd->bhqd", p, vf[..., lo:hi, :])))
+    m = torch.stack([mi for mi, _, _ in parts]).amax(0)
+    l = sum(torch.exp(mi - m) * li for mi, li, _ in parts)
+    acc = sum(torch.exp(mi - m) * ai for mi, _, ai in parts)
+    return (acc / l.clamp_min(1e-20)).to(q.dtype)
+
+
+def decode_splits(blocks: int, n_sms: int) -> int:
+    """Key ranges the decode form cuts each (row, KV head) into: enough that
+    ``blocks`` (B x KV x ceil(G / 16)) times it fills the card's ``n_sms``
+    SMs, at most ``MAX_SPLITS``; ranges past the last key are empty."""
+    return max(1, min(MAX_SPLITS, n_sms // max(1, blocks)))
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -55,15 +107,20 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, seq_q=seq_q, seq_k=seq_k)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bhsd: no kernel for {q.device}")
-    return _launch(q, k, v, causal, window, softcap, seq_q, seq_k)
+        raise ValueError(f"{NAME}: no kernel for {q.device}")
+    seq_q, seq_k = _check(q, k, v, seq_q, seq_k)
+    if q.shape[2] == 1:
+        return _launch_decode(q, k, v, causal, softcap, seq_q, seq_k)
+    return _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k)
 
 
-def _launch(q, k, v, causal, window, softcap, seq_q, seq_k):
-    name = "flash_attention_bhsd"
-    fdt = (torch.float32, torch.bfloat16)
-    dev = _cuda.check_cuda_tensors(name, (q, k, v),
-                                   (fdt, (q.dtype,), (q.dtype,)))
+def _check(q, k, v, seq_q, seq_k):
+    """Dtypes and shapes every form takes; returns (seq_q, seq_k)."""
+    if q.dtype not in DTYPES or k.dtype != v.dtype or not (
+            k.dtype == q.dtype
+            or (q.dtype == torch.float32 and k.dtype == torch.bfloat16)):
+        raise TypeError(f"{NAME}: q {q.dtype}, k {k.dtype}, v {v.dtype} (K/V "
+                        f"take q's dtype, or bf16 beside an fp32 q)")
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     seq_q = Sq if seq_q is None else int(seq_q)
@@ -73,9 +130,21 @@ def _launch(q, k, v, causal, window, softcap, seq_q, seq_k):
             or not 0 <= seq_q <= Sq or not 0 <= seq_k <= Sk
             or B > 65535 or H > 65535):
         raise ValueError(
-            f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{NAME}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}, seq_q {seq_q}, seq_k {seq_k} (head dim must "
             f"be one of {HEAD_DIMS})")
+    return seq_q, seq_k
+
+
+def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k):
+    """Sq > 1: contiguous q, k, v; bf16 K/V beside an fp32 q are widened
+    first (the fp32 kernel reads fp32)."""
+    if k.dtype != q.dtype:
+        k, v = k.float(), v.float()
+    dev = _cuda.check_cuda_tensors(NAME, (q, k, v),
+                                   (DTYPES, (q.dtype,), (q.dtype,)))
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -84,5 +153,34 @@ def _launch(q, k, v, causal, window, softcap, seq_q, seq_k):
         B, H, KV, Sq, Sk, hd, seq_q, seq_k, int(bool(causal)), int(window),
         float(softcap), _cuda.DTYPE_CODES[q.dtype],
         *_cuda.device_and_stream(dev))
-    _cuda.check_launch(name, err)
+    _cuda.check_launch(NAME, err, "seq_f32" if q.dtype == torch.float32
+                       else "seq_bf16")
+    return out
+
+
+def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k):
+    """Sq == 1: contiguous q; K/V strided views read in place. With one
+    query at row 0 the masks leave the first ``n_keys`` keys live."""
+    dev = _cuda.check_cuda_tensors(NAME, (q,), (DTYPES,))
+    _cuda.check_cuda_views(NAME, (k, v), ((k.dtype,), (k.dtype,)), dev)
+    B, H, _, hd = q.shape
+    KV = k.shape[1]
+    n_keys = 0 if seq_q == 0 else min(1, seq_k) if causal else seq_k
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    G = H // KV
+    n_split = decode_splits(B * KV * -(-G // DECODE_GROUP), _sm_count[index])
+    part = torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
+                       device=dev)
+    err = _cuda.lib().repro_flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        part.data_ptr(), B, H, KV, hd, n_keys, *k.stride()[:3],
+        *v.stride()[:3], n_split, float(softcap), _cuda.DTYPE_CODES[q.dtype],
+        _cuda.DTYPE_CODES[k.dtype], *_cuda.device_and_stream(dev))
+    _cuda.check_launch(NAME, err, "decode")
     return out

@@ -3,7 +3,8 @@
 Model code calls these with model-layout tensors; each converts to the
 kernel layout and calls the kernel wrapper, which takes the plain version
 for a CPU tensor and launches the CUDA kernel for a CUDA tensor (or
-raises). ``launches`` holds one plain-integer launch count per kernel.
+raises). ``launches`` holds one plain-integer launch count per kernel,
+``forms`` the flash kernel's count split by form.
 """
 
 from __future__ import annotations
@@ -12,15 +13,21 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _wk
-from repro_torch.kernels._cuda import launches, reset_launches  # noqa: F401
+from repro_torch.kernels._cuda import (  # noqa: F401
+    forms, launches, reset_launches)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """Model layout: q (B,S,H,hd); k/v (B,T,KV,hd). Returns (B,S,H,hd)."""
-    out = _fa.flash_attention_bhsd(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal, window=window,
-        softcap=softcap)
+    """Model layout: q (B,S,H,hd); k/v (B,T,KV,hd). Returns (B,S,H,hd).
+    One query (S == 1) hands the decode form k/v as strided (B,KV,T,hd)
+    views of their own storage, so a ring cache is read in place and in its
+    stored dtype; longer queries hand contiguous copies."""
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if q.shape[1] > 1:
+        kt, vt = kt.contiguous(), vt.contiguous()
+    out = _fa.flash_attention_bhsd(q.transpose(1, 2).contiguous(), kt, vt,
+                                   causal=causal, window=window,
+                                   softcap=softcap)
     return out.transpose(1, 2)
 
 

@@ -72,11 +72,80 @@ def test_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q, q, q)
     q = torch.zeros(1, 2, 8, 32, device=cuda)
-    with pytest.raises(TypeError):                     # mixed dtypes
-        fa.flash_attention_bhsd(q, q.bfloat16(), q)
+    before = _cuda.launches["flash_attention_bhsd"]
+    for S in (8, 1):                                   # fp32 q, bf16 K/V
+        kv = torch.ones(1, 2, 8, 32, device=cuda).bfloat16()
+        out = fa.flash_attention_bhsd(q[:, :, :S].contiguous(), kv, kv)
+        assert out.dtype == torch.float32 and bool((out == 1).all())
+    assert _cuda.launches["flash_attention_bhsd"] == before + 2
+    for qs in (q, q[:, :, :1].contiguous()):
+        with pytest.raises(TypeError):                 # bf16 q, fp32 K/V
+            fa.flash_attention_bhsd(qs.bfloat16(), q, q)
+        with pytest.raises(TypeError):                 # K and V differ
+            fa.flash_attention_bhsd(qs, q.bfloat16(), q)
+        with pytest.raises(ValueError):                # inner stride 2
+            kv = torch.zeros(1, 2, 8, 64, device=cuda)[..., ::2]
+            fa.flash_attention_bhsd(qs, kv, kv)
     with pytest.raises(ValueError):                    # not contiguous
         fa.flash_attention_bhsd(q.transpose(2, 3).contiguous()
                                 .transpose(2, 3), q, q)
+    with pytest.raises(ValueError):                    # not 16-byte aligned
+        kv = torch.zeros(2 * 8 * 32 + 1, device=cuda)[1:].view(1, 2, 8, 32)
+        fa.flash_attention_bhsd(q[:, :, :1].contiguous(), kv, kv)
+    assert _cuda.launches["flash_attention_bhsd"] == before + 2
+
+
+@pytest.mark.parametrize("qdt,kvdt", [("float32", "bfloat16"),
+                                      ("float32", "float32"),
+                                      ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("B,H,KV,L,n,hd", [
+    (8, 10, 1, 2048, 2048, 256), (2, 10, 1, 2048, 1, 256),
+    (3, 2, 1, 2048, 127, 256), (2, 4, 4, 2048, 1337, 256),
+    (1, 20, 1, 300, 300, 256), (2, 8, 4, 96, 43, 32), (2, 4, 2, 64, 64, 16),
+    (3, 4, 1, 500, 333, 64), (2, 6, 3, 200, 150, 128)])
+def test_flash_decode_form_over_ring_views(cuda, qdt, kvdt, B, H, KV, L, n,
+                                           hd):
+    """The decode form as ``attn_decode`` calls it: one query a head over
+    the first n slots of a (B, L, KV, hd) ring, handed over as a strided
+    view in the cache's dtype (bf16 beside an fp32 q on the recurrentgemma
+    path); query groups of 20, 10, 2 and 1; more key ranges than keys.
+    One launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    q = torch.randn(B, H, 1, hd, generator=g, device=cuda).to(TORCH_DT[qdt])
+    k, v = (torch.randn(B, L, KV, hd, generator=g, device=cuda)
+            .to(TORCH_DT[kvdt])[:, :n].transpose(1, 2) for _ in range(2))
+    before = _cuda.launches["flash_attention_bhsd"]
+    got = fa.flash_attention_bhsd(q, k, v, causal=False)
+    assert _cuda.launches["flash_attention_bhsd"] == before + 1
+    want = fa.attention_ref(q, k, v, causal=False)
+    assert got.dtype == q.dtype
+    t = 2e-5 if qdt == "float32" else 2e-2
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    atol=t, rtol=t)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("B,H,KV,S,kw", [
+    (2, 4, 2, 77, dict(seq_q=70, seq_k=61)),
+    (1, 4, 1, 130, dict(window=33, softcap=10.0)),
+    (2, 2, 2, 65, dict(causal=False)),
+    (1, 3, 1, 100, dict(causal=False, seq_k=40, window=9))])
+def test_flash_fp32_sequence_form(cuda, hd, B, H, KV, S, kw):
+    """The register-tiled fp32 form at every head dim: ragged lengths (rows
+    past seq_q exactly zero), a window with softcap, no mask, and rows with
+    no live key. One launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(hd + S)
+    q = torch.randn(B, H, S, hd, generator=g, device=cuda)
+    k = torch.randn(B, KV, S, hd, generator=g, device=cuda)
+    v = torch.randn(B, KV, S, hd, generator=g, device=cuda)
+    before = _cuda.launches["flash_attention_bhsd"]
+    got = fa.flash_attention_bhsd(q, k, v, **kw)
+    assert _cuda.launches["flash_attention_bhsd"] == before + 1
+    want = fa.attention_ref(q, k, v, **kw)
+    if "seq_q" in kw:
+        assert bool((got[:, :, kw["seq_q"]:] == 0).all())
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5,
+                    rtol=2e-5)
 
 
 def wkv_inputs(g, device, B, H, T, K, dtype):
