@@ -31,8 +31,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
    RWKV-6 state. The counters are zeroed just before and read just after:
-   the wkv6 kernel must have run once per layer per prefill and per decode
-   step, the attention kernels not at all. Then a full-width fp32 check
+   the wkv6 kernels must have run once per layer per prefill (the prefill
+   kernel) and per decode step (the decode kernel), the attention kernels
+   not at all. Then a full-width fp32 check
    that the T=1 decode path agrees with one prefill over the same tokens,
    and one decode step under ``torch.profiler``.
 7. recurrentgemma-2b serving at full width: ``serve_batch`` (26 layers,
@@ -48,7 +49,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 8. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds the wkv6 kernel (2b), the rglru kernel and the flash
+Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
+both the plain version and the tiled algebra it repeats
+(``attention_tiled_ref``) and times it at three protein shapes beside
+sdpa. It also holds the wkv6 kernels (2b: prefill and decode, the prefill
+one also against ``wkv6_serial_ref``), the rglru kernel and the flash
 kernel at head dim 256 (2c) against their plain versions and times them;
 2c also holds the flash kernel's decode form (one query over strided ring
 views, bf16 K/V beside an fp32 q, every head dim, groups of 1 to 20 query
@@ -85,6 +90,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 # multiple of it
 RG_BATCH, RG_PROMPT, RG_GEN = 8, 2560, 32
 RGLRU_TOL = 1e-5                                 # test_kernels.py's own
+# the port's kernels, as the profiler names them
+PORT_KERNELS = ("paged_decode_kernel", "flash_fwd_", "flash_decode_",
+                "wkv6_", "rglru_kernel")
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
 
@@ -235,8 +243,18 @@ def phase_kernels(torch):
         ("hd 16 GQA", (1, 4, 2, 80, 16), {}),
         ("hd 64", (1, 2, 2, 64, 64), {}),
         ("hd 128 window", (1, 2, 1, 40, 128), {"window": 7}),
+        ("hd 256 GQA", (2, 8, 2, 70, 256), {}),
+        ("S = 1 + a tile, GQA", (2, 8, 4, 33, 32), {}),
+        ("non-causal window 9, seq_k 40 of 64", (2, 4, 2, 64, 32),
+         {"causal": False, "window": 9, "seq_k": 40}),
     ]
     for label, (B, H, KV, S, hd), kw in flash_cases:
+        # rows with no live key: past seq_q, or past seq_k + window - 1
+        # without the causal mask; the kernel writes exact zeros there
+        no_key = torch.arange(S, device="cuda") >= kw.get("seq_q", S)
+        if kw.get("window", 0) > 0 and not kw.get("causal", True):
+            no_key |= torch.arange(S, device="cuda") - kw["window"] + 1 \
+                >= kw.get("seq_k", S)
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, H, S, hd, device="cuda").to(dt)
             k = torch.randn(B, KV, S, hd, device="cuda").to(dt)
@@ -244,11 +262,14 @@ def phase_kernels(torch):
             got = fa.flash_attention_bhsd(q, k, v, **kw)
             want = fa.attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
-            if "seq_q" in kw:
-                expect(bool((got[:, :, kw["seq_q"]:] == 0).all()),
-                       "flash: rows past seq_q are not exactly zero")
+            expect(bool((got[:, :, no_key] == 0).all()),
+                   "flash: rows without a live key are not exactly zero")
             check(f"flash {label} {dtype_name(dt)}", max_err(got, want),
                   TOL[dtype_name(dt)])
+            if dt == torch.bfloat16:   # the mma form's own algebra
+                check(f"flash {label} bf16 vs attention_tiled_ref",
+                      max_err(got, fa.attention_tiled_ref(q, k, v, **kw)),
+                      TOL["bfloat16"])
 
     # timings at the main path's shapes, in bf16 as the path runs them
     dt = torch.bfloat16
@@ -275,9 +296,13 @@ def phase_kernels(torch):
           f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}, "
           f"plain {wall_ms(torch, run_p):.4f}; err {err:.3e}", flush=True)
 
+    print(f"  flash bf16 sequence form (mma.sync): dynamic shared memory "
+          f"a block of {fa.MMA_ROWS} rows {fa.mma_smem_bytes(32)} B at hd 32,"
+          f" {fa.mma_smem_bytes(256)} B at hd 256", flush=True)
     for label, (B, H, KV, S, hd) in (
             ("predict_batch 4 rows x 32 tokens", (4, 8, 8, 32, 32)),
-            ("prefill 1 row x 31 tokens GQA", (1, 8, 4, 31, 32))):
+            ("prefill 1 row x 31 tokens GQA", (1, 8, 4, 31, 32)),
+            ("prefill 1 row x 65 tokens GQA", (1, 8, 4, 65, 32))):
         q = torch.randn(B, H, S, hd, device="cuda", dtype=dt)
         k = torch.randn(B, KV, S, hd, device="cuda", dtype=dt)
         v = torch.randn(B, KV, S, hd, device="cuda", dtype=dt)
@@ -335,9 +360,11 @@ def wkv_bound(B, H, T, K, elem):
 
 
 def phase_wkv6(torch):
-    """Parity of the wkv6 kernel against its plain version on the card,
-    then its and the plain version's device time at the serving path's
-    prefill and decode shapes. Returns the kernel's JSON record."""
+    """Parity of the wkv6 kernels (prefill, T > 1, and decode, T = 1)
+    against the plain version on the card, the prefill kernel also against
+    its own algebra (``wkv6_serial_ref``) where T is short, then their and
+    the plain version's device time at the serving path's prefill and
+    decode shapes. Returns the two forms' JSON records."""
     from repro_torch.kernels import rwkv6
 
     print("phase 2b: wkv6 parity on the card", flush=True)
@@ -352,6 +379,9 @@ def phase_wkv6(torch):
         ("reduced K=16, T=70", (2, 4, 70, 16), {}),
         ("nonzero s0, T=100", (4, 16, 100, K), {}),
         ("logw at -e^5 and -1e-6, T=40", (2, 8, 40, K), {"logw_ends": True}),
+        ("T=2", (2, 8, 2, K), {}),
+        ("reduced K=16, logw at the ends, T=33", (2, 4, 33, 16),
+         {"logw_ends": True}),
     ]
     for label, shape, kw in cases:
         for dt in (torch.float32, torch.bfloat16):
@@ -366,12 +396,18 @@ def phase_wkv6(torch):
                         TOL[name])
             check_close(f"wkv6 {label} {name} s_T", s, s_ref,
                         **WKV_STATE_TOL)
+            if 1 < shape[2] <= 100:
+                y_ser, s_ser = rwkv6.wkv6_serial_ref(*args)
+                check_close(f"wkv6 {label} {name} y vs wkv6_serial_ref", y,
+                            y_ser, TOL[name], TOL[name])
+                check_close(f"wkv6 {label} {name} s_T vs wkv6_serial_ref", s,
+                            s_ser, **WKV_STATE_TOL)
 
     # timings at the serving path's shapes, in bf16 as the path runs them.
     # Calls rotate over enough input sets to fill twice the 50 MB L2, as
     # the path's calls find their state cold (a layer's weights pass
     # through L2 between two calls).
-    dt, record = torch.bfloat16, None
+    dt, records = torch.bfloat16, []
     for label, T in (("prefill", SERVE_PROMPT), ("decode", 1)):
         b_ms, b_by, n_bytes = wkv_bound(B, H, T, K, 2)
         sets = [wkv_inputs(torch, g, B, H, T, K, dt, s0=T == 1)
@@ -387,14 +423,14 @@ def phase_wkv6(torch):
               f"kernel {ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} "
               f"({b_by}); wall per back-to-back call: kernel "
               f"{wall_ms(torch, run_k):.4f}; err {err:.3e}", flush=True)
-        if record is None:             # the record holds the prefill shape
-            record = {"name": "wkv6_bhtk", "route": "cuda",
-                      "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-                      "replaces": "src/repro/kernels/rwkv6.py:69",
-                      "launches": 0, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None}
-    return record
+        records.append({"name": "wkv6_bhtk" if T > 1 else "wkv6_bhtk_decode",
+                        "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+                        "replaces": "src/repro/kernels/rwkv6.py:69",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+    return records
 
 
 def rglru_inputs(torch, g, B, T, C, h0=True):
@@ -933,9 +969,11 @@ def profile_step(torch, fn, label, top=12):
     print(f"  {label} wall {wall * 1e3:.1f} ms (profiled), device busy "
           f"{busy:.2f} ms = {100 * busy / (wall * 1e3):.1f}% of wall, "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x "
-              f" {e.key[:100]}", flush=True)
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):     # the top ones, and the port's own
+        if i < top or any(n in e.key for n in PORT_KERNELS):
+            print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"{e.count:6d}x  {e.key[:100]}", flush=True)
 
 
 def phase_serving(torch):
@@ -984,6 +1022,12 @@ def phase_serving(torch):
     want = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": cfg.n_layers * G, "rglru_btc": 0}
     expect(counts == want, f"launches {counts}, expected {want}")
+    forms = dict(ops.forms["wkv6_bhtk"])
+    print(f"  wkv6 launches by form {forms}", flush=True)
+    want = {"prefill": cfg.n_layers, "decode": cfg.n_layers * (G - 1)}
+    expect(forms == want, f"wkv6 forms {forms}, expected {want}")
+    counts.update(wkv6_bhtk_prefill=forms["prefill"],
+                  wkv6_bhtk_decode=forms["decode"])
 
     # T=1 decode vs one prefill over the same 72 tokens, at full width and
     # depth in fp32: 64 prompt tokens, then 8 greedy decode steps.
@@ -1171,7 +1215,7 @@ def main():
                   f"{spill}", flush=True)
 
     records = phase_kernels(torch)
-    records.append(phase_wkv6(torch))
+    records += phase_wkv6(torch)
     records += phase_rglru_flash256(torch)
     phase_agreement(torch)
     phase_lm_agreement(torch, "phase 3b", "rwkv6-7b", 40)
@@ -1183,7 +1227,9 @@ def main():
     counts = phase_main_path(torch, pp)
     phase_profile(torch, pp)
     del pp
-    counts.update(wkv6_bhtk=phase_serving(torch)["wkv6_bhtk"])
+    wkv = phase_serving(torch)
+    counts.update(wkv6_bhtk=wkv["wkv6_bhtk_prefill"],
+                  wkv6_bhtk_decode=wkv["wkv6_bhtk_decode"])
     rg = phase_rg_serving(torch)
     counts.update(rglru_btc=rg["rglru_btc"],
                   flash_attention_bhsd_hd256=rg["flash_attention_bhsd_hd256"],

@@ -11,7 +11,8 @@ Nothing here runs at import time: the CPU tests import every module.
 ``launches`` counts kernel launches per kernel. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
-form it took (flash: the decode form or the fp32 / bf16 sequence form).
+form it took (flash: the decode form or the fp32 / bf16 sequence form;
+wkv6: the decode (T = 1) or the prefill kernel).
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
-forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0}}
+forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0},
+         "wkv6_bhtk": {"decode": 0, "prefill": 0}}
 
 _lib = None
 _lock = threading.Lock()

@@ -27,17 +27,49 @@
 // shared memory; for P.V each thread owns the same 4 rows x hd/16 dims of the
 // accumulator in registers (64 floats at hd 256), reading V as float4.
 //
-// bf16 (`flash_fwd_kernel`, the protein models' S 32-96 at hd 32, where a
-// launch moves under 2 MB and the launch and the host set its time). Q, the
-// K/V tile, the score tile and acc live in static shared memory in fp32 and
-// Q.K^T and P.V are plain loops over it; head dim 256 takes 8 x 8 tiles to
-// stay under 48 KB. Its redesign onto mma.sync is next in ROADMAP Queue 2.
+// bf16 (`flash_fwd_mma_kernel`, the protein models' S 31-96 at hd 32,
+// FoldScore's masked predict_batch and ProGen's GQA admission prefill). A
+// launch moves under 2 MB (0.000078 ms at 3.35 TB/s at predict_batch's 4 x 8
+// x 32), so it is bound by latency: the launch, one round trip to device
+// memory and the chain of dependent steps between them. The design keeps that
+// chain short and puts the products on the tensor cores (FlashAttention-2
+// style, mma.sync m16n8k16, bf16 in, fp32 accumulate):
+//
+// - A block of 4 warps owns 64 (query, head) rows of one (b, KV head): row r
+//   is query r / G of query head kvh * G + r % G, so one K/V tile in shared
+//   memory serves all G = H/KV query heads of the group (progen-s G = 2,
+//   foldscore-s G = 1), and any G fills the block. A warp owns 16 rows.
+// - Q (64 rows) and the first K/V tile of 32 keys arrive by 16-byte
+//   cp.async in one group; later tiles are double-buffered, the next in
+//   flight while the current one is used. Shared rows are padded by 16
+//   bytes, so the 8 row addresses of each ldmatrix hit distinct banks. Keys
+//   past seq_k and rows past seq_q are zero-filled, never read.
+// - Q.K^T: Q's A fragments come by ldmatrix once and stay in registers (hd
+//   <= 128; at hd 256 they are re-read from shared memory each tile to keep
+//   registers for the 128-float accumulator), K's B fragments by ldmatrix.
+//   The 1/sqrt(hd) scale goes on the fp32 scores, not on a bf16 q.
+// - Softcap, the causal / window / seq_q / seq_k masks and the online
+//   softmax run on the score fragments in registers; a row's max is two
+//   shfl_xor over its quad, its sum is kept per thread and reduced once at
+//   the end.
+// - P.V: P is rounded to bf16 in registers and reused as the A operand
+//   (the score fragment's layout is the A fragment's), V's B fragments
+//   come by ldmatrix.trans, the accumulator is fp32.
+// - Key tiles with no live key for the block are never loaded (the rule is
+//   `live_key_tiles` in flash_attention.py); a warp whose 16 rows have no
+//   live key in a loaded tile skips its products (exact: such a tile adds
+//   nothing and rescales by 1). A row with no live key, or past seq_q,
+//   writes exact zeros (l floored at 1e-20).
+// One template covers head dims 16-256 with 32-key tiles; shared memory is
+// 15 KB at hd 32 and 99 KB at hd 256.
+//
+// Rounding P to bf16 costs at most 2^-9 relative per term, inside the bf16
+// tolerance of 2e-2 against attention_ref; attention_tiled_ref in
+// flash_attention.py repeats this algebra in plain PyTorch.
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int THREADS = 128;
 
 __device__ __forceinline__ bool is_live(int row, int col, int seq_q,
                                         int seq_k, int causal, int window) {
@@ -47,154 +79,313 @@ __device__ __forceinline__ bool is_live(int row, int col, int seq_q,
   return ok;
 }
 
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-                 int Sq, int Sk, int seq_q, int seq_k, int causal, int window,
-                 float softcap, float scale) {
-  __shared__ float q_s[BQ][HD];
-  __shared__ float k_s[BK][HD + 1];
-  __shared__ float v_s[BK][HD];
-  __shared__ float s_s[BQ][BK + 1];
-  __shared__ float acc_s[BQ][HD];
-  __shared__ float m_s[BQ], l_s[BQ], a_s[BQ];
+// ---------------------------------------------------------------------------
+// bf16: mma.sync tensor cores
+// ---------------------------------------------------------------------------
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const T* qb = q + ((long long)b * H + h) * Sq * HD;
-  const T* kb = k + ((long long)b * KV + kvh) * Sk * HD;
-  const T* vb = v + ((long long)b * KV + kvh) * Sk * HD;
+using bf16 = __nv_bfloat16;
 
-  for (int i = tid; i < BQ * HD; i += nt) {
-    const int r = i / HD, d = i % HD, row = q0 + r;
-    q_s[r][d] = row < Sq ? to_f(qb[(long long)row * HD + d]) : 0.f;
-    acc_s[r][d] = 0.f;
-  }
-  for (int r = tid; r < BQ; r += nt) {
-    m_s[r] = REPRO_NEG_INF;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_BQ = 16 * MMA_WARPS;   // (query, head) rows a block
+constexpr int MMA_BK = 32;               // keys a tile
 
-  const int warp = tid / 32, lane = tid % 32, nw = nt / 32;
-  const int n_kb = (seq_k + BK - 1) / BK;
-  for (int kbi = 0; kbi < n_kb; ++kbi) {
-    const int k0 = kbi * BK;
-    if (causal && k0 > q0 + BQ - 1) break;                 // causal limit
-    if (window > 0 && k0 + BK - 1 <= q0 - window) continue;  // outside window
+template <int HD>
+struct MmaTile {
+  static constexpr int LD = HD + 8;      // shared row stride: 16 B of pad
+  static constexpr bool Q_REGS = HD <= 128;   // Q fragments in registers
+  static constexpr int KS = HD / 16;     // k-steps of Q.K^T
+  static constexpr int NT = MMA_BK / 8;  // score n-tiles
+  static constexpr int ND = HD / 8;      // accumulator n-tiles
+  static constexpr size_t SMEM =         // Q, then two stages of K and V
+      sizeof(bf16) * ((size_t)MMA_BQ * LD + 4 * (size_t)MMA_BK * LD);
+};
 
-    for (int i = tid; i < BK * HD; i += nt) {
-      const int j = i / HD, d = i % HD, col = k0 + j;
-      const bool in = col < Sk;
-      k_s[j][d] = in ? to_f(kb[(long long)col * HD + d]) : 0.f;
-      v_s[j][d] = in ? to_f(vb[(long long)col * HD + d]) : 0.f;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the
+// i-th, whose fragment lands in r[i].
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, ``lo`` in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
+                     int KV, int Sq, int Sk, int seq_q, int seq_k, int causal,
+                     int window, float softcap, float scale) {
+  using Tl = MmaTile<HD>;
+  constexpr int LD = Tl::LD, KS = Tl::KS, NT = Tl::NT, ND = Tl::ND;
+  constexpr int BQ = MMA_BQ, BK = MMA_BK, C8 = HD / 8;   // 16-B pieces a row
+  extern __shared__ __align__(16) unsigned char msm[];
+  bf16* qs = reinterpret_cast<bf16*>(msm);   // [BQ][LD]
+  bf16* kvs = qs + BQ * LD;                  // [stage][K, V][BK][LD]
+
+  const int G = H / KV, n_rows = G * Sq;     // row r: query r / G, head r % G
+  const int r0 = blockIdx.x * BQ, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long kv_off = ((long long)b * KV + kvh) * Sk * HD;
+  const bf16* kb = k + kv_off;
+  const bf16* vb = v + kv_off;
+  // (b, head kvh * G + g, query 0) is at q + qh_off + g * Sq * HD
+  const long long qh_off = ((long long)b * H + (long long)kvh * G) * Sq * HD;
+
+  // the key tiles that hold a live key of some live row of this block
+  const int row_lo = r0 / G;
+  const int row_hi = min((min(r0 + BQ, n_rows) - 1) / G, seq_q - 1);
+  int t_lo = 0, t_hi = (seq_k + BK - 1) / BK;
+  if (causal) t_hi = min(t_hi, row_hi / BK + 1);
+  if (window > 0) t_lo = max(0, row_lo - window + 1) / BK;
+  const int t_end = row_hi < row_lo ? t_lo : max(t_lo, t_hi);
+
+  auto load_kv = [&](int t, int stage) {
+    bf16* ks = kvs + stage * 2 * BK * LD;
+    bf16* vs = ks + BK * LD;
+    const int k0 = t * BK;
+    for (int i = tid; i < BK * C8; i += MMA_THREADS) {
+      const int j = i / C8, off = (i % C8) * 8;
+      const bool in = k0 + j < seq_k;
+      const long long src = (long long)(in ? k0 + j : 0) * HD + off;
+      cp_async16(ks + j * LD + off, kb + src, in);
+      cp_async16(vs + j * LD + off, vb + src, in);
     }
-    __syncthreads();
+  };
+  if (t_end > t_lo) {               // group: Q and the first K/V tile
+    for (int i = tid; i < BQ * C8; i += MMA_THREADS) {
+      const int rr = i / C8, off = (i % C8) * 8, r = r0 + rr;
+      const bool in = r < n_rows && r / G < seq_q;
+      const long long src =
+          in ? qh_off + ((long long)(r % G) * Sq + r / G) * HD + off : 0;
+      cp_async16(qs + rr * LD + off, q + src, in);
+    }
+    load_kv(t_lo, 0);
+  }
+  cp_async_commit();
 
-    for (int i = tid; i < BQ * BK; i += nt) {
-      const int r = i / BK, j = i % BK;
-      float s = REPRO_NEG_INF;
-      if (is_live(q0 + r, k0 + j, seq_q, seq_k, causal, window)) {
-        float acc = 0.f;
+  // this warp's rows: wr0 + lane / 4 (fragment halves 0, 1) and + 8 (2, 3);
+  // a row past the last one takes the position seq_q, which masks it
+  const int wr0 = r0 + warp * 16;
+  int pos[2];
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc += q_s[r][d] * k_s[j][d];
-        s = acc * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      }
-      s_s[r][j] = s;
-    }
-    __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int r = wr0 + lane / 4 + 8 * h;
+    pos[h] = r < n_rows ? r / G : seq_q;
+  }
+  const int wpos_lo = wr0 / G;
+  const int wpos_hi = min((min(wr0 + 16, n_rows) - 1) / G, seq_q - 1);
 
-    // online softmax update, one warp per query row
-    for (int r = warp; r < BQ; r += nw) {
-      const int row = q0 + r;
-      float cm = REPRO_NEG_INF;
-      for (int j = lane; j < BK; j += 32) cm = fmaxf(cm, s_s[r][j]);
-      cm = warp_max(cm);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, cm);
-      float ps = 0.f;
-      for (int j = lane; j < BK; j += 32) {
-        const float p =
-            is_live(row, k0 + j, seq_q, seq_k, causal, window)
-                ? expf(s_s[r][j] - m_new)
-                : 0.f;
-        s_s[r][j] = p;
-        ps += p;
-      }
-      ps = warp_sum(ps);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + ps;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < BQ * HD; i += nt) {
-      const int r = i / HD, d = i % HD;
-      float a = acc_s[r][d] * a_s[r];
+  float acc[ND][4], m[2], l[2];
 #pragma unroll
-      for (int j = 0; j < BK; ++j) a += s_s[r][j] * v_s[j][d];
-      acc_s[r][d] = a;
-    }
+  for (int h = 0; h < 2; ++h) {
+    m[h] = REPRO_NEG_INF;
+    l[h] = 0.f;                     // this thread's part of the row sum
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  unsigned qf[Tl::Q_REGS ? KS : 1][4];
+  // ldmatrix lane offsets: A (rows lane % 8 + 8 (lane / 8 % 2), cols 8 (lane
+  // / 16)); B from K rows (keys lane % 8 + 8 (lane / 16), dims 8 (lane / 8 %
+  // 2)); B from V rows by .trans (keys lane % 8 + 8 (lane / 8 % 2), dims
+  // 8 (lane / 16))
+  const int a_off = (lane % 8 + 8 * (lane / 8 % 2)) * LD + 8 * (lane / 16);
+  const int k_off = (lane % 8 + 8 * (lane / 16)) * LD + 8 * (lane / 8 % 2);
+  const int v_off = a_off;
+  const bf16* qw = qs + warp * 16 * LD;
+
+  for (int t = t_lo; t < t_end; ++t) {
+    const int stage = (t - t_lo) & 1;
+    if (t + 1 < t_end) load_kv(t + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();             // tile t (and Q) are in
     __syncthreads();
+    if constexpr (Tl::Q_REGS) {
+      if (t == t_lo) {
+#pragma unroll
+        for (int s = 0; s < KS; ++s) ldmatrix_x4(qf[s], qw + a_off + 16 * s);
+      }
+    }
+    const int k0 = t * BK;
+    const bool live = wpos_hi >= wpos_lo && (!causal || k0 <= wpos_hi) &&
+                      (window <= 0 || k0 + BK - 1 > wpos_lo - window);
+    if (live) {                     // warp-uniform
+      const bf16* ks = kvs + stage * 2 * BK * LD;
+      const bf16* vs = ks + BK * LD;
+
+      // S = Q K^T (fp32)
+      float s[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        unsigned a[4];
+        if constexpr (Tl::Q_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[st][e];
+        } else {
+          ldmatrix_x4(a, qw + a_off + 16 * st);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          unsigned bk[4];
+          ldmatrix_x4(bk, ks + n * 8 * LD + k_off + 16 * st);
+          mma_bf16(s[n], a, bk[0], bk[1]);
+          mma_bf16(s[n + 1], a, bk[2], bk[3]);
+        }
+      }
+
+      // scale, softcap, masks; the online softmax per row half
+      float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          float x = s[n][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          s[n][e] = is_live(pos[e / 2], col, seq_q, seq_k, causal, window)
+                        ? x
+                        : REPRO_NEG_INF;
+          mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+        }
+      float alpha[2], m_new[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        m_new[h] = fmaxf(m[h], mx[h]);
+        alpha[h] = expf(m[h] - m_new[h]);
+        m[h] = m_new[h];
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const float p =
+              is_live(pos[e / 2], col, seq_q, seq_k, causal, window)
+                  ? expf(s[n][e] - m_new[e / 2])
+                  : 0.f;
+          s[n][e] = p;
+          l[e / 2] += p;
+        }
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e / 2];
+
+      // O += P V: P's fragments, rounded to bf16, are the A operand
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const unsigned pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          unsigned bv[4];
+          ldmatrix_x4_trans(bv, vs + kk * 16 * LD + v_off + 8 * n);
+          mma_bf16(acc[n], pa, bv[0], bv[1]);
+          mma_bf16(acc[n + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();                // this stage is free for tile t + 2
   }
 
-  T* ob = o + ((long long)b * H + h) * Sq * HD;
-  for (int i = tid; i < BQ * HD; i += nt) {
-    const int r = i / HD, d = i % HD, row = q0 + r;
-    if (row < Sq)
-      ob[(long long)row * HD + d] =
-          from_f<T>(acc_s[r][d] / fmaxf(l_s[r], 1e-20f));
+  // finish the row sums over the quad, divide, write bf16
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int r = wr0 + lane / 4 + 8 * h;
+    if (r >= n_rows) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-20f);
+    bf16* orow = o + qh_off + ((long long)(r % G) * Sq + r / G) * HD +
+                 (lane % 4) * 2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<unsigned*>(orow + n * 8) =
+          pack_bf16(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
   }
 }
 
-template <typename T, int HD, int BQ, int BK>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int H, int KV, int Sq, int Sk, int seq_q, int seq_k, int causal,
-            int window, float softcap, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, HD, BQ, BK><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Sk, seq_q,
-      seq_k, causal, window, softcap, 1.f / sqrtf(static_cast<float>(HD)));
+template <int HD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int KV, int Sq, int Sk, int seq_q,
+                       int seq_k, int causal, int window, float softcap,
+                       int device, cudaStream_t stream) {
+  constexpr size_t smem = MmaTile<HD>::SMEM;
+  static unsigned long long smem_set = 0;
+  cudaError_t err =
+      allow_smem(flash_fwd_mma_kernel<HD>, smem_set, device, smem);
+  if (err != cudaSuccess) return err;
+  const long long n_rows = (long long)(H / KV) * Sq;
+  const dim3 grid((unsigned)((n_rows + MMA_BQ - 1) / MMA_BQ), KV, B);
+  flash_fwd_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, Sq, Sk,
+      seq_q, seq_k, causal, window, softcap,
+      1.f / sqrtf(static_cast<float>(HD)));
+  return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KV, int Sq, int Sk, int hd,
-                        int seq_q, int seq_k, int causal, int window,
-                        float softcap, cudaStream_t s) {
-  // tiles sized so every variant's static shared memory stays under 48 KB
+cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
+                         void* o, int B, int H, int KV, int Sq, int Sk,
+                         int hd, int seq_q, int seq_k, int causal, int window,
+                         float softcap, int device, cudaStream_t s) {
+#define REPRO_MMA_CASE(HD)                                                \
+  case HD:                                                                \
+    return launch_mma<HD>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,     \
+                          causal, window, softcap, device, s);
   switch (hd) {
-    case 16:
-      launch<T, 16, 32, 32>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
-                            causal, window, softcap, s);
-      break;
-    case 32:
-      launch<T, 32, 32, 32>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
-                            causal, window, softcap, s);
-      break;
-    case 64:
-      launch<T, 64, 32, 32>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
-                            causal, window, softcap, s);
-      break;
-    case 128:
-      launch<T, 128, 16, 16>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
-                             causal, window, softcap, s);
-      break;
-    case 256:   // 8 x 8 tiles: ~33 KB (16 x 16 would take ~66 KB)
-      launch<T, 256, 8, 8>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,
-                           causal, window, softcap, s);
-      break;
+    REPRO_MMA_CASE(16)
+    REPRO_MMA_CASE(32)
+    REPRO_MMA_CASE(64)
+    REPRO_MMA_CASE(128)
+    REPRO_MMA_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
+#undef REPRO_MMA_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -448,8 +639,8 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Sq > 1: the register-tiled kernel for fp32, the shared-memory kernel for
-// bf16. Returns cudaGetLastError() after the launch (0 = launched).
+// Sq > 1: the register-tiled kernel for fp32, the mma.sync kernel for bf16.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int KV, int Sq, int Sk, int hd,
@@ -463,8 +654,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     err = dispatch_f32(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q, seq_k,
                        causal, window, softcap, device, s);
   else if (dtype == REPRO_BF16)
-    err = dispatch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q,
-                                     seq_k, causal, window, softcap, s);
+    err = dispatch_mma(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q, seq_k, causal,
+                       window, softcap, device, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;

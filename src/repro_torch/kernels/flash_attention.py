@@ -5,7 +5,9 @@ tensors and launches a CUDA kernel for CUDA tensors, chosen by shape and
 dtype: one query (Sq == 1) goes to the split-KV decode kernel
 (``csrc/flash_decode.cu``), which reads K/V in place through their strides
 and in their stored dtype; longer fp32 queries to the register-tiled kernel
-and bf16 ones to the shared-memory kernel (both ``csrc/flash_attention.cu``).
+and bf16 ones to the ``mma.sync`` tensor-core kernel (both
+``csrc/flash_attention.cu``; ``attention_tiled_ref`` repeats the latter's
+algebra).
 Contract, shared by all: q (B,H,Sq,hd), k/v (B,KV,Sk,hd) with GQA kv head =
 h // (H // KV); scale 1/sqrt(hd); optional causal mask, local ``window``
 and tanh ``softcap``; ``seq_q``/``seq_k`` (default Sq/Sk) mask rows and
@@ -29,6 +31,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' compiled head dims
 DTYPES = (torch.float32, torch.bfloat16)
 DECODE_GROUP = 16    # query rows a decode block holds
+MMA_ROWS = 64        # (query, head) rows a block of the bf16 sequence kernel
+MMA_KEYS = 32        # keys a tile of the bf16 sequence kernel
 MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
 
 _sm_count: dict[int, int] = {}
@@ -91,6 +95,83 @@ def attention_split_ref(q, k, v, n_split, *, causal=True, window=0,
     l = sum(torch.exp(mi - m) * li for mi, li, _ in parts)
     acc = sum(torch.exp(mi - m) * ai for mi, _, ai in parts)
     return (acc / l.clamp_min(1e-20)).to(q.dtype)
+
+
+def mma_smem_bytes(hd):
+    """Dynamic shared memory of a bf16 sequence block: its rows of Q, then
+    two stages of a K and a V tile, every row padded by 8 bf16."""
+    return 2 * (MMA_ROWS + 4 * MMA_KEYS) * (hd + 8)
+
+
+def live_key_tiles(row_lo, row_hi, seq_q, seq_k, causal, window, bk):
+    """The key tiles of ``bk`` keys that the sequence kernels load for a
+    block of query positions ``row_lo..row_hi``: every tile that may hold a
+    live key of a live row (``row < seq_q``), from the window's first key
+    to ``seq_k``, or to the last row when causal. The others are skipped."""
+    row_hi = min(row_hi, seq_q - 1)
+    if row_hi < row_lo:
+        return range(0)
+    t_hi = -(-seq_k // bk)
+    if causal:
+        t_hi = min(t_hi, row_hi // bk + 1)
+    t_lo = max(0, row_lo - window + 1) // bk if window > 0 else 0
+    return range(t_lo, t_hi)
+
+
+def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
+                        softcap=0.0, seq_q=None, seq_k=None):
+    """The bf16 sequence kernel's algebra in plain PyTorch. Rows are the
+    (query, head) pairs of a KV head, row r = query r // G of head r % G,
+    in blocks of ``MMA_ROWS``; each block walks ``live_key_tiles`` in tiles of
+    ``bk`` keys (keys past ``seq_k`` read as zeros) with a running max and
+    sum per row: fp32 scores scaled by 1/sqrt(hd), softcap, masks, then P
+    rounded to bf16 before P.V, fp32 accumulation, the final divide with l
+    floored at 1e-20. The same function as ``attention_ref`` up to P's
+    rounding; the tests hold one to the other."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    seq_q = Sq if seq_q is None else seq_q
+    seq_k = Sk if seq_k is None else seq_k
+    scale = 1.0 / math.sqrt(hd)
+    n_rows = G * Sq
+    qr = q.float().reshape(B, KV, G, Sq, hd).transpose(2, 3) \
+        .reshape(B, KV, n_rows, hd)
+    kf, vf = k.float(), v.float()
+    out = qr.new_zeros(B, KV, n_rows, hd)
+    for r0 in range(0, n_rows, MMA_ROWS):
+        rows = torch.arange(r0, min(r0 + MMA_ROWS, n_rows), device=q.device)
+        pos = (rows // G)[:, None]
+        m = qr.new_full((B, KV, len(rows), 1), NEG_INF)
+        l = qr.new_zeros(B, KV, len(rows), 1)
+        acc = qr.new_zeros(B, KV, len(rows), hd)
+        for t in live_key_tiles(r0 // G, int(rows[-1]) // G, seq_q, seq_k,
+                                causal, window, bk):
+            cols = torch.arange(t * bk, (t + 1) * bk, device=q.device)
+            held = cols < seq_k
+            kt = kf.new_zeros(B, KV, bk, hd)
+            vt = vf.new_zeros(B, KV, bk, hd)
+            kt[:, :, held] = kf[:, :, cols[held]]
+            vt[:, :, held] = vf[:, :, cols[held]]
+            s = torch.einsum("bkrd,bkjd->bkrj", qr[:, :, rows], kt) * scale
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            live = (pos < seq_q) & held[None, :]
+            if causal:
+                live &= cols[None, :] <= pos
+            if window > 0:
+                live &= cols[None, :] > pos - window
+            s = s.masked_fill(~live, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new) * live
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bkrj,bkjd->bkrd", p.to(torch.bfloat16).float(), vt)
+            m = m_new
+        out[:, :, r0:r0 + len(rows)] = acc / l.clamp_min(1e-20)
+    return out.reshape(B, KV, Sq, G, hd).transpose(2, 3) \
+        .reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def decode_splits(blocks: int, n_sms: int) -> int:

@@ -4,7 +4,7 @@ Model code calls these with model-layout tensors; each converts to the
 kernel layout and calls the kernel wrapper, which takes the plain version
 for a CPU tensor and launches the CUDA kernel for a CUDA tensor (or
 raises). ``launches`` holds one plain-integer launch count per kernel,
-``forms`` the flash kernel's count split by form.
+``forms`` the flash and wkv6 kernels' counts split by form.
 """
 
 from __future__ import annotations

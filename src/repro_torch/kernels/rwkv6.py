@@ -10,8 +10,10 @@ Layouts (the TPU kernel's):
   s0     (B, H, K, K)   fp32 incoming state
 Returns y (B, H, T, K) in r's dtype and s_T (B, H, K, K) in fp32.
 
-``wkv6_bhtk`` takes the plain version for CPU tensors and launches the CUDA
-kernel (``csrc/wkv6.cu``, token-serial, any T >= 1) for CUDA tensors.
+``wkv6_bhtk`` takes the plain version for CPU tensors and launches a CUDA
+kernel (``csrc/wkv6.cu``, token-serial) for CUDA tensors: the decode kernel
+at T = 1, the prefill kernel at T > 1 (``wkv6_serial_ref`` repeats its
+order of operations). ``_cuda.forms`` counts the two apart.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 from repro_torch.kernels import _cuda
 
 HEAD_DIMS = (16, 64)   # the CUDA kernel's templates: reduced and full rwkv6
+ROW_GROUPS = {16: 4, 64: 8}   # the prefill kernel's lanes a state column
+CHUNK = 16             # tokens the prefill kernel stages at a time
 
 
 def wkv6_ref(r, k, v, logw, u, s0, chunk=32):
@@ -66,6 +70,41 @@ def wkv6_ref(r, k, v, logw, u, s0, chunk=32):
     return torch.cat(ys, dim=2).to(r.dtype), S
 
 
+def wkv6_serial_ref(r, k, v, logw, u, s0, *, chunk=CHUNK, groups=None):
+    """The prefill kernel's order of operations in plain PyTorch, token by
+    token in fp32: chunks of ``chunk`` tokens staged with exp(logw) and the
+    bonus beta_t = sum_i r_i u_i k_i computed once a (token, row); then per
+    token y_t[j] = sum_i r_i S_ij + beta_t v_j, the rows of a column summed
+    in ``groups`` row groups (group g holds rows 4 g + 4 groups q + e, e <
+    4: a lane's rows in the kernel), each on its own, and the group sums
+    added pairwise, groups g and g + groups/2 first, as the kernel's
+    shuffles add them; then
+    S = exp(logw_t) S + k_t v_t^T. The same function as ``wkv6_ref``; the
+    tests hold one to the other."""
+    B, H, T, K = r.shape
+    groups = groups or ROW_GROUPS.get(K, 4)
+    rows = torch.tensor([q * groups * 4 + g * 4 + e for g in range(groups)
+                         for q in range(K // (groups * 4)) for e in range(4)],
+                        device=r.device)
+    S = s0.float().clone()
+    uf = u.float()[None, :, None, :]
+    ys = []
+    for t0 in range(0, T, chunk):
+        rr, kk, vv = (x[:, :, t0:t0 + chunk].float() for x in (r, k, v))
+        w = logw[:, :, t0:t0 + chunk].float().exp()
+        beta = (rr * uf * kk).sum(-1, keepdim=True)               # (B,H,C,1)
+        for t in range(rr.shape[2]):
+            part = (rr[:, :, t, :, None] * S)[:, :, rows] \
+                .reshape(B, H, groups, K // groups, K).sum(3)
+            while part.shape[2] > 1:
+                half = part.shape[2] // 2
+                part = part[:, :, :half] + part[:, :, half:]
+            ys.append(part[:, :, 0] + beta[:, :, t] * vv[:, :, t])
+            S = w[:, :, t, :, None] * S \
+                + kk[:, :, t, :, None] * vv[:, :, t, None, :]
+    return torch.stack(ys, dim=2).to(r.dtype), S
+
+
 def wkv6_bhtk(r, k, v, logw, u, s0):
     """r/k/v/logw (B,H,T,K); u (H,K); s0 (B,H,K,K) fp32. Returns y
     (B,H,T,K) in r's dtype and s_T (B,H,K,K) fp32."""
@@ -92,6 +131,10 @@ def _launch(r, k, v, logw, u, s0):
             f" s0 {tuple(s0.shape)}")
     if K not in HEAD_DIMS or T < 1:
         raise ValueError(f"{name}: head dim {K} not in {HEAD_DIMS} or T={T}")
+    if T > 1 and any(x.data_ptr() % 16 for x in (r, k, v, logw, s0)):
+        raise ValueError(f"{name}: the prefill kernel copies in 16-byte "
+                         f"pieces: r, k, v, logw and s0 must start 16-byte "
+                         f"aligned")
     y = torch.empty_like(r)
     s_T = torch.empty_like(s0)
     if B * H == 0:
@@ -100,5 +143,5 @@ def _launch(r, k, v, logw, u, s0):
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_T.data_ptr(), B, H, T, K,
         _cuda.DTYPE_CODES[r.dtype], *_cuda.device_and_stream(dev))
-    _cuda.check_launch(name, err)
+    _cuda.check_launch(name, err, "decode" if T == 1 else "prefill")
     return y, s_T

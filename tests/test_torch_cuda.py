@@ -148,6 +148,43 @@ def test_flash_fp32_sequence_form(cuda, hd, B, H, KV, S, kw):
                     rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,H,KV,S,hd,kw", [
+    (4, 8, 8, 32, 32, {}),                     # foldscore-s predict_batch
+    (1, 8, 4, 31, 32, {}),                     # progen-s admission prefill
+    (1, 8, 4, 65, 32, {}),                     # progen-s frontend_seq + 1
+    (2, 8, 4, 33, 32, {}),                     # one key past a tile
+    (2, 8, 2, 70, 256, {}),                    # hd 256, GQA
+    (2, 10, 1, 100, 256, dict(window=40)),     # hd 256, MQA, 10 heads
+    (1, 4, 2, 80, 16, dict(softcap=5.0)), (1, 2, 2, 64, 64, {}),
+    (1, 2, 1, 40, 128, dict(window=7)),
+    (2, 4, 2, 77, 32, dict(seq_q=70, seq_k=61)),
+    (1, 3, 1, 100, 64, dict(causal=False, seq_k=40, window=9)),
+    (2, 4, 4, 50, 32, dict(causal=False))])
+def test_flash_bf16_sequence_form(cuda, B, H, KV, S, hd, kw):
+    """The mma.sync form at the protein path's shapes (GQA prefill, S = 65,
+    one key past a tile), at hd 256 with GQA and MQA, and with ragged
+    lengths, a window with no key for some rows, softcap and no mask:
+    against the plain version and the tiled algebra it repeats; rows with
+    no live key exactly zero. One launch a call, counted as the bf16
+    sequence form."""
+    g = torch.Generator(device=cuda).manual_seed(S * hd)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).bfloat16()
+    q, k, v = mk(B, H, S, hd), mk(B, KV, S, hd), mk(B, KV, S, hd)
+    before = _cuda.forms["flash_attention_bhsd"]["seq_bf16"]
+    got = fa.flash_attention_bhsd(q, k, v, **kw)
+    assert _cuda.forms["flash_attention_bhsd"]["seq_bf16"] == before + 1
+    assert got.dtype == torch.bfloat16
+    got = got.float().cpu().numpy()
+    for ref in (fa.attention_ref, fa.attention_tiled_ref):
+        want = ref(q, k, v, **kw).float().cpu().numpy()
+        assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+    rows = np.arange(S)
+    no_key = rows >= kw.get("seq_q", S)
+    if kw.get("window", 0) > 0 and not kw.get("causal", True):
+        no_key |= rows - kw["window"] + 1 >= kw.get("seq_k", S)
+    assert np.all(got[:, :, no_key] == 0.0)
+
+
 def wkv_inputs(g, device, B, H, T, K, dtype):
     mk = lambda *s: torch.randn(*s, generator=g, device=device)
     r, k, v = (0.5 * mk(B, H, T, K)).to(dtype), (0.5 * mk(B, H, T, K)).to(
@@ -175,6 +212,37 @@ def test_wkv6_matches_plain_and_counts_launches(cuda, dtype, B, H, T, K):
                     rtol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,K,ends", [
+    (8, 64, 512, 64, False), (8, 64, 1, 64, False), (2, 8, 2, 64, False),
+    (2, 8, 31, 64, False), (2, 8, 40, 64, True), (2, 4, 70, 16, False),
+    (2, 4, 33, 16, True)])
+def test_wkv6_forms_match_plain(cuda, dtype, B, H, T, K, ends):
+    """The prefill kernel (T > 1) at rwkv6-7b's prefill shape, at short and
+    ragged T and with logw at -e^5 and -1e-6, and the decode kernel (T = 1):
+    against the plain version and the prefill kernel's own algebra, each
+    launch counted under its form."""
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(T + K)
+    args = wkv_inputs(g, cuda, B, H, T, K, dt)
+    if ends:
+        args[3][..., ::2] = -float(np.exp(5.0))
+        args[3][..., 1::2] = -1e-6
+    form = "decode" if T == 1 else "prefill"
+    before = dict(_cuda.forms["wkv6_bhtk"])
+    y, s = rwkv6.wkv6_bhtk(*args)
+    want = dict(before, **{form: before[form] + 1})
+    assert _cuda.forms["wkv6_bhtk"] == want
+    t = 2e-5 if dtype == "float32" else 2e-2
+    refs = [rwkv6.wkv6_ref] + ([rwkv6.wkv6_serial_ref] if T <= 70 else [])
+    for ref in refs:
+        y_ref, s_ref = ref(*args)
+        assert_allclose(y.float().cpu().numpy(), y_ref.float().cpu().numpy(),
+                        atol=t, rtol=t)
+        assert_allclose(s.cpu().numpy(), s_ref.cpu().numpy(), atol=1e-4,
+                        rtol=1e-3)
+
+
 def test_wkv6_rejects_bad_inputs(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     r, k, v, logw, u, s0 = wkv_inputs(g, cuda, 1, 2, 5, 16, torch.float32)
@@ -186,6 +254,9 @@ def test_wkv6_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):                    # not contiguous
         rwkv6.wkv6_bhtk(r.transpose(2, 3).contiguous().transpose(2, 3), k,
                         v, logw, u, s0)
+    with pytest.raises(ValueError):                    # not 16-byte aligned
+        x = torch.zeros(r.numel() + 1, device=cuda)[1:].view(r.shape)
+        rwkv6.wkv6_bhtk(x, k, v, logw, u, s0)
     with pytest.raises(ValueError):                    # head dim 24
         x = torch.zeros(1, 2, 5, 24, device=cuda)
         rwkv6.wkv6_bhtk(x, x, x, x, x[0, :, 0], torch.zeros(1, 2, 24, 24,
