@@ -12,7 +12,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    kernel's, the plain version's and (for flash) ``scaled_dot_product_
    attention``'s device time at the main path's shapes (calls captured in
    a CUDA graph and replayed), beside the wall time of back-to-back
-   eager calls.
+   eager calls. Paged decode is also held at rows of length 0, 1, 7, 8, 9
+   and the full capacity behind a NaN trash page, at head dims 16-256,
+   groups of 1-20 and 1, 2 and 5 key ranges forced, and timed at 24 slots
+   x 43 tokens (one range and two, forced) and at a design length, 256
+   slots x 320 tokens with its pools past the L2 cache; beside them the
+   launch floor, the device time of a 1-element ``add_``.
 3. Small-input agreement: the reduced payload on the card (kernels) and on
    the CPU (plain versions), same seed and noise, in fp32: the same
    sampled tokens, log-likelihoods, scores and accepted designs.
@@ -26,7 +31,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    decode step, the flash kernel once per layer per prompt prefill and
    per ``predict_batch``.
 5. Where the time goes: one more design cycle under ``torch.profiler``,
-   device time by kernel and the device's busy share.
+   device time by kernel and the device's busy share; paged decode must
+   be one device kernel a layer a decode step, with no combine.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
@@ -91,8 +97,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 RG_BATCH, RG_PROMPT, RG_GEN = 8, 2560, 32
 RGLRU_TOL = 1e-5                                 # test_kernels.py's own
 # the port's kernels, as the profiler names them
-PORT_KERNELS = ("paged_decode_kernel", "flash_fwd_", "flash_decode_",
-                "wkv6_", "rglru_kernel")
+PORT_KERNELS = ("decode_attention_", "flash_fwd_", "wkv6_",
+                "rglru_kernel")
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
 
@@ -190,23 +196,130 @@ def dtype_name(dt):
     return str(dt).split(".")[1]
 
 
-def paged_inputs(torch, rng, B, dtype, *, KV=4, G=2, hd=32, page=8, maxp=11,
-                 lengths=None):
-    """Paged decode inputs at progen-s shapes (24-row engine: 11 pages of 8
-    per row); random lengths with every fifth slot inactive by default."""
+def paged_inputs(torch, rng, lengths, dtype, *, KV=4, G=2, hd=32, page=8,
+                 maxp=11, trash=float("nan")):
+    """Paged decode inputs on the card, one row a length, at progen-s'
+    heads and its 24-slot engine's 11 pages of 8 by default: every row's
+    live pages drawn from a scrambled pool, every page past its length the
+    trash page (the pool's last), which holds ``trash``: NaN by default,
+    so that a key read past a row's length shows as NaN."""
     import numpy as np
+    B = len(lengths)
     P = B * maxp + 1
-    mk = lambda *s: torch.tensor(rng.normal(size=s).astype(np.float32),
-                                 device="cuda").to(dtype)
-    q = mk(B, KV, G, hd)
-    kp, vp = mk(P, KV, page, hd), mk(P, KV, page, hd)
-    bt = torch.tensor(rng.permutation(P - 1)[:B * maxp].reshape(B, maxp)
-                      .astype(np.int32), device="cuda")
-    if lengths is None:
-        lengths = rng.integers(0, maxp * page + 1, size=B)
-        lengths[::5] = 0
-    lens = torch.tensor(np.asarray(lengths, np.int32), device="cuda")
-    return q, kp, vp, bt, lens, page
+    mk = lambda *s: rng.normal(size=s).astype(np.float32)
+    q, kp, vp = mk(B, KV, G, hd), mk(P, KV, page, hd), mk(P, KV, page, hd)
+    kp[P - 1] = vp[P - 1] = trash
+    order = rng.permutation(P - 1)
+    bt = np.full((B, maxp), P - 1, np.int32)
+    for b, n in enumerate(lengths):
+        live = -(-int(n) // page)
+        bt[b, :live] = order[b * maxp:b * maxp + live]
+    t = lambda a, dt=None: torch.from_numpy(a).to("cuda", dt)
+    return (t(q, dtype), t(kp, dtype), t(vp, dtype), t(bt),
+            t(np.asarray(lengths, np.int32)), page)
+
+
+def paged_parity(torch, rng):
+    """The paged kernel against its plain version: random lengths at the
+    protein engine's shapes (24 and 32 slots), then rows of length 0, 1,
+    7, 8, 9, the full capacity, 40 and 65 behind a NaN trash page at every
+    head dim and groups of 1 to 20, at the wrapper's range count and
+    forced to 1, 2 and 5 ranges (5: more ranges than a row has tiles), and
+    a batch with no active row."""
+    from repro_torch.kernels import paged_attention as pa
+
+    for B in (24, 32):
+        for dt in (torch.float32, torch.bfloat16):
+            lengths = rng.integers(0, 11 * 8 + 1, size=B)
+            lengths[::5] = 0
+            q, kp, vp, bt, lens, page = paged_inputs(torch, rng, lengths, dt)
+            got = pa.paged_decode_bkgh(q, kp, vp, bt, lens, page_size=page)
+            want = pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page)
+            torch.cuda.synchronize()
+            check(f"paged_decode B={B} {dtype_name(dt)}", max_err(got, want),
+                  PAGED_TOL[dtype_name(dt)])
+            expect(bool((got[lens == 0] == 0).all()),
+                   "paged_decode: inactive rows are not exactly zero")
+    lengths = (0, 1, 7, 8, 9, 72, 40, 65)
+    for G, hd in ((1, 16), (2, 16), (4, 16), (1, 32), (2, 32), (4, 32),
+                  (2, 64), (8, 128), (20, 256)):
+        for dt in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, lens, page = paged_inputs(
+                torch, rng, lengths, dt, KV=2, G=G, hd=hd, maxp=9)
+            want = pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page)
+            worst = 0.0
+            for n_split in (None, 1, 2, 5):
+                got = pa.paged_decode_bkgh(
+                    q, kp, vp, bt, lens, page_size=page) if n_split is None \
+                    else pa._launch(q, kp, vp, bt, lens, page, n_split)
+                torch.cuda.synchronize()
+                expect(bool(torch.isfinite(got).all()),
+                       "paged_decode read a key past a row's length")
+                expect(bool((got[lens == 0] == 0).all()),
+                       "paged_decode: inactive rows are not exactly zero")
+                worst = max(worst, max_err(got, want))
+            check(f"paged_decode edges G={G} hd {hd} {dtype_name(dt)}, "
+                  f"lengths {lengths}, NaN trash page, 1/1/2/5 ranges",
+                  worst, PAGED_TOL[dtype_name(dt)])
+    q, kp, vp, bt, lens, page = paged_inputs(torch, rng, (0,) * 24,
+                                             torch.bfloat16)
+    for n_split in (1, 3):
+        got = pa._launch(q, kp, vp, bt, lens, page, n_split)
+        expect(bool((got == 0).all()), "paged_decode: no active row, "
+               f"{n_split} ranges: not exactly zero")
+    print("  paged_decode with no active row: exact zeros at 1 and 3 ranges",
+          flush=True)
+
+
+def time_paged(torch, pa, rng, B, n_tok, maxp, n_split=None, cold=False):
+    """Device time of paged decode at progen-s' heads in bf16: ``B`` slots
+    of ``n_tok`` cached tokens each, ``maxp`` pages of 8 a row; the kernel
+    at ``n_split`` ranges (None: the wrapper's choice), the plain version,
+    and the bound. With ``cold`` the calls rotate over input sets past 100
+    MB, twice the L2 cache, as a model's layers would find their pools.
+    ``pa`` is the module of the tree under test, so older trees can be
+    timed alike: the trash page holds zeros, since a plain version that
+    weighs a dead key's value by 0 turns a NaN there into NaN. Returns a
+    dict of the numbers."""
+    import numpy as np
+    KV, G, hd = 4, 2, 32
+    live = B * n_tok
+    n_bytes = (2 * B * KV * G * hd + 2 * live * KV * hd) * 2 \
+        + (B * maxp + B) * 4
+    b_ms, b_by = bound_ms(n_bytes, 4 * hd * G * KV * live, "bfloat16")
+    sets = [paged_inputs(torch, rng, np.full(B, n_tok), torch.bfloat16,
+                         maxp=maxp, trash=0.0)
+            for _ in range(-(-100_000_000 // n_bytes) if cold else 1)]
+    if n_split is None:
+        kernel = lambda q, kp, vp, bt, lens, page: pa.paged_decode_bkgh(
+            q, kp, vp, bt, lens, page_size=page)
+    else:
+        kernel = lambda q, kp, vp, bt, lens, page: pa._launch(
+            q, kp, vp, bt, lens, page, n_split)
+    q, kp, vp, bt, lens, page = sets[0]
+    err = max_err(kernel(*sets[0]),
+                  pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page))
+    turn = itertools.cycle(sets)
+    run_k = lambda: kernel(*next(turn))
+
+    def run_p():
+        q, kp, vp, bt, lens, page = next(turn)
+        return pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page)
+    reps = dict(iters=4, replays=3) if cold else {}
+    out = {"ms": graph_ms(torch, run_k), "plain_ms": graph_ms(
+        torch, run_p, **reps), "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err, "wall_ms": wall_ms(torch, run_k),
+        "bytes": n_bytes}
+    del sets, turn
+    return out
+
+
+def launch_floor_ms(torch):
+    """Device time of the smallest launch that reads and writes device
+    memory: a 1-element ``add_`` under the same CUDA-graph replay as the
+    kernels' times."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(torch, lambda: x.add_(1.0))
 
 
 def phase_kernels(torch):
@@ -219,16 +332,7 @@ def phase_kernels(torch):
 
     rng = np.random.default_rng(0)
     print("phase 2: kernel parity on the card", flush=True)
-    for B in (24, 32):
-        for dt in (torch.float32, torch.bfloat16):
-            q, kp, vp, bt, lens, page = paged_inputs(torch, rng, B, dt)
-            got = pa.paged_decode_bkgh(q, kp, vp, bt, lens, page_size=page)
-            want = pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page)
-            torch.cuda.synchronize()
-            check(f"paged_decode B={B} {dtype_name(dt)}", max_err(got, want),
-                  PAGED_TOL[dtype_name(dt)])
-            expect(bool((got[lens == 0] == 0).all()),
-                   "paged_decode: inactive rows are not exactly zero")
+    paged_parity(torch, rng)
 
     flash_cases = [  # label, (B, H, KV, S, hd), kwargs
         ("foldscore S=32", (4, 8, 8, 32, 32), {}),
@@ -271,30 +375,46 @@ def phase_kernels(torch):
                       max_err(got, fa.attention_tiled_ref(q, k, v, **kw)),
                       TOL["bfloat16"])
 
-    # timings at the main path's shapes, in bf16 as the path runs them
+    # timings at the main path's shapes, in bf16 as the path runs them;
+    # paged decode also at a design length (256 slots x 320 tokens: a
+    # 64-row backbone + BOS + 255 residues), with its pools past the L2
+    print(f"  launch floor (a 1-element add_, CUDA-graph replay): "
+          f"{launch_floor_ms(torch):.4f} ms", flush=True)
+    smem = fa.decode_smem_bytes
+    print(f"  decode body (paged and flash decode): dynamic shared memory a "
+          f"block {smem(32, 2)} B at hd 32 bf16, {smem(32, 4)} B fp32, "
+          f"{smem(256, 2)} B at hd 256 bf16, {smem(256, 4)} B fp32",
+          flush=True)
+    records = []
+    for name, B, n_tok, maxp, cold in (
+            ("paged_decode_bkgh", 24, 43, 11, False),
+            ("paged_decode_bkgh_256x320", 256, 320, 40, True)):
+        r = time_paged(torch, pa, rng, B, n_tok, maxp, cold=cold)
+        n_split = pa.paged_decode_splits(
+            B, 4, 2, maxp, 8,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        cold_note = ", pools past the L2" if cold else ""
+        print(f"  paged_decode at {B} slots x {n_tok} cached tokens bf16 "
+              f"({n_split} range a row{cold_note}), device ms per call: "
+              f"kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.6f} ({r['bound_by']}, {r['bytes']} B), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; wall per "
+              f"back-to-back call: kernel {r['wall_ms']:.4f}; err "
+              f"{r['max_abs_err']:.3e}", flush=True)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:120",
+            "launches": 0, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    turns = [(n, time_paged(torch, pa, rng, 24, 43, 11, n_split=n)["ms"])
+             for n in (1, 2, 2, 1)]
+    print("  paged_decode at 24 slots x 43 tokens bf16, ranges forced (2: "
+          "the split kernel and the combine), device ms per call in turns: "
+          + ", ".join(f"{n} range{'s' * (n > 1)} {ms:.4f}" for n, ms in turns),
+          flush=True)
     dt = torch.bfloat16
-    q, kp, vp, bt, lens, page = paged_inputs(
-        torch, rng, 24, dt, lengths=np.full(24, 43))
-    run_k = lambda: pa.paged_decode_bkgh(q, kp, vp, bt, lens, page_size=page)
-    run_p = lambda: pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=page)
-    err = max_err(run_k(), run_p())
-    B, KV, G, hd = q.shape
-    live = int(lens.sum())
-    n_bytes = (2 * q.numel() + 2 * live * KV * hd) * 2 + (bt.numel()
-                                                          + B) * 4
-    b_ms, b_by = bound_ms(n_bytes, 4 * hd * G * KV * live, "bfloat16")
-    records = [{"name": "paged_decode_bkgh", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-                "replaces": "src/repro/kernels/paged_attention.py:120",
-                "launches": 0, "max_abs_err": err,
-                "ms": graph_ms(torch, run_k),
-                "plain_ms": graph_ms(torch, run_p),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}]
-    print(f"  paged_decode at 24 slots x 43 cached tokens bf16, device ms "
-          f"per call: kernel {records[0]['ms']:.4f}, plain "
-          f"{records[0]['plain_ms']:.4f}, bound {b_ms:.6f} ({b_by}); wall "
-          f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}, "
-          f"plain {wall_ms(torch, run_p):.4f}; err {err:.3e}", flush=True)
 
     print(f"  flash bf16 sequence form (mma.sync): dynamic shared memory "
           f"a block of {fa.MMA_ROWS} rows {fa.mma_smem_bytes(32)} B at hd 32,"
@@ -321,7 +441,7 @@ def phase_kernels(torch):
               f"({b_by}); wall per back-to-back call: kernel "
               f"{wall_ms(torch, run_k):.4f}, sdpa "
               f"{wall_ms(torch, run_l):.4f}; err {err:.3e}", flush=True)
-        if len(records) == 1:      # the record holds the predict_batch shape
+        if len(records) == 2:      # the record holds the predict_batch shape
             records.append({
                 "name": "flash_attention_bhsd", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -948,13 +1068,26 @@ def phase_profile(torch, pp):
     peptide = rng.integers(1, 21, size=PEPTIDE).astype(np.int32)
     aa_emb = rng.normal(size=(32, 16)).astype(np.float32)
     pipes = new_pipelines(rng, 4)
-    profile_step(torch, lambda: design_cycle(torch, pp, mesh, pipes, 0,
-                                             aa_emb, peptide), "cycle")
+    gens = []
+    kernels = profile_step(torch, lambda: gens.append(design_cycle(
+        torch, pp, mesh, pipes, 0, aa_emb, peptide)[0]), "cycle")
+    steps = gens[0]["batch"]["steps"]
+    paged = [e for e in kernels if "PagedKeys" in e.key]
+    n_paged = sum(e.count for e in paged)
+    n_comb = sum(e.count for e in kernels if "decode_attention_combine"
+                 in e.key)
+    print(f"  paged decode: {n_paged} device kernels, "
+          f"{sum(e.self_device_time_total for e in paged) / 1e3:.3f} ms, "
+          f"for {steps} decode steps x {pp.gen_cfg.n_layers} layers; "
+          f"{n_comb} combine kernels", flush=True)
+    expect(n_paged == steps * pp.gen_cfg.n_layers and n_comb == 0,
+           "paged decode is not one device kernel a layer a step")
 
 
 def profile_step(torch, fn, label, top=12):
     """Run ``fn`` once under torch.profiler: device time by kernel and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time. Returns the device kernels'
+    profiler events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -974,6 +1107,7 @@ def profile_step(torch, fn, label, top=12):
         if i < top or any(n in e.key for n in PORT_KERNELS):
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
                   f"{e.count:6d}x  {e.key[:100]}", flush=True)
+    return kernels
 
 
 def phase_serving(torch):
@@ -1235,6 +1369,9 @@ def main():
                   flash_attention_bhsd_hd256=rg["flash_attention_bhsd_hd256"],
                   flash_attention_bhsd_hd256_decode=rg[
                       "flash_attention_bhsd_hd256_decode"])
+    # the design-length record is the same kernel, run on the main path at
+    # the engine's shape
+    counts["paged_decode_bkgh_256x320"] = counts["paged_decode_bkgh"]
     for rec in records:
         rec["launches"] = counts[rec["name"]]
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

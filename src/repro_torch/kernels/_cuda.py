@@ -40,6 +40,7 @@ forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0},
 
 _lib = None
 _lock = threading.Lock()
+_sm_counts: dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -103,7 +104,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            handle.repro_paged_decode.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+            handle.repro_paged_decode.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
             handle.repro_paged_decode.restype = i32
             handle.repro_flash_attention.argtypes = (
                 [ptr] * 4 + [i32] * 10 + [ctypes.c_float, i32, i32, ptr])
@@ -167,6 +168,16 @@ def check_cuda_views(name, tensors, dtypes, device):
                 or t.shape[-1] * size % 16:
             raise ValueError(f"{name}: base address or strides "
                              f"{t.stride()} not 16-byte aligned")
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA ``device``, read once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def device_and_stream(device: torch.device):

@@ -31,11 +31,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' compiled head dims
 DTYPES = (torch.float32, torch.bfloat16)
 DECODE_GROUP = 16    # query rows a decode block holds
+DECODE_TILE = 32     # keys a tile of a decode block
+DECODE_STAGES = 3    # tiles in a decode block's shared-memory ring
 MMA_ROWS = 64        # (query, head) rows a block of the bf16 sequence kernel
 MMA_KEYS = 32        # keys a tile of the bf16 sequence kernel
 MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
-
-_sm_count: dict[int, int] = {}
 
 
 def _scores(q, k, causal, window, softcap, seq_q, seq_k):
@@ -101,6 +101,15 @@ def mma_smem_bytes(hd):
     """Dynamic shared memory of a bf16 sequence block: its rows of Q, then
     two stages of a K and a V tile, every row padded by 8 bf16."""
     return 2 * (MMA_ROWS + 4 * MMA_KEYS) * (hd + 8)
+
+
+def decode_smem_bytes(hd, elem):
+    """Dynamic shared memory of a block of the decode body
+    (``csrc/decode_attention.cuh``, shared with paged decode) for K/V
+    elements of ``elem`` bytes: the group's query rows in fp32, then the
+    ring of K and V tiles, each K row padded by 16 bytes."""
+    return DECODE_GROUP * hd * 4 + DECODE_STAGES * DECODE_TILE * (
+        2 * hd + 16 // elem) * elem
 
 
 def live_key_tiles(row_lo, row_hi, seq_q, seq_k, causal, window, bk):
@@ -177,7 +186,8 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
 def decode_splits(blocks: int, n_sms: int) -> int:
     """Key ranges the decode form cuts each (row, KV head) into: enough that
     ``blocks`` (B x KV x ceil(G / 16)) times it fills the card's ``n_sms``
-    SMs, at most ``MAX_SPLITS``; ranges past the last key are empty."""
+    SMs, at most ``MAX_SPLITS``; ranges past the last key are empty. With
+    1, the kernel writes the output itself and no combine runs."""
     return max(1, min(MAX_SPLITS, n_sms // max(1, blocks)))
 
 
@@ -250,18 +260,16 @@ def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
     G = H // KV
-    n_split = decode_splits(B * KV * -(-G // DECODE_GROUP), _sm_count[index])
+    n_split = decode_splits(B * KV * -(-G // DECODE_GROUP),
+                            _cuda.sm_count(dev))
     part = torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
-                       device=dev)
+                       device=dev) if n_split > 1 else None
     err = _cuda.lib().repro_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        part.data_ptr(), B, H, KV, hd, n_keys, *k.stride()[:3],
-        *v.stride()[:3], n_split, float(softcap), _cuda.DTYPE_CODES[q.dtype],
-        _cuda.DTYPE_CODES[k.dtype], *_cuda.device_and_stream(dev))
+        None if part is None else part.data_ptr(), B, H, KV, hd, n_keys,
+        *k.stride()[:3], *v.stride()[:3], n_split, float(softcap),
+        _cuda.DTYPE_CODES[q.dtype], _cuda.DTYPE_CODES[k.dtype],
+        *_cuda.device_and_stream(dev))
     _cuda.check_launch(NAME, err, "decode")
     return out

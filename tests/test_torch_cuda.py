@@ -102,14 +102,18 @@ def test_kernels_reject_bad_inputs(cuda):
     (8, 10, 1, 2048, 2048, 256), (2, 10, 1, 2048, 1, 256),
     (3, 2, 1, 2048, 127, 256), (2, 4, 4, 2048, 1337, 256),
     (1, 20, 1, 300, 300, 256), (2, 8, 4, 96, 43, 32), (2, 4, 2, 64, 64, 16),
-    (3, 4, 1, 500, 333, 64), (2, 6, 3, 200, 150, 128)])
+    (3, 4, 1, 500, 333, 64), (2, 6, 3, 200, 150, 128),
+    (34, 8, 4, 96, 43, 32), (40, 20, 4, 300, 257, 64)])
 def test_flash_decode_form_over_ring_views(cuda, qdt, kvdt, B, H, KV, L, n,
                                            hd):
     """The decode form as ``attn_decode`` calls it: one query a head over
     the first n slots of a (B, L, KV, hd) ring, handed over as a strided
     view in the cache's dtype (bf16 beside an fp32 q on the recurrentgemma
-    path); query groups of 20, 10, 2 and 1; more key ranges than keys.
-    One launch a call."""
+    path); query groups of 20, 10, 2 and 1; more key ranges than keys; and
+    136 or 160 blocks, one key range each (no combine) on an H100's 132
+    SMs. One launch a call."""
+    if B * KV > 132:
+        assert fa.decode_splits(B * KV, _cuda.sm_count(cuda)) == 1
     g = torch.Generator(device=cuda).manual_seed(n)
     q = torch.randn(B, H, 1, hd, generator=g, device=cuda).to(TORCH_DT[qdt])
     k, v = (torch.randn(B, L, KV, hd, generator=g, device=cuda)
@@ -183,6 +187,103 @@ def test_flash_bf16_sequence_form(cuda, B, H, KV, S, hd, kw):
     if kw.get("window", 0) > 0 and not kw.get("causal", True):
         no_key |= rows - kw["window"] + 1 >= kw.get("seq_k", S)
     assert np.all(got[:, :, no_key] == 0.0)
+
+
+PAGE, MAXP = 8, 9                        # 72 keys a row: 3 tiles of 32
+PAGED_LENGTHS = (0, 1, 7, 8, 9, MAXP * PAGE, 40, 65)
+
+
+def paged_case(device, seed, G, hd, dtype, lengths=PAGED_LENGTHS, KV=2):
+    """Paged decode inputs on ``device``: every row's live pages drawn from
+    a scrambled pool, every page past its length the trash page (the
+    pool's last), which holds NaN."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    P = B * MAXP + 1
+    q = rng.normal(size=(B, KV, G, hd)).astype(np.float32)
+    kp = rng.normal(size=(P, KV, PAGE, hd)).astype(np.float32)
+    vp = rng.normal(size=(P, KV, PAGE, hd)).astype(np.float32)
+    kp[P - 1] = vp[P - 1] = np.nan
+    order = rng.permutation(P - 1)
+    bt = np.full((B, MAXP), P - 1, np.int32)
+    for b, n in enumerate(lengths):
+        live = -(-n // PAGE)
+        bt[b, :live] = order[b * MAXP:b * MAXP + live]
+    t = lambda a, dt=None: torch.from_numpy(a).to(device, dt)
+    return (t(q, dtype), t(kp, dtype), t(vp, dtype), t(bt),
+            t(np.asarray(lengths, np.int32)))
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,hd", [(1, 16), (2, 16), (4, 16), (1, 32),
+                                  (2, 32), (4, 32), (2, 64), (8, 128),
+                                  (20, 256)])
+def test_paged_kernel_matches_plain(cuda, G, hd, dtype, n_split):
+    """Rows of length 0, 1, 7, 8, 9, the full capacity, 40 and 65 over a
+    scrambled pool with a NaN trash page past every row's length, at the
+    range count ``paged_decode_splits`` chooses (1 here) and forced to 1, 2
+    and 5 through the wrapper's internal argument: the plain version's
+    output within 1e-5 (fp32) or 2e-2 (bf16), the split algebra's too;
+    inactive rows exactly zero; one counted launch a call."""
+    q, kp, vp, bt, lens = paged_case(cuda, G * hd, G, hd, TORCH_DT[dtype])
+    before = _cuda.launches["paged_decode_bkgh"]
+    if n_split is None:
+        got = pa.paged_decode_bkgh(q, kp, vp, bt, lens, page_size=PAGE)
+    else:
+        got = pa._launch(q, kp, vp, bt, lens, PAGE, n_split)
+    assert _cuda.launches["paged_decode_bkgh"] == before + 1
+    want = pa.paged_decode_ref(q, kp, vp, bt, lens, page_size=PAGE)
+    split = pa.paged_decode_split_ref(q, kp, vp, bt, lens, page_size=PAGE,
+                                      n_split=n_split or 1)
+    assert _cuda.launches["paged_decode_bkgh"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[lens == 0] == 0).all())
+    t = 1e-5 if dtype == "float32" else 2e-2
+    for ref in (want, split):
+        assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                        atol=t, rtol=t)
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+def test_paged_kernel_all_rows_inactive(cuda, n_split):
+    """Every row of length 0 and every page the NaN trash page: exact
+    zeros."""
+    q, kp, vp, bt, lens = paged_case(cuda, 3, 2, 32, torch.bfloat16,
+                                     lengths=(0,) * 24, KV=4)
+    got = pa._launch(q, kp, vp, bt, lens, PAGE, n_split)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_paged_kernel_rejects_bad_inputs(cuda):
+    q, kp, vp, bt, lens = paged_case(cuda, 0, 2, 32, torch.float32)
+    run = lambda *a, page=PAGE: pa.paged_decode_bkgh(*a, page_size=page)
+    before = _cuda.launches["paged_decode_bkgh"]
+    with pytest.raises(TypeError):                     # bf16 q, fp32 pages
+        run(q.bfloat16(), kp, vp, bt, lens)
+    with pytest.raises(TypeError):                     # K and V differ
+        run(q, kp, vp.bfloat16(), bt, lens)
+    with pytest.raises(TypeError):                     # int64 block table
+        run(q, kp, vp, bt.long(), lens)
+    with pytest.raises(TypeError):                     # int64 lengths
+        run(q, kp, vp, bt, lens.long())
+    with pytest.raises(ValueError):                    # pool not contiguous
+        wide = torch.zeros(*kp.shape[:3], 64, device=cuda)[..., :32]
+        run(q, wide, vp, bt, lens)
+    with pytest.raises(ValueError):                    # not 16-byte aligned
+        x = torch.zeros(kp.numel() + 1, device=cuda)[1:].view(kp.shape)
+        run(q, x, vp, bt, lens)
+    with pytest.raises(ValueError):                    # table of other rows
+        run(q, kp, vp, bt[:-1].contiguous(), lens)
+    with pytest.raises(ValueError):                    # lengths of others
+        run(q, kp, vp, bt, torch.cat([lens, lens]))
+    with pytest.raises(ValueError):                    # page size differs
+        run(q, kp, vp, bt, lens, page=4)
+    with pytest.raises(ValueError):                    # head dim 24
+        x = torch.zeros(*kp.shape[:3], 24, device=cuda)
+        run(torch.zeros(*q.shape[:3], 24, device=cuda), x, x, bt, lens)
+    assert _cuda.launches["paged_decode_bkgh"] == before
 
 
 def wkv_inputs(g, device, B, H, T, K, dtype):
