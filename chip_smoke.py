@@ -20,7 +20,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    launch floor, the device time of a 1-element ``add_``.
 3. Small-input agreement: the reduced payload on the card (kernels) and on
    the CPU (plain versions), same seed and noise, in fp32: the same
-   sampled tokens, log-likelihoods, scores and accepted designs.
+   sampled tokens, log-likelihoods, scores and accepted designs, through
+   the paged design loop and through the dense ``generate`` and
+   ``generate_batch``.
 4. Main path: ``ProteinPayload`` at the full width of progen-s and
    foldscore-s runs 2 IMPRESS design cycles for 4 pipelines, playing the
    executor's and protocol's part: a fused paged ``generate_batch``, the
@@ -33,6 +35,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 5. Where the time goes: one more design cycle under ``torch.profiler``,
    device time by kernel and the device's busy share; paged decode must
    be one device kernel a layer a decode step, with no combine.
+5b. The paper's main path: an im-rp campaign (4 structures, the session's
+   defaults, 2 cycles) through the port's ``Coordinator``,
+   ``AsyncExecutor`` (2 workers), ``DeviceAllocator`` of the card and
+   ``ProteinPayload`` at full width, once in the default form (dense
+   ``generate``, solo ``predict``) and once batched (paged
+   ``generate_batch`` with live admission, ``predict_batch``). No task may
+   fail or retry; the counters, zeroed just before each campaign and read
+   just after, must equal what its completed tasks imply, by kernel and
+   flash form. Prints the makespan, tasks by kind, occupancy, designs
+   accepted by cycle and first calls per shape key, then profiles one
+   cycle of each form.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
@@ -64,9 +77,11 @@ kernel at head dim 256 (2c) against their plain versions and times them;
 2c also holds the flash kernel's decode form (one query over strided ring
 views, bf16 K/V beside an fp32 q, every head dim, groups of 1 to 20 query
 heads) and its fp32 sequence form (every head dim, ragged lengths, window,
-softcap, no mask), and times both at recurrentgemma-2b's shapes. Phase 3
-also holds the reduced rwkv6 (3b) and recurrentgemma (3c) models on the
-card against the CPU.
+softcap, no mask), and times both at recurrentgemma-2b's shapes. 2d holds
+the decode form at the dense sampler's shape (6 rows x 8/4 heads of 32,
+bf16, strided views of an 89-slot cache) at 1, 2 and the automatic number
+of key ranges, and times it beside sdpa. Phase 3 also holds the reduced
+rwkv6 (3b) and recurrentgemma (3c) models on the card against the CPU.
 
 Imports neither jax nor the reference package. Exits non-zero without a
 CUDA device.
@@ -74,6 +89,7 @@ CUDA device.
 
 from __future__ import annotations
 
+import collections
 import gc
 import itertools
 import json
@@ -101,6 +117,12 @@ PORT_KERNELS = ("decode_attention_", "flash_fwd_", "wkv6_",
                 "rglru_kernel")
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
+# the campaign phase (5b): the session's im-rp defaults, two cycles, in the
+# default form (dense generate, solo predict) and the batched form
+CAMPAIGN_FORMS = {"default": {},
+                  "batched": {"generate_batch_size": 4, "score_batch": 3,
+                              "decode_kernel": True}}
+CAMPAIGN_CYCLES = 2
 
 
 def expect(cond, msg):
@@ -351,6 +373,13 @@ def phase_kernels(torch):
         ("S = 1 + a tile, GQA", (2, 8, 4, 33, 32), {}),
         ("non-causal window 9, seq_k 40 of 64", (2, 4, 2, 64, 32),
          {"causal": False, "window": 9, "seq_k": 40}),
+        # the campaign's own shapes (phase 5b): the dense generate's prefill
+        # of 6 candidates, the solo predict, and predict_batch at exact
+        # length in each row bucket it pads a dispatch to
+        ("dense generate prefill 6 x GQA S=31", (6, 8, 4, 31, 32), {}),
+        ("solo predict S=30", (1, 8, 8, 30, 32), {}),
+        *((f"predict_batch {b} rows S=30", (b, 8, 8, 30, 32), {})
+          for b in (2, 4, 8, 16)),
     ]
     for label, (B, H, KV, S, hd), kw in flash_cases:
         # rows with no live key: past seq_q, or past seq_k + window - 1
@@ -422,7 +451,10 @@ def phase_kernels(torch):
     for label, (B, H, KV, S, hd) in (
             ("predict_batch 4 rows x 32 tokens", (4, 8, 8, 32, 32)),
             ("prefill 1 row x 31 tokens GQA", (1, 8, 4, 31, 32)),
-            ("prefill 1 row x 65 tokens GQA", (1, 8, 4, 65, 32))):
+            ("prefill 1 row x 65 tokens GQA", (1, 8, 4, 65, 32)),
+            ("dense generate prefill 6 rows x 31 tokens GQA",
+             (6, 8, 4, 31, 32)),
+            ("solo predict 1 row x 30 tokens", (1, 8, 8, 30, 32))):
         q = torch.randn(B, H, S, hd, device="cuda", dtype=dt)
         k = torch.randn(B, KV, S, hd, device="cuda", dtype=dt)
         v = torch.randn(B, KV, S, hd, device="cuda", dtype=dt)
@@ -691,6 +723,77 @@ def time_flash_decode(torch, g, B, H, L, hd):
     return record
 
 
+def phase_dense_decode(torch):
+    """Phase 2d: flash's decode form at the dense sampler's shape, as a
+    campaign's ``generate`` calls it (6 candidates of one backbone, 8/4
+    heads of 32, one query over the first n slots of a (6, 89, 4, 32)
+    cache: 64 + 1 + 24 slots; a 30-row backbone + BOS fills 31, and the 23
+    decode steps read 32..54), held to the plain version at 1, 2 and the
+    automatic number of key ranges in bf16 (q and cache, as the path runs
+    it) and fp32, then timed by CUDA-graph replay beside sdpa
+    (``enable_gqa``) on the same strided views and its byte bound. Returns
+    the kernel's JSON record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, hd = N_CAND, 8, 4, 32
+    L = 64 + 1 + RECEPTOR
+    auto = fa.decode_splits(B * KV * -(-(H // KV) // fa.DECODE_GROUP),
+                            _cuda.sm_count(torch.device("cuda", 0)))
+    print(f"phase 2d: flash decode form at the dense sampler's shape: "
+          f"{B} x {H}/{KV} heads of {hd}, one query over n of {L} cache "
+          f"slots (strided views), {auto} key ranges by decode_splits",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+
+    def run(q, k, v, n_split):
+        return fa._launch_decode(q, k, v, False, 0.0, 1, k.shape[2],
+                                 n_split=n_split)
+
+    for dt in (torch.bfloat16, torch.float32):
+        for n in (32, 43, 54):          # the first, middle and last step
+            q = torch.randn(B, H, 1, hd, generator=g, device="cuda").to(dt)
+            k, v = (ring_view(torch, g, B, L, KV, n, hd, dt)
+                    for _ in range(2))
+            want = fa.attention_ref(q, k, v, causal=False)
+            for n_split in (1, 2, auto):
+                got = run(q, k, v, n_split)
+                torch.cuda.synchronize()
+                check(f"flash decode {B}x{H}/{KV} over {n} of {L} keys "
+                      f"{dtype_name(dt)}, {n_split} range"
+                      f"{'s' * (n_split > 1)}", max_err(got, want),
+                      TOL[dtype_name(dt)])
+    n = 43
+    dt = torch.bfloat16
+    q = torch.randn(B, H, 1, hd, generator=g, device="cuda").to(dt)
+    k, v = (ring_view(torch, g, B, L, KV, n, hd, dt) for _ in range(2))
+    err = max_err(fa.flash_attention_bhsd(q, k, v, causal=False),
+                  fa.attention_ref(q, k, v, causal=False))
+    n_bytes = 2 * q.numel() * 2 + 2 * B * KV * n * hd * 2
+    b_ms, b_by = bound_ms(n_bytes, 4 * hd * B * H * n, "bfloat16")
+    run_k = lambda: fa.flash_attention_bhsd(q, k, v, causal=False)
+    run_p = lambda: fa.attention_ref(q, k, v, causal=False)
+    run_l = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
+                      graph_ms(torch, run_l))
+    turns = [(ns, graph_ms(torch, lambda: run(q, k, v, ns)))
+             for ns in (1, 2, auto, auto, 2, 1)]
+    print(f"  flash decode {B}x{H}/{KV}x1 over {n} of {L} bf16 cache keys "
+          f"in place, bf16 q ({auto} ranges), device ms per call: kernel "
+          f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, bound {b_ms:.6f} "
+          f"({b_by}, {n_bytes} B); wall per back-to-back call: kernel "
+          f"{wall_ms(torch, run_k):.4f}, sdpa {wall_ms(torch, run_l):.4f}; "
+          f"err {err:.3e}", flush=True)
+    print("  same call, ranges forced, device ms per call in turns: "
+          + ", ".join(f"{ns} {t:.4f}" for ns, t in turns), flush=True)
+    return {"name": "flash_attention_bhsd_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
 def phase_rglru_flash256(torch):
     """Parity of the rglru kernel and of the flash kernel at head dim 256
     against their plain versions on the card, then their device times at
@@ -956,23 +1059,36 @@ def phase_agreement(torch):
     from repro_torch.core.payload import ProteinPayload
     from repro_torch.runtime.allocator import SubMesh
 
-    print("phase 3: small-input agreement, card vs CPU (reduced, fp32)",
+    print("phase 3: small-input agreement, card vs CPU (reduced, fp32): the "
+          "paged design loop, the dense generate and generate_batch",
           flush=True)
     gcfg = get_reduced("progen-s").replace(compute_dtype="float32")
     fcfg = get_reduced("foldscore-s").replace(compute_dtype="float32")
     noise = np.random.default_rng(1).gumbel(
         size=(2, N_CAND, RECEPTOR, gcfg.padded_vocab))
-    runs = []
+    backbones = np.random.default_rng(4).normal(
+        size=(2, RECEPTOR + PEPTIDE, 16)).astype(np.float32)
+    runs, dense = [], []
     for dev in ("cuda", "cpu"):
         pp = ProteinPayload(seed=0, gen_cfg=gcfg, fold_cfg=fcfg, device=dev)
+        mesh = SubMesh((pp.device,))
         pipes = new_pipelines(np.random.default_rng(2), 2)
         aa_emb = np.random.default_rng(3).normal(size=(32, 16))
         scores = []
         for cycle in range(2):
-            gen, _ = design_cycle(torch, pp, SubMesh((pp.device,)), pipes,
-                                  cycle, aa_emb, np.arange(1, 7), noise=noise)
+            gen, _ = design_cycle(torch, pp, mesh, pipes, cycle, aa_emb,
+                                  np.arange(1, 7), noise=noise)
             scores.append(gen["rows"])
         runs.append((scores, [p["accepted"] for p in pipes]))
+        # the dense sampler: a solo generate and a dense generate_batch of
+        # two rows, on the same noise
+        one = pp.generate(mesh, {"backbone": backbones[0], "n": N_CAND,
+                                 "length": RECEPTOR, "seed": 5,
+                                 "noise": noise[0]})
+        two = pp.generate_batch(mesh, {"backbones": backbones,
+                                       "seeds": [5, 6], "n": N_CAND,
+                                       "length": RECEPTOR, "noise": noise})
+        dense.append([(one["seqs"], one["lls"])] + two["rows"])
     (gpu_rows, gpu_acc), (cpu_rows, cpu_acc) = runs
     err = 0.0
     for rows_a, rows_b in zip(gpu_rows, cpu_rows):
@@ -980,6 +1096,13 @@ def phase_agreement(torch):
             expect((s1 == s2).all(), "sampled tokens differ, card vs CPU")
             err = max(err, float(np.abs(l1 - l2).max()))
     check("log-likelihoods card vs CPU", err, 1e-3)
+    err = 0.0
+    for (s1, l1), (s2, l2) in zip(*dense):
+        expect(s1.shape == (N_CAND, RECEPTOR) and (s1 == s2).all(),
+               "dense generate / generate_batch: tokens differ, card vs CPU")
+        err = max(err, float(np.abs(l1 - l2).max()))
+    check("dense generate + generate_batch log-likelihoods card vs CPU",
+          err, 1e-3)
     expect([[a[:2] for a in acc] for acc in gpu_acc]
            == [[a[:2] for a in acc] for acc in cpu_acc],
            "card and CPU accepted different designs")
@@ -1082,6 +1205,167 @@ def phase_profile(torch, pp):
           f"{n_comb} combine kernels", flush=True)
     expect(n_paged == steps * pp.gen_cfg.n_layers and n_comb == 0,
            "paged decode is not one device kernel a layer a step")
+
+
+def run_campaign(torch, pp, form, n_cycles):
+    """One im-rp campaign through the port's campaign engine on the card:
+    ``protein_design_tasks(4, receptor_len=24, peptide_len=6)``,
+    ``ImpressProtocol`` with the session's defaults (6 candidates, at most
+    4 sub-pipelines, one device a generate and a predict) in ``form``, the
+    ``Coordinator`` over an ``AsyncExecutor`` (2 workers) over a
+    ``DeviceAllocator`` of the card. Checks that it ran to its end with no
+    failed or retried task, that every pipeline made a trajectory and that
+    every accepted design's metrics are in range. Returns (report, the
+    executor's completed tasks)."""
+    from repro_torch.core.coordinator import Coordinator
+    from repro_torch.core.pipeline import TaskState
+    from repro_torch.core.protocol import ImpressProtocol, ProtocolConfig
+    from repro_torch.data.synthetic import protein_design_tasks
+    from repro_torch.runtime.allocator import DeviceAllocator
+    from repro_torch.runtime.executor import AsyncExecutor
+
+    kw = CAMPAIGN_FORMS[form]
+    proto = ImpressProtocol(ProtocolConfig(
+        n_candidates=N_CAND, n_cycles=n_cycles, max_sub_pipelines=4,
+        gen_devices=1, predict_devices=1, **kw))
+    ex = AsyncExecutor(DeviceAllocator([pp.device]), max_workers=2)
+    try:
+        pp.register_all(ex, generate_batch_rows=kw.get("generate_batch_size"),
+                        decode_kernel=kw.get("decode_kernel", False))
+        coord = Coordinator(ex, proto)
+        for t in protein_design_tasks(4, receptor_len=RECEPTOR,
+                                      peptide_len=PEPTIDE):
+            coord.add_pipeline(proto.new_pipeline(
+                t["name"], t["backbone"], t["target"], t["receptor_len"],
+                t["peptide_tokens"]))
+        rep = coord.run(timeout=300)
+        torch.cuda.synchronize()
+        # the executor's task table: every task it ran, in every state
+        done = [t for t in ex._tasks.values() if t.state == TaskState.DONE]
+    finally:
+        ex.shutdown()
+    pls = list(coord.pipelines.values())
+    expect(not any(p.active for p in pls),
+           f"{form} campaign: pipelines still active after "
+           f"{rep['makespan_s']:.1f} s")
+    expect(rep["executor"]["n_failed"] == 0
+           and rep["executor"]["n_retried"] == 0,
+           f"{form} campaign: {rep['executor']['n_failed']} failed, "
+           f"{rep['executor']['n_retried']} retried")
+    expect(all(p.meta["trajectories"] > 0 for p in pls),
+           f"{form} campaign: a pipeline made no trajectory")
+    for p in pls:
+        for h in p.history:
+            expect(0 <= h["plddt"] <= 100 and 0 <= h["ptm"] <= 1
+                   and 0 <= h["pae"] <= 30 and len(h["sequence"]) == RECEPTOR
+                   and all(0 <= a < pp.gen_cfg.vocab_size
+                           for a in h["sequence"]),
+                   f"{form} campaign: design out of range: {h}")
+    return rep, done
+
+
+def implied_launches(form, done, g, f):
+    """The kernel launches the completed tasks of a campaign imply, by
+    kernel and flash form. Default form: a ``generate`` prefills its 6 rows
+    (one flash sequence launch a layer) and takes length - 1 decode steps
+    (one decode-form launch a layer each); a solo ``predict`` is one flash
+    sequence launch a scorer layer. Batched form: a dispatch's leader
+    carries the paged engine's admissions (one prefill a layer each) and
+    decode steps (one paged launch a layer each); a ``predict_batch``
+    dispatch is one flash launch a scorer layer."""
+    kinds = collections.Counter(t.kind for t in done)
+    if form == "default":
+        gen, pred = kinds["generate"], kinds["predict"]
+        seq, dec, paged = (g.n_layers * gen + f.n_layers * pred,
+                           g.n_layers * (RECEPTOR - 1) * gen, 0)
+        info = f"{gen} generate, {pred} predict"
+    else:
+        leaders = [t for t in done if t.kind in ("generate_batch",
+                                                 "predict_batch")
+                   and t.result["batch"].get("leader", True)]
+        steps = sum(t.result["batch"]["steps"] for t in leaders
+                    if t.kind == "generate_batch")
+        admits = sum(t.result["batch"]["admits"] for t in leaders
+                     if t.kind == "generate_batch")
+        disp = collections.Counter(t.kind for t in leaders)
+        expect(admits == N_CAND * kinds["generate_batch"],
+               f"{admits} admissions for {kinds['generate_batch']} rows")
+        seq, dec, paged = (g.n_layers * admits
+                           + f.n_layers * disp["predict_batch"], 0,
+                           g.n_layers * steps)
+        info = (f"{kinds['generate_batch']} generate_batch rows in "
+                f"{disp['generate_batch']} dispatches ({admits} admissions, "
+                f"{steps} decode steps), {kinds['predict_batch']} "
+                f"predict_batch tasks in {disp['predict_batch']} dispatches")
+    return ({"paged_decode_bkgh": paged, "flash_attention_bhsd": seq + dec,
+             "wkv6_bhtk": 0, "rglru_btc": 0},
+            {"decode": dec, "seq_f32": 0, "seq_bf16": seq}, info)
+
+
+def phase_campaign(torch, pp):
+    """Phase 5b: the paper's main path, an im-rp campaign through the
+    port's Coordinator, AsyncExecutor, DeviceAllocator and ProteinPayload
+    at full progen-s / foldscore-s width, in each form: the counters zeroed
+    just before and read just after, and held to what the completed tasks
+    imply. Then one cycle of each form under torch.profiler. Returns each
+    form's flash launches by form."""
+    from repro_torch.core import payload as payload_mod
+    from repro_torch.kernels import ops
+    from repro_torch.obs import CompileWatcher, MetricsRegistry
+
+    g, f = pp.gen_cfg, pp.fold_cfg
+    out = {}
+    for form in CAMPAIGN_FORMS:
+        print(f"phase 5b: im-rp campaign, {form} form "
+              f"{CAMPAIGN_FORMS[form] or '(dense generate, solo predict)'}:"
+              f" 4 structures (receptor {RECEPTOR} + peptide {PEPTIDE}), "
+              f"{N_CAND} candidates, {CAMPAIGN_CYCLES} cycles, at most 4 "
+              f"sub-pipelines; Coordinator -> AsyncExecutor (2 workers) -> "
+              f"DeviceAllocator([{pp.device}]) -> ProteinPayload", flush=True)
+        reg = MetricsRegistry()
+        start = {k: len(v) for k, v in payload_mod.compile_log.items()}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with CompileWatcher(reg) as watcher:
+            rep, done = run_campaign(torch, pp, form, CAMPAIGN_CYCLES)
+            watcher.absorb_compile_log(payload_mod.compile_log, start)
+        counts = dict(ops.launches)
+        forms = dict(ops.forms["flash_attention_bhsd"])
+        want, want_forms, info = implied_launches(form, done, g, f)
+        kinds = collections.Counter(t.kind for t in done)
+        accepted = {c: v["n"] for c, v in sorted(rep["cycles"].items())}
+        first = {k.split("{")[1][5:-1]: round(v["count"] * v["mean"], 3)
+                 for k, v in reg.snapshot().items()
+                 if k.startswith("torch.payload_first_call_s")}
+        print(f"  makespan {rep['makespan_s']:.3f} s; tasks by kind "
+              f"{dict(kinds)}; {rep['n_pipelines']} pipelines + "
+              f"{rep['n_sub_pipelines']} sub-pipelines, "
+              f"{rep['trajectories']} trajectories; designs accepted by "
+              f"cycle {accepted}; batch occupancy {rep['batch_occupancy']}, "
+              f"generate batch occupancy {rep['gen_batch_occupancy']}; "
+              f"device utilization (allocator) {rep['utilization']:.3f}",
+              flush=True)
+        print(f"  first calls per shape key (s, in the makespan): {first}",
+              flush=True)
+        print(f"  launches {counts}, flash by form {forms}; implied by the "
+              f"completed tasks ({info}): {want}, {want_forms}", flush=True)
+        expect(counts == want and forms == want_forms,
+               f"{form} campaign: launches {counts} {forms}, the completed "
+               f"tasks imply {want} {want_forms}")
+        expect(set(kinds) == ({"generate", "predict"} if form == "default"
+                              else {"generate_batch", "predict_batch"}),
+               f"{form} campaign ran {dict(kinds)}")
+        if form == "default":
+            expect(forms["decode"] > 0 and counts["paged_decode_bkgh"] == 0,
+                   "default form: no dense decode, or paged launches")
+        else:
+            expect(counts["paged_decode_bkgh"] > 0 and forms["decode"] == 0,
+                   "batched form: no paged decode, or dense decode launches")
+        out[form] = forms
+    for form in CAMPAIGN_FORMS:
+        profile_step(torch, lambda: run_campaign(torch, pp, form, 1),
+                     f"campaign {form} form, 1 cycle", top=8)
+    return out
 
 
 def profile_step(torch, fn, label, top=12):
@@ -1351,6 +1635,7 @@ def main():
     records = phase_kernels(torch)
     records += phase_wkv6(torch)
     records += phase_rglru_flash256(torch)
+    records.append(phase_dense_decode(torch))
     phase_agreement(torch)
     phase_lm_agreement(torch, "phase 3b", "rwkv6-7b", 40)
     phase_lm_agreement(torch, "phase 3c", "recurrentgemma-2b", 20)
@@ -1360,6 +1645,8 @@ def main():
           flush=True)
     counts = phase_main_path(torch, pp)
     phase_profile(torch, pp)
+    campaign = phase_campaign(torch, pp)
+    counts["flash_attention_bhsd_decode"] = campaign["default"]["decode"]
     del pp
     wkv = phase_serving(torch)
     counts.update(wkv6_bhtk=wkv["wkv6_bhtk_prefill"],

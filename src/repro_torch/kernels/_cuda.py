@@ -12,7 +12,10 @@ Nothing here runs at import time: the CPU tests import every module.
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
 form it took (flash: the decode form or the fp32 / bf16 sequence form;
-wkv6: the decode (T = 1) or the prefill kernel).
+wkv6: the decode (T = 1) or the prefill kernel). Both are updated under a
+lock: the executor's worker threads launch kernels at the same time.
+``build_log`` holds the wall seconds of each build that ran ``nvcc`` in this
+process (``obs.torchwatch`` counts them).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -38,17 +42,21 @@ launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
 forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0},
          "wkv6_bhtk": {"decode": 0, "prefill": 0}}
 
+build_log: list[float] = []
+
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _sm_counts: dict[int, int] = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-    for counts in forms.values():
-        for form in counts:
-            counts[form] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+        for counts in forms.values():
+            for form in counts:
+                counts[form] = 0
 
 
 def nvcc() -> str:
@@ -76,6 +84,7 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
     compiler = nvcc()
     objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
     procs = [subprocess.Popen([compiler, *NVCC_FLAGS, "-c", str(src), "-o",
@@ -94,6 +103,7 @@ def build() -> Path:
     if link.returncode:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout.decode()}")
     os.replace(tmp, lib)
+    build_log.append(time.monotonic() - t0)
     return lib
 
 
@@ -128,9 +138,10 @@ def check_launch(name: str, err: int, form: str | None = None) -> None:
     if err:
         msg = lib().repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
-    launches[name] += 1
-    if form is not None:
-        forms[name][form] += 1
+    with _count_lock:
+        launches[name] += 1
+        if form is not None:
+            forms[name][form] += 1
 
 
 def check_cuda_tensors(name, tensors, dtypes):

@@ -249,9 +249,10 @@ def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k):
     return out
 
 
-def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k):
+def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k, n_split=None):
     """Sq == 1: contiguous q; K/V strided views read in place. With one
-    query at row 0 the masks leave the first ``n_keys`` keys live."""
+    query at row 0 the masks leave the first ``n_keys`` keys live.
+    ``n_split`` forces the number of key ranges (None: ``decode_splits``)."""
     dev = _cuda.check_cuda_tensors(NAME, (q,), (DTYPES,))
     _cuda.check_cuda_views(NAME, (k, v), ((k.dtype,), (k.dtype,)), dev)
     B, H, _, hd = q.shape
@@ -261,8 +262,12 @@ def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k):
     if out.numel() == 0:
         return out
     G = H // KV
-    n_split = decode_splits(B * KV * -(-G // DECODE_GROUP),
-                            _cuda.sm_count(dev))
+    if n_split is None:
+        n_split = decode_splits(B * KV * -(-G // DECODE_GROUP),
+                                _cuda.sm_count(dev))
+    if not 1 <= n_split <= MAX_SPLITS:
+        raise ValueError(f"{NAME}: {n_split} key ranges, not in "
+                         f"[1, {MAX_SPLITS}]")
     part = torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
                        device=dev) if n_split > 1 else None
     err = _cuda.lib().repro_flash_decode(

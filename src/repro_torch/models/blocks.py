@@ -2,11 +2,11 @@
 layers on a ``repeats`` axis and runs them with ``lax.scan``; the port keeps
 one ``Layer`` module per layer in an ``nn.ModuleList`` walked by a Python
 loop (``cfg.layer_kinds`` gives each layer's kind). Four kinds are ported:
-the dense causal ``"attn"`` kind (the protein models, with its paged decode
-path), the local-window ``"attn_local"`` kind (with its dense ring cache),
-the ``"rwkv"`` kind (RWKV-6 time mix + channel mix, with its recurrent
-state as the decode cache) and the ``"rglru"`` kind (the Griffin recurrent
-block, with its RG-LRU and conv state)."""
+the dense causal ``"attn"`` kind (the protein models, with its dense cache
+and its paged decode path), the local-window ``"attn_local"`` kind (with
+its dense ring cache), the ``"rwkv"`` kind (RWKV-6 time mix + channel mix,
+with its recurrent state as the decode cache) and the ``"rglru"`` kind (the
+Griffin recurrent block, with its RG-LRU and conv state)."""
 
 from __future__ import annotations
 
@@ -19,9 +19,7 @@ from repro_torch.models.mlp import Mlp, mlp_fwd
 
 KINDS = ("attn", "attn_local", "rwkv", "rglru")
 PAGED_KINDS = ("attn",)          # kinds with a paged KV cache
-# kinds with a ported dense decode cache; ``attn``'s comes with the dense
-# sampler
-CACHE_KINDS = ("attn_local", "rwkv", "rglru")
+CACHE_KINDS = ("attn", "attn_local", "rwkv", "rglru")  # dense decode cache
 
 
 def check_kind(kind, ported=PAGED_KINDS):
@@ -88,12 +86,13 @@ def layer_fwd(kind, p, x, ctx, cfg):
 
 
 def init_layer_cache(kind, cfg, batch, length, device=None):
-    """The decode cache of one layer: the ring K/V cache of an
+    """The decode cache of one layer: the dense K/V cache of ``length``
+    slots of an ``attn`` layer (its paged cache is
+    ``attention.init_paged_cache``), the ring K/V cache of an
     ``attn_local`` layer, the recurrent state of an ``rwkv`` or ``rglru``
-    layer. ``attn``'s dense KV cache comes with the dense sampler (its
-    paged cache is ``attention.init_paged_cache``)."""
+    layer."""
     check_kind(kind, CACHE_KINDS)
-    if kind == "attn_local":
+    if kind in ("attn", "attn_local"):
         return attn.init_cache(cfg, batch, length,
                                window=_window(kind, cfg), device=device)
     if kind == "rglru":
@@ -103,7 +102,7 @@ def init_layer_cache(kind, cfg, batch, length, device=None):
 
 def layer_prefill(kind, p, x, ctx, cfg, cache):
     """Prompt forward from the cache's state. ctx: positions (S,) (read by
-    ``attn_local`` only). Returns (x, cache)."""
+    the attention kinds only). Returns (x, cache)."""
     check_kind(kind, CACHE_KINDS)
     if kind == "rwkv":
         return _rwkv(p, x, cfg, cache)

@@ -1,8 +1,8 @@
 """Decoder-only LM with an optional patch prefix (the ``vision_patches``
 frontend the ProGen structure prefix uses): forward, dense serving over
 each layer's decode cache (recurrent states of ``rwkv`` and ``rglru``
-layers, ring K/V caches of ``attn_local`` layers) and paged serving
-(``attn`` layers).
+layers, dense K/V caches of ``attn`` layers, ring K/V caches of
+``attn_local`` layers) and paged serving (``attn`` layers).
 
 Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) optional}.
 
@@ -78,7 +78,7 @@ def lm_logits(params, batch, cfg):
 
 def init_caches(cfg, batch, length, device=None):
     """One decode cache per layer (``blocks.init_layer_cache``); ``length``
-    sizes the ring caches of ``attn_local`` layers."""
+    sizes the K/V caches of ``attn`` and ``attn_local`` layers."""
     return [blocks.init_layer_cache(kind, cfg, batch, length, device=device)
             for kind in cfg.layer_kinds]
 

@@ -2,8 +2,10 @@
 
 ProGen — ProteinMPNN analogue: a structure-conditioned sequence model. The
   backbone structure is encoded as a fixed-length prefix of structure
-  embeddings; the decoder emits amino-acid tokens. ``PagedDecodeEngine``
-  samples candidates token by token over a paged KV cache.
+  embeddings; the decoder emits amino-acid tokens. ``progen_sample``
+  samples candidates by dense decoding (one prefill, then one decode step a
+  token over each layer's dense K/V cache); ``PagedDecodeEngine`` samples
+  them token by token over a paged KV cache.
 
 FoldScore — AlphaFold analogue: predicts structure-confidence metrics for a
   (sequence, target) complex: mean pLDDT in [0,100], pTM in [0,1] and an
@@ -11,12 +13,13 @@ FoldScore — AlphaFold analogue: predicts structure-confidence metrics for a
   deterministic smooth function of the sequence: the synthetic fitness
   landscape the protocol hill-climbs.
 
-Sampling: token ``i`` of a row is ``argmax(logits / temperature + g_i)`` in
-fp32 with the pad vocabulary masked to -1e30, where ``g_i`` is Gumbel noise
-(the form ``jax.random.categorical`` takes), and its log-probability is
-read from ``log_softmax`` of the unscaled logits. Each row draws its whole
-noise block from its own ``torch.Generator`` when it is admitted, so a
-row's tokens never depend on which other rows share the batch.
+Sampling (``sample_masked``, shared by both samplers): token ``i`` of a row
+is ``argmax(logits / temperature + g_i)`` in fp32 with the pad vocabulary
+masked to -1e30, where ``g_i`` is Gumbel noise (the form
+``jax.random.categorical`` takes), and its log-probability is read from
+``log_softmax`` of the unscaled logits. Each row draws its whole noise
+block from its own ``torch.Generator``, so a row's tokens never depend on
+which other rows share the batch.
 """
 
 from __future__ import annotations
@@ -97,10 +100,66 @@ def progen_logprobs(params, backbone, seqs, cfg, seq_lens=None):
     return (tok_lp * valid).sum(-1)
 
 
-def _masked_logits(logits, cfg):
+def sample_masked(logits, g, temperature, cfg):
+    """logits (B, padded_vocab), Gumbel draws g (B, padded_vocab) -> (the
+    token ``argmax(logits / temperature + g)`` over the real vocabulary
+    (B,), its log-probability under the unscaled logits (B,) fp32). fp32
+    logits are masked in place: the callers' logits are fresh."""
     logits = logits.float()
     logits[:, cfg.vocab_size:] = -1e30                   # mask pad vocab
-    return logits
+    tok = torch.argmax(logits / temperature + g, dim=-1)
+    lp = torch.log_softmax(logits, dim=-1).gather(-1, tok[:, None])[:, 0]
+    return tok, lp
+
+
+def progen_sample(params, backbone, n, length, cfg, *, seeds=None,
+                  noise=None, temperature=1.0, return_token_lps=False):
+    """Sample n sequences per structure by dense decoding. backbone
+    (B, P, 16), P <= ``frontend_seq``, on the device the sampling runs on.
+    The prompt (patches + BOS) is prefilled into dense caches of
+    ``frontend_seq + 1 + length`` slots, then ``length - 1`` decode steps
+    follow, as in the reference.
+
+    Gumbel draws (B·n, length, padded_vocab): ``noise`` when given (the
+    tests feed the reference's), else backbone row b's (n, length,
+    padded_vocab) block from a ``torch.Generator`` seeded ``seeds[b]`` on
+    the backbone's device, so a row samples the same tokens whichever rows
+    share its batch.
+
+    Returns (seqs (B,n,L) long, loglik (B,n) fp32, summed token by token as
+    the reference's scan sums it) or, with ``return_token_lps``, (seqs,
+    per-token log-probs (B,n,L))."""
+    B, P = backbone.shape[:2]
+    if P > cfg.frontend_seq:     # the caches hold frontend_seq + 1 + length
+        raise ValueError(f"backbone of {P} rows, frontend_seq is "
+                         f"{cfg.frontend_seq}")
+    dev = backbone.device
+    shape = (n, length, cfg.padded_vocab)
+    if noise is None:
+        g = torch.cat([gumbel_noise(
+            torch.Generator(device=dev).manual_seed(int(s)), shape, dev)
+            for s in seeds])
+    else:
+        g = torch.as_tensor(np.asarray(noise, np.float32), device=dev) \
+            .reshape(B * n, *shape[1:])
+    patches = encode_structure(params, backbone.repeat_interleave(n, 0), cfg)
+    bos = torch.zeros((B * n, 1), dtype=torch.long, device=dev)
+    logits, caches, t0 = lm_mod.prefill(
+        params, {"inputs": bos, "patches": patches}, cfg,
+        cache_len=cfg.frontend_seq + 1 + length)
+    tok, lp = sample_masked(logits, g[:, 0], temperature, cfg)
+    toks, lps, ll = [tok], [lp], lp
+    for i in range(1, length):
+        logits, caches = lm_mod.decode_step(params, caches, tok[:, None],
+                                            t0 + i - 1, cfg)
+        tok, lp = sample_masked(logits, g[:, i], temperature, cfg)
+        toks.append(tok)
+        lps.append(lp)
+        ll = ll + lp
+    seqs = torch.stack(toks, 1).reshape(B, n, length)
+    if return_token_lps:
+        return seqs, torch.stack(lps, 1).reshape(B, n, length)
+    return seqs, ll.reshape(B, n)
 
 
 # ---------------------------------------------------------------------------
@@ -226,13 +285,11 @@ class PagedDecodeEngine:
         logits, self.caches = lm_mod.paged_prefill(
             params, {"inputs": bos, "patches": patches}, cfg, self.caches,
             self._put(row[None]))
-        logits = _masked_logits(logits, cfg)                     # (1, V)
-        tok0 = torch.argmax(logits / temperature + noise[0], dim=-1)
-        lp0 = torch.log_softmax(logits, dim=-1).gather(-1, tok0[:, None])
+        tok0, lp0 = sample_masked(logits, noise[:1], temperature, cfg)
         self.cur_tok[slot] = tok0
         self.out_toks[slot] = 0
         self.out_toks[slot, 0] = tok0[0]
-        self.acc_lp[slot] = lp0[0, 0]
+        self.acc_lp[slot] = lp0[0]
         self.true_lens[slot] = prompt
         self._slot_meta[slot] = {"tag": spec["tag"],
                                  "length": spec["length"], "done": 1}
@@ -276,12 +333,9 @@ class PagedDecodeEngine:
         logits, self.caches = lm_mod.paged_decode_step(
             params, self.caches, self.cur_tok, true_lens,
             host[:, 2:].contiguous(), lengths, cfg)
-        logits = _masked_logits(logits, cfg)
         rows = torch.arange(self.slots, device=dev)
-        nxt = torch.argmax(logits / temperature + self.noise[rows, col],
-                           dim=-1)
-        step_lp = torch.log_softmax(logits, dim=-1).gather(
-            -1, nxt[:, None])[:, 0]
+        nxt, step_lp = sample_masked(logits, self.noise[rows, col],
+                                     temperature, cfg)
         self.out_toks[rows, col] = torch.where(active, nxt,
                                                self.out_toks[rows, col])
         self.acc_lp += torch.where(active, step_lp, 0.0)

@@ -358,14 +358,19 @@ def test_make_mask_is_the_references():
 
 
 def test_dense_attn_decode_cache_kind_stays_unported():
-    """``attn_local`` and ``rglru`` have decode caches; the dense ``attn``
-    kind does not yet (``test_torch_ssm.py`` holds it for progen-s)."""
+    """Cache kinds: ``attn_local`` and ``rglru`` have decode caches, the
+    dense ``attn`` kind IS ported now (the dense sampler's cache of
+    ``length`` slots, not a ring), and a kind the port lacks raises. The
+    name dates from before the dense kind was ported and is kept so the
+    test's history stays one series."""
     cfg = get_reduced(ARCH)
     caches = lm.init_caches(cfg, 2, 40)
     assert caches[2]["k"].shape == (2, 16, 1, 32)
     assert caches[0]["conv"].shape == (2, 3, 64)
+    assert blocks.init_layer_cache("attn", cfg, 2, 40)["k"].shape == \
+        (2, 40, 1, 32)
     with pytest.raises(ValueError, match="not ported"):
-        blocks.init_layer_cache("attn", cfg, 2, 8)
+        blocks.init_layer_cache("moe", cfg, 2, 8)
 
 
 # ---------------------------------------------------------------------------

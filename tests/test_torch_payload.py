@@ -258,9 +258,12 @@ def test_generate_batch_live_admission():
     assert_allclose(fused["rows"][0][1], lls, atol=1e-4)
     later = port.generate_batch(CPU, _gen_payload(1))
     np.testing.assert_array_equal(fused["rows"][1][0], later["rows"][0][0])
-    with pytest.raises(NotImplementedError):
-        port.generate_batch(CPU, {k: v for k, v in _gen_payload(0).items()
-                                  if k != "decode"})
+    # without ``decode`` the same payload takes the dense sampler, never
+    # the engine
+    dense = port.generate_batch(CPU, {k: v for k, v in _gen_payload(0).items()
+                                      if k != "decode"})
+    assert dense["rows"][0][0].shape == (2, 6)
+    assert "decode" not in dense["batch"] and "steps" not in dense["batch"]
 
 
 # ---------------------------------------------------------------------------
