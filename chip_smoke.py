@@ -46,6 +46,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    flash form. Prints the makespan, tasks by kind, occupancy, designs
    accepted by cycle and first calls per shape key, then profiles one
    cycle of each form.
+5c. The session: two campaigns through ``ImpressSession`` at full width
+   (progen-s, foldscore-s, foldscore-m). A, the paper's comparison: im-rp,
+   cont-v and multi-objective on one executor (2 structures, 2 cycles, 6
+   candidates), built with ``devices=None`` (every CUDA device); its
+   checkpoint survives JSON and ``from_checkpoint`` rebuilds the same
+   pipelines, whose run adds no trajectory. B: the staged binder
+   (backbone -> seqdesign on the "binder" generator -> fold on the
+   foldscore-m "multimer" scorer) beside the rescore co-tenant, 4
+   structures at receptor lengths 24 and 32 (campaign-derived length
+   buckets, masked forms), fair scheduling. No task may fail or retry,
+   every pipeline must finish and every binder pipeline accept 2 designs,
+   B's fold stage must fuse tasks, and the counters, zeroed just before
+   each campaign and read just after, must equal what its completed tasks
+   imply by kernel, flash form and param-set namespace (12 flash launches
+   a "multimer" dispatch, 8 a "default" one). Prints makespans (campaign
+   and protocol), tasks by kind and stage, dispatches and their run
+   times, designs accepted by cycle, length buckets, first calls per shape
+   key, ``predict_batch``'s wall time per scorer, whether the binder's
+   designs are the same alone and beside the co-tenant, and one profiled
+   cycle of B. Every distinct call the flash wrapper got in these runs
+   (shapes, dtypes, layout, ``seq_k``: each decode step's) is recorded and
+   then held against the plain version on fresh inputs, and a fixed-noise
+   ``generate_batch`` on the "binder" namespace must give the tokens of
+   the binder generator's weights, not the default one's.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
@@ -79,8 +103,12 @@ views, bf16 K/V beside an fp32 q, every head dim, groups of 1 to 20 query
 heads) and its fp32 sequence form (every head dim, ragged lengths, window,
 softcap, no mask), and times both at recurrentgemma-2b's shapes. 2d holds
 the decode form at the dense sampler's shape (6 rows x 8/4 heads of 32,
-bf16, strided views of an 89-slot cache) at 1, 2 and the automatic number
-of key ranges, and times it beside sdpa. Phase 3 also holds the reduced
+bf16, the whole 89-slot cache as strided views with ``seq_k`` its filled
+slots) and at the binder seqdesign's (12 rows over 89 and 97 slots), at
+the first, middle and last step, at 1, 2, the automatic
+(``decode_key_splits``: 1) and ``decode_splits``' number of key ranges,
+in bf16 and fp32, checks that recurrentgemma-2b's
+decode keeps 16, and times it beside sdpa. Phase 3 also holds the reduced
 rwkv6 (3b) and recurrentgemma (3c) models on the card against the CPU.
 
 Imports neither jax nor the reference package. Exits non-zero without a
@@ -90,10 +118,12 @@ CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import itertools
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -123,6 +153,8 @@ CAMPAIGN_FORMS = {"default": {},
                   "batched": {"generate_batch_size": 4, "score_batch": 3,
                               "decode_kernel": True}}
 CAMPAIGN_CYCLES = 2
+# the session phase (5c): two cycles a protocol; campaign B's mixed lengths
+SESSION_CYCLES, SESSION_B_LENS = 2, (24, 32)
 
 
 def expect(cond, msg):
@@ -380,6 +412,16 @@ def phase_kernels(torch):
         ("solo predict S=30", (1, 8, 8, 30, 32), {}),
         *((f"predict_batch {b} rows S=30", (b, 8, 8, 30, 32), {})
           for b in (2, 4, 8, 16)),
+        # the session's (phase 5c, campaign B, which also holds every shape
+        # its run gives the kernel): the binder's seqdesign prefill, 2 rows
+        # of 6 candidates, at each receptor length, and the fold stage's
+        # masked foldscore-m forward at the longer length bucket
+        *((f"binder seqdesign prefill {2 * N_CAND} x GQA S={r + PEPTIDE + 1}",
+           (2 * N_CAND, 8, 4, r + PEPTIDE + 1, 32), {})
+          for r in SESSION_B_LENS),
+        *((f"fold stage {b} rows S={SESSION_B_LENS[-1] + PEPTIDE}",
+           (b, 8, 8, SESSION_B_LENS[-1] + PEPTIDE, 32), {})
+          for b in (2, 4, 8)),
     ]
     for label, (B, H, KV, S, hd), kw in flash_cases:
         # rows with no live key: past seq_q, or past seq_k + window - 1
@@ -606,8 +648,9 @@ def live_pairs(Sq, Sk, causal, window):
 
 
 def ring_view(torch, g, B, L, KV, n, hd, dtype):
-    """The first n slots of a (B, L, KV, hd) ring cache as the (B, KV, n,
-    hd) strided view ``ops.flash_attention`` hands the decode form."""
+    """The first n slots of a (B, L, KV, hd) ring cache as a (B, KV, n, hd)
+    strided view; with n = L the whole cache, as ``attn_decode`` hands it
+    to the decode form (with ``seq_k`` its filled slots)."""
     ring = torch.randn(B, L, KV, hd, generator=g, device="cuda").to(dtype)
     return ring[:, :n].transpose(1, 2)
 
@@ -728,63 +771,90 @@ def phase_dense_decode(torch):
     campaign's ``generate`` calls it (6 candidates of one backbone, 8/4
     heads of 32, one query over the first n slots of a (6, 89, 4, 32)
     cache: 64 + 1 + 24 slots; a 30-row backbone + BOS fills 31, and the 23
-    decode steps read 32..54), held to the plain version at 1, 2 and the
-    automatic number of key ranges in bf16 (q and cache, as the path runs
-    it) and fp32, then timed by CUDA-graph replay beside sdpa
-    (``enable_gqa``) on the same strided views and its byte bound. Returns
-    the kernel's JSON record."""
+    decode steps read 32..54), handed the whole cache with ``seq_k = n`` as
+    ``attn_decode`` does, and at the binder seqdesign's (12 rows over the
+    89- and 97-slot caches of receptors 24 and 32). Held to the plain
+    version at the first, middle and last step at 1, 2, the automatic
+    (``decode_key_splits``: 1 over 89 slots) and ``decode_splits``' count
+    (which ignores the key capacity) of key ranges in bf16 (q and cache, as
+    the path runs it) and fp32, then timed by CUDA-graph replay beside sdpa
+    (``enable_gqa``) over the n filled slots and its byte bound. Also
+    checks that recurrentgemma-2b's decode (8 x 10/1 heads over its
+    2048-key ring) keeps 16 ranges. Returns the kernel's JSON record."""
     import torch.nn.functional as F
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
 
     B, H, KV, hd = N_CAND, 8, 4, 32
     L = 64 + 1 + RECEPTOR
-    auto = fa.decode_splits(B * KV * -(-(H // KV) // fa.DECODE_GROUP),
-                            _cuda.sm_count(torch.device("cuda", 0)))
+    sms = _cuda.sm_count(torch.device("cuda", 0))
+    blocks = B * KV * -(-(H // KV) // fa.DECODE_GROUP)
+    auto = fa.decode_key_splits(blocks, L, sms)
+    blind = fa.decode_splits(blocks, sms)
+    rg = fa.decode_key_splits(RG_BATCH * 1 * -(-10 // fa.DECODE_GROUP), 2048,
+                              sms)
     print(f"phase 2d: flash decode form at the dense sampler's shape: "
           f"{B} x {H}/{KV} heads of {hd}, one query over n of {L} cache "
-          f"slots (strided views), {auto} key ranges by decode_splits",
+          f"slots (strided views of the whole cache, seq_k = n), {auto} key "
+          f"range{'s' * (auto > 1)} by decode_key_splits ({blind} by "
+          f"decode_splits alone); recurrentgemma-2b's 2048-key ring: {rg}",
           flush=True)
+    expect(auto == 1 and rg == 16,
+           f"decode_key_splits: {auto} at the dense sampler's shape, {rg} at "
+           f"recurrentgemma-2b's ring (want 1 and 16)")
     g = torch.Generator(device="cuda").manual_seed(4)
 
-    def run(q, k, v, n_split):
-        return fa._launch_decode(q, k, v, False, 0.0, 1, k.shape[2],
-                                 n_split=n_split)
+    def run(q, k, v, n, n_split):
+        return fa._launch_decode(q, k, v, False, 0.0, 1, n, n_split=n_split)
 
-    for dt in (torch.bfloat16, torch.float32):
-        for n in (32, 43, 54):          # the first, middle and last step
-            q = torch.randn(B, H, 1, hd, generator=g, device="cuda").to(dt)
-            k, v = (ring_view(torch, g, B, L, KV, n, hd, dt)
-                    for _ in range(2))
-            want = fa.attention_ref(q, k, v, causal=False)
-            for n_split in (1, 2, auto):
-                got = run(q, k, v, n_split)
-                torch.cuda.synchronize()
-                check(f"flash decode {B}x{H}/{KV} over {n} of {L} keys "
-                      f"{dtype_name(dt)}, {n_split} range"
-                      f"{'s' * (n_split > 1)}", max_err(got, want),
-                      TOL[dtype_name(dt)])
+    # the dense sampler's shape, then the binder's seqdesign (phase 5c):
+    # 2 rows of 6 candidates over the cache of each receptor length r, a
+    # prompt of r + peptide + BOS, r - 1 decode steps
+    shapes = [(B, L, 31)] + [(2 * N_CAND, 64 + 1 + r, r + PEPTIDE + 1)
+                             for r in SESSION_B_LENS]
+    for rows, slots, prompt in shapes:
+        steps = slots - 64 - 1 - 1
+        rows_blocks = rows * KV * -(-(H // KV) // fa.DECODE_GROUP)
+        splits = {1, 2, fa.decode_key_splits(rows_blocks, slots, sms),
+                  fa.decode_splits(rows_blocks, sms)}
+        for dt in (torch.bfloat16, torch.float32):
+            # the first, middle and last step
+            for n in (prompt + 1, prompt + 1 + steps // 2, prompt + steps):
+                q = torch.randn(rows, H, 1, hd, generator=g,
+                                device="cuda").to(dt)
+                k, v = (ring_view(torch, g, rows, slots, KV, slots, hd, dt)
+                        for _ in range(2))
+                want = fa.attention_ref(q, k, v, causal=False, seq_k=n)
+                for n_split in sorted(splits):
+                    got = run(q, k, v, n, n_split)
+                    torch.cuda.synchronize()
+                    check(f"flash decode {rows}x{H}/{KV} over {n} of {slots} "
+                          f"keys {dtype_name(dt)}, {n_split} range"
+                          f"{'s' * (n_split > 1)}", max_err(got, want),
+                          TOL[dtype_name(dt)])
     n = 43
     dt = torch.bfloat16
     q = torch.randn(B, H, 1, hd, generator=g, device="cuda").to(dt)
-    k, v = (ring_view(torch, g, B, L, KV, n, hd, dt) for _ in range(2))
-    err = max_err(fa.flash_attention_bhsd(q, k, v, causal=False),
-                  fa.attention_ref(q, k, v, causal=False))
+    k, v = (ring_view(torch, g, B, L, KV, L, hd, dt) for _ in range(2))
+    err = max_err(fa.flash_attention_bhsd(q, k, v, causal=False, seq_k=n),
+                  fa.attention_ref(q, k, v, causal=False, seq_k=n))
     n_bytes = 2 * q.numel() * 2 + 2 * B * KV * n * hd * 2
     b_ms, b_by = bound_ms(n_bytes, 4 * hd * B * H * n, "bfloat16")
-    run_k = lambda: fa.flash_attention_bhsd(q, k, v, causal=False)
-    run_p = lambda: fa.attention_ref(q, k, v, causal=False)
-    run_l = lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    run_k = lambda: fa.flash_attention_bhsd(q, k, v, causal=False, seq_k=n)
+    run_p = lambda: fa.attention_ref(q, k, v, causal=False, seq_k=n)
+    kn, vn = k[:, :, :n], v[:, :, :n]
+    run_l = lambda: F.scaled_dot_product_attention(q, kn, vn,
+                                                   enable_gqa=True)
     ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
                       graph_ms(torch, run_l))
-    turns = [(ns, graph_ms(torch, lambda: run(q, k, v, ns)))
-             for ns in (1, 2, auto, auto, 2, 1)]
+    turns = [(ns, graph_ms(torch, lambda: run(q, k, v, n, ns)))
+             for ns in (1, 2, blind, blind, 2, 1)]
     print(f"  flash decode {B}x{H}/{KV}x1 over {n} of {L} bf16 cache keys "
-          f"in place, bf16 q ({auto} ranges), device ms per call: kernel "
-          f"{ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, bound {b_ms:.6f} "
-          f"({b_by}, {n_bytes} B); wall per back-to-back call: kernel "
-          f"{wall_ms(torch, run_k):.4f}, sdpa {wall_ms(torch, run_l):.4f}; "
-          f"err {err:.3e}", flush=True)
+          f"in place, bf16 q ({auto} range{'s' * (auto > 1)}, automatic), "
+          f"device ms per call: kernel {ms:.4f}, plain {plain:.4f}, sdpa "
+          f"{lib:.4f}, bound {b_ms:.6f} ({b_by}, {n_bytes} B); wall per "
+          f"back-to-back call: kernel {wall_ms(torch, run_k):.4f}, sdpa "
+          f"{wall_ms(torch, run_l):.4f}; err {err:.3e}", flush=True)
     print("  same call, ranges forced, device ms per call in turns: "
           + ", ".join(f"{ns} {t:.4f}" for ns, t in turns), flush=True)
     return {"name": "flash_attention_bhsd_decode", "route": "cuda",
@@ -1368,6 +1438,405 @@ def phase_campaign(torch, pp):
     return out
 
 
+def session_specs():
+    """Phase 5c's campaigns, at full width: A, the paper's comparison (im-rp
+    beside its cont-v control and the multi-objective demo); B, the staged
+    binder (backbone -> seqdesign -> fold on the "binder" generator and the
+    foldscore-m "multimer" scorer) beside the rescore co-tenant, at mixed
+    receptor lengths, so both the seqdesign and the fold stage take their
+    masked forms over campaign-derived length buckets."""
+    from repro_torch.session import CampaignSpec, ProtocolSpec
+    a = CampaignSpec(structures=2, receptor_len=RECEPTOR, peptide_len=PEPTIDE,
+                     max_workers=2, seed=0, reduced=False, protocols=tuple(
+                         ProtocolSpec(k, n_cycles=SESSION_CYCLES,
+                                      n_candidates=N_CAND)
+                         for k in ("im-rp", "cont-v", "multi-objective")))
+    b = CampaignSpec(structures=4, receptor_len=SESSION_B_LENS,
+                     peptide_len=PEPTIDE, max_workers=2, seed=0,
+                     reduced=False, fair_scheduling=True, protocols=(
+                         ProtocolSpec("binder", n_cycles=SESSION_CYCLES,
+                                      n_candidates=N_CAND, score_batch=2),
+                         ProtocolSpec("rescore", n_cycles=SESSION_CYCLES,
+                                      score_batch=4)))
+    return a, b
+
+
+def implied_session_launches(done, pp):
+    """The kernel launches a session's completed tasks imply, by kernel,
+    flash form and param-set namespace. A solo ``generate`` of length L
+    prefills (one flash sequence launch a layer of its namespace's
+    generator) and takes L - 1 decode steps (one decode-form launch a layer
+    each); a dense ``generate_batch`` dispatch (its leader's payload) does
+    the same once for all its rows at their shared length; a ``predict``
+    task or a ``predict_batch`` dispatch is one flash sequence launch a
+    layer of its namespace's scorer: 8 for foldscore-s ("default"), 12 for
+    foldscore-m ("multimer"). ``backbone_batch`` runs no kernel."""
+    seq = dec = 0
+    by_ns = collections.Counter()
+    for t in done:
+        if t.kind in ("generate_batch", "predict_batch") \
+                and not t.result["batch"].get("leader", True):
+            continue                 # a fused dispatch counts at its leader
+        ns = t.payload.get("params") or "default"
+        if t.kind in ("generate", "generate_batch"):
+            expect(t.payload.get("decode") != "paged",
+                   "phase 5c runs no paged decode")
+            n_layers, length = pp.gen_cfgs[ns].n_layers, int(
+                t.payload["length"])
+            seq += n_layers
+            dec += n_layers * (length - 1)
+            by_ns[ns] += n_layers * length
+        elif t.kind in ("predict", "predict_batch"):
+            n_layers = pp.fold_sets[ns][0].n_layers
+            seq += n_layers
+            by_ns[ns] += n_layers
+    zero = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
+            "wkv6_bhtk": 0, "rglru_btc": 0}
+    return (dict(zero, flash_attention_bhsd=seq + dec),
+            {"decode": dec, "seq_f32": 0, "seq_bf16": seq},
+            {ns: dict(zero, flash_attention_bhsd=n)
+             for ns, n in by_ns.items()})
+
+
+@contextlib.contextmanager
+def flash_calls(seen):
+    """Add to the set ``seen`` each distinct call the block makes to the
+    flash wrapper, as (q shape, k shape, q dtype, K/V dtype, whether K/V
+    are contiguous, keyword arguments), by a pass-through in the wrapper's
+    place in its module, where ``ops`` looks it up at each call; the
+    wrapper itself runs and counts its launches as ever."""
+    from repro_torch.kernels import flash_attention as fa
+
+    inner = fa.flash_attention_bhsd
+
+    def recording(q, k, v, **kw):
+        seen.add((tuple(q.shape), tuple(k.shape), q.dtype, k.dtype,
+                  k.is_contiguous(), tuple(sorted(kw.items()))))
+        return inner(q, k, v, **kw)
+    fa.flash_attention_bhsd = recording
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_bhsd = inner
+
+
+def hold_flash_calls(torch, seen):
+    """The flash kernel at every call ``flash_calls`` recorded, on fresh
+    N(0, 1) inputs of the same shapes, dtypes, layout (non-contiguous K/V:
+    strided views of a (B, L, KV, hd) cache, as ``attn_decode`` hands
+    them) and arguments, against the plain version (and the bf16 sequence
+    form also against ``attention_tiled_ref``), to ``TOL`` of the query's
+    dtype. Prints the calls and the worst error by form."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    for qs, ks, qdt, kdt, contiguous, kw in sorted(seen, key=str):
+        kw = dict(kw)
+        B, KV, T, hd = ks
+        q = torch.randn(*qs, generator=g, device="cuda").to(qdt)
+        if contiguous:
+            k, v = (torch.randn(*ks, generator=g, device="cuda").to(kdt)
+                    for _ in range(2))
+        else:
+            k, v = (ring_view(torch, g, B, T, KV, T, hd, kdt)
+                    for _ in range(2))
+        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        tol = TOL[dtype_name(qdt)]
+        refs = [fa.attention_ref(q, k, v, **kw)]
+        form = "decode" if qs[2] == 1 else f"seq_{dtype_name(qdt)}"
+        if form == "seq_bfloat16":
+            refs.append(fa.attention_tiled_ref(q, k, v, **kw))
+        torch.cuda.synchronize()
+        w = worst[form]
+        w[0] += 1
+        for i, want in enumerate(refs):
+            err = max_err(got, want)
+            expect(err <= tol, f"flash at a phase 5c call {qs} over {ks} "
+                   f"{dtype_name(qdt)} {kw}: max_abs_err {err} > {tol}"
+                   + (" (attention_tiled_ref)" if i else ""))
+            w[1 + i] = max(w[1 + i], err)
+    print("  flash at every distinct call phase 5c made, held to the plain "
+          "version (bf16 sequence form also to attention_tiled_ref): "
+          + "; ".join(f"{form} {n} calls, max_abs_err {e:.3e}"
+                      + (f" ({t:.3e} tiled)" if form == "seq_bfloat16"
+                         else "")
+                      for form, (n, e, t) in sorted(worst.items()))
+          + f" (tol {TOL})", flush=True)
+
+
+def run_session(torch, pp, spec, devices, label, *, keep=False, calls=None):
+    """One campaign through ``ImpressSession`` on the card: the launch
+    counters zeroed just before ``run()`` and read just after, held to what
+    the completed tasks imply by kernel, flash form and namespace; no task
+    failed or retried; every pipeline finished; one report section per
+    protocol; every design in range. The run's flash calls are added to
+    the set ``calls`` (``flash_calls``). Prints the makespan (campaign and
+    per protocol), tasks by kind and stage, dispatches, designs accepted by
+    cycle, the length buckets and first calls per shape key. Returns
+    (session or None, report, accepted designs by pipeline)."""
+    from repro_torch.core.pipeline import TaskState
+    from repro_torch.kernels import ops
+    from repro_torch.session import ImpressSession
+
+    sess = ImpressSession(spec, payload=pp, devices=devices)
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with flash_calls(set() if calls is None else calls):
+            rep = sess.run(timeout=300)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        forms = dict(ops.forms["flash_attention_bhsd"])
+        by_ns = {ns: dict(c) for ns, c in ops.by_namespace.items()}
+        coord = sess.coordinator
+        done = [t for t in sess.executor._tasks.values()
+                if t.state == TaskState.DONE]
+        first = {k.split("{")[1][5:-1]: round(v["count"] * v["mean"], 3)
+                 for k, v in sess.metrics_snapshot().items()
+                 if k.startswith("torch.payload_first_call_s")}
+        t0 = sess._run_t0
+    except BaseException:
+        sess.shutdown()
+        raise
+    if not keep:
+        sess.shutdown()
+    pls = list(coord.pipelines.values())
+    names = {ps.name or ps.kind for ps in sess.protocol_specs}
+    proto_of = {p.uid: (p.name.split("/")[0] if len(names) > 1
+                        else next(iter(names))) for p in pls}
+    ex = rep.executor
+    expect(ex["n_failed"] == 0 and ex["n_retried"] == 0,
+           f"{label}: {ex['n_failed']} failed, {ex['n_retried']} retried")
+    expect(not any(p.active for p in pls), f"{label}: pipelines still active")
+    expect(set(rep.protocols) == names,
+           f"{label}: report sections {sorted(rep.protocols)}")
+    for p in pls:
+        for h in p.history:
+            if "sequence" in h:
+                expect(0 <= h["plddt"] <= 100 and 0 <= h["ptm"] <= 1
+                       and 0 <= h["pae"] <= 30
+                       and all(0 <= a < pp.gen_cfg.vocab_size
+                               for a in h["sequence"]),
+                       f"{label}: design out of range: {h}")
+    want, want_forms, want_ns = implied_session_launches(done, pp)
+    kinds = collections.Counter(t.kind for t in done)
+    print(f"  {label}: makespan {rep.makespan_s:.3f} s; tasks by kind "
+          f"{dict(kinds)}; {rep.n_pipelines} pipelines + "
+          f"{rep.n_sub_pipelines} sub-pipelines, {rep.trajectories} "
+          f"trajectories; device utilization (allocator) "
+          f"{rep.utilization:.3f}; length buckets "
+          f"{rep['compile']['length_buckets']}", flush=True)
+    for name in sorted(names):
+        mine = [t for t in done if proto_of.get(t.pipeline_id) == name]
+        end = max(t.timestamps["DONE"] for t in mine) - t0
+        lead = [t for t in mine if t.kind not in ("generate_batch",
+                                                  "predict_batch")
+                or t.result["batch"].get("leader", True)]
+        by_cycle = {c: v["n"]
+                    for c, v in rep.protocols[name]["cycles"].items()}
+        print(f"    {name}: makespan {end:.3f} s; tasks by kind "
+              f"{dict(collections.Counter(t.kind for t in mine))}; "
+              f"{len(lead)} dispatches led; designs accepted by cycle "
+              f"{by_cycle}", flush=True)
+    runs = collections.defaultdict(list)
+    for t in done:
+        if t.kind in ("generate_batch", "predict_batch") \
+                and not t.result["batch"].get("leader", True):
+            continue
+        runs[t.kind, t.payload.get("params") or "default"].append(
+            1e3 * t.duration())
+    print("    ms a dispatch (run, host clock, first calls included), by "
+          "kind and namespace: " + "; ".join(
+              f"{k}@{ns} {len(v)}x median {statistics.median(v):.2f}, "
+              f"{min(v):.2f}-{max(v):.2f}"
+              for (k, ns), v in sorted(runs.items())), flush=True)
+    stages = {k: (v["tasks"], v["dispatches"])
+              for k, v in rep["stages"].items() if k != "__bands__"}
+    if stages:
+        print(f"    tasks, dispatches by stage: {stages}", flush=True)
+    print(f"    first calls per shape key (s, in the makespan): {first}",
+          flush=True)
+    print(f"    launches {counts}, flash by form {forms}, flash by namespace "
+          f"{ {ns: c['flash_attention_bhsd'] for ns, c in by_ns.items()} }; "
+          f"implied by the completed tasks: {want['flash_attention_bhsd']} "
+          f"flash, {want_forms}, "
+          f"{ {ns: c['flash_attention_bhsd'] for ns, c in want_ns.items()} }",
+          flush=True)
+    expect(counts == want and forms == want_forms and by_ns == want_ns,
+           f"{label}: launches {counts} {forms} {by_ns}, the completed tasks "
+           f"imply {want} {want_forms} {want_ns}")
+    accepted = {p.name: [(h["cycle"], h["sequence"], h["fitness"])
+                         for h in p.history if "sequence" in h] for p in pls}
+    return (sess if keep else None), rep, accepted
+
+
+def time_scorers(torch, pp):
+    """``predict_batch`` as campaign B's fold stage calls it (4 rows of 24 +
+    6 tokens, masked, bucketed to 32) on foldscore-m ("multimer", 12
+    layers) and on foldscore-s ("default", 8 layers), and foldscore-s's
+    exact form (4 x 30): wall ms per call to the end of its device work,
+    median of 20 after 3 warm-up calls."""
+    import numpy as np
+    from repro_torch.runtime.allocator import SubMesh
+
+    mesh = SubMesh((pp.device,))
+    rng = np.random.default_rng(9)
+    exact = {"sequences": rng.integers(1, 21, size=(4, RECEPTOR + PEPTIDE)),
+             "target": rng.normal(size=16).astype(np.float32),
+             "receptor_len": RECEPTOR}
+    masked = dict(exact, seq_lens=np.full(4, RECEPTOR + PEPTIDE),
+                  chain_splits=np.full(4, RECEPTOR))
+    out = []
+    for label, payload in (("foldscore-m masked", dict(masked,
+                                                       params="multimer")),
+                           ("foldscore-s masked", masked),
+                           ("foldscore-s exact", exact)):
+        walls = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pp.predict_batch(mesh, payload)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+        out.append(f"{label} {statistics.median(walls[3:]):.2f}")
+    print(f"  predict_batch 4 rows x {RECEPTOR + PEPTIDE} tokens (masked: "
+          f"bucket {pp.length_buckets}), wall ms a call, median of 20: "
+          + ", ".join(out), flush=True)
+
+
+def namespace_weights(torch, pp):
+    """That a param-set label picks its own weights, which the launch
+    counts cannot show where two namespaces run the same model ("binder"
+    and "default" are both progen-s): a dense ``generate_batch`` of 2 rows
+    x 6 candidates on the "binder" namespace, with fixed Gumbel noise, must
+    give the tokens of ``progen_sample`` on ``gen_stores["binder"]``'s
+    weights with the same noise at the same shape, and not those of the
+    "default" generator's."""
+    import numpy as np
+    from repro_torch.models import protein as prot
+    from repro_torch.runtime.allocator import SubMesh
+
+    rng = np.random.default_rng(11)
+    rows, length = 2, RECEPTOR
+    bbs = rng.normal(size=(rows, RECEPTOR + PEPTIDE, 16)).astype(np.float32)
+    noise = rng.gumbel(size=(rows, N_CAND, length,
+                             pp.gen_cfgs["binder"].padded_vocab)) \
+        .astype(np.float32)
+    got = pp.generate_batch(SubMesh((pp.device,)), {
+        "backbones": bbs, "seeds": np.arange(rows), "n": N_CAND,
+        "length": length, "noise": noise, "params": "binder"})
+    got = np.stack([s for s, _ in got["rows"]])
+    want = {}
+    with torch.inference_mode():
+        for ns in ("binder", "default"):
+            ver, w = pp.gen_stores[ns].current()
+            seqs, _ = prot.progen_sample(
+                pp._params_on(("gen", ns, ver), w, pp.device),
+                torch.tensor(bbs, device=pp.device), N_CAND, length,
+                pp.gen_cfgs[ns], noise=noise)
+            want[ns] = seqs.cpu().numpy()
+    same = {ns: bool(np.array_equal(got, t)) for ns, t in want.items()}
+    print(f"  generate_batch on the \"binder\" namespace, {rows} x {N_CAND} "
+          f"candidates, fixed noise: tokens equal to progen_sample on the "
+          f"binder generator's weights {same['binder']}, on the default "
+          f"generator's {same['default']}", flush=True)
+    expect(same["binder"] and not same["default"],
+           f"the \"binder\" label did not run the binder generator: {same}")
+
+
+def phase_session(torch, pp):
+    """Phase 5c: the session on the H100 at full width (progen-s,
+    foldscore-s, foldscore-m): campaign A (im-rp, cont-v, multi-objective
+    on one executor, with ``devices=None``: every CUDA device), its
+    checkpoint restored into a fresh session, and campaign B (the staged
+    binder beside the rescore co-tenant over mixed lengths), then the
+    binder alone (its designs beside and without the co-tenant, printed)
+    and one cycle of campaign B under torch.profiler; then the flash kernel
+    held to its plain version at every distinct call those runs made, and
+    the "binder" label shown to run the binder generator's weights."""
+    import dataclasses
+
+    from repro_torch.session import ImpressSession
+
+    t_phase = time.perf_counter()
+    spec_a, spec_b = session_specs()
+    cuda0 = torch.device("cuda", 0)
+    kinds_a = [p.kind for p in spec_a.protocols]
+    print(f"phase 5c: the session: campaign A {kinds_a} x "
+          f"{spec_a.structures} structures (receptor {RECEPTOR} + peptide "
+          f"{PEPTIDE}), {N_CAND} candidates, {SESSION_CYCLES} cycles; "
+          f"ImpressSession(devices=None) -> all CUDA devices", flush=True)
+    calls = set()                       # the flash calls of every run
+    sess, rep_a, _ = run_session(torch, pp, spec_a, None, "campaign A",
+                                 keep=True, calls=calls)
+    try:
+        expect(sess.allocator.healthy_devices == torch.cuda.device_count(),
+               "campaign A: devices=None did not take every CUDA device")
+        default_layers = pp.fold_sets["default"][0].n_layers
+        state = json.loads(json.dumps(sess.checkpoint()))
+    finally:
+        sess.shutdown()
+    restored = ImpressSession.from_checkpoint(state, payload=pp,
+                                              devices=[cuda0])
+    try:
+        names = sorted(p.name
+                       for p in restored.coordinator.pipelines.values())
+        expect(names == sorted(r["name"]
+                               for r in state["coordinator"]["pipelines"]),
+               "campaign A's checkpoint rebuilt other pipelines")
+        with flash_calls(calls):
+            rep_r = restored.run(timeout=60)
+        expect(rep_r.trajectories == rep_a.trajectories,
+               f"restored campaign A added trajectories: "
+               f"{rep_r.trajectories} vs {rep_a.trajectories}")
+    finally:
+        restored.shutdown()
+    print(f"  campaign A checkpoint: {len(json.dumps(state))} bytes of JSON, "
+          f"{len(names)} pipelines rebuilt, restored run adds no trajectory",
+          flush=True)
+
+    print(f"phase 5c: campaign B {[p.kind for p in spec_b.protocols]} x "
+          f"{spec_b.structures} structures, receptor lengths "
+          f"{SESSION_B_LENS} + peptide {PEPTIDE}, fair scheduling; "
+          f"ImpressSession(devices=[{cuda0}])", flush=True)
+    _, rep_b, acc_b = run_session(torch, pp, spec_b, [cuda0], "campaign B",
+                                  calls=calls)
+    cfg_m, scorer = pp.fold_sets["multimer"]
+    expect(cfg_m.name == "foldscore-m" and cfg_m.n_layers == 12
+           and len(scorer.layers) == 12 and default_layers == 8,
+           f"multimer scorer {cfg_m.name} with {len(scorer.layers)} layers")
+    st = rep_b["stages"]
+    expect({"backbone", "seqdesign", "fold"} <= set(st),
+           f"campaign B stage sections {sorted(st)}")
+    expect(st["fold"]["tasks"] > st["fold"]["dispatches"],
+           f"campaign B: {st['fold']['tasks']} fold tasks in "
+           f"{st['fold']['dispatches']} dispatches: nothing fused")
+    binder = {k: v for k, v in acc_b.items() if k.startswith("binder/")}
+    expect(len(binder) == spec_b.structures
+           and all(len(v) == SESSION_CYCLES for v in binder.values()),
+           f"campaign B: binder designs by pipeline "
+           f"{ {k: len(v) for k, v in binder.items()} }")
+
+    time_scorers(torch, pp)
+    solo_spec = dataclasses.replace(spec_b, protocols=spec_b.protocols[:1])
+    _, _, acc_solo = run_session(torch, pp, solo_spec, [cuda0],
+                                 "campaign B, binder alone", calls=calls)
+    same = {f"binder/{k}": v for k, v in acc_solo.items()} == binder
+    print(f"  binder designs identical alone and beside the rescore "
+          f"co-tenant (bf16, on the card): {same}", flush=True)
+    one = dataclasses.replace(spec_b, protocols=tuple(
+        dataclasses.replace(p, n_cycles=1) for p in spec_b.protocols))
+    profile_step(torch, lambda: run_session(torch, pp, one, [cuda0],
+                                            "campaign B, 1 cycle",
+                                            calls=calls),
+                 "campaign B, 1 cycle", top=8)
+    hold_flash_calls(torch, calls)
+    namespace_weights(torch, pp)
+    print(f"  phase 5c took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def profile_step(torch, fn, label, top=12):
     """Run ``fn`` once under torch.profiler: device time by kernel and the
     device's busy share of the wall time. Returns the device kernels'
@@ -1646,6 +2115,7 @@ def main():
     counts = phase_main_path(torch, pp)
     phase_profile(torch, pp)
     campaign = phase_campaign(torch, pp)
+    phase_session(torch, pp)
     counts["flash_attention_bhsd_decode"] = campaign["default"]["decode"]
     del pp
     wkv = phase_serving(torch)

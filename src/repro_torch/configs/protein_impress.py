@@ -37,3 +37,23 @@ def foldscore_reduced() -> ModelConfig:
     return foldscore_config().replace(
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
         d_ff=128, segments=())
+
+
+def foldscore_multimer_config() -> ModelConfig:
+    """Heavier complex-scoring variant (the AlphaFold-Multimer analogue):
+    staged binder protocols use it as the fold stage's second param set —
+    a genuinely distinct model from the per-chain ``foldscore-s`` scorer,
+    so the stage table exercises two configs, not just two inits.
+
+    ``segments=()`` is the port's own: the base config materializes an
+    8-layer plan in ``__post_init__``, which the reference's copy keeps, so
+    its full-width foldscore-m raises on construction (ROADMAP Queue 3)."""
+    return foldscore_config().replace(name="foldscore-m", n_layers=12,
+                                      d_ff=1536, segments=())
+
+
+def foldscore_multimer_reduced() -> ModelConfig:
+    # segments re-cleared: the reduced base materializes a 2-layer plan in
+    # __post_init__, which would contradict the deeper layer count
+    return foldscore_reduced().replace(name="foldscore-m", n_layers=3,
+                                       segments=())

@@ -33,12 +33,18 @@ different pipelines into one device batch. Every task function enters
 ``torch.inference_mode()`` itself: the executor calls it from worker
 threads, which a caller's grad mode does not reach.
 
-Generator weights live in a versioned ``ParamStore``; sampling dispatches
-snapshot (version, weights) once and tag results ``gen_version``. Only the
-default namespace is ported: a payload asking for other ``params`` raises
-``NotImplementedError``. A failure in the engine or a kernel raises into
-the executor's retry taxonomy; nothing degrades to another sampling path
-(the reference's paged -> dense fallback is not ported).
+Generator weights live in versioned ``ParamStore``s; sampling dispatches
+snapshot (version, weights) once and tag results ``gen_version``. Param-set
+namespaces (heterogeneous stages): a task picks its generator or scorer by
+``payload["params"]`` (``add_generator`` / ``add_scorer`` /
+``register_stages``); "default" is the original pair, and a namespace the
+payload does not hold raises ``KeyError``. Device copies of weights are
+cached by namespace and version, and a version the store retires is
+evicted. Every task function counts its kernel launches under its
+namespace (``kernels._cuda.namespace``). A failure in the engine or a
+kernel raises into the executor's retry taxonomy; nothing degrades to
+another sampling path (the reference's paged -> dense fallback is not
+ported).
 
 ``compile_log`` holds, per shape key, the wall time of the payload's first
 call of that key on a device (an engine's construction, a new masked or
@@ -51,13 +57,16 @@ from __future__ import annotations
 import copy
 import threading
 import time
-from typing import Dict, List
+import zlib
+from functools import partial
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, get_reduced
+from repro_torch.kernels import _cuda
 from repro_torch.learn.param_store import ParamStore
 from repro_torch.models import protein as prot
 from repro_torch.runtime.allocator import (BATCH_BUCKETS, bucket_len,
@@ -112,6 +121,29 @@ def _fan_out_rows(tasks, result, n_rows):
     return outs
 
 
+def _name_seed(name: str, seed=None) -> int:
+    """A namespace's weight seed: ``seed``, or ``zlib.crc32(name) & 0xFFFF``
+    (the same in every process, unlike the salted ``hash``)."""
+    return int(seed) if seed is not None else \
+        zlib.crc32(name.encode()) & 0xFFFF
+
+
+def _sample_rows(params, cfg, bbs, seeds, n, length, temp, noise, row_lens,
+                 dev):
+    """One device's rows of a dense ``generate_batch``: host arrays in,
+    (seqs (rows,n,L) i32, lls (rows,n) f32) host arrays out."""
+    seqs, lps = prot.progen_sample(
+        params, torch.tensor(bbs, device=dev), n, length, cfg,
+        seeds=seeds, noise=noise, temperature=temp,
+        return_token_lps=row_lens is not None)
+    if row_lens is not None:
+        valid = (torch.arange(length, device=dev)[None, None, :]
+                 < torch.tensor(row_lens, device=dev)[:, None, None])
+        lps = (lps * valid).sum(-1)
+    return (seqs.cpu().numpy().astype(np.int32),
+            lps.cpu().numpy().astype(np.float32))
+
+
 def fold_in_seed(seed, i) -> int:
     """The seed of stream ``i`` of a stream seeded ``seed`` (a device's
     share of a ``generate``, a candidate of a paged row): the port's
@@ -125,12 +157,14 @@ class ProteinPayload:
     functions. ``progen``/``foldscore`` take ready modules (e.g. the
     reference's weights through ``repro_torch.bridge``) in place of the
     seeded init; both are moved to ``device``. A task granted another
-    device gets its own copy of the weights there, cached by device."""
+    device gets its own copy of the weights there, cached by namespace,
+    version and device."""
 
     def __init__(self, seed=0, gen_cfg=None, fold_cfg=None, reduced=False,
                  length_buckets=None, device="cuda", progen=None,
                  foldscore=None):
         self.device = resolve_device(device)
+        self._reduced = bool(reduced)
         get = get_reduced if reduced else get_config
         self.gen_cfg = gen_cfg or get("progen-s")
         self.fold_cfg = fold_cfg or get("foldscore-s")
@@ -138,16 +172,68 @@ class ProteinPayload:
             (progen if progen is not None else
              prot.init_progen(self.gen_cfg, seed, device="cpu")
              ).to(self.device))
+        self.param_store.on_retire(
+            partial(self._drop_gen_versions, "default"))
         self.fold_params = (foldscore if foldscore is not None else
                             prot.init_foldscore(self.fold_cfg, seed + 1,
                                                 device="cpu")
                             ).to(self.device)
+        # param-set namespaces (heterogeneous stages): task payloads pick a
+        # generator/scorer by ``payload["params"]``; "default" is the
+        # original single-model pair, so unstaged campaigns are untouched
+        self.gen_stores: Dict[str, ParamStore] = {
+            "default": self.param_store}
+        self.gen_cfgs: Dict[str, object] = {"default": self.gen_cfg}
+        self.fold_sets: Dict[str, Tuple] = {
+            "default": (self.fold_cfg, self.fold_params)}
         # token-dim bucket edges for masked payloads; None = LENGTH_BUCKETS
         self.length_buckets = (tuple(length_buckets)
                                if length_buckets else None)
         self._cache: Dict[tuple, object] = {}
         self._cache_lock = threading.Lock()
         self._first_calls: set = set()
+        self._retired_versions: set = set()
+
+    # -- param-set namespaces ---------------------------------------------
+
+    def add_generator(self, name: str, seed=None, cfg=None,
+                      progen=None) -> ParamStore:
+        """Register a second sequence-design param set under ``name``: its
+        own versioned ``ParamStore`` and config (progen-s, reduced or full
+        as the payload is, by default). Its weights are ``progen`` (a ready
+        module), or seeded from ``seed``, by default ``zlib.crc32(name) &
+        0xFFFF``. Tasks select it with ``payload["params"] == name``.
+        Returns the store (the existing one if ``name`` is registered)."""
+        if name in self.gen_stores:
+            return self.gen_stores[name]
+        cfg = cfg or (get_reduced if self._reduced else get_config)(
+            "progen-s")
+        if progen is None:
+            # crc32, not hash(): str hashing is salted per process and would
+            # make namespace inits differ across runs
+            progen = prot.init_progen(cfg, _name_seed(name, seed),
+                                      device="cpu")
+        store = ParamStore(progen.to(self.device))
+        store.on_retire(partial(self._drop_gen_versions, name))
+        self.gen_stores[name] = store
+        self.gen_cfgs[name] = cfg
+        return store
+
+    def add_scorer(self, name: str, seed=None, cfg=None, foldscore=None):
+        """Register a second fold/score param set under ``name`` (by
+        default the ``foldscore-m`` multimer scorer of a binder protocol's
+        fold stage), seeded like ``add_generator`` or given as a ready
+        module. Tasks select it with ``payload["params"] == name``.
+        Returns its (cfg, weights)."""
+        if name in self.fold_sets:
+            return self.fold_sets[name]
+        cfg = cfg or (get_reduced if self._reduced else get_config)(
+            "foldscore-m")
+        if foldscore is None:
+            foldscore = prot.init_foldscore(cfg, _name_seed(name, seed),
+                                            device="cpu")
+        self.fold_sets[name] = (cfg, foldscore.to(self.device))
+        return self.fold_sets[name]
 
     @property
     def gen_params(self):
@@ -158,9 +244,11 @@ class ProteinPayload:
 
     def _params_on(self, which, params, device):
         """``params`` on ``device``: the module itself where it lives there,
-        else a copy cached by ``which`` (``"gen"`` or ``"fold"``) and device.
-        The store holds one generator version until ``add_generator`` is
-        ported, so the device alone names the copy."""
+        else a copy cached by ``which`` — ``("gen", namespace, version)``
+        or ``("fold", namespace)`` — and device, so a store's retired
+        version is evicted per namespace. A version retired while its copy
+        was being made is used uncached: the retire hook has already run
+        for it, so a late insert would never be evicted."""
         if next(params.parameters()).device == device:
             return params
         key = (which, device)
@@ -169,8 +257,22 @@ class ProteinPayload:
         if p is None:
             p = copy.deepcopy(params).to(device)
             with self._cache_lock:
-                p = self._cache.setdefault(key, p)
+                if which not in self._retired_versions:
+                    p = self._cache.setdefault(key, p)
         return p
+
+    def _drop_gen_versions(self, namespace, versions):
+        """ParamStore retire hook (bound per namespace): evict the device
+        copies of the namespace's retired generator versions, and remember
+        them so that a dispatch still in flight cannot re-insert one."""
+        with self._cache_lock:
+            self._retired_versions.update(
+                ("gen", namespace, v) for v in versions)
+            stale = [k for k in self._cache
+                     if isinstance(k[0], tuple) and k[0][0] == "gen"
+                     and k[0][1] == namespace and k[0][2] in versions]
+            for k in stale:
+                del self._cache[k]
 
     def _first(self, key, device, fn):
         """Run ``fn()``; the first call of ``key`` on ``device`` is timed to
@@ -187,17 +289,21 @@ class ProteinPayload:
         compile_log.setdefault(key, []).append(time.monotonic() - t0)
         return out
 
-    @staticmethod
-    def _ns(payload):
+    def _gen_set(self, payload):
+        """(namespace, store, cfg, shape-key suffix) for a sampling payload:
+        ``payload["params"]`` picks the generator; KeyError if the payload
+        holds no such namespace."""
         ns = payload.get("params") or "default"
-        if ns != "default":
-            raise NotImplementedError(
-                f"param-set namespace {ns!r}: only 'default' is ported")
+        store, cfg = self.gen_stores[ns], self.gen_cfgs[ns]
+        return ns, store, cfg, ("" if ns == "default" else f"@{ns}")
 
-    def _gen_snapshot(self, payload):
-        """(version, weights) of the generator, read once per dispatch."""
-        self._ns(payload)
-        return self.param_store.current()
+    def _fold_set(self, payload):
+        """(namespace, cfg, weights, shape-key suffix) for a scoring
+        payload: ``payload["params"]`` picks the scorer; KeyError if the
+        payload holds no such namespace."""
+        ns = payload.get("params") or "default"
+        cfg, params = self.fold_sets[ns]
+        return ns, cfg, params, ("" if ns == "default" else f"@{ns}")
 
     # -- task functions ---------------------------------------------------
 
@@ -208,8 +314,8 @@ class ProteinPayload:
         padded_vocab) replaces the seeded Gumbel draws, row j for candidate
         j. Returns {"seqs" (n,L) np.int32, "lls" (n,) np.float32,
         "gen_version" int}."""
-        with torch.inference_mode():
-            cfg = self.gen_cfg
+        ns, store, cfg, sfx = self._gen_set(payload)
+        with torch.inference_mode(), _cuda.namespace(ns):
             n, length = int(payload["n"]), int(payload["length"])
             temp = float(payload.get("temperature", 1.0))
             devices = _devices(submesh)
@@ -219,17 +325,17 @@ class ProteinPayload:
             noise = payload.get("noise")
             if noise is not None:
                 noise = np.asarray(noise, np.float32)
-            ver, gparams = self._gen_snapshot(payload)
+            ver, gparams = store.current()
             outs = []
             for i, dev in enumerate(devices):
                 take = min(per, n - i * per)
                 if take <= 0:
                     break
-                gp = self._params_on("gen", gparams, dev)
+                gp = self._params_on(("gen", ns, ver), gparams, dev)
                 bb = torch.tensor(backbone, device=dev)
                 nz = None if noise is None else noise[i * per:i * per + take]
                 outs.append(self._first(
-                    f"generate{take}_L{length}_t{temp}", dev,
+                    f"generate{take}_L{length}_t{temp}{sfx}", dev,
                     lambda: prot.progen_sample(
                         gp, bb, take, length, cfg,
                         seeds=[fold_in_seed(payload["seed"], i)], noise=nz,
@@ -246,10 +352,10 @@ class ProteinPayload:
         protocol when length bucketing is active) the sequence is padded to
         its length bucket and scored by the masked scorer; without it, at
         its exact length with ``chain_split = receptor_len``."""
-        with torch.inference_mode():
-            self._ns(payload)
+        ns, fcfg, fparams, sfx = self._fold_set(payload)
+        with torch.inference_mode(), _cuda.namespace(ns):
             dev = _devices(submesh)[0]
-            fp = self._params_on("fold", self.fold_params, dev)
+            fp = self._params_on(("fold", ns), fparams, dev)
             seq = np.asarray(payload["sequence"], np.int32)[None]
             tgt = torch.tensor(np.asarray(payload["target"],
                                           np.float32)[None], device=dev)
@@ -260,16 +366,16 @@ class ProteinPayload:
                 put = lambda a: torch.tensor(np.asarray([a], np.int32),
                                              device=dev)
                 m = self._first(
-                    f"predict_mb1_L{Lb}", dev,
+                    f"predict_mb1_L{Lb}{sfx}", dev,
                     lambda: prot.foldscore_fwd_masked(
                         fp, torch.tensor(seq, device=dev), tgt,
-                        put(payload["seq_len"]), put(split), self.fold_cfg))
+                        put(payload["seq_len"]), put(split), fcfg))
             else:
                 m = self._first(
-                    f"predict{seq.shape[1]}_{split}", dev,
+                    f"predict{seq.shape[1]}_{split}{sfx}", dev,
                     lambda: prot.foldscore_fwd(
-                        fp, torch.tensor(seq, device=dev), tgt,
-                        self.fold_cfg, chain_split=split))
+                        fp, torch.tensor(seq, device=dev), tgt, fcfg,
+                        chain_split=split))
             return prot.metrics_rows(m)[0]
 
     def predict_batch(self, submesh, payload):
@@ -283,8 +389,8 @@ class ProteinPayload:
 
         Returns {"rows": [per-row metric dicts], "batch": occupancy info
         incl. ``len_occupancy`` = real tokens / padded tokens}."""
-        with torch.inference_mode():
-            self._ns(payload)
+        ns, fcfg, fparams, sfx = self._fold_set(payload)
+        with torch.inference_mode(), _cuda.namespace(ns):
             seqs = np.asarray(payload["sequences"], np.int32)
             if seqs.ndim == 1:
                 seqs = seqs[None]
@@ -314,19 +420,19 @@ class ProteinPayload:
             outs = []
             for i, dev in enumerate(devices):
                 sl = slice(i * per, (i + 1) * per)
-                fp = self._params_on("fold", self.fold_params, dev)
+                fp = self._params_on(("fold", ns), fparams, dev)
                 put = lambda a: torch.tensor(a[sl], device=dev)
                 if masked:
                     outs.append(self._first(
-                        f"predict_mb{per}_L{L}", dev,
+                        f"predict_mb{per}_L{L}{sfx}", dev,
                         lambda: prot.foldscore_fwd_masked(
                             fp, put(seqs), put(tgt), put(seq_lens),
-                            put(splits), self.fold_cfg)))
+                            put(splits), fcfg)))
                 else:
                     outs.append(self._first(
-                        f"predict_b{per}_L{L}_{split}", dev,
+                        f"predict_b{per}_L{L}_{split}{sfx}", dev,
                         lambda: prot.foldscore_fwd(
-                            fp, put(seqs), put(tgt), self.fold_cfg,
+                            fp, put(seqs), put(tgt), fcfg,
                             chain_split=split)))
             rows = [r for m in outs for r in prot.metrics_rows(m)][:R]
             batch = {"rows": R, "bucket": B, "occupancy": R / B,
@@ -354,10 +460,11 @@ class ProteinPayload:
         Returns {"rows": [(seqs (n,L) i32, lls (n,) f32) per row],
         "batch": occupancy info (incl. ``len_occupancy``), "gen_version":
         the generator version the dispatch sampled from}."""
-        with torch.inference_mode():
+        ns, store, cfg, sfx = self._gen_set(payload)
+        with torch.inference_mode(), _cuda.namespace(ns):
             if payload.get("decode") == "paged":
-                return self._generate_batch_paged(submesh, payload)
-            cfg = self.gen_cfg
+                return self._generate_batch_paged(submesh, payload, ns, store,
+                                                  cfg, sfx)
             bbs = np.asarray(payload["backbones"], np.float32)
             if bbs.ndim == 2:
                 bbs = bbs[None]
@@ -381,17 +488,17 @@ class ProteinPayload:
             bbs, seeds = arrs[:2]
             noise = None if noise is None else arrs[2]
             lens = arrs[-1] if masked else None
-            ver, gparams = self._gen_snapshot(payload)
+            ver, gparams = store.current()
             devices, per = _split_devices(submesh, B)
             kind = "generate_mb" if masked else "generate_b"
             outs = []
             for i, dev in enumerate(devices):
                 sl = slice(i * per, (i + 1) * per)
-                gp = self._params_on("gen", gparams, dev)
+                gp = self._params_on(("gen", ns, ver), gparams, dev)
                 outs.append(self._first(
-                    f"{kind}{per}_n{n}_L{length}_t{temp}", dev,
-                    lambda: self._sample_rows(
-                        gp, bbs[sl], seeds[sl], n, length, temp,
+                    f"{kind}{per}_n{n}_L{length}_t{temp}{sfx}", dev,
+                    lambda: _sample_rows(
+                        gp, cfg, bbs[sl], seeds[sl], n, length, temp,
                         None if noise is None else noise[sl],
                         None if lens is None else lens[sl], dev)))
             seqs = np.concatenate([s for s, _ in outs])[:R]
@@ -402,25 +509,11 @@ class ProteinPayload:
                      "devices": len(devices), "len_occupancy": len_occ}
             return {"rows": rows, "batch": batch, "gen_version": ver}
 
-    def _sample_rows(self, params, bbs, seeds, n, length, temp, noise,
-                     row_lens, dev):
-        """One device's rows of a dense ``generate_batch``: host arrays in,
-        (seqs (rows,n,L) i32, lls (rows,n) f32) host arrays out."""
-        seqs, lps = prot.progen_sample(
-            params, torch.tensor(bbs, device=dev), n, length, self.gen_cfg,
-            seeds=seeds, noise=noise, temperature=temp,
-            return_token_lps=row_lens is not None)
-        if row_lens is not None:
-            valid = (torch.arange(length, device=dev)[None, None, :]
-                     < torch.tensor(row_lens, device=dev)[:, None, None])
-            lps = (lps * valid).sum(-1)
-        return (seqs.cpu().numpy().astype(np.int32),
-                lps.cpu().numpy().astype(np.float32))
-
     def backbone_batch(self, submesh, payload):
         """Backbone-sampling stage: perturb each row's base backbone into
         ``m`` candidates and score their pooled-embedding fit against the
-        row's target.
+        row's target. It runs no model, so it reads no param-set namespace
+        (as in the reference).
 
         payload: bases (R, P, 16) f32 (or (P, 16) for one row); targets
         (R, 16) f32 (or (16,) shared); seeds (R,) per-row seeds; m int;
@@ -432,7 +525,6 @@ class ProteinPayload:
         Returns {"rows": [(cands (m,P,16) f32, scores (m,) f32) per row],
         "batch": occupancy info}."""
         with torch.inference_mode():
-            self._ns(payload)
             bases = np.asarray(payload["bases"], np.float32)
             if bases.ndim == 2:
                 bases = bases[None]
@@ -472,12 +564,13 @@ class ProteinPayload:
                      "devices": len(devices)}
             return {"rows": rows, "batch": batch}
 
-    def _paged_parse(self, payload, length):
-        """Normalize a paged generate payload's per-row arrays."""
+    def _paged_parse(self, payload, length, gcfg):
+        """Normalize a paged generate payload's per-row arrays, its
+        backbones cut to the frontend of its namespace's generator ``gcfg``."""
         bbs = np.asarray(payload["backbones"], np.float32)
         if bbs.ndim == 2:
             bbs = bbs[None]
-        bbs = bbs[:, :self.gen_cfg.frontend_seq]
+        bbs = bbs[:, :gcfg.frontend_seq]
         seeds = np.asarray(payload["seeds"], np.int64).reshape(-1)
         rl = payload.get("row_lens")
         rl = (np.asarray(rl, np.int32).reshape(-1) if rl is not None
@@ -487,41 +580,44 @@ class ProteinPayload:
             noise = np.asarray(noise, np.float32)
         return bbs, seeds, rl, noise
 
-    def _engine(self, slots, length, page_size, dev):
-        """The engine of (slots, length, page size) on ``dev``, built on
-        first use (its construction is that key's first call)."""
-        key = f"paged{slots}_L{length}_p{page_size}"
+    def _engine(self, slots, length, page_size, dev, cfg, sfx=""):
+        """The engine of (slots, length, page size) for the generator config
+        ``cfg`` (namespace suffix ``sfx``) on ``dev``, built on first use
+        (its construction is that key's first call)."""
+        key = f"paged{slots}_L{length}_p{page_size}{sfx}"
         with self._cache_lock:
             eng = self._cache.get((key, dev))
         if eng is None:
             eng = self._first(key, dev, lambda: prot.PagedDecodeEngine(
-                self.gen_cfg, slots=slots, max_new=length,
-                page_size=page_size, device=dev))
+                cfg, slots=slots, max_new=length, page_size=page_size,
+                device=dev))
             with self._cache_lock:
                 eng = self._cache.setdefault((key, dev), eng)
         return eng
 
-    def _generate_batch_paged(self, submesh, payload):
+    def _generate_batch_paged(self, submesh, payload, ns, store, gcfg, sfx):
         """Continuous batching over a paged KV cache on the sub-mesh's first
-        device. One engine per (slots, length, page size) serves every
-        dispatch. Live admission: with an admission port in
-        ``payload["_admit"]`` the engine's poll hook pulls compatible queued
-        tasks into the running decode whenever slots free up; their rows
-        follow the initial rows in the result. Optional ``noise`` (R, n,
-        length, padded_vocab) replaces the seeded draws."""
+        device, on the generator ``generate_batch`` resolved for the payload
+        (namespace ``ns``, its store, cfg and shape-key suffix). One engine
+        per (slots, length, page size, namespace) serves every dispatch.
+        Live admission: with an admission port in ``payload["_admit"]`` the
+        engine's poll hook pulls compatible queued tasks into the running
+        decode whenever slots free up; their rows follow the initial rows in
+        the result. Optional ``noise`` (R, n, length, padded_vocab) replaces
+        the seeded draws."""
         dev = _devices(submesh)[0]
         n = int(payload["n"])
         length = int(payload["length"])
         temp = float(payload.get("temperature", 1.0))
         page_size = int(payload.get("page_size", 8))
         port = payload.get("_admit")
-        bbs, seeds, row_lens, noise = self._paged_parse(payload, length)
+        bbs, seeds, row_lens, noise = self._paged_parse(payload, length, gcfg)
         R0 = bbs.shape[0]
         slots = int(payload.get("decode_slots", 0)) \
             or min(max(R0 * n, 4), 32)
-        eng = self._engine(slots, length, page_size, dev)
-        ver, gparams = self._gen_snapshot(payload)
-        gp = self._params_on("gen", gparams, dev)
+        eng = self._engine(slots, length, page_size, dev, gcfg, sfx)
+        ver, gparams = store.current()
+        gp = self._params_on(("gen", ns, ver), gparams, dev)
 
         records = []           # (tag0, n_rows) in result-row order
 
@@ -544,7 +640,8 @@ class ProteinPayload:
             out = []
             for t in port.take(free // n):
                 admitted.append(t)
-                abb, asd, arl, anz = self._paged_parse(t.payload, length)
+                abb, asd, arl, anz = self._paged_parse(t.payload, length,
+                                                       gcfg)
                 out += specs_for(abb, asd, arl, anz, len(admitted))
                 occ_rows.append((int(arl.sum()), abb.shape[0]))
             return out
@@ -625,6 +722,31 @@ class ProteinPayload:
                 kw["admission_window"] = float(admission_window)
             return backbone_batch_coalesce_rule(**kw)
         raise KeyError(f"no coalesce rule for task kind {kind!r}")
+
+    def register_stages(self, executor, stages, coalesce: bool = True):
+        """Wire a stage table (``core.stages.StageSpec`` sequence) into the
+        executor: create each stage's param-set namespace (generator for
+        sampling kinds, scorer for fold kinds) and register its
+        stage-specific coalesce rule (keyed ``(kind, stage)``: the executor
+        already keeps cross-stage tasks apart). Call after
+        ``register_all``; safe to call once per protocol sharing stages.
+        ``coalesce=False`` creates the namespaces but skips the rules, so
+        an unfused baseline campaign still resolves its param sets."""
+        for s in stages:
+            if s.params != "default":
+                if s.kind in ("generate", "generate_batch"):
+                    self.add_generator(s.params)
+                elif s.kind in ("predict", "predict_batch"):
+                    self.add_scorer(s.params)
+            if s.kind in ("predict", "generate"):  # solo kinds never fuse
+                continue
+            if coalesce and hasattr(executor, "register_coalescable"):
+                executor.register_coalescable(
+                    s.kind,
+                    self.coalesce_rule_for(
+                        s.kind, max_rows=s.max_rows,
+                        admission_window=s.admission_window),
+                    stage=s.name)
 
 
 def predict_batch_coalesce_rule(max_rows: int = BATCH_BUCKETS[-1],

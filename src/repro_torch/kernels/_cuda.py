@@ -12,14 +12,18 @@ Nothing here runs at import time: the CPU tests import every module.
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
 form it took (flash: the decode form or the fp32 / bf16 sequence form;
-wkv6: the decode (T = 1) or the prefill kernel). Both are updated under a
-lock: the executor's worker threads launch kernels at the same time.
+wkv6: the decode (T = 1) or the prefill kernel). ``by_namespace`` splits
+the counts by the param-set namespace whose weights the launching thread is
+running (``namespace``; the payload's task functions enter it), so a run can
+show which model ran. All are updated under a lock: the executor's worker
+threads launch kernels at the same time.
 ``build_log`` holds the wall seconds of each build that ran ``nvcc`` in this
 process (``obs.torchwatch`` counts them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,12 +46,15 @@ launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
 forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0},
          "wkv6_bhtk": {"decode": 0, "prefill": 0}}
 
+by_namespace: dict[str, dict[str, int]] = {}
+
 build_log: list[float] = []
 
 _lib = None
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _sm_counts: dict[int, int] = {}
+_running = threading.local()
 
 
 def reset_launches() -> None:
@@ -57,6 +64,19 @@ def reset_launches() -> None:
         for counts in forms.values():
             for form in counts:
                 counts[form] = 0
+        by_namespace.clear()
+
+
+@contextlib.contextmanager
+def namespace(name: str):
+    """Count this thread's launches inside the block under the param-set
+    namespace ``name`` as well (``by_namespace``)."""
+    outer = getattr(_running, "namespace", None)
+    _running.namespace = name
+    try:
+        yield
+    finally:
+        _running.namespace = outer
 
 
 def nvcc() -> str:
@@ -138,10 +158,14 @@ def check_launch(name: str, err: int, form: str | None = None) -> None:
     if err:
         msg = lib().repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
+    ns = getattr(_running, "namespace", None)
     with _count_lock:
         launches[name] += 1
         if form is not None:
             forms[name][form] += 1
+        if ns is not None:
+            counts = by_namespace.setdefault(ns, dict.fromkeys(launches, 0))
+            counts[name] += 1
 
 
 def check_cuda_tensors(name, tensors, dtypes):

@@ -36,6 +36,7 @@ DECODE_STAGES = 3    # tiles in a decode block's shared-memory ring
 MMA_ROWS = 64        # (query, head) rows a block of the bf16 sequence kernel
 MMA_KEYS = 32        # keys a tile of the bf16 sequence kernel
 MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
+MIN_SPLIT_TILES = 4  # tiles a range holds, at least, when a row is cut
 
 
 def _scores(q, k, causal, window, softcap, seq_q, seq_k):
@@ -191,6 +192,18 @@ def decode_splits(blocks: int, n_sms: int) -> int:
     return max(1, min(MAX_SPLITS, n_sms // max(1, blocks)))
 
 
+def decode_key_splits(blocks: int, capacity: int, n_sms: int) -> int:
+    """Key ranges the decode form cuts each (row, KV head) into, from static
+    shapes alone: ``decode_splits``, but at most one range per
+    ``MIN_SPLIT_TILES`` tiles of 32 of the row's key ``capacity`` (the K/V
+    views' length, never the live key count, so a fixed cache launches a
+    fixed grid). A row that holds fewer than 2 x ``MIN_SPLIT_TILES`` tiles
+    is one range: the combine's extra launch would cost more than the
+    split saves."""
+    tiles = -(-capacity // DECODE_TILE)
+    return min(decode_splits(blocks, n_sms), max(1, tiles // MIN_SPLIT_TILES))
+
+
 def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
                          seq_q=None, seq_k=None):
     """q (B,H,Sq,hd); k/v (B,KV,Sk,hd). Returns (B,H,Sq,hd) in q's dtype."""
@@ -252,7 +265,8 @@ def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k):
 def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k, n_split=None):
     """Sq == 1: contiguous q; K/V strided views read in place. With one
     query at row 0 the masks leave the first ``n_keys`` keys live.
-    ``n_split`` forces the number of key ranges (None: ``decode_splits``)."""
+    ``n_split`` forces the number of key ranges (None:
+    ``decode_key_splits`` of the views' length)."""
     dev = _cuda.check_cuda_tensors(NAME, (q,), (DTYPES,))
     _cuda.check_cuda_views(NAME, (k, v), ((k.dtype,), (k.dtype,)), dev)
     B, H, _, hd = q.shape
@@ -263,8 +277,8 @@ def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k, n_split=None):
         return out
     G = H // KV
     if n_split is None:
-        n_split = decode_splits(B * KV * -(-G // DECODE_GROUP),
-                                _cuda.sm_count(dev))
+        n_split = decode_key_splits(B * KV * -(-G // DECODE_GROUP),
+                                    k.shape[2], _cuda.sm_count(dev))
     if not 1 <= n_split <= MAX_SPLITS:
         raise ValueError(f"{NAME}: {n_split} key ranges, not in "
                          f"[1, {MAX_SPLITS}]")

@@ -4,7 +4,8 @@ Model code calls these with model-layout tensors; each converts to the
 kernel layout and calls the kernel wrapper, which takes the plain version
 for a CPU tensor and launches the CUDA kernel for a CUDA tensor (or
 raises). ``launches`` holds one plain-integer launch count per kernel,
-``forms`` the flash and wkv6 kernels' counts split by form.
+``forms`` the flash and wkv6 kernels' counts split by form,
+``by_namespace`` the counts split by param-set namespace.
 """
 
 from __future__ import annotations
@@ -14,20 +15,22 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _wk
 from repro_torch.kernels._cuda import (  # noqa: F401
-    forms, launches, reset_launches)
+    by_namespace, forms, launches, reset_launches)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    seq_k=None):
     """Model layout: q (B,S,H,hd); k/v (B,T,KV,hd). Returns (B,S,H,hd).
     One query (S == 1) hands the decode form k/v as strided (B,KV,T,hd)
     views of their own storage, so a ring cache is read in place and in its
-    stored dtype; longer queries hand contiguous copies."""
+    stored dtype; longer queries hand contiguous copies. ``seq_k``: only the
+    first seq_k keys are live (None: all T)."""
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if q.shape[1] > 1:
         kt, vt = kt.contiguous(), vt.contiguous()
     out = _fa.flash_attention_bhsd(q.transpose(1, 2).contiguous(), kt, vt,
                                    causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, seq_k=seq_k)
     return out.transpose(1, 2)
 
 

@@ -33,7 +33,6 @@ from repro_torch.kernels import flash_attention as fa
 
 NAME = "paged_decode_bkgh"
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-MIN_SPLIT_TILES = 4  # tiles a range holds, at least, when a row is cut
 
 
 def paged_decode_ref(q, k_pages, v_pages, block_tables, lengths, *,
@@ -120,17 +119,15 @@ def paged_decode_splits(B: int, KV: int, G: int, maxp: int, page: int,
                         n_sms: int) -> int:
     """Key ranges the kernel cuts each (row, KV head) into, from the grid's
     static shapes alone (never the lengths, so a fixed engine launches a
-    fixed grid, as a CUDA graph needs). 1 where the B x KV x ceil(G / 16)
-    blocks already fill the card's ``n_sms`` SMs, or where a row's capacity
-    of maxp x page keys holds fewer than 2 x ``MIN_SPLIT_TILES`` tiles of 32
-    (the combine's extra launch would cost more than the split saves);
-    otherwise as many ranges of at least ``MIN_SPLIT_TILES`` tiles (128
-    keys, the flash decode form's range at recurrentgemma-2b's decode) as
-    fill the SMs (``flash_attention.decode_splits``), at most
+    fixed grid, as a CUDA graph needs): the flash decode form's count
+    (``flash_attention.decode_key_splits``) for a row capacity of maxp x
+    page keys. 1 where the B x KV x ceil(G / 16) blocks already fill the
+    card's ``n_sms`` SMs, or where the capacity holds fewer than 2 x
+    ``flash_attention.MIN_SPLIT_TILES`` tiles of 32; otherwise as many
+    ranges of at least that many tiles (128 keys) as fill the SMs, at most
     ``flash_attention.MAX_SPLITS``."""
-    splits = fa.decode_splits(B * KV * -(-G // fa.DECODE_GROUP), n_sms)
-    tiles = -(-maxp * page // fa.DECODE_TILE)
-    return min(splits, max(1, tiles // MIN_SPLIT_TILES))
+    return fa.decode_key_splits(B * KV * -(-G // fa.DECODE_GROUP),
+                                maxp * page, n_sms)
 
 
 def paged_decode_bkgh(q, k_pages, v_pages, block_tables, lengths, *,

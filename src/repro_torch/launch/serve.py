@@ -1,14 +1,29 @@
-"""LM token serving: prefill a batch of prompts, then decode greedily
+"""Serving entry points: LM token serving and design-campaign serving.
+
+LM mode (default) prefills a batch of prompts, then decodes greedily
 through the layers' decode caches (for rwkv6-7b, the RWKV-6 state; for
-recurrentgemma-2b, the RG-LRU states and the local-attention ring caches).
+recurrentgemma-2b, the RG-LRU states and the local-attention ring caches):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --batch 8 --prompt-len 2560 --gen 32
 
-Runs on ``cuda`` unless ``--device cpu`` is given. The reference's campaign
-and gateway modes are not ported yet.
+Campaign mode runs a declarative design campaign through the
+``ImpressSession`` facade; one flag serves IM-RP, the CONT-V control, the
+multi-objective demo, the staged binder, the rescore co-tenant, or any mix
+of them concurrently on one executor:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --campaign im-rp,cont-v \\
+      --structures 4 --cycles 3 [--device cpu]
+
+Ctrl-C in campaign mode is graceful: the campaign is checkpointed (to
+``--checkpoint-out``) and the partial report printed before exiting.
+``--evolution`` raises: model evolution is not ported yet (ROADMAP Queue
+1, item 5), and neither is the reference's gateway mode (item 6).
+
+Runs on ``cuda`` (campaign mode: every CUDA device) unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -79,6 +94,60 @@ def serve_batch(cfg, *, batch, prompt_len, gen, temperature=0.0, seed=0,
     }
 
 
+def serve_campaign(*, protocols, structures, cycles, candidates,
+                   receptor_len, evolution, device="cuda", timeout=600.0,
+                   trace_dir=None, metrics_every=0.0,
+                   checkpoint_out="impress-checkpoint.json"):
+    """Run a design campaign through the session facade and return its
+    versioned report, on every CUDA device for ``device="cuda"``, else on
+    ``device`` alone. ``trace_dir`` enables span tracing (Perfetto JSON +
+    metrics snapshot written there); ``metrics_every`` > 0 prints a live
+    metrics snapshot line every that-many seconds while the campaign runs.
+
+    KeyboardInterrupt is a graceful exit, not a crash: the campaign is
+    checkpointed to ``checkpoint_out`` and the partial report over
+    whatever completed so far is returned."""
+    import json
+    import threading
+
+    from repro_torch.session import (CampaignSpec, ImpressSession,
+                                     ProtocolSpec)
+    spec = CampaignSpec(
+        structures=structures, receptor_len=receptor_len,
+        protocols=tuple(ProtocolSpec(kind, n_candidates=candidates,
+                                     n_cycles=cycles)
+                        for kind in protocols),
+        evolution=evolution, timeout=timeout, trace_dir=trace_dir)
+    devices = None if device == "cuda" else [resolve_device(device)]
+    with ImpressSession(spec, devices=devices) as session:
+        stop = threading.Event()
+        if metrics_every > 0:
+            def _live():
+                while not stop.wait(metrics_every):
+                    snap = session.metrics_snapshot()
+                    done = sum(v for k, v in snap.items()
+                               if k.startswith("tasks.completed"))
+                    depth = sum(v for k, v in snap.items()
+                                if k.startswith("queue.depth"))
+                    free = snap.get("devices.free", 0)
+                    print(f"[serve] live: {int(done)} tasks done, "
+                          f"queue depth {int(depth)}, "
+                          f"{int(free)} devices free", flush=True)
+            threading.Thread(target=_live, daemon=True).start()
+        try:
+            return session.run()
+        except KeyboardInterrupt:
+            if checkpoint_out:
+                with open(checkpoint_out, "w") as f:
+                    json.dump(session.checkpoint(), f)
+                print(f"[serve] interrupted: campaign checkpointed to "
+                      f"{checkpoint_out} (resume via "
+                      f"ImpressSession.from_checkpoint)", flush=True)
+            return session.partial_report()
+        finally:
+            stop.set()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="rwkv6-7b")
@@ -87,7 +156,48 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--campaign", default=None, metavar="KINDS",
+                    help="serve a design campaign instead: comma-separated "
+                         "protocol kinds (e.g. im-rp,cont-v)")
+    ap.add_argument("--structures", type=int, default=2)
+    ap.add_argument("--cycles", type=int, default=3)
+    ap.add_argument("--candidates", type=int, default=5)
+    ap.add_argument("--receptor-len", type=int, default=20)
+    ap.add_argument("--evolution", action="store_true",
+                    help="campaign mode: online model evolution (not "
+                         "ported yet: raises)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="campaign mode: enable span tracing and write "
+                         "Perfetto trace.json + metrics.json here")
+    ap.add_argument("--metrics-every", type=float, default=0.0,
+                    help="campaign mode: print a live metrics snapshot "
+                         "every N seconds while the campaign runs")
+    ap.add_argument("--checkpoint-out", default="impress-checkpoint.json",
+                    help="campaign mode: where Ctrl-C writes the campaign "
+                         "checkpoint ('' disables)")
     args = ap.parse_args(argv)
+    if args.campaign:
+        rep = serve_campaign(protocols=args.campaign.split(","),
+                             structures=args.structures, cycles=args.cycles,
+                             candidates=args.candidates,
+                             receptor_len=args.receptor_len,
+                             evolution=args.evolution, device=args.device,
+                             trace_dir=args.trace_dir,
+                             metrics_every=args.metrics_every,
+                             checkpoint_out=args.checkpoint_out)
+        print(f"[serve] campaign schema v{rep.schema_version} on "
+              f"{args.device}: {rep.trajectories} trajectories in "
+              f"{rep.makespan_s:.1f}s, utilization "
+              f"{100 * rep.utilization:.0f}%")
+        for name, p in rep.protocols.items():
+            print(f"[serve]   {name}: {p['n_pipelines']} pipelines "
+                  f"(+{p['n_sub_pipelines']} subs), "
+                  f"{p['trajectories']} trajectories")
+        tel = rep.raw.get("telemetry", {})
+        if tel.get("trace_path"):
+            print(f"[serve] trace: {tel['trace_path']} "
+                  f"(load in ui.perfetto.dev)")
+        return
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     r = serve_batch(cfg, batch=args.batch, prompt_len=args.prompt_len,
                     gen=args.gen, device=args.device)

@@ -1,28 +1,36 @@
-"""Versioned parameter store.
+"""Versioned, hot-swappable parameter store.
 
-The generator's params live behind a ``ParamStore``: every dispatch
-snapshots ``current()`` once — a (version, params) pair read under the lock
-— and tags its result with that version (``gen_version``).
+The generator's params live behind a ``ParamStore`` so model evolution can
+swap them without touching in-flight work: every dispatch snapshots
+``current()`` once — a (version, params) pair read under the lock — and
+finishes on the version it started with, while ``publish`` installs the
+evolved weights as a new version atomically. Retired versions (beyond
+``keep``) are announced to listeners so per-device weight caches can drop
+their copies by version instead of guessing at cache-key layouts.
 
-A copy of the read side of the JAX package's ``repro.learn.param_store``
-(free of JAX there too), with its imports rewritten to ``repro_torch``.
-``publish`` with its retire listeners, and ``save``/``restore`` through a
-checkpoint manager, come with ``add_generator`` and model evolution (ROADMAP
-Queue 1, item 3): nothing in the port installs a second version yet.
+A copy of the JAX package's ``repro.learn.param_store`` (free of JAX there
+too) without ``save``/``restore``: those go through the checkpoint manager,
+which comes with model evolution (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
 class ParamStore:
-    def __init__(self, params: Any, *, version: int = 0):
+    def __init__(self, params: Any, *, version: int = 0, keep: int = 2):
         self._lock = threading.Lock()
         self._params: "OrderedDict[int, Any]" = OrderedDict([(version, params)])
         self._version = version
+        self._max_version = version   # highest ever issued: version numbers
+        #   are never reused, so gen_version provenance stays unambiguous
+        #   and retired-version tombstones downstream never match a live
+        #   version
+        self._listeners: List[Callable[[List[int]], None]] = []
+        self.keep = max(1, int(keep))
 
     @property
     def version(self) -> int:
@@ -30,8 +38,8 @@ class ParamStore:
             return self._version
 
     def current(self) -> Tuple[int, Any]:
-        """Atomic (version, params) snapshot. A dispatch calls this once and
-        keeps the pair for its whole run."""
+        """Atomic (version, params) snapshot — the hot-swap read point. A
+        dispatch calls this once and keeps the pair for its whole run."""
         with self._lock:
             return self._version, self._params[self._version]
 
@@ -42,3 +50,24 @@ class ParamStore:
     def versions(self) -> List[int]:
         with self._lock:
             return list(self._params)
+
+    def publish(self, params: Any) -> int:
+        """Install evolved ``params`` as the new current version; retire the
+        oldest versions beyond ``keep`` and notify listeners (outside the
+        lock) so they can evict per-device copies of retired versions."""
+        with self._lock:
+            v = self._max_version + 1
+            self._params[v] = params
+            self._version = v
+            self._max_version = v
+            retired = list(self._params)[:-self.keep]
+            for r in retired:
+                del self._params[r]
+        if retired:
+            for fn in list(self._listeners):
+                fn(retired)
+        return v
+
+    def on_retire(self, fn: Callable[[List[int]], None]):
+        """Register a callback invoked with the list of retired versions."""
+        self._listeners.append(fn)

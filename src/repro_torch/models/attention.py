@@ -105,17 +105,18 @@ def attn_decode(p, x, t, cfg, *, cache):
     cache, L > t), then attends over the filled slots, n = min(t + 1, L):
     every one of them lies inside the window, and the softmax does not
     depend on the slots' order, so the flash kernel runs unmasked with one
-    query over them. It reads the cache's first n slots in place, in their
-    stored dtype (bf16 beside recurrentgemma's fp32 query, which the kernel
-    widens as the reference's products promote). Returns (out (B,1,d),
-    cache)."""
+    query over them. It is handed the whole cache with ``seq_k = n`` (its
+    key ranges then follow the cache's fixed length L, not n) and reads the
+    first n slots in place, in their stored dtype (bf16 beside
+    recurrentgemma's fp32 query, which the kernel widens as the reference's
+    products promote). Returns (out (B,1,d), cache)."""
     q, k, v = _qkv(p, x, torch.full((1,), t, device=x.device), cfg)
     L = cache["k"].shape[1]
     cache["k"][:, t % L] = k[:, 0]
     cache["v"][:, t % L] = v[:, 0]
     n = min(t + 1, L)
-    out = kops.flash_attention(q, cache["k"][:, :n], cache["v"][:, :n],
-                               causal=False, softcap=cfg.attn_logit_softcap)
+    out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                               softcap=cfg.attn_logit_softcap, seq_k=n)
     return _proj_out(p, out, cfg), cache
 
 

@@ -64,6 +64,24 @@ def bucket_len(L: int, buckets=None) -> int:
     return -(-L // top) * top
 
 
+def choose_length_buckets(lengths, max_pad: float = 0.125):
+    """Dense bucket edges from a campaign's length histogram.
+
+    Greedy from the longest length down: each edge is a length seen in the
+    campaign, and every length within ``max_pad`` relative padding of an
+    edge shares its bucket. Guarantees per-row token fill >= 1 - max_pad on
+    the histogram it was built from while keeping the edge set minimal.
+    Returns a sorted tuple, or None for an empty histogram."""
+    uniq = sorted({int(v) for v in lengths}, reverse=True)
+    if not uniq:
+        return None
+    edges = []
+    for L in uniq:
+        if not edges or L < (1.0 - max_pad) * edges[-1]:
+            edges.append(L)
+    return tuple(sorted(edges))
+
+
 @dataclass(eq=False)
 class SubMesh:
     """The devices granted to one task: ``devices`` is an object array of

@@ -26,11 +26,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.core import payload as ref_payload  # noqa: E402
 from repro_torch.core.payload import ProteinPayload  # noqa: E402
 from test_torch_payload import jax_noise, payloads  # noqa: E402
-from test_torch_sampler import schedule_noise  # noqa: E402
+from test_torch_sampler import row_key, schedule_noise  # noqa: E402
 
 PKGS = ("repro", "repro_torch")
 
@@ -590,11 +591,15 @@ def test_launch_counters_lose_no_update_across_threads(monkeypatch):
         k: _YieldingCounts(dict.fromkeys(v, 0))
         for k, v in _cuda.forms.items()})
 
-    def count():
-        for _ in range(500):
-            _cuda.check_launch("flash_attention_bhsd", 0, "decode")
+    monkeypatch.setattr(_cuda, "by_namespace", {})
 
-    threads = [threading.Thread(target=count) for _ in range(8)]
+    def count(ns):
+        with _cuda.namespace(ns):
+            for _ in range(500):
+                _cuda.check_launch("flash_attention_bhsd", 0, "decode")
+
+    threads = [threading.Thread(target=count, args=(f"ns{i % 2}",))
+               for i in range(8)]
     for t in threads:
         t.start()
     for t in threads:
@@ -602,9 +607,13 @@ def test_launch_counters_lose_no_update_across_threads(monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert _cuda.launches["flash_attention_bhsd"] == 4000
     assert _cuda.forms["flash_attention_bhsd"]["decode"] == 4000
+    assert {ns: c["flash_attention_bhsd"]
+            for ns, c in _cuda.by_namespace.items()} == {"ns0": 2000,
+                                                         "ns1": 2000}
     _cuda.reset_launches()
     assert _cuda.launches["flash_attention_bhsd"] == 0
     assert _cuda.forms["flash_attention_bhsd"]["decode"] == 0
+    assert _cuda.by_namespace == {}
 
 
 # ---------------------------------------------------------------------------
@@ -612,19 +621,40 @@ def test_launch_counters_lose_no_update_across_threads(monkeypatch):
 # ---------------------------------------------------------------------------
 
 class NoisedPayload(ProteinPayload):
-    """The port's payload, each sampling task fed the Gumbel draws the
-    reference's key schedule makes from the task's own seed: ``generate``
-    with ``fold_in(PRNGKey(seed), 0)`` through ``progen_sample``'s splits,
-    a paged row's candidate ``c`` with ``fold_in(PRNGKey(seed), c)`` and
-    token ``i`` with ``fold_in`` of that by ``i`` (admitted rows too)."""
+    """The port's payload, each sampling task fed the draws the reference's
+    key schedule makes from the task's own seed: ``generate`` with
+    ``fold_in(PRNGKey(seed), 0)`` through ``progen_sample``'s splits; a
+    dense (or masked-dense) ``generate_batch`` row with the key the
+    reference packs from the row's seed, through the same splits; a
+    ``backbone_batch`` row with ``normal`` of that key; a paged row's
+    candidate ``c`` with ``fold_in(PRNGKey(seed), c)`` and token ``i`` with
+    ``fold_in`` of that by ``i`` (admitted rows too). Fused dispatches get
+    each member row's own draws, from the merged payload's seeds."""
 
     def generate(self, submesh, payload):
         key = ref_payload._fold_in_keys(payload["seed"], 1)[0]
         return super().generate(submesh, dict(payload, noise=schedule_noise(
             key, int(payload["n"]), int(payload["length"]))))
 
-    def _paged_parse(self, payload, length):
-        bbs, seeds, rl, noise = super()._paged_parse(payload, length)
+    def generate_batch(self, submesh, payload):
+        if payload.get("decode") != "paged" and "noise" not in payload:
+            n, length = int(payload["n"]), int(payload["length"])
+            payload = dict(payload, noise=np.stack([
+                schedule_noise(row_key(s), n, length)
+                for s in np.asarray(payload["seeds"]).reshape(-1)]))
+        return super().generate_batch(submesh, payload)
+
+    def backbone_batch(self, submesh, payload):
+        if "noise" not in payload:
+            shape = (int(payload["m"]),) + np.asarray(
+                payload["bases"]).shape[-2:]
+            payload = dict(payload, noise=np.stack([
+                np.asarray(jax.random.normal(jnp.asarray(row_key(s)), shape))
+                for s in np.asarray(payload["seeds"]).reshape(-1)]))
+        return super().backbone_batch(submesh, payload)
+
+    def _paged_parse(self, payload, length, gcfg):
+        bbs, seeds, rl, noise = super()._paged_parse(payload, length, gcfg)
         if noise is None:
             noise = np.stack([[jax_noise(k, length) for k in
                                ref_payload._fold_in_keys(s, payload["n"])]

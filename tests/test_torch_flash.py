@@ -11,6 +11,8 @@ own for flash); 2e-2 for the bf16 serving path
 
 import dataclasses
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -92,6 +94,62 @@ def test_decode_splits_fill_the_card():
     assert fa.decode_splits(500, 132) == 1
 
 
+@pytest.mark.parametrize("B,H,KV,capacity,want", [
+    (6, 8, 4, 89, 1),       # the dense sampler: 24 blocks over 89 slots
+    (8, 10, 1, 2048, 16),   # recurrentgemma-2b's full 2048-key ring
+    (8, 10, 1, 224, 1),     # 7 tiles: under 2 x MIN_SPLIT_TILES
+    (8, 10, 1, 225, 2),
+    (1, 1, 1, 8192, fa.MAX_SPLITS),
+    (200, 8, 1, 2048, 1),   # the blocks fill the card alone
+])
+def test_decode_key_splits_follow_the_key_capacity(B, H, KV, capacity, want):
+    """The decode form's automatic range count on 132 SMs: at most one
+    range per ``MIN_SPLIT_TILES`` tiles of 32 of the views' length, so the
+    dense sampler's 89-slot cache is one range (no combine launch) while
+    recurrentgemma-2b's ring keeps 16; the live key count never enters."""
+    blocks = B * KV * -(-(H // KV) // fa.DECODE_GROUP)
+    got = fa.decode_key_splits(blocks, capacity, 132)
+    assert got == want
+    assert got <= fa.decode_splits(blocks, 132)
+    assert "n_keys" not in inspect.signature(fa.decode_key_splits).parameters
+
+
+def test_attn_decode_hands_the_whole_cache_with_its_live_length(
+        monkeypatch):
+    """The dense sampler's decode steps give the flash wrapper the cache's
+    full length (the range count's capacity: backbone + BOS + the sampled
+    length) with ``seq_k`` its filled slots, and attending over the whole
+    cache with ``seq_k = n`` equals attending over its first n slots."""
+    from repro_torch.models import protein as prot
+    seen = []
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[1], k.shape[1], kw.get("seq_k")))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    cfg = get_reduced("progen-s").replace(compute_dtype="float32")
+    params = prot.init_progen(cfg, 0, device="cpu")
+    bb = torch.randn(1, cfg.frontend_seq, 16,
+                     generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        prot.progen_sample(params, bb, 2, 5, cfg, seeds=[1])
+    L = cfg.frontend_seq + 1 + 5
+    steps = [(k, n) for s, k, n in seen if s == 1]
+    assert len(steps) == 4 * cfg.n_layers       # length - 1 decode steps
+    assert {k for k, _ in steps} == {L}
+    # the prompt fills L - 5 slots; each step writes one more, and the
+    # last sampled token is never written
+    assert sorted({n for _, n in steps}) == list(range(L - 4, L))
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 1, 4, 16, generator=g)
+    cache = torch.randn(2, 12, 2, 16, generator=g)
+    assert_allclose(real(q, cache, cache, causal=False, seq_k=5).numpy(),
+                    real(q, cache[:, :5], cache[:, :5],
+                         causal=False).numpy(), **F32_TOL)
+
+
 # ---------------------------------------------------------------------------
 # (b), (c) the inputs the decode form takes
 # ---------------------------------------------------------------------------
@@ -134,14 +192,15 @@ def test_strided_ring_view_is_the_contiguous_copy(dtype):
 def test_attn_decode_hands_the_kernel_the_cache_itself(monkeypatch):
     """Under bf16 compute recurrentgemma's query is fp32 and its ring cache
     bf16: ``attn_decode`` hands ``kops.flash_attention`` views of the
-    cache's own storage, in bf16, over the filled slots, and no copy."""
+    cache's own storage, in bf16, the whole cache with ``seq_k`` its filled
+    slots, and no copy."""
     cfg = get_reduced(ARCH).replace(compute_dtype="bfloat16")
     layer = lm.init_lm(cfg, seed=0, device="cpu").layers[2].attn
     seen = []
     real = attention.kops.flash_attention
 
     def spy(q, k, v, **kw):
-        seen.append((q, k, v))
+        seen.append((q, k, v, kw["seq_k"]))
         return real(q, k, v, **kw)
 
     monkeypatch.setattr(attention.kops, "flash_attention", spy)
@@ -150,12 +209,13 @@ def test_attn_decode_hands_the_kernel_the_cache_itself(monkeypatch):
         size=(2, 1, cfg.d_model)).astype(np.float32))
     for pos in (0, 5):
         attention.attn_decode(layer, x, pos, cfg, cache=cache)
-        q, k, v = seen[-1]
+        q, k, v, seq_k = seen[-1]
         assert q.dtype == torch.float32
+        assert seq_k == min(pos + 1, cache["k"].shape[1])
         for got, name in ((k, "k"), (v, "v")):
             assert got.dtype == cache[name].dtype == torch.bfloat16
             assert got.data_ptr() == cache[name].data_ptr()
-            assert got.shape[1] == min(pos + 1, cache[name].shape[1])
+            assert got.shape[1] == cache[name].shape[1]
             assert got.stride() == cache[name].stride()
 
 

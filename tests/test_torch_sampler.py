@@ -267,12 +267,16 @@ def test_sampled_candidates_score_alike_in_bf16():
 
 
 def test_other_param_namespaces_are_not_ported():
+    """A namespace the payload does not hold raises ``KeyError`` (as in the
+    reference) in every task kind that reads one: nothing falls back to
+    the default weights."""
     _, port = payloads("float32")
     payload = {"backbones": backbones(np.random.default_rng(13), 1),
                "seeds": [1], "n": N, "length": L, "params": "binder"}
-    with pytest.raises(NotImplementedError):
+    assert "binder" not in port.gen_stores
+    with pytest.raises(KeyError):
         port.generate_batch(CPU, payload)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(KeyError):
         port.predict(CPU, {"sequence": np.arange(1, 9), "target": np.ones(16),
                            "receptor_len": 4, "params": "multimer"})
 
