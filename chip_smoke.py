@@ -70,6 +70,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    then held against the plain version on fresh inputs, and a fixed-noise
    ``generate_batch`` on the "binder" namespace must give the tokens of
    the binder generator's weights, not the default one's.
+5d. Model evolution at full width (progen-s). (a) The flash kernel's
+   autograd Function (``flash_attention_grad``: the kernel's forward, the
+   plain backward) at the finetune batch's shape, 8 rows x 8/4 heads of
+   32 over 30 backbone rows + 24 design tokens, causal, at a ragged length
+   and at a GQA group of 1: its forward against the plain version and its
+   dq/dk/dv against autograd through ``attention_ref``, each relative to
+   that gradient's max, to ``TOL``; one launch a forward, none a
+   backward; then the forward kernel's, the plain version's and sdpa's
+   device time at that shape and the plain backward's wall time. (b) A
+   reduced finetune of 5 steps in fp32 on one set of weights and one batch,
+   card against CPU: the same losses and parameters (``EVO_LOSS_RTOL``,
+   ``EVO_PARAM_ATOL``). (c) im-rp through ``ImpressSession`` (4
+   structures, 3 cycles) without and with ``evolution=True``: no task
+   failed, at least one finetune completed and lowered its loss, the store
+   is at version 1 or more, and the counters equal what the completed
+   tasks imply, 6 flash launches a finetune step (preempted runs
+   included). (d) A fixed-noise ``generate_batch`` after it gives the
+   tokens of ``progen_sample`` on the evolved weights, not on version
+   0's. (e) ``ParamStore.save`` of version 0 and of the evolved version
+   through a ``CheckpointManager``; the evolved one restores into a fresh
+   store with bitwise logits, then its ``.npz`` is garbled and the restore
+   falls back to version 0's copy, bitwise. (f) Prints the makespans with
+   and without evolution, each finetune task's steps and wall time,
+   designs by generator version, peak device memory, a train step's wall
+   ms and one train step under ``torch.profiler``.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
@@ -89,7 +114,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    over the bf16 ring in place), and the other two kernels not at all.
    Then the full-width fp32 per-layer check over a prompt past the window,
    and one decode step over a full ring under ``torch.profiler``.
-8. One ``{"kernels": [...]}`` JSON line, the card line, then the last line
+8. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
+   its own record, its launches those of phase 5d's finetune tasks), the
+   card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -122,6 +149,7 @@ import contextlib
 import gc
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -155,6 +183,13 @@ CAMPAIGN_FORMS = {"default": {},
 CAMPAIGN_CYCLES = 2
 # the session phase (5c): two cycles a protocol; campaign B's mixed lengths
 SESSION_CYCLES, SESSION_B_LENS = 2, (24, 32)
+# model evolution (5d): the im-rp session at the session's evolution
+# defaults (a finetune every 2 accepted designs once 2 are held, 12 AdamW
+# steps on up to 8 designs); 4 structures x 3 cycles, no sub-pipelines
+EVO_STRUCTURES, EVO_CYCLES, EVO_BATCH = 4, 3, 8
+# card vs CPU finetune (5d b), as tests/test_torch_evolution.py states it:
+# losses to a relative 1e-5, every parameter to 1e-4 after 5 steps
+EVO_LOSS_RTOL, EVO_PARAM_ATOL = 1e-5, 1e-4
 
 
 def expect(cond, msg):
@@ -1470,7 +1505,9 @@ def implied_session_launches(done, pp):
     the same once for all its rows at their shared length; a ``predict``
     task or a ``predict_batch`` dispatch is one flash sequence launch a
     layer of its namespace's scorer: 8 for foldscore-s ("default"), 12 for
-    foldscore-m ("multimer"). ``backbone_batch`` runs no kernel."""
+    foldscore-m ("multimer"). A ``finetune`` task is one flash sequence
+    launch a generator layer a train step it ran. ``backbone_batch`` runs
+    no kernel."""
     seq = dec = 0
     by_ns = collections.Counter()
     for t in done:
@@ -1490,6 +1527,12 @@ def implied_session_launches(done, pp):
             n_layers = pp.fold_sets[ns][0].n_layers
             seq += n_layers
             by_ns[ns] += n_layers
+        elif t.kind == "finetune":
+            # one bf16 sequence launch a layer a train step (its forward;
+            # the plain backward launches none), preempted runs included
+            n = pp.gen_cfgs[ns].n_layers * int(t.result["steps_run"])
+            seq += n
+            by_ns[ns] += n
     zero = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
     return (dict(zero, flash_attention_bhsd=seq + dec),
@@ -1837,6 +1880,378 @@ def phase_session(torch, pp):
           flush=True)
 
 
+def finetune_flash(torch):
+    """Phase 5d (a): the flash kernel's autograd Function on the card at
+    the finetune batch's shape (8 rows x 8/4 heads of 32, causal, 30
+    backbone rows + 24 design tokens), at a ragged length and at a GQA
+    group of 1: its forward against the plain version (``TOL``) and its
+    dq/dk/dv against ``torch.autograd`` through ``attention_ref``, each
+    relative to that gradient's max (``TOL``); one launch a forward, none
+    a backward. Then, at the finetune shape in bf16, the forward kernel's,
+    the plain version's and sdpa's device times and the plain backward's
+    wall time. Returns the kernel record of the finetune shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    S = RECEPTOR + PEPTIDE + RECEPTOR
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for label, (B, H, KV, Sq) in (
+            (f"finetune batch {EVO_BATCH} x 8/4 x {S}", (EVO_BATCH, 8, 4, S)),
+            ("ragged 37", (EVO_BATCH, 8, 4, 37)),
+            (f"GQA group 1, {EVO_BATCH} x 8/8 x {S}", (EVO_BATCH, 8, 8, S))):
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, Sq, 32, generator=g, device="cuda").to(dt)
+            k, v = (torch.randn(B, KV, Sq, 32, generator=g,
+                                device="cuda").to(dt) for _ in range(2))
+            do = torch.randn(B, H, Sq, 32, generator=g, device="cuda").to(dt)
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            out = fa.flash_attention_grad(q, k, v)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            n, f = ops.launches["flash_attention_bhsd"], \
+                dict(ops.forms["flash_attention_bhsd"])
+            want = fa.attention_ref(q, k, v)
+            want_g = torch.autograd.grad(want, (q, k, v), do)
+            tol = TOL[dtype_name(dt)]
+            check(f"flash Function {label} {dtype_name(dt)} forward",
+                  max_err(out.detach(), want.detach()), tol)
+            rel = [max_err(a, b) / float(b.float().abs().max())
+                   for a, b in zip(grads, want_g)]
+            print(f"  flash Function {label} {dtype_name(dt)} dq, dk, dv: "
+                  f"max error relative to the gradient's max "
+                  + ", ".join(f"{e:.3e}" for e in rel) + f" (tol {tol:.0e})",
+                  flush=True)
+            expect(max(rel) <= tol, f"flash Function {label} "
+                   f"{dtype_name(dt)}: gradient errors {rel} > {tol}")
+            form = "seq_f32" if dt == torch.float32 else "seq_bf16"
+            expect(n == 1 and f[form] == 1,
+                   f"flash Function: {n} launches {f} for one forward and "
+                   f"backward, not 1 of {form}")
+    B, H, KV = EVO_BATCH, 8, 4
+    q, k, v, do = (torch.randn(B, h, S, 32, generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+                   for h in (H, KV, KV, H))
+    run_k = lambda: fa.flash_attention_bhsd(q, k, v)
+    run_p = lambda: fa.attention_ref(q, k, v)
+    run_l = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True)
+    o = run_k()
+    run_b = lambda: fa.attention_bwd(q, k, v, o, fa.attention_lse(q, k), do)
+    err = max_err(o, run_p())
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    n_ops = 4 * 32 * B * H * live_pairs(S, S, True, 0)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
+                      graph_ms(torch, run_l))
+    bwd = wall_ms(torch, run_b, iters=50, warmup=5)
+    print(f"  flash at the finetune shape {B} x {H}/{KV} x {S} bf16, device "
+          f"ms per call: kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, "
+          f"bound {b_ms:.6f} ({b_by}); wall per back-to-back call: kernel "
+          f"{wall_ms(torch, run_k):.4f}, plain backward (lse pass + "
+          f"key-blocked recomputation) {bwd:.4f}; err {err:.3e}", flush=True)
+    return {"name": "flash_attention_bhsd_finetune", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def finetune_batch(rng, rows, P, L):
+    import numpy as np
+    return {"backbones": rng.normal(size=(rows, P, 16)).astype(np.float32),
+            "sequences": rng.integers(1, 21, size=(rows, L)).astype(np.int32),
+            "weights": np.linspace(1.0, 0.2, rows).astype(np.float32)}
+
+
+def finetune_agreement(torch):
+    """Phase 5d (b): a reduced progen-s finetune of 5 steps in fp32 on one
+    set of weights and one batch, on the card (the flash kernel's fp32
+    form, one launch a layer a step) and on the CPU (its plain version):
+    the same losses and log-likelihoods to ``EVO_LOSS_RTOL`` and every
+    evolved parameter to ``EVO_PARAM_ATOL``."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.payload import FinetunePayload, ProteinPayload
+    from repro_torch.kernels import ops
+    from repro_torch.models import protein as prot
+    from repro_torch.runtime.allocator import SubMesh
+
+    gcfg = get_reduced("progen-s").replace(compute_dtype="float32")
+    fcfg = get_reduced("foldscore-s").replace(compute_dtype="float32")
+    weights = prot.init_progen(gcfg, 0, device="cpu")
+    batch = finetune_batch(np.random.default_rng(8), 4, gcfg.frontend_seq, 12)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pp = ProteinPayload(gen_cfg=gcfg, fold_cfg=fcfg, device=dev,
+                            progen=copy.deepcopy(weights))
+        ops.reset_launches()
+        res = FinetunePayload(pp, lr=1e-3, steps=5).finetune(
+            SubMesh((pp.device,)), dict(batch))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = ops.forms["flash_attention_bhsd"]["seq_f32"]
+            expect(n == gcfg.n_layers * 5 == ops.launches[
+                "flash_attention_bhsd"], f"reduced finetune on the card: {n} "
+                   f"flash launches, not {gcfg.n_layers} x 5")
+        out[dev] = (res, dict(pp.param_store.current()[1]
+                              .named_parameters()))
+    (gres, gp), (cres, cp) = out["cuda"], out["cpu"]
+    keys = ("loss_first", "loss_last", "mean_ll_first", "mean_ll_last")
+    rel = max(abs(gres[k] - cres[k]) / abs(cres[k]) for k in keys)
+    print(f"  reduced finetune, 5 steps fp32, card vs CPU: losses "
+          f"{gres['loss_first']:.5f} -> {gres['loss_last']:.5f} (CPU "
+          f"{cres['loss_first']:.5f} -> {cres['loss_last']:.5f})", flush=True)
+    check("reduced finetune losses card vs CPU, relative", rel, EVO_LOSS_RTOL)
+    check("reduced finetune parameters card vs CPU",
+          max(max_err(gp[n].cpu(), cp[n]) for n in cp), EVO_PARAM_ATOL)
+    expect(gres["loss_last"] < gres["loss_first"],
+           "reduced finetune on the card did not lower its loss")
+
+
+def evolution_specs():
+    """Phase 5d's sessions: im-rp at full width with and without model
+    evolution, otherwise alike. No sub-pipelines: a sub-pipeline's uid,
+    hence its seed, depends on how completions interleave, and without
+    them the two runs do the same design work until a finetune
+    publishes."""
+    import dataclasses
+
+    from repro_torch.session import CampaignSpec, ProtocolSpec
+    base = CampaignSpec(structures=EVO_STRUCTURES, receptor_len=RECEPTOR,
+                        peptide_len=PEPTIDE, max_workers=2, seed=0,
+                        reduced=False, protocols=(ProtocolSpec(
+                            "im-rp", n_cycles=EVO_CYCLES,
+                            n_candidates=N_CAND, max_sub_pipelines=0),),
+                        finetune_every=2, min_designs=2,
+                        finetune_batch=EVO_BATCH)
+    return base, dataclasses.replace(base, evolution=True)
+
+
+def evolved_weights_ran(torch, pp, v0):
+    """Phase 5d (d): a dense ``generate_batch`` of 2 rows x 6 candidates
+    with fixed noise after the evolution session must give the tokens of
+    ``progen_sample`` on the store's current (evolved) weights, not those
+    of version 0's weights ``v0``."""
+    import numpy as np
+    from repro_torch.models import protein as prot
+    from repro_torch.runtime.allocator import SubMesh
+
+    rng = np.random.default_rng(12)
+    rows, length = 2, RECEPTOR
+    bbs = rng.normal(size=(rows, RECEPTOR + PEPTIDE, 16)).astype(np.float32)
+    noise = rng.gumbel(size=(rows, N_CAND, length, pp.gen_cfg.padded_vocab)
+                       ).astype(np.float32)
+    got = pp.generate_batch(SubMesh((pp.device,)), {
+        "backbones": bbs, "seeds": np.arange(rows), "n": N_CAND,
+        "length": length, "noise": noise})
+    expect(got["gen_version"] == pp.param_store.version,
+           f"generate_batch ran version {got['gen_version']}, the store is "
+           f"at {pp.param_store.version}")
+    got = np.stack([s for s, _ in got["rows"]])
+    want = {}
+    with torch.inference_mode():
+        for label, w in (("evolved", pp.param_store.current()[1]),
+                         ("version 0", v0)):
+            seqs, _ = prot.progen_sample(
+                w, torch.tensor(bbs[:, :pp.gen_cfg.frontend_seq],
+                                device=pp.device),
+                N_CAND, length, pp.gen_cfg, noise=noise)
+            want[label] = seqs.cpu().numpy()
+    same = {k: bool(np.array_equal(got, t)) for k, t in want.items()}
+    print(f"  generate_batch after the evolution session, {rows} x {N_CAND} "
+          f"candidates, fixed noise: tokens equal to progen_sample on the "
+          f"evolved weights (version {pp.param_store.version}) "
+          f"{same['evolved']}, on version 0's {same['version 0']}",
+          flush=True)
+    expect(same["evolved"] and not same["version 0"],
+           f"the dispatch after evolution did not run the evolved "
+           f"weights: {same}")
+
+
+def checkpoint_round_trip(torch, pp, v0):
+    """Phase 5d (e): version 0 and the evolved version saved through one
+    ``CheckpointManager`` by ``ParamStore.save``; the evolved one restores
+    into a fresh store with logits bitwise those of the weights saved; then
+    its ``.npz`` is garbled, and a restore falls back to version 0's intact
+    copy, again bitwise."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager, verify_checkpoint
+    from repro_torch.learn.param_store import ParamStore
+    from repro_torch.models import lm
+    from repro_torch.models import protein as prot
+
+    cfg = pp.gen_cfg
+    rng = np.random.default_rng(13)
+    bb = torch.tensor(rng.normal(size=(2, RECEPTOR + PEPTIDE, 16)),
+                      dtype=torch.float32, device=pp.device)
+    toks = torch.tensor(rng.integers(0, 21, size=(2, RECEPTOR)),
+                        device=pp.device)
+
+    def logits(w):
+        with torch.inference_mode():
+            return lm.lm_logits(w, {"inputs": toks, "patches":
+                                    prot.encode_structure(w, bb, cfg)}, cfg)
+
+    ver, evolved = pp.param_store.current()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=3, async_write=True)
+        ParamStore(v0, version=0).save(mgr, block=True)
+        pp.param_store.save(mgr)           # on the manager's writer thread
+        mgr.wait()
+        fresh = ParamStore(copy.deepcopy(v0))
+        retired = []
+        fresh.on_retire(retired.extend)
+        got = fresh.restore(mgr)
+        expect(got == ver and torch.equal(logits(fresh.current()[1]),
+                                          logits(evolved)),
+               f"restored step {got} (want {ver}) or its logits differ")
+        expect(retired == [0], f"the restore announced {retired} retired")
+        expect(fresh.publish(copy.deepcopy(v0)) == ver + 1,
+               "publishing after the restore reused a version number")
+        path = mgr._base(ver) + ".npz"
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            f.write(b"\xff" * 64)
+        expect(not verify_checkpoint(mgr._base(ver)),
+               "the garbled checkpoint passed verification")
+        fresh = ParamStore(copy.deepcopy(v0))
+        got = fresh.restore(mgr)
+        expect(got == 0 and torch.equal(logits(fresh.current()[1]),
+                                        logits(v0)),
+               f"the fallback restored step {got}, or its logits differ")
+    print(f"  checkpoint round trip on the card: version {ver} restored "
+          f"with bitwise logits, publishing on at {ver + 1}; its .npz "
+          f"garbled, the restore fell back to step 0, bitwise", flush=True)
+
+
+def finetune_step_timing(torch, pp):
+    """Phase 5d (f): one train step at the finetune batch's shape (8 rows x
+    30 backbone rows + 24 tokens) on a trainable copy of the generator:
+    wall ms a step (median of 10 after 2 warm-up steps, synchronized), then
+    one step under torch.profiler."""
+    import numpy as np
+    from repro_torch.core.payload import FinetunePayload
+    from repro_torch.learn.param_store import ParamStore
+    from repro_torch.models.common import trainable
+    from repro_torch.optim import init_opt_state
+
+    ft = FinetunePayload(pp, lr=1e-3, steps=12, param_store=ParamStore(
+        pp.param_store.current()[1]))
+    params = trainable(pp.param_store.current()[1])
+    state = init_opt_state(dict(params.named_parameters()), ft.opt)
+    batch = {k: torch.tensor(v, device=pp.device) for k, v in finetune_batch(
+        np.random.default_rng(14), EVO_BATCH, RECEPTOR + PEPTIDE,
+        RECEPTOR).items()}
+    step = ft._train_step()
+    walls = []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    print(f"  finetune train step, {EVO_BATCH} x ({RECEPTOR + PEPTIDE} + "
+          f"{RECEPTOR}) tokens, bf16 compute: wall median "
+          f"{statistics.median(walls[2:]):.2f} ms ({min(walls[2:]):.2f}-"
+          f"{max(walls[2:]):.2f}), loss {float(m['loss']):.3f}", flush=True)
+    profile_step(torch, lambda: step(params, state, batch),
+                 "finetune train step", top=10)
+
+
+def phase_evolution(torch, pp):
+    """Phase 5d: model evolution on the H100 at full width. (a) the flash
+    Function at the finetune shape; (b) a reduced finetune card vs CPU;
+    (c) im-rp through ``ImpressSession`` without and with
+    ``evolution=True``, the counters held to what the completed tasks imply
+    (6 flash launches a finetune step); (d) the evolved weights shown to
+    run; (e) a checkpoint round trip with a garbled copy; (f) a train
+    step's wall time and profile. Returns the finetune shape's kernel
+    record, its launches those of the finetune tasks of (c)."""
+    import copy
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.pipeline import TaskState
+
+    t_phase = time.perf_counter()
+    print("phase 5d: model evolution at full width (progen-s finetune)",
+          flush=True)
+    record = finetune_flash(torch)
+    finetune_agreement(torch)
+    base, spec = evolution_specs()
+    cuda0 = torch.device("cuda", 0)
+    v0 = copy.deepcopy(pp.param_store.current()[1])
+    print(f"phase 5d: im-rp x {EVO_STRUCTURES} structures, {EVO_CYCLES} "
+          f"cycles, {N_CAND} candidates, without and with evolution "
+          f"(finetune every {spec.finetune_every} accepted designs, "
+          f"{spec.finetune_steps} steps on up to {EVO_BATCH})", flush=True)
+    # both runs draw pipeline and task uids (the sampling seeds) from one
+    # start, so they run the same design work until a finetune publishes
+    uid0 = next(pipeline._uid) + 1
+    pipeline._uid = itertools.count(uid0)
+    _, rep0, acc0 = run_session(torch, pp, base, [cuda0],
+                                "without evolution")
+    expect(rep0.evolution is None and pp.param_store.version == 0,
+           "the session without evolution evolved the generator")
+    torch.cuda.reset_peak_memory_stats()
+    pipeline._uid = itertools.count(uid0)
+    sess, rep, acc = run_session(torch, pp, spec, [cuda0], "with evolution",
+                                 keep=True)
+    try:
+        fts = [t.result for t in sess.executor._tasks.values()
+               if t.kind == "finetune" and t.state == TaskState.DONE]
+    finally:
+        sess.shutdown()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    evo = rep.evolution
+    done = [r for r in fts if not r["preempted"]]
+    steps = sum(r["steps_run"] for r in fts)
+    print(f"  evolution: {evo['submitted']} finetunes submitted, "
+          f"{evo['completed']} completed, {evo['preempted']} preempted, "
+          f"{steps} steps ({pp.gen_cfg.n_layers * steps} flash launches); "
+          f"store at version {pp.param_store.version}; buffer "
+          f"{evo['buffer']['size']} designs", flush=True)
+    for r in fts:
+        print(f"    finetune from version {r['base_version']}: "
+              f"{r['steps_run']} steps to step {r['steps_done']} on "
+              f"{r['n_designs']} designs, {1e3 * r['elapsed_s']:.1f} ms in "
+              f"the task" + ("; preempted" if r["preempted"] else
+                             f"; loss {r['loss_first']:.3f} -> "
+                             f"{r['loss_last']:.3f}, mean log-likelihood "
+                             f"{r['mean_ll_first']:.3f} -> "
+                             f"{r['mean_ll_last']:.3f}, published version "
+                             f"{r['new_version']}"), flush=True)
+    print(f"  makespan without evolution {rep0.makespan_s:.3f} s, with "
+          f"{rep.makespan_s:.3f} s (the same accepted designs: "
+          f"{acc0 == acc}); designs by generator version "
+          f"{ {v: q['n'] for v, q in rep.quality_by_version.items()} }; "
+          f"peak device memory {peak:.3f} GiB (all the process holds on "
+          f"the card, its earlier phases' weights and caches included)",
+          flush=True)
+    expect(evo["enabled"] and evo["failed"] == 0,
+           f"evolution report {evo}")
+    expect(len(done) >= 1 and evo["completed"] == len(done),
+           f"{len(done)} finetunes completed")
+    expect(all(r["loss_last"] < r["loss_first"] for r in done),
+           "a finetune did not lower its loss")
+    expect(pp.param_store.version >= 1 and evo["param_version"] >= 1,
+           f"the store is at version {pp.param_store.version}")
+    evolved_weights_ran(torch, pp, v0)
+    checkpoint_round_trip(torch, pp, v0)
+    finetune_step_timing(torch, pp)
+    record["launches"] = pp.gen_cfg.n_layers * steps
+    print(f"  phase 5d took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return record
+
+
 def profile_step(torch, fn, label, top=12):
     """Run ``fn`` once under torch.profiler: device time by kernel and the
     device's busy share of the wall time. Returns the device kernels'
@@ -2116,6 +2531,9 @@ def main():
     phase_profile(torch, pp)
     campaign = phase_campaign(torch, pp)
     phase_session(torch, pp)
+    finetune = phase_evolution(torch, pp)
+    counts["flash_attention_bhsd_finetune"] = finetune["launches"]
+    records.append(finetune)
     counts["flash_attention_bhsd_decode"] = campaign["default"]["decode"]
     del pp
     wkv = phase_serving(torch)

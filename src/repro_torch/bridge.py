@@ -9,6 +9,14 @@ its ``ssm.Rwkv`` module). Each segment leaf stacked on a leading ``repeats`` axi
 into per-layer tensors, in the order ``cfg.layer_kinds`` lists the layers.
 ``payload_namespaces_from_ref`` carries a reference ``ProteinPayload``'s
 every param-set namespace into a port payload.
+
+The inverse, ``ref_tree``, gives a port module's weights in the
+reference's layout: the same nested keys, each segment's layer leaves
+stacked on a leading ``repeats`` axis. Checkpoints are keyed by it (so
+both packages' files hold the same arrays), ``ref_ndims`` gives each
+parameter's rank there (which decides AdamW's weight decay) and
+``module_from_ref`` rebuilds a module like a template from such a tree. A
+reference -> port -> reference round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -26,18 +34,22 @@ from repro_torch.models.protein import FoldScore, ProGen
 
 
 def _load(module, tree, prefix, take, filled):
+    """Copy the leaves of ``tree`` (numpy arrays or tensors) into
+    ``module``'s parameters of the same names."""
     for name, sub in tree.items():
         path = f"{prefix}{name}"
         target = getattr(module, name)
         if isinstance(sub, dict):
             _load(target, sub, path + ".", take, filled)
             continue
-        arr = np.asarray(take(sub))
-        if tuple(target.shape) != arr.shape:
-            raise ValueError(f"{path}: reference shape {arr.shape}, port "
-                             f"shape {tuple(target.shape)}")
+        arr = take(sub)
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.array(arr, copy=True))
+        if tuple(target.shape) != tuple(arr.shape):
+            raise ValueError(f"{path}: reference shape {tuple(arr.shape)}, "
+                             f"port shape {tuple(target.shape)}")
         with torch.no_grad():
-            target.copy_(torch.from_numpy(np.array(arr, copy=True)))
+            target.copy_(arr)
         filled.add(path)
 
 
@@ -52,7 +64,7 @@ def _from_ref(module, params, cfg):
             for i, kind in enumerate(kinds):
                 idx, layer = next(layers)
                 _load(layer, seg[f"{i}_{kind}"], f"layers.{idx}.",
-                      lambda a, r=r: np.asarray(a)[r], filled)
+                      lambda a, r=r: a[r], filled)
     missing = {n for n, _ in module.named_parameters()} - filled
     if missing:
         raise ValueError(f"reference params leave {sorted(missing)} unset")
@@ -74,6 +86,62 @@ def foldscore_from_ref(params, cfg) -> FoldScore:
     FoldScore."""
     return _from_ref(FoldScore(cfg), params, cfg)
 
+
+
+def _put(tree, path, leaf):
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def _host(tensors, stacked):
+    """The default ``ref_tree`` leaf: a host numpy copy, stacked."""
+    t = torch.stack(tensors) if stacked else tensors[0]
+    return t.detach().cpu().numpy()
+
+
+def ref_tree(module, leaf=_host):
+    """``module``'s weights (an LM, ProGen or FoldScore, which carries its
+    ``cfg``) in the reference's pytree layout: top-level leaves by their
+    names, and ``segments``, a list with one dict a segment whose
+    ``f"{i}_{kind}"`` entries stack that block position's layer leaves on
+    a leading ``repeats`` axis. Each leaf is ``leaf(tensors, stacked)``, by
+    default a host numpy array."""
+    cfg = module.cfg
+    tree = {}
+    for name, p in module.named_parameters():
+        if not name.startswith("layers."):
+            _put(tree, name.split("."), leaf([p], False))
+    layers, at, segments = list(module.layers), 0, []
+    for kinds, reps in cfg.segments:
+        seg = {}
+        for i, kind in enumerate(kinds):
+            group = [dict(layers[at + r * len(kinds) + i].named_parameters())
+                     for r in range(reps)]
+            sub = seg[f"{i}_{kind}"] = {}
+            for name in group[0]:
+                _put(sub, name.split("."), leaf([g[name] for g in group],
+                                                True))
+        segments.append(seg)
+        at += reps * len(kinds)
+    tree["segments"] = segments
+    return tree
+
+
+def ref_ndims(module):
+    """Each parameter's rank in the reference's layout: a layer's leaves
+    carry the stacked ``repeats`` axis there, one more than here."""
+    return {n: p.dim() + n.startswith("layers.")
+            for n, p in module.named_parameters()}
+
+
+def module_from_ref(tree, template):
+    """A module of ``template``'s class and config, on its device and in
+    its parameters' dtypes (no gradients), holding the reference-layout
+    ``tree``'s values."""
+    out = _from_ref(type(template)(template.cfg), tree, template.cfg)
+    p0 = next(template.parameters())
+    return out.to(device=p0.device)
 
 
 def _port_cfg(cfg):

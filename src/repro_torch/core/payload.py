@@ -24,14 +24,17 @@ Task kinds, each run on the sub-mesh the executor granted:
   excludes pad positions from every metric.
 ``backbone_batch`` — perturbs each row's base backbone into ``m``
   candidates (per-row generators) and scores their fit to the row's target.
+``finetune`` (``FinetunePayload``, the §V model-evolution trainer) — AdamW
+  steps on the fitness-weighted NLL of accepted designs, then publishes the
+  evolved generator as a new ``ParamStore`` version.
 
 The batched kinds pad their batch dim to a ``BATCH_BUCKETS`` size (pad rows
 repeat the last real row and are dropped before returning) and split the
 padded stack across the sub-mesh's devices. Their coalesce rules
 (``*_coalesce_rule``) let the executor fuse compatible queued tasks from
-different pipelines into one device batch. Every task function enters
-``torch.inference_mode()`` itself: the executor calls it from worker
-threads, which a caller's grad mode does not reach.
+different pipelines into one device batch. Every task function but
+``finetune`` enters ``torch.inference_mode()`` itself: the executor calls
+it from worker threads, which a caller's grad mode does not reach.
 
 Generator weights live in versioned ``ParamStore``s; sampling dispatches
 snapshot (version, weights) once and tag results ``gen_version``. Param-set
@@ -69,6 +72,7 @@ from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.kernels import _cuda
 from repro_torch.learn.param_store import ParamStore
 from repro_torch.models import protein as prot
+from repro_torch.models.common import trainable
 from repro_torch.runtime.allocator import (BATCH_BUCKETS, bucket_len,
                                            bucket_rows)
 from repro_torch.runtime.executor import CoalesceRule
@@ -924,3 +928,180 @@ def backbone_batch_coalesce_rule(max_rows: int = BATCH_BUCKETS[-1],
     return CoalesceRule(key=key, merge=merge, split=split, rows=n_rows,
                         max_rows=max_rows,
                         admission_window=admission_window)
+
+
+class FinetunePayload:
+    """The ``finetune`` task kind — the §V model-evolution trainer payload:
+    accepted designs (HPC output) become training data that evolves the
+    generative model, with a fitness-weighted NLL objective (the simplest
+    form of the paper's MProt-DPO-flavoured 'evolve the generator'). A port
+    of the JAX package's ``FinetunePayload``.
+
+    Built on ``optim.train_step.make_train_step``: AdamW steps on a
+    trainable fp32 copy of the generator's current weights, made from the
+    store's own module (never from a payload's per-device copy: those are
+    made under inference mode). Its attention forward is the flash kernel
+    (bf16 compute: its ``mma.sync`` sequence form, one launch a layer a
+    step), its backward the kernel's plain gradient. On a sub-mesh of
+    several devices the design batch is split across them (rows padded to
+    a multiple of the device count with weight 0), each device runs a
+    replica, each shard's loss is normalized by the whole batch's weight
+    sum, and the gradients are summed on the first device before the
+    single update. Evolved weights are published to the generator's
+    ``ParamStore`` as a new version, a module on the payload's device with
+    ``requires_grad=False`` — generators hot-swap on their next dispatch,
+    in-flight dispatches finish on the version they started with.
+
+    Preemption contract: for preemptible tasks the executor injects the
+    live task as ``payload["_task"]``; between train steps the loop checks
+    ``preempt_requested`` (and ``canceled``) and yields early, returning
+    host-side resume state (weights and moments as CPU tensors, step,
+    losses) in the result. The trainer service resubmits the continuation
+    (``payload["resume"]``) on the next idle window, so a queued design
+    task waits at most one train step and no training progress is lost.
+
+    The task function does not enter inference mode; it counts its
+    launches under its generator's namespace (``_cuda.namespace``)."""
+
+    def __init__(self, protein_payload, lr=1e-4, steps=20, param_store=None):
+        from repro_torch.optim import OptConfig
+        self.pp = protein_payload
+        self.store = param_store or protein_payload.param_store
+        self.namespace = next((ns for ns, st in self.pp.gen_stores.items()
+                               if st is self.store), "default")
+        self.cfg = self.pp.gen_cfgs.get(self.namespace, self.pp.gen_cfg)
+        self.opt = OptConfig(lr=lr, warmup_steps=2, total_steps=steps,
+                             weight_decay=0.0)
+        self.steps = steps
+        self._step_fn = None
+
+    def loss_fn(self, params, batch):
+        """The fitness-normalized weighted NLL and the mean log-likelihood
+        of the real rows (weight > 0); ``seq_lens``, when given, masks a
+        mixed-length batch. A shard of a split batch carries the whole
+        batch's weight sum and real-row count as per-row columns
+        (``w_total``, ``real_total``)."""
+        lp = prot.progen_logprobs(params, batch["backbones"],
+                                  batch["sequences"], self.cfg,
+                                  seq_lens=batch.get("seq_lens"))
+        w = batch["weights"]
+        real = (w > 0).float()                       # pad rows weigh 0
+        w_sum = batch["w_total"][0] if "w_total" in batch else w.sum()
+        n_real = batch["real_total"][0] if "real_total" in batch \
+            else real.sum()
+        loss = -(w / torch.clamp(w_sum, min=1e-6) * lp).sum()
+        mean_ll = (real * lp).sum() / torch.clamp(n_real, min=1.0)
+        return loss, {"loss": loss, "mean_ll": mean_ll}
+
+    def _train_step(self):
+        if self._step_fn is None:
+            from repro_torch.optim import make_train_step
+            self._step_fn = make_train_step(self.cfg, self.opt,
+                                            loss_fn=self.loss_fn)
+        return self._step_fn
+
+    def finetune(self, submesh, payload):
+        """payload: backbones (B,P,16) f32; sequences (B,L) i32; weights
+        (B,) f32 (fitness-derived, >= 0); seq_lens (optional (B,)); steps
+        (optional int); resume (optional, from a preempted run's result);
+        _task (injected by the executor for preemptible tasks).
+
+        Returns metrics incl. base/new generator version, or — when
+        preempted — partial metrics plus ``resume`` state."""
+        from repro_torch.optim import init_opt_state
+        t_start = time.monotonic()
+        task = payload.get("_task")
+        cfg = self.cfg
+        devices = _devices(submesh)
+        ndev = len(devices)
+        seqs = np.asarray(payload["sequences"], np.int32)
+        bbs = np.asarray(payload["backbones"],
+                         np.float32)[:, :cfg.frontend_seq]
+        w = np.maximum(np.asarray(payload["weights"], np.float32), 0.0)
+        cols = {"backbones": bbs, "sequences": seqs, "weights": w}
+        if payload.get("seq_lens") is not None:
+            cols["seq_lens"] = np.asarray(payload["seq_lens"],
+                                          np.int32).reshape(-1)
+        n_real = int(seqs.shape[0])
+        pad = (-n_real) % ndev    # the split needs B % ndev == 0
+        if pad:
+            cols = {k: np.concatenate([v, np.repeat(v[-1:], pad, 0)])
+                    for k, v in cols.items()}
+            cols["weights"][n_real:] = 0.0
+        total = int(payload.get("steps", self.steps))
+        resume = payload.get("resume")
+        with torch.enable_grad(), _cuda.namespace(self.namespace):
+            if resume is not None:
+                base_version = int(resume["base_version"])
+                params = trainable(self.store.current()[1], devices[0])
+                with torch.no_grad():
+                    for n, p in params.named_parameters():
+                        p.copy_(resume["params"][n])
+                st = resume["opt_state"]
+                opt_state = {
+                    k: {n: t.to(devices[0]) for n, t in st[k].items()}
+                    for k in ("m", "v")}
+                opt_state["count"] = int(st["count"])
+                start = int(resume["step"])
+                losses = list(resume["losses"])
+                mean_lls = list(resume["mean_lls"])
+            else:
+                base_version, master = self.store.current()
+                params = trainable(master, devices[0])
+                opt_state = init_opt_state(dict(params.named_parameters()),
+                                           self.opt)
+                start, losses, mean_lls = 0, [], []
+            replicas = batch = None
+            if ndev == 1:
+                batch = {k: torch.tensor(v, device=devices[0])
+                         for k, v in cols.items()}
+            else:
+                replicas = [params] + [trainable(params, d)
+                                       for d in devices[1:]]
+                per = len(cols["sequences"]) // ndev
+                totals = {"w_total": float(cols["weights"].sum()),
+                          "real_total": float((cols["weights"] > 0).sum())}
+                batch = [dict({k: torch.tensor(v[i * per:(i + 1) * per],
+                                               device=d)
+                               for k, v in cols.items()},
+                              **{k: torch.full((per,), t, device=d)
+                                 for k, t in totals.items()})
+                         for i, d in enumerate(devices)]
+            step = self._train_step()
+            preempted = False
+            k = start
+            while k < total:
+                params, opt_state, metrics = step(params, opt_state, batch,
+                                                  replicas)
+                losses.append(float(metrics["loss"]))
+                mean_lls.append(float(metrics["mean_ll"]))
+                k += 1
+                if task is not None and k < total \
+                        and (task.preempt_requested or task.canceled):
+                    preempted = True   # yield the sub-mesh to design work
+                    break
+            info = {"steps_done": k, "steps_run": k - start,
+                    "n_designs": n_real, "n_devices": ndev,
+                    "base_version": base_version,
+                    "elapsed_s": time.monotonic() - t_start}
+            if preempted:
+                host = lambda d: {n: t.detach().to("cpu", copy=True)
+                                  for n, t in d.items()}
+                return dict(info, preempted=True, resume={
+                    "params": host(dict(params.named_parameters())),
+                    "opt_state": {"m": host(opt_state["m"]),
+                                  "v": host(opt_state["v"]),
+                                  "count": opt_state["count"]},
+                    "step": k, "base_version": base_version,
+                    "losses": losses, "mean_lls": mean_lls})
+            # publish the evolved generator as a new version; generators
+            # hot-swap on their next dispatch
+            evolved = copy.deepcopy(params).requires_grad_(False).to(
+                self.pp.device)
+        new_version = self.store.publish(evolved)
+        return dict(info, preempted=False, new_version=new_version,
+                    loss_first=losses[0], loss_last=losses[-1],
+                    mean_ll_first=mean_lls[0], mean_ll_last=mean_lls[-1])
+
+    def register(self, executor):
+        executor.register("finetune", self.finetune)

@@ -16,6 +16,20 @@ have q's dtype, or are bf16 beside an fp32 q (the ring cache beside
 recurrentgemma's fp32 queries), promoted exactly as the products promote
 them. Unlike the TPU kernel, no input needs padding to a block multiple: the
 kernels mask their ragged edges themselves.
+
+Training (``flash_attention_grad``, the ``FlashAttention`` autograd
+Function): the forward is ``flash_attention_bhsd`` as it is (the kernel on
+CUDA tensors, the plain version on CPU tensors); the backward is a
+plain-PyTorch port of the reference's own backward, ``_flash_xla_bwd_inner``
+(``repro/models/attention.py``): from (q, k, v, o) it takes each row's
+log-sum-exp in a blockwise pass over the keys (``attention_lse``; the
+forward kernel does not write it), then recomputes the probabilities key
+block by key block with ``delta = (dO . O).sum(-1)``, in fp32, and casts
+dq, dk, dv back to the inputs' dtypes (``attention_bwd``). The reference
+computes this backward in XLA, outside any Pallas kernel, and the JAX
+package has no backward Pallas kernel: the plain backward follows the
+reference and is not a fallback. It launches no kernel. With ``softcap >
+0`` it raises, as the reference's chunked XLA path asserts.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ MMA_ROWS = 64        # (query, head) rows a block of the bf16 sequence kernel
 MMA_KEYS = 32        # keys a tile of the bf16 sequence kernel
 MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
 MIN_SPLIT_TILES = 4  # tiles a range holds, at least, when a row is cut
+BWD_KEYS = 128       # keys a block of the plain backward's passes
 
 
 def _scores(q, k, causal, window, softcap, seq_q, seq_k):
@@ -292,3 +307,120 @@ def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k, n_split=None):
         *_cuda.device_and_stream(dev))
     _cuda.check_launch(NAME, err, "decode")
     return out
+
+
+# ---------------------------------------------------------------------------
+# training: the gradient
+# ---------------------------------------------------------------------------
+
+def _block_mask(Sq, lo, hi, causal, window, seq_k, device):
+    """Live (query, key) pairs (Sq, hi - lo) of keys lo..hi-1."""
+    rows = torch.arange(Sq, device=device)[:, None]
+    cols = torch.arange(lo, hi, device=device)[None, :]
+    mask = cols < seq_k
+    if causal:
+        mask = mask & (cols <= rows)
+    if window > 0:
+        mask = mask & (cols > rows - window)
+    return mask.expand(Sq, hi - lo)
+
+
+def _scaled_groups(q, KV):
+    """q (B,H,Sq,hd) as fp32 (B, KV, G, Sq, hd) scaled by 1/sqrt(hd): the
+    scale folded into the query, as the reference folds it."""
+    B, H, Sq, hd = q.shape
+    return (q.float() * (1.0 / math.sqrt(hd))).reshape(B, KV, H // KV, Sq,
+                                                       hd)
+
+
+def attention_lse(q, k, *, causal=True, window=0, seq_k=None):
+    """Each query row's log-sum-exp of its masked, scaled fp32 scores
+    (B,H,Sq), by an online pass over key blocks of ``BWD_KEYS``: the
+    reference's forward scan without the values. A row with no live key
+    gets NEG_INF + log(1e-20), as the reference's does, so that its
+    probabilities recompute to zero."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    seq_k = Sk if seq_k is None else seq_k
+    qf = _scaled_groups(q, KV)
+    m = qf.new_full(qf.shape[:-1], NEG_INF)
+    l = torch.zeros_like(m)
+    for lo in range(0, Sk, BWD_KEYS):
+        hi = min(Sk, lo + BWD_KEYS)
+        mask = _block_mask(Sq, lo, hi, causal, window, seq_k, q.device)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, k[:, :, lo:hi].float())
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * mask
+        l = l * torch.exp(m - m_new) + p.sum(-1)
+        m = m_new
+    return (m + torch.log(l.clamp_min(1e-20))).reshape(B, H, Sq)
+
+
+def attention_bwd(q, k, v, o, lse, g, *, causal=True, window=0,
+                  seq_k=None):
+    """dq, dk, dv of ``attention_ref`` (no softcap) at the output gradient
+    ``g``, by the reference's key-blocked recomputation from (q, k, v, o,
+    lse): for each key block, p = exp(s - lse) over the live pairs, dv = p^T
+    g, dp = g v^T, ds = p (dp - delta) with delta = (g . o).sum(-1), dk =
+    ds^T q (the scale folded into q), dq += ds k; all in fp32, each gradient
+    cast back to its input's dtype."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    seq_k = Sk if seq_k is None else seq_k
+    qf = _scaled_groups(q, KV)
+    gf = g.float().reshape(qf.shape)
+    delta = (gf * o.float().reshape(gf.shape)).sum(-1)
+    lse = lse.reshape(delta.shape)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for lo in range(0, Sk, BWD_KEYS):
+        hi = min(Sk, lo + BWD_KEYS)
+        kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
+        mask = _block_mask(Sq, lo, hi, causal, window, seq_k, q.device)
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kc)
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.exp(s - lse[..., None]) * mask
+        dvs.append(torch.einsum("bkgqs,bkgqd->bksd", p, gf))
+        dp = torch.einsum("bkgqd,bksd->bkgqs", gf, vc)
+        ds = p * (dp - delta[..., None])
+        dks.append(torch.einsum("bkgqs,bkgqd->bksd", ds, qf))
+        dq = dq + torch.einsum("bkgqs,bksd->bkgqd", ds, kc)
+    dq = (dq.reshape(B, H, Sq, hd) * (1.0 / math.sqrt(hd))).to(q.dtype)
+    return (dq, torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_bhsd`` with a gradient: the forward is the wrapper
+    as it is (one kernel launch on CUDA tensors), the backward the plain
+    ``attention_lse`` + ``attention_bwd`` (no launch)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, seq_k):
+        o = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                 seq_k=seq_k)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = dict(causal=causal, window=window, seq_k=seq_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o = ctx.saved_tensors
+        lse = attention_lse(q, k, **ctx.args)
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, g, **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_grad(q, k, v, *, causal=True, window=0, softcap=0.0,
+                         seq_k=None):
+    """``flash_attention_bhsd``'s contract, differentiable in q, k and v
+    (K/V in q's dtype). Raises ``NotImplementedError`` with a softcap."""
+    if softcap > 0:
+        raise NotImplementedError(
+            f"{NAME}: no gradient with softcap {softcap} (the reference's "
+            f"chunked XLA backward has none either)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{NAME}: the gradient takes K/V in q's dtype, not "
+                        f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
+    return FlashAttention.apply(q, k, v, bool(causal), int(window), seq_k)

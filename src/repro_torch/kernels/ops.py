@@ -3,12 +3,17 @@
 Model code calls these with model-layout tensors; each converts to the
 kernel layout and calls the kernel wrapper, which takes the plain version
 for a CPU tensor and launches the CUDA kernel for a CUDA tensor (or
-raises). ``launches`` holds one plain-integer launch count per kernel,
+raises). ``flash_attention`` goes through the kernel's autograd Function
+(``flash_attention_grad``) only when grad mode is on and an input
+requires grad, as in a finetune step; every serving call takes the wrapper
+directly. ``launches`` holds one plain-integer launch count per kernel,
 ``forms`` the flash and wkv6 kernels' counts split by form,
 ``by_namespace`` the counts split by param-set namespace.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -24,13 +29,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     One query (S == 1) hands the decode form k/v as strided (B,KV,T,hd)
     views of their own storage, so a ring cache is read in place and in its
     stored dtype; longer queries hand contiguous copies. ``seq_k``: only the
-    first seq_k keys are live (None: all T)."""
+    first seq_k keys are live (None: all T). With grad on and an input
+    that requires it, the differentiable form runs (contiguous K/V)."""
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if q.shape[1] > 1:
         kt, vt = kt.contiguous(), vt.contiguous()
-    out = _fa.flash_attention_bhsd(q.transpose(1, 2).contiguous(), kt, vt,
-                                   causal=causal, window=window,
-                                   softcap=softcap, seq_k=seq_k)
+    fn = _fa.flash_attention_bhsd
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        fn = _fa.flash_attention_grad
+        kt, vt = kt.contiguous(), vt.contiguous()
+    out = fn(q.transpose(1, 2).contiguous(), kt, vt, causal=causal,
+             window=window, softcap=softcap, seq_k=seq_k)
     return out.transpose(1, 2)
 
 

@@ -19,8 +19,9 @@ of them concurrently on one executor:
 
 Ctrl-C in campaign mode is graceful: the campaign is checkpointed (to
 ``--checkpoint-out``) and the partial report printed before exiting.
-``--evolution`` raises: model evolution is not ported yet (ROADMAP Queue
-1, item 5), and neither is the reference's gateway mode (item 6).
+``--evolution`` adds online model evolution (finetune tasks on idle
+devices, the evolved generator hot-swapped). The reference's gateway mode
+is not ported (ROADMAP Queue 1, item 6).
 
 Runs on ``cuda`` (campaign mode: every CUDA device) unless ``--device
 cpu`` is given.
@@ -164,8 +165,7 @@ def main(argv=None):
     ap.add_argument("--candidates", type=int, default=5)
     ap.add_argument("--receptor-len", type=int, default=20)
     ap.add_argument("--evolution", action="store_true",
-                    help="campaign mode: online model evolution (not "
-                         "ported yet: raises)")
+                    help="campaign mode: online model evolution")
     ap.add_argument("--trace-dir", default=None,
                     help="campaign mode: enable span tracing and write "
                          "Perfetto trace.json + metrics.json here")

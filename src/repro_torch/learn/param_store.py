@@ -8,9 +8,13 @@ evolved weights as a new version atomically. Retired versions (beyond
 ``keep``) are announced to listeners so per-device weight caches can drop
 their copies by version instead of guessing at cache-key layouts.
 
+Versions persist/restore through ``checkpoint.manager.CheckpointManager``
+(the checkpoint *step* is the store version), so an evolved generator
+survives a restart. A restore announces every version it replaces to the
+retire listeners, so per-device copies of them are evicted.
+
 A copy of the JAX package's ``repro.learn.param_store`` (free of JAX there
-too) without ``save``/``restore``: those go through the checkpoint manager,
-which comes with model evolution (ROADMAP Queue 1, item 5).
+too).
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ class ParamStore:
         self._params: "OrderedDict[int, Any]" = OrderedDict([(version, params)])
         self._version = version
         self._max_version = version   # highest ever issued: version numbers
-        #   are never reused, so gen_version provenance stays unambiguous
-        #   and retired-version tombstones downstream never match a live
-        #   version
+        #   are never reused, even after restoring an older checkpoint, so
+        #   gen_version provenance stays unambiguous and retired-version
+        #   tombstones downstream never match a live version
         self._listeners: List[Callable[[List[int]], None]] = []
         self.keep = max(1, int(keep))
 
@@ -71,3 +75,32 @@ class ParamStore:
     def on_retire(self, fn: Callable[[List[int]], None]):
         """Register a callback invoked with the list of retired versions."""
         self._listeners.append(fn)
+
+    # -- checkpoint/restart -------------------------------------------------
+
+    def save(self, manager, *, block: bool = False) -> int:
+        """Persist the current version through a ``CheckpointManager`` (the
+        checkpoint step *is* the version)."""
+        v, params = self.current()
+        manager.save(v, params, extra={"param_store_version": v}, block=block)
+        return v
+
+    def restore(self, manager, step: Optional[int] = None) -> Optional[int]:
+        """Restore the newest (or ``step``) persisted version, replacing the
+        store's contents; returns the restored version or None if the
+        manager has no checkpoint. Publishing continues past the highest
+        version ever handed out (never reusing a number, even when an older
+        step was restored)."""
+        _, template = self.current()
+        state, _, got = manager.restore(template, step)
+        if state is None:
+            return None
+        with self._lock:
+            retired = [v for v in self._params if v != got]
+            self._params = OrderedDict([(int(got), state)])
+            self._version = int(got)
+            self._max_version = max(self._max_version, int(got))
+        if retired:
+            for fn in list(self._listeners):
+                fn(retired)
+        return int(got)

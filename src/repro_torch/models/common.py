@@ -9,6 +9,8 @@ functions take its parameter dicts.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -30,10 +32,22 @@ def dense_init(gen, shape, in_axis_size, dtype=torch.float32):
 
 def weight(gen, shape, in_axis_size, dtype) -> nn.Parameter:
     """A parameter from ``dense_init``, or zeros to be filled by a copy (the
-    bridge) when ``gen`` is None. Inference-only for now: no gradients."""
+    bridge) when ``gen`` is None. Served weights take no gradients; a
+    finetune trains a ``trainable`` copy."""
     data = (dense_init(gen, shape, in_axis_size, dtype) if gen is not None
             else torch.zeros(shape, dtype=dtype))
     return nn.Parameter(data, requires_grad=False)
+
+
+def trainable(module, device=None):
+    """A copy of ``module`` (on ``device``, default its own) whose
+    parameters are fp32 leaves with ``requires_grad=True``, for training;
+    ``module`` itself is left as it is. Made outside inference mode, so the
+    copy holds normal tensors even where ``module``'s are inference
+    tensors (a payload's per-device copies are)."""
+    with torch.inference_mode(False):
+        out = copy.deepcopy(module).to(device=device, dtype=torch.float32)
+    return out.requires_grad_(True)
 
 
 class Norm(nn.Module):

@@ -1,10 +1,12 @@
 """Decoder-only LM with an optional patch prefix (the ``vision_patches``
-frontend the ProGen structure prefix uses): forward, dense serving over
+frontend the ProGen structure prefix uses): forward, the training loss
+(``lm_loss``, without the reference's MoE aux terms), dense serving over
 each layer's decode cache (recurrent states of ``rwkv`` and ``rglru``
 layers, dense K/V caches of ``attn`` layers, ring K/V caches of
 ``attn_local`` layers) and paged serving (``attn`` layers).
 
-Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) optional}.
+Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) optional,
+"targets": (B,S) int, -1 masked, for ``lm_loss``}.
 
 Serving:
   prefill(params, batch, cfg)  -> logits_last (B,V), caches, t_next
@@ -14,6 +16,7 @@ Serving:
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -25,10 +28,12 @@ from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
 
 class LM(nn.Module):
     """Embedding, layers, final norm and, unless the embedding is tied to
-    it, the LM head."""
+    it, the LM head. ``cfg`` stays with the weights: the bridge, the
+    checkpoints and the optimizer read the reference's layout from it."""
 
     def __init__(self, cfg, gen=None):
         super().__init__()
+        self.cfg = cfg
         self.embedding = Embedding(cfg, gen)
         self.final_norm = Norm(cfg)
         if not cfg.tie_embeddings:
@@ -74,6 +79,61 @@ def lm_hidden(params, batch, cfg):
 def lm_logits(params, batch, cfg):
     """Full-sequence forward -> logits (B,S,padded_vocab)."""
     return logits_fwd(params, lm_hidden(params, batch, cfg), cfg)
+
+
+def cross_entropy(logits, targets, vocab_size, z_loss=0.0):
+    """Mean CE over valid (target >= 0) positions, computed in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
+    ce = lse - gold
+    if z_loss > 0:
+        ce = ce + z_loss * lse.square()
+    valid = (targets >= 0).float()
+    return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def _chunked_ce(params, x, targets, cfg):
+    """Sequence-chunked logits + CE: peak memory is one chunk of
+    (tokens / chunks, padded_vocab) fp32 logits instead of the whole
+    sequence's. Each chunk's logits are recomputed in the backward pass."""
+    n = cfg.ce_chunks
+    S = x.shape[1]
+    if S % n:
+        raise ValueError(f"{S} positions in {n} CE chunks")
+    c = S // n
+
+    def body(xi, ti):
+        lf = logits_fwd(params, xi, cfg).float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, ti.clamp_min(0).long()[..., None])[..., 0]
+        valid = (ti >= 0).float()
+        return ((lse - gold) * valid).sum(), valid.sum()
+
+    total = count = 0.0
+    for i in range(n):
+        s, v = torch.utils.checkpoint.checkpoint(
+            body, x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
+            use_reentrant=False)
+        total, count = total + s, count + v
+    return total / torch.clamp(count, min=1.0)
+
+
+def lm_loss(params, batch, cfg):
+    """Next-token CE of ``batch["targets"]`` (-1 masks a position) over the
+    forward of ``batch["inputs"]``; returns (loss, metrics). The reference
+    adds its MoE router's aux losses here (its ``lb_coef`` and ``z_coef``);
+    MoE is not ported, so a config with experts raises."""
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported (ROADMAP Queue 1, item 7)")
+    if cfg.ce_chunks > 1:
+        loss = _chunked_ce(params, lm_hidden(params, batch, cfg),
+                           batch["targets"], cfg)
+    else:
+        loss = cross_entropy(lm_logits(params, batch, cfg), batch["targets"],
+                             cfg.padded_vocab)
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 def init_caches(cfg, batch, length, device=None):

@@ -1,0 +1,95 @@
+"""Train-step factory: gradients by ``torch.autograd.grad``, optional
+gradient-accumulation microbatching, clipping, the schedule and AdamW (a
+port of the JAX package's ``repro.optim.train_step``).
+
+    train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+``params`` is a module whose parameters require grad (``models.common.
+trainable``); the step writes the updated values into it and returns it.
+``batch`` is a dict of tensors with a leading batch axis. Microbatching
+reshapes that axis to (n, B/n, ...) and sums the fp32 gradients g/n in
+order, as the reference's ``lax.scan`` does; the metrics are averaged.
+
+Data parallel: with ``replicas`` (one module a device, each holding
+``params``' values; ``params`` itself may be the first), ``batch`` is a
+list of as many shards. Each replica takes its shard's gradients; they
+are summed on ``params``' device before the single update, and so are the
+metrics (a shard's loss normalized by sums over the whole batch makes the
+sum the whole batch's loss). After the update every replica takes the
+new values.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.optim.optimizers import (OptConfig, adamw_update,
+                                          clip_by_global_norm)
+from repro_torch.optim.schedules import make_schedule
+
+
+def _trained(module):
+    return [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+
+
+def make_train_step(cfg, opt: OptConfig, loss_fn=None):
+    from repro_torch.bridge import ref_ndims
+    schedule = make_schedule(opt)
+    loss_fn = loss_fn or (lambda p, b: lm.lm_loss(p, b, cfg))
+
+    def grads_of(module, batch):
+        named = _trained(module)
+        loss, metrics = loss_fn(module, batch)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+        # a parameter the loss does not reach gets zeros, as in JAX
+        return ({n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(named, grads)},
+                {k: v.detach() for k, v in metrics.items()})
+
+    def shard_grads(module, batch):
+        if opt.microbatches <= 1:
+            return grads_of(module, batch)
+        n = opt.microbatches
+        mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+              for k, v in batch.items()}
+        acc = {name: torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)
+               for name, p in _trained(module)}
+        ms = []
+        for i in range(n):
+            g, m = grads_of(module, {k: v[i] for k, v in mb.items()})
+            acc = {name: a + g[name].float() / n for name, a in acc.items()}
+            ms.append(m)
+        return acc, {k: torch.stack([m[k] for m in ms]).mean()
+                     for k in ms[0]}
+
+    def train_step(params, opt_state, batch, replicas=None):
+        dev = next(params.parameters()).device
+        grads = metrics = None
+        for module, shard in ([(params, batch)] if replicas is None
+                              else zip(replicas, batch)):
+            g, m = shard_grads(module, shard)
+            if grads is None:
+                grads = {k: v.to(dev) for k, v in g.items()}
+                metrics = {k: v.to(dev) for k, v in m.items()}
+            else:
+                grads = {k: v + g[k].to(dev) for k, v in grads.items()}
+                metrics = {k: v + m[k].to(dev) for k, v in metrics.items()}
+        grads, gnorm = clip_by_global_norm(grads, opt.clip_norm)
+        lr = schedule(opt_state["count"])
+        named = dict(_trained(params))
+        new, opt_state = adamw_update(
+            grads, opt_state, {n: p.detach() for n, p in named.items()},
+            opt, lr, ref_ndims(params))
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(new[n])
+            for r in replicas or ():
+                if r is not params:
+                    for n, p in _trained(r):
+                        p.copy_(new[n])
+        return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+
+    return train_step

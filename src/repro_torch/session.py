@@ -7,13 +7,14 @@
 
     spec = CampaignSpec(structures=4, receptor_len=24,
                         protocols=(ProtocolSpec("im-rp", n_cycles=3),
-                                   ProtocolSpec("cont-v", n_cycles=3)))
+                                   ProtocolSpec("cont-v", n_cycles=3)),
+                        evolution=True)
     with ImpressSession(spec) as session:     # every CUDA device
         report = session.run()                # -> CampaignReport (schema v1)
 
 The session wires the middleware (allocator, executor, payload registry,
-multi-protocol coordinator), registers every protocol with the
-coordinator (IM-RP and CONT-V — the paper's comparison — run
+optional trainer, multi-protocol coordinator), registers every protocol
+with the coordinator (IM-RP and CONT-V — the paper's comparison — run
 *concurrently on one executor/allocator*, so cross-protocol task
 coalescing applies under mixed load), validates each protocol's typed
 handler registry against the executor's registered payload fns, owns
@@ -36,11 +37,12 @@ in the other. Where the reference reaches JAX:
 * ``compilation_cache_dir`` (XLA's persistent cache) has no counterpart:
   the field stays so that spec dicts round-trip, a set value raises
   ``ValueError``, and the report's ``persistent_cache_dir`` is None.
-* ``evolution=True`` raises ``NotImplementedError``: model evolution is
-  ROADMAP Queue 1, item 5. The spec's evolution fields stay.
+* ``evolution=True`` wires model evolution as the reference does:
+  ``FinetunePayload`` registered for the ``finetune`` kind, a
+  ``ReplayBuffer`` and a ``TrainerService`` handed to the coordinator.
 
-Both are validated with the protocol kinds, before any thread starts or
-any weight is drawn.
+The compilation-cache knob is validated with the protocol kinds, before
+any thread starts or any weight is drawn.
 """
 
 from __future__ import annotations
@@ -57,12 +59,13 @@ from repro_torch.core.api import DesignProtocol
 from repro_torch.core.coordinator import Coordinator
 from repro_torch.core.multi_objective import (MultiObjectiveConfig,
                                               MultiObjectiveProtocol)
-from repro_torch.core.payload import ProteinPayload
+from repro_torch.core.payload import FinetunePayload, ProteinPayload
 from repro_torch.core.protocol import ImpressProtocol, ProtocolConfig
 from repro_torch.core.stages import (BinderConfig, RescoreConfig,
                                      RescoreProtocol, StagedBinderProtocol,
                                      StageSpec)
 from repro_torch.data.synthetic import protein_design_tasks
+from repro_torch.learn import EvolutionConfig, ReplayBuffer, TrainerService
 from repro_torch.obs import (CompileWatcher, Telemetry, Tracer,
                              write_metrics, write_trace)
 from repro_torch.runtime.allocator import (DeviceAllocator,
@@ -128,8 +131,7 @@ class CampaignSpec:
     #   None = derive from the campaign's length histogram when mixed
     length_bucket_max_pad: float = 0.125   # max per-row padding fraction
     #   accepted when deriving bucket edges
-    # -- model evolution (§V): not ported yet (ROADMAP Queue 1, item 5);
-    #   the fields stay so that spec dicts round-trip --
+    # -- model evolution (§V) --
     evolution: bool = False
     finetune_every: int = 2
     finetune_steps: int = 12
@@ -274,11 +276,6 @@ def _validate(spec: CampaignSpec, protocol_specs: List[ProtocolSpec]):
         raise ValueError(
             f"unknown protocol kind(s) {unknown}; registered: "
             f"{sorted(_FACTORIES)} (add via register_protocol)")
-    if spec.evolution:
-        raise NotImplementedError(
-            "evolution=True: model evolution (FinetunePayload, "
-            "TrainerService, the replay buffer) is not ported yet "
-            "(ROADMAP Queue 1, item 5)")
     if spec.compilation_cache_dir:
         raise ValueError(
             f"compilation_cache_dir={spec.compilation_cache_dir!r}: XLA's "
@@ -339,10 +336,11 @@ class CampaignReport:
 class ImpressSession:
     """Build and run a design campaign from one ``CampaignSpec``.
 
-    Wiring (allocator, executor, payload registry, multi-protocol
-    coordinator) happens in the constructor; pipelines for the starting
-    structures are created lazily on the first ``run()``. The session is a
-    context manager — leaving the block shuts the executor down.
+    Wiring (allocator, executor, payload registry, optional trainer,
+    multi-protocol coordinator) happens in the constructor; pipelines for
+    the starting structures are created lazily on the first ``run()``. The
+    session is a context manager — leaving the block shuts the executor
+    down.
     ``payload``/``devices`` injection is for benchmarks and tests that
     share a payload or run on the CPU. ``fault_plan`` passes through to the
     executor."""
@@ -407,7 +405,22 @@ class ImpressSession:
                                       ps.decode_kernel
                                       for ps in self.protocol_specs))
         self.bootstrap_s = time.monotonic() - t0   # payload + registry setup
-        self.coordinator = Coordinator(self.executor)
+        self.buffer = None
+        self.trainer = None
+        if spec.evolution:
+            FinetunePayload(self.payload, lr=spec.finetune_lr,
+                            steps=spec.finetune_steps,
+                            ).register(self.executor)
+            self.buffer = ReplayBuffer(capacity=spec.replay_capacity)
+            self.trainer = TrainerService(
+                self.executor, self.buffer, self.payload.param_store,
+                EvolutionConfig(finetune_every=spec.finetune_every,
+                                min_designs=spec.min_designs,
+                                batch_size=spec.finetune_batch,
+                                steps=spec.finetune_steps,
+                                max_devices=spec.trainer_max_devices,
+                                seed=spec.seed))
+        self.coordinator = Coordinator(self.executor, trainer=self.trainer)
         self.protocols: Dict[str, DesignProtocol] = {}
         registered = self.executor.registered_kinds()
         for ps in self.protocol_specs:
@@ -526,8 +539,9 @@ class ImpressSession:
     def checkpoint(self) -> dict:
         """JSON-serializable campaign snapshot: the spec, the coordinator's
         multi-protocol state (pipelines serialized by their owning
-        protocol), and the generator-version watermark. Weights are not
-        in it (their checkpoints come with model evolution)."""
+        protocol), and the generator-version watermark. Model weights
+        themselves persist separately via ``checkpoint.manager`` /
+        ``ParamStore.save``."""
         store = getattr(self.payload, "param_store", None)
         return {
             "schema_version": SCHEMA_VERSION,
@@ -550,8 +564,10 @@ class ImpressSession:
             import warnings
             warnings.warn(
                 f"checkpoint was taken at generator version {want} but "
-                f"this session's ParamStore is at {store.version}; resumed "
-                f"provenance will be wrong", RuntimeWarning, stacklevel=2)
+                f"this session's ParamStore is at {store.version}; restore "
+                f"the evolved params too (ParamStore.save/restore via "
+                f"checkpoint.manager) or resumed provenance will be wrong",
+                RuntimeWarning, stacklevel=2)
         self.coordinator.load_state_dict(state["coordinator"])
         self._populated = True
 

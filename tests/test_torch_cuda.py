@@ -460,3 +460,69 @@ def test_recurrentgemma_on_card_matches_cpu(cuda):
         got = lm.generate(card, {"inputs": prompts.to(cuda)}, cfg, 10)
         want = lm.generate(cpu, {"inputs": prompts}, cfg, 10)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 8, 4, 54), (8, 8, 8, 37)])
+def test_flash_gradient_on_card_matches_autograd(cuda, dtype, shape):
+    """The flash kernel's autograd Function on the card: one forward
+    launch, none in the backward, and dq/dk/dv within the tolerance of
+    autograd through ``attention_ref``, relative to each gradient's max."""
+    from repro_torch.kernels import ops
+    dt = TORCH_DT[dtype]
+    B, H, KV, S = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(B, H, S, 32, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, KV, S, 32, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    do = torch.randn(B, H, S, 32, generator=g, device=cuda).to(dt)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ops.reset_launches()
+    got = torch.autograd.grad(fa.flash_attention_grad(q, k, v), (q, k, v),
+                              do)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bhsd"] == 1
+    want = torch.autograd.grad(fa.attention_ref(q, k, v), (q, k, v), do)
+    t = 2e-5 if dtype == "float32" else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= t * float(b.float().abs().max())
+
+
+def test_finetune_on_card_matches_cpu(cuda):
+    """A reduced fp32 finetune of 5 steps on the card (the flash kernel's
+    fp32 form, one launch a layer a step) and on the CPU from the same
+    weights and batch: losses within 1e-5 relative, weights within 1e-4
+    (tests/test_torch_evolution.py's tolerances)."""
+    import copy
+
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.payload import FinetunePayload, ProteinPayload
+    from repro_torch.kernels import ops
+    from repro_torch.models import protein as prot
+    from repro_torch.runtime.allocator import SubMesh
+    gcfg = get_reduced("progen-s").replace(compute_dtype="float32")
+    fcfg = get_reduced("foldscore-s").replace(compute_dtype="float32")
+    weights = prot.init_progen(gcfg, 0, device="cpu")
+    rng = np.random.default_rng(8)
+    batch = {"backbones": rng.normal(size=(4, 8, 16)).astype(np.float32),
+             "sequences": rng.integers(1, 21, size=(4, 12)).astype(np.int32),
+             "weights": np.linspace(1.0, 0.2, 4).astype(np.float32)}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        pp = ProteinPayload(gen_cfg=gcfg, fold_cfg=fcfg, device=dev,
+                            progen=copy.deepcopy(weights))
+        ops.reset_launches()
+        res = FinetunePayload(pp, lr=1e-3, steps=5).finetune(
+            SubMesh((pp.device,)), dict(batch))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.forms["flash_attention_bhsd"]["seq_f32"] == \
+                gcfg.n_layers * 5
+        out.append((res, pp.gen_params))
+    (gres, gp), (cres, cp) = out
+    for k in ("loss_first", "loss_last", "mean_ll_first", "mean_ll_last"):
+        assert abs(gres[k] - cres[k]) <= 1e-5 * abs(cres[k]), k
+    for a, b in zip(gp.parameters(), cp.parameters()):
+        assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)

@@ -185,4 +185,4 @@ def _imports(path):
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_reference(path):
     roots = {name.split(".")[0] for name in _imports(path)}
-    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+    assert not roots & {"jax", "jaxlib", "repro", "msgpack"}, (path, roots)

@@ -405,7 +405,7 @@ def test_checkpoint_restores_into_port_session(three_runs, origin):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,error,match", [
-    ({"evolution": True}, NotImplementedError, "Queue 1, item 5"),
+    ({"protocols": ("no-such-kind",)}, ValueError, "unknown protocol kind"),
     ({"compilation_cache_dir": "xla-cache"}, ValueError, "no counterpart"),
 ])
 def test_port_refuses_before_threads_or_weights(kw, error, match):
@@ -454,8 +454,12 @@ def test_serve_campaign_runs_on_the_cpu_and_prints_a_report(tmp_path):
 
 
 def test_serve_campaign_evolution_raises_the_item_5_error(tmp_path):
-    out = _serve(["im-rp", "--device", "cpu", "--evolution"], tmp_path)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr
-    assert "ROADMAP Queue 1, item 5" in out.stderr
-    assert not out.stdout
+    """``--evolution`` (refused until model evolution was ported, whence
+    the name) now runs the campaign with its trainer and prints the
+    report."""
+    out = _serve(["im-rp", "--device", "cpu", "--evolution", "--structures",
+                  "1", "--cycles", "2", "--candidates", "3",
+                  "--receptor-len", "12"], tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "NotImplementedError" not in out.stderr
+    assert out.stdout.startswith("[serve] campaign schema v1 on cpu: ")
