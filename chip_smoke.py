@@ -84,16 +84,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``EVO_PARAM_ATOL``). (c) im-rp through ``ImpressSession`` (4
    structures, 3 cycles) without and with ``evolution=True``: no task
    failed, at least one finetune completed and lowered its loss, the store
-   is at version 1 or more, and the counters equal what the completed
-   tasks imply, 6 flash launches a finetune step (preempted runs
-   included). (d) A fixed-noise ``generate_batch`` after it gives the
+   is at version 1 or more, the counters equal what the completed tasks
+   imply, and each finetune task's own launches (``ops.tally``) are 6
+   bf16 flash launches a step it ran (preempted runs included); the flash
+   kernel is then held to its plain version at every distinct call both
+   runs made. (d) A fixed-noise ``generate_batch`` after it gives the
    tokens of ``progen_sample`` on the evolved weights, not on version
    0's. (e) ``ParamStore.save`` of version 0 and of the evolved version
    through a ``CheckpointManager``; the evolved one restores into a fresh
    store with bitwise logits, then its ``.npz`` is garbled and the restore
    falls back to version 0's copy, bitwise. (f) Prints the makespans with
    and without evolution, each finetune task's steps and wall time,
-   designs by generator version, peak device memory, a train step's wall
+   designs by generator version, the evolution session's peak device
+   memory over what was allocated before it, a train step's wall
    ms and one train step under ``torch.profiler``.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
@@ -1563,7 +1566,7 @@ def flash_calls(seen):
         fa.flash_attention_bhsd = inner
 
 
-def hold_flash_calls(torch, seen):
+def hold_flash_calls(torch, seen, phase="phase 5c"):
     """The flash kernel at every call ``flash_calls`` recorded, on fresh
     N(0, 1) inputs of the same shapes, dtypes, layout (non-contiguous K/V:
     strided views of a (B, L, KV, hd) cache, as ``attn_decode`` hands
@@ -1595,11 +1598,11 @@ def hold_flash_calls(torch, seen):
         w[0] += 1
         for i, want in enumerate(refs):
             err = max_err(got, want)
-            expect(err <= tol, f"flash at a phase 5c call {qs} over {ks} "
+            expect(err <= tol, f"flash at a {phase} call {qs} over {ks} "
                    f"{dtype_name(qdt)} {kw}: max_abs_err {err} > {tol}"
                    + (" (attention_tiled_ref)" if i else ""))
             w[1 + i] = max(w[1 + i], err)
-    print("  flash at every distinct call phase 5c made, held to the plain "
+    print(f"  flash at every distinct call {phase} made, held to the plain "
           "version (bf16 sequence form also to attention_tiled_ref): "
           + "; ".join(f"{form} {n} calls, max_abs_err {e:.3e}"
                       + (f" ({t:.3e} tiled)" if form == "seq_bfloat16"
@@ -2013,6 +2016,29 @@ def finetune_agreement(torch):
            "reduced finetune on the card did not lower its loss")
 
 
+@contextlib.contextmanager
+def finetune_tallies(out):
+    """Append to the list ``out`` a (launches, result) pair for each
+    finetune task run in the block: the launches its own thread made
+    (``ops.tally``), by a pass-through in ``FinetunePayload.finetune``'s
+    place on the class, where the session's registration looks it up."""
+    from repro_torch.core.payload import FinetunePayload
+    from repro_torch.kernels import ops
+
+    inner = FinetunePayload.finetune
+
+    def tallied(self, submesh, payload):
+        with ops.tally() as counts:
+            res = inner(self, submesh, payload)
+        out.append((dict(counts), res))
+        return res
+    FinetunePayload.finetune = tallied
+    try:
+        yield out
+    finally:
+        FinetunePayload.finetune = inner
+
+
 def evolution_specs():
     """Phase 5d's sessions: im-rp at full width with and without model
     evolution, otherwise alike. No sub-pipelines: a sub-pipeline's uid,
@@ -2171,10 +2197,11 @@ def phase_evolution(torch, pp):
     Function at the finetune shape; (b) a reduced finetune card vs CPU;
     (c) im-rp through ``ImpressSession`` without and with
     ``evolution=True``, the counters held to what the completed tasks imply
-    (6 flash launches a finetune step); (d) the evolved weights shown to
+    and each finetune task's own launches to 6 bf16 flash launches a step,
+    then the flash kernel at every distinct call of both runs; (d) the evolved weights shown to
     run; (e) a checkpoint round trip with a garbled copy; (f) a train
     step's wall time and profile. Returns the finetune shape's kernel
-    record, its launches those of the finetune tasks of (c)."""
+    record, its launches those the finetune tasks of (c) counted."""
     import copy
 
     from repro_torch.core import pipeline
@@ -2194,30 +2221,45 @@ def phase_evolution(torch, pp):
           f"{spec.finetune_steps} steps on up to {EVO_BATCH})", flush=True)
     # both runs draw pipeline and task uids (the sampling seeds) from one
     # start, so they run the same design work until a finetune publishes
+    calls = set()                       # the flash calls of both runs
     uid0 = next(pipeline._uid) + 1
     pipeline._uid = itertools.count(uid0)
     _, rep0, acc0 = run_session(torch, pp, base, [cuda0],
-                                "without evolution")
+                                "without evolution", calls=calls)
     expect(rep0.evolution is None and pp.param_store.version == 0,
            "the session without evolution evolved the generator")
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     pipeline._uid = itertools.count(uid0)
-    sess, rep, acc = run_session(torch, pp, spec, [cuda0], "with evolution",
-                                 keep=True)
+    tallies = []
+    with finetune_tallies(tallies):
+        sess, rep, acc = run_session(torch, pp, spec, [cuda0],
+                                     "with evolution", keep=True,
+                                     calls=calls)
     try:
         fts = [t.result for t in sess.executor._tasks.values()
                if t.kind == "finetune" and t.state == TaskState.DONE]
     finally:
         sess.shutdown()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
     evo = rep.evolution
     done = [r for r in fts if not r["preempted"]]
     steps = sum(r["steps_run"] for r in fts)
+    n_layers = pp.gen_cfg.n_layers
+    measured = sum(c.get("flash_attention_bhsd", 0) for c, _ in tallies)
     print(f"  evolution: {evo['submitted']} finetunes submitted, "
           f"{evo['completed']} completed, {evo['preempted']} preempted, "
-          f"{steps} steps ({pp.gen_cfg.n_layers * steps} flash launches); "
-          f"store at version {pp.param_store.version}; buffer "
-          f"{evo['buffer']['size']} designs", flush=True)
+          f"{steps} steps; the finetune tasks' own launches (ops.tally) "
+          f"{[c for c, _ in tallies]}, {measured} flash against "
+          f"{n_layers} x {steps} steps; store at version "
+          f"{pp.param_store.version}; buffer {evo['buffer']['size']} "
+          f"designs", flush=True)
+    expect(len(tallies) == len(fts) and all(
+        c == {"flash_attention_bhsd": n_layers * r["steps_run"],
+              ("flash_attention_bhsd", "seq_bf16"): n_layers * r["steps_run"]}
+        for c, r in tallies), f"finetune tasks' own launches {tallies}, "
+        f"not {n_layers} bf16 flash launches a step for {len(fts)} tasks")
     for r in fts:
         print(f"    finetune from version {r['base_version']}: "
               f"{r['steps_run']} steps to step {r['steps_done']} on "
@@ -2232,8 +2274,8 @@ def phase_evolution(torch, pp):
           f"{rep.makespan_s:.3f} s (the same accepted designs: "
           f"{acc0 == acc}); designs by generator version "
           f"{ {v: q['n'] for v, q in rep.quality_by_version.items()} }; "
-          f"peak device memory {peak:.3f} GiB (all the process holds on "
-          f"the card, its earlier phases' weights and caches included)",
+          f"peak device memory of the evolution session {peak:.3f} GiB over "
+          f"the {before / 2 ** 30:.3f} GiB allocated before it",
           flush=True)
     expect(evo["enabled"] and evo["failed"] == 0,
            f"evolution report {evo}")
@@ -2243,10 +2285,11 @@ def phase_evolution(torch, pp):
            "a finetune did not lower its loss")
     expect(pp.param_store.version >= 1 and evo["param_version"] >= 1,
            f"the store is at version {pp.param_store.version}")
+    hold_flash_calls(torch, calls, "phase 5d")
     evolved_weights_ran(torch, pp, v0)
     checkpoint_round_trip(torch, pp, v0)
     finetune_step_timing(torch, pp)
-    record["launches"] = pp.gen_cfg.n_layers * steps
+    record["launches"] = measured
     print(f"  phase 5d took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return record

@@ -24,7 +24,9 @@ reads against the manifest's crc32, raising
 decode, so the ``CheckpointManager`` can fall back to an older copy.
 ``verify_checkpoint`` runs the same check without building the tree. An
 optional ``fault_plan`` (anything with ``on_checkpoint_saved(path)``)
-sees the just-written file: the chaos path for this machinery.
+sees the just-written file: the chaos path for this machinery. The
+reference's per-host ``shard_suffix`` is not ported: the port writes one
+file per checkpoint.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ def _atomic_write(path, write):
     os.replace(tmp, path)
 
 
-def save_pytree(tree, path, *, step=None, shard_suffix="", fault_plan=None):
+def save_pytree(tree, path, *, step=None, fault_plan=None):
     """Atomically write ``tree`` to ``path`` (``.npz`` + ``.manifest.json``).
     Returns the ``.npz``'s path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -120,7 +122,7 @@ def save_pytree(tree, path, *, step=None, shard_suffix="", fault_plan=None):
         "checksums": {k: _crc(v) for k, v in arrays.items()},
         "treedef": json.dumps(_treedef(tree)),
     }
-    npz_path = path + shard_suffix + ".npz"
+    npz_path = path + ".npz"
     _atomic_write(npz_path, lambda f: np.savez(f, **arrays))
     _atomic_write(path + MANIFEST,
                   lambda f: f.write(json.dumps(manifest).encode()))
@@ -140,22 +142,21 @@ def _load_manifest(path):
             f"manifest unreadable: {path}{MANIFEST} ({e!r})") from e
 
 
-def _read_arrays(path, shard_suffix, checksums):
+def _read_arrays(path, checksums):
     """Every array of the ``.npz``, each checked against ``checksums``."""
     try:
-        with np.load(path + shard_suffix + ".npz") as data:
+        with np.load(path + ".npz") as data:
             arrays = {k: data[k] for k in data.files}
     except FileNotFoundError:
         raise
     except Exception as e:  # zip/npy decode failure = corrupted bytes
         raise CheckpointCorruptError(
-            f"checkpoint unreadable: {path}{shard_suffix}.npz ({e!r})") from e
+            f"checkpoint unreadable: {path}.npz ({e!r})") from e
     for k, arr in arrays.items():
         want = checksums.get(k)
         if want is not None and _crc(arr) != want:
             raise CheckpointCorruptError(
-                f"checksum mismatch for array {k!r} in "
-                f"{path}{shard_suffix}.npz")
+                f"checksum mismatch for array {k!r} in {path}.npz")
     return arrays
 
 
@@ -198,30 +199,27 @@ def _rebuild(template, arrays, path, where):
     return arr
 
 
-def load_pytree(template, path, *, shard_suffix="", verify=True):
+def _checksums(path):
+    manifest = _load_manifest(path)
+    return (manifest.get("checksums") or {}) if manifest else {}
+
+
+def load_pytree(template, path):
     """Load into the structure of ``template``: a module comes back as a
     new module of its class (``bridge.module_from_ref``), a tensor as a
     tensor of the template's dtype on its device, anything else as a numpy
-    array of its dtype. With ``verify`` (the default) every array read is
-    checked against the manifest's crc32; a checkpoint without a manifest
-    loads unchecked."""
-    checksums = {}
-    if verify:
-        manifest = _load_manifest(path)
-        if manifest is not None:
-            checksums = manifest.get("checksums") or {}
-    arrays = _read_arrays(path, shard_suffix, checksums)
-    return _rebuild(template, arrays, (), f"{path}{shard_suffix}.npz")
+    array of its dtype. Every array read is checked against the manifest's
+    crc32; a checkpoint without a manifest loads unchecked."""
+    arrays = _read_arrays(path, _checksums(path))
+    return _rebuild(template, arrays, (), f"{path}.npz")
 
 
-def verify_checkpoint(path, *, shard_suffix="") -> bool:
+def verify_checkpoint(path) -> bool:
     """True when every array in ``path``'s ``.npz`` matches its manifest
     checksum (a checkpoint without checksums passes if its ``.npz``
     decodes); False on any corruption."""
     try:
-        manifest = _load_manifest(path)
-        _read_arrays(path, shard_suffix,
-                     (manifest.get("checksums") or {}) if manifest else {})
+        _read_arrays(path, _checksums(path))
         return True
     except FileNotFoundError:
         raise

@@ -105,10 +105,10 @@ class CheckpointManager:
         with open(p) as f:
             return json.load(f)["step"]
 
-    def restore(self, template, step=None, *, fallback=True):
+    def restore(self, template, step=None):
         """Restore the requested (default: latest) step. Every array is
-        checksum-verified against its manifest; with ``fallback`` (the
-        default) a corrupted checkpoint falls back to the next-oldest
+        checksum-verified against its manifest; a corrupted checkpoint
+        falls back to the next-oldest
         retained step instead of failing the restart — the returned step
         tells the caller which copy actually loaded. Raises
         ``CheckpointCorruptError`` only when every retained copy is bad.
@@ -117,10 +117,8 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None, None
-        candidates = [step]
-        if fallback:
-            candidates += [s for s in sorted(self.all_steps(), reverse=True)
-                           if s < step]
+        candidates = [step] + [s for s in sorted(self.all_steps(),
+                                                 reverse=True) if s < step]
         last_err = None
         for s in candidates:
             base = self._base(s)

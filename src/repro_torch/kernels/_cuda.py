@@ -15,14 +15,17 @@ form it took (flash: the decode form or the fp32 / bf16 sequence form;
 wkv6: the decode (T = 1) or the prefill kernel). ``by_namespace`` splits
 the counts by the param-set namespace whose weights the launching thread is
 running (``namespace``; the payload's task functions enter it), so a run can
-show which model ran. All are updated under a lock: the executor's worker
-threads launch kernels at the same time.
+show which model ran. ``tally`` counts the launches one thread makes inside
+a block, so a run can read one task's launches while others run. All are
+updated under a lock: the executor's worker threads launch kernels at the
+same time.
 ``build_log`` holds the wall seconds of each build that ran ``nvcc`` in this
 process (``obs.torchwatch`` counts them).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import hashlib
@@ -77,6 +80,19 @@ def namespace(name: str):
         yield
     finally:
         _running.namespace = outer
+
+
+@contextlib.contextmanager
+def tally():
+    """Count this thread's launches inside the block in the Counter it
+    yields, by kernel name and by (kernel name, form)."""
+    counts = collections.Counter()
+    outer = getattr(_running, "tallies", ())
+    _running.tallies = outer + (counts,)
+    try:
+        yield counts
+    finally:
+        _running.tallies = outer
 
 
 def nvcc() -> str:
@@ -159,6 +175,10 @@ def check_launch(name: str, err: int, form: str | None = None) -> None:
         msg = lib().repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
     ns = getattr(_running, "namespace", None)
+    for counts in getattr(_running, "tallies", ()):
+        counts[name] += 1
+        if form is not None:
+            counts[name, form] += 1
     with _count_lock:
         launches[name] += 1
         if form is not None:

@@ -20,7 +20,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rglru as _rg
 from repro_torch.kernels import rwkv6 as _wk
 from repro_torch.kernels._cuda import (  # noqa: F401
-    by_namespace, forms, launches, reset_launches)
+    by_namespace, forms, launches, reset_launches, tally)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,

@@ -193,6 +193,12 @@ def main(argv=None):
             print(f"[serve]   {name}: {p['n_pipelines']} pipelines "
                   f"(+{p['n_sub_pipelines']} subs), "
                   f"{p['trajectories']} trajectories")
+        evo = rep.evolution
+        if evo is not None:
+            print(f"[serve]   evolution: enabled {evo['enabled']}, "
+                  f"{evo['submitted']} finetunes submitted, "
+                  f"{evo['completed']} completed, generator version "
+                  f"{evo['param_version']}")
         tel = rep.raw.get("telemetry", {})
         if tel.get("trace_path"):
             print(f"[serve] trace: {tel['trace_path']} "

@@ -16,7 +16,9 @@ Completed finetunes publish evolved params to the generator's
 for the coordinator's quality-by-version report.
 
 A copy of the JAX package's ``repro.learn.trainer`` (free of JAX there
-too), with its imports rewritten to ``repro_torch``.
+too), with its imports rewritten to ``repro_torch`` and without its
+optional ``checkpoint`` manager, which no session sets: evolved weights
+persist through ``ParamStore.save``.
 """
 
 from __future__ import annotations
@@ -44,12 +46,11 @@ class EvolutionConfig:
 
 class TrainerService:
     def __init__(self, executor, buffer: ReplayBuffer, store,
-                 cfg: EvolutionConfig, *, checkpoint=None):
+                 cfg: EvolutionConfig):
         self.executor = executor
         self.buffer = buffer
         self.store = store
         self.cfg = cfg
-        self.checkpoint = checkpoint   # optional CheckpointManager
         self._rng = np.random.default_rng(cfg.seed + 7)
         self._inflight: Optional[int] = None   # uid of the running task
         self._cur_payload: Optional[dict] = None
@@ -128,8 +129,7 @@ class TrainerService:
 
     def on_complete(self, task: Task):
         """Route a drained trainer-task completion: stash resume state on
-        preemption, record the finetune (and checkpoint the evolved params)
-        on success."""
+        preemption, record the finetune on success."""
         self._inflight = None
         if task.state != TaskState.DONE:
             self.failed += 1
@@ -154,8 +154,6 @@ class TrainerService:
         self.history.append({k: r[k] for k in (
             "base_version", "new_version", "loss_first", "loss_last",
             "mean_ll_first", "mean_ll_last", "n_designs", "steps_done")})
-        if self.checkpoint is not None:
-            self.store.save(self.checkpoint)
 
     def wait_idle(self, timeout: float = 60.0):
         """Drain the executor until no trainer task is in flight — for

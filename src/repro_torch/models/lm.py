@@ -81,14 +81,12 @@ def lm_logits(params, batch, cfg):
     return logits_fwd(params, lm_hidden(params, batch, cfg), cfg)
 
 
-def cross_entropy(logits, targets, vocab_size, z_loss=0.0):
+def cross_entropy(logits, targets):
     """Mean CE over valid (target >= 0) positions, computed in fp32."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
     ce = lse - gold
-    if z_loss > 0:
-        ce = ce + z_loss * lse.square()
     valid = (targets >= 0).float()
     return (ce * valid).sum() / valid.sum().clamp_min(1.0)
 
@@ -131,8 +129,7 @@ def lm_loss(params, batch, cfg):
         loss = _chunked_ce(params, lm_hidden(params, batch, cfg),
                            batch["targets"], cfg)
     else:
-        loss = cross_entropy(lm_logits(params, batch, cfg), batch["targets"],
-                             cfg.padded_vocab)
+        loss = cross_entropy(lm_logits(params, batch, cfg), batch["targets"])
     return loss, {"ce_loss": loss, "loss": loss}
 
 

@@ -163,6 +163,38 @@ def test_launches_are_counted_by_the_running_threads_namespace():
     assert _cuda.by_namespace == {}
 
 
+def test_tally_counts_only_the_launches_of_its_own_thread():
+    """``tally`` sees the launches its thread makes inside the block, by
+    kernel and form, nested tallies each; another thread's launches and
+    launches after the block stay out."""
+    _cuda.reset_launches()
+    inner_seen = {}
+
+    def other():
+        for _ in range(5):
+            _cuda.check_launch("flash_attention_bhsd", 0, "decode")
+
+    try:
+        with _cuda.tally() as outer:
+            t = threading.Thread(target=other)
+            t.start()
+            for _ in range(3):
+                _cuda.check_launch("flash_attention_bhsd", 0, "seq_bf16")
+            with _cuda.tally() as inner:
+                _cuda.check_launch("wkv6_bhtk", 0, "prefill")
+            inner_seen.update(inner)
+            t.join(timeout=30)
+        _cuda.check_launch("rglru_btc", 0)
+        assert outer == {"flash_attention_bhsd": 3,
+                         ("flash_attention_bhsd", "seq_bf16"): 3,
+                         "wkv6_bhtk": 1, ("wkv6_bhtk", "prefill"): 1}
+        assert inner_seen == {"wkv6_bhtk": 1, ("wkv6_bhtk", "prefill"): 1}
+        assert _cuda.launches["flash_attention_bhsd"] == 8
+        assert _cuda.forms["flash_attention_bhsd"]["decode"] == 5
+    finally:
+        _cuda.reset_launches()
+
+
 @pytest.fixture(scope="module")
 def multimer_payloads():
     ref, _ = payloads("float32")

@@ -22,6 +22,7 @@ import importlib
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -454,12 +455,20 @@ def test_serve_campaign_runs_on_the_cpu_and_prints_a_report(tmp_path):
 
 
 def test_serve_campaign_evolution_raises_the_item_5_error(tmp_path):
-    """``--evolution`` (refused until model evolution was ported, whence
-    the name) now runs the campaign with its trainer and prints the
-    report."""
+    """``--evolution`` runs the campaign with its trainer wired: the report
+    shows evolution enabled and at least one finetune submitted. The name
+    predates the port of model evolution, when the flag was refused with
+    the ROADMAP item 5 error."""
     out = _serve(["im-rp", "--device", "cpu", "--evolution", "--structures",
                   "1", "--cycles", "2", "--candidates", "3",
                   "--receptor-len", "12"], tmp_path)
     assert out.returncode == 0, out.stderr
     assert "NotImplementedError" not in out.stderr
-    assert out.stdout.startswith("[serve] campaign schema v1 on cpu: ")
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("[serve] campaign schema v1 on cpu: ")
+    evo = [ln for ln in lines if ln.startswith("[serve]   evolution: ")]
+    assert len(evo) == 1, out.stdout
+    m = re.match(r"\[serve\]   evolution: enabled True, (\d+) finetunes "
+                 r"submitted, (\d+) completed, generator version (\d+)$",
+                 evo[0])
+    assert m and int(m[1]) >= 1, evo[0]
