@@ -98,6 +98,41 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    designs by generator version, the evolution session's peak device
    memory over what was allocated before it, a train step's wall
    ms and one train step under ``torch.profiler``.
+5e. The gateway at full width (progen-s, foldscore-s, the "binder"
+   progen-s and the "multimer" foldscore-m): ``GatewayService(devices=
+   None, reduced=False, max_workers=4)`` with equal quotas for alice and
+   bob, its HTTP front-end (``make_server``, bearer tokens) on 127.0.0.1,
+   every campaign submitted, polled and reported over HTTP. Each tenant
+   runs ``benchmarks/bench_gateway.py``'s default spec (3 structures at
+   receptor lengths 24 and 32, peptide 8, a staged binder of 2 cycles x 6
+   candidates, fold batches of 3): (a) alice's campaign to its end, then
+   bob's; (b) both live at once. Each prints its makespan, candidates/s,
+   cross-tenant fused dispatches (none in (a), at least one in (b)), each
+   tenant's p95 queue wait and quota stats from ``GET /metrics``, its
+   launches (counters zeroed before, read after, held to what the
+   completed tasks imply) and its own peak device memory; no task may fail
+   or retry; an unknown bearer gets 401, a foreign report 404, and
+   ``/healthz`` answers without a token. (c) carol's im-rp campaign with
+   paged decode beside alice's binder under a ``FaultPlan``: a transient
+   ``generate_batch`` error retried to done, a slow dispatch, a poison
+   ``predict_batch`` row quarantined while its batch-mates complete, a
+   corrupted auto-checkpoint after which ``load_campaign_checkpoint``
+   falls back to the ``.1`` copy, and a protocol handler that raises
+   once, which the supervisor restarts from its auto-checkpoint while
+   alice's campaign runs on; the launches (paged decode one a layer a
+   decode step) equal what the completed tasks imply. Device loss needs a
+   second card and is not run. (d) ``python -m repro_torch.launch.serve
+   --gateway --port 0 --checkpoint-dir D`` in a subprocess: a campaign
+   over HTTP to its end, then SIGINT during a second one: exit 0, the
+   campaign checkpointed and "gateway stopped" printed, the checkpoint
+   restored by ``ImpressSession.from_checkpoint``. Every distinct flash
+   and paged decode call of (a)-(c) is then held to its plain version.
+5f. ``launch/train.py`` at full progen-s width: 6 steps of 8 rows x (64
+   patches + 128 tokens) with a checkpoint every 3, a restore that runs 3
+   more from step 6, and an uninterrupted 9-step run with the same losses
+   (``TRAIN_LOSS_RTOL``); each step's own launches (``ops.tally``) one
+   bf16 flash launch a layer; flash at that shape held and timed beside
+   sdpa; ms a step, tokens/s, one profiled step.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
@@ -118,8 +153,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Then the full-width fp32 per-layer check over a prompt past the window,
    and one decode step over a full ring under ``torch.profiler``.
 8. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
-   its own record, its launches those of phase 5d's finetune tasks), the
-   card line, then the last line
+   its own record, its launches those of phase 5d's finetune tasks; flash
+   at the train launcher's shape too, its launches phase 5f's; phase 5e's
+   launches are added to the records of the forms it ran), the card line,
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -193,6 +230,23 @@ EVO_STRUCTURES, EVO_CYCLES, EVO_BATCH = 4, 3, 8
 # card vs CPU finetune (5d b), as tests/test_torch_evolution.py states it:
 # losses to a relative 1e-5, every parameter to 1e-4 after 5 steps
 EVO_LOSS_RTOL, EVO_PARAM_ATOL = 1e-5, 1e-4
+# the gateway (5e): two tenants running bench_gateway.py's default binder
+# spec at full width (3 structures, 2 cycles), a third tenant's im-rp
+# campaign with paged decode under a fault plan; bearer tokens by tenant
+GATEWAY_TENANTS, GATEWAY_STRUCTURES = ("alice", "bob"), 3
+GATEWAY_TOKENS = {"tok-alice": "alice", "tok-bob": "bob",
+                  "tok-carol": "carol"}
+FAULTED_SPEC = {"structures": 2, "receptor_len": RECEPTOR,
+                "peptide_len": PEPTIDE, "seed": 2, "reduced": False,
+                "protocols": [{"kind": "im-rp", "n_cycles": 2,
+                               "n_candidates": N_CAND,
+                               "generate_batch_size": 4, "score_batch": 3,
+                               "decode_kernel": True,
+                               "max_sub_pipelines": 0}]}
+# the train launcher (5f): rows x tokens a step (after the 64-row patch
+# prefix); the resumed run's losses against the uninterrupted run's (the
+# embedding's backward accumulates with atomics on the card)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_RTOL = 8, 128, 1e-4
 
 
 def expect(cond, msg):
@@ -2295,6 +2349,681 @@ def phase_evolution(torch, pp):
     return record
 
 
+# -- phase 5e: the gateway ---------------------------------------------------
+
+
+def http(base, method, path, tok=None, body=None):
+    """One JSON request to the gateway on localhost: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    headers = {"Content-Type": "application/json"}
+    if tok:
+        headers["Authorization"] = f"Bearer {tok}"
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_submit(base, tok, spec):
+    s, r = http(base, "POST", "/campaigns", tok, spec)
+    expect(s == 201, f"submit answered {s}: {r}")
+    return r["id"]
+
+
+def http_wait(base, cid, tok, timeout=300.0):
+    """Poll a campaign's report over HTTP until it is terminal."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        s, rep = http(base, "GET", f"/campaigns/{cid}/report", tok)
+        expect(s == 200, f"report of {cid} answered {s}: {rep}")
+        if rep["state"] in ("COMPLETED", "CANCELED", "FAILED"):
+            return rep
+        time.sleep(0.02)
+    raise AssertionError(f"campaign {cid} did not finish in {timeout} s")
+
+
+def gateway_spec(seed, structures=GATEWAY_STRUCTURES):
+    """``benchmarks/bench_gateway.py``'s default tenant spec at full width:
+    a staged binder campaign over receptor lengths 24 and 32 (cycled),
+    peptide 8, 2 cycles of 6 candidates, 3 rows a fold batch."""
+    return {"structures": structures, "receptor_len": [24, 32],
+            "peptide_len": 8, "seed": seed, "reduced": False,
+            "protocols": [{"kind": "binder", "n_cycles": 2,
+                           "n_candidates": N_CAND, "score_batch": 3}]}
+
+
+def implied_gateway_launches(done, pp):
+    """``implied_session_launches`` plus paged decode: a paged
+    ``generate_batch`` dispatch (its leader's result) is one flash
+    sequence launch a generator layer an admission and one paged launch a
+    layer a decode step."""
+    paged = collections.Counter()
+    rest = []
+    for t in done:
+        if t.kind == "generate_batch" and t.payload.get("decode") == "paged":
+            if t.result["batch"].get("leader", True):
+                ns = t.payload.get("params") or "default"
+                n = pp.gen_cfgs[ns].n_layers
+                paged[ns, "seq"] += n * t.result["batch"]["admits"]
+                paged[ns, "paged"] += n * t.result["batch"]["steps"]
+        else:
+            rest.append(t)
+    want, forms, by_ns = implied_session_launches(rest, pp)
+    zero = dict.fromkeys(want, 0)
+    for (ns, part), n in paged.items():
+        key = "flash_attention_bhsd" if part == "seq" else "paged_decode_bkgh"
+        want[key] += n
+        by_ns.setdefault(ns, dict(zero))[key] += n
+        if part == "seq":
+            forms["seq_bf16"] += n
+    return want, forms, by_ns
+
+
+@contextlib.contextmanager
+def paged_calls(seen):
+    """Append to the list ``seen`` each call the block makes to the paged
+    decode wrapper, as its shapes, dtypes, page size and a device copy of
+    its lengths (read after the block, so the run is not synchronized), by
+    a pass-through in the wrapper's place in its module, where ``ops``
+    looks it up at each call."""
+    from repro_torch.kernels import paged_attention as pa
+
+    inner = pa.paged_decode_bkgh
+
+    def recording(q, k_pages, v_pages, block_tables, lengths, *, page_size):
+        seen.append((tuple(q.shape), tuple(k_pages.shape), q.dtype,
+                     k_pages.dtype, tuple(block_tables.shape), page_size,
+                     lengths.clone()))
+        return inner(q, k_pages, v_pages, block_tables, lengths,
+                     page_size=page_size)
+    pa.paged_decode_bkgh = recording
+    try:
+        yield seen
+    finally:
+        pa.paged_decode_bkgh = inner
+
+
+def hold_paged_calls(torch, seen, phase):
+    """The paged kernel at every distinct call ``paged_calls`` recorded
+    (shapes, page size and row lengths), on fresh inputs with a NaN trash
+    page past every row's length, in the call's dtype and in fp32, against
+    the plain version, to ``PAGED_TOL``."""
+    import numpy as np
+    from repro_torch.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(21)
+    calls = {(qs, ks, qdt, kdt, bts, page, tuple(lens.tolist()))
+             for qs, ks, qdt, kdt, bts, page, lens in seen}
+    worst = collections.defaultdict(float)
+    for qs, ks, qdt, kdt, bts, page, lens in sorted(calls, key=str):
+        B, KV, G, hd = qs
+        for dt in {qdt, torch.float32}:
+            q, kp, vp, bt, ln, _ = paged_inputs(
+                torch, rng, lens, dt, KV=KV, G=G, hd=hd, page=page,
+                maxp=bts[1])
+            got = pa.paged_decode_bkgh(q, kp, vp, bt, ln, page_size=page)
+            want = pa.paged_decode_ref(q, kp, vp, bt, ln, page_size=page)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            tol = PAGED_TOL[dtype_name(dt)]
+            expect(bool(torch.isfinite(got).all()) and err <= tol,
+                   f"paged decode at a {phase} call {qs} lengths {lens} "
+                   f"{dtype_name(dt)}: max_abs_err {err} > {tol}")
+            worst[dtype_name(dt)] = max(worst[dtype_name(dt)], err)
+    print(f"  paged decode at every distinct call {phase} made ({len(seen)} "
+          f"calls, {len(calls)} distinct: shapes and row lengths), held to "
+          f"the plain version behind a NaN trash page: max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+          + f" (tol {PAGED_TOL})", flush=True)
+
+
+def gateway_mode(torch, fused, calls):
+    """Phase 5e (a) or (b): a fresh ``GatewayService`` at full width on
+    every CUDA device (``devices=None``), its HTTP front-end on
+    127.0.0.1, alice's and bob's binder campaigns submitted, polled and
+    reported over HTTP, one after the other or both live at once. The
+    counters are zeroed just before the first submission and read after
+    the last completion, and held to what the completed tasks imply."""
+    import tempfile
+    import threading
+
+    from repro_torch.core.pipeline import TaskState
+    from repro_torch.gateway import GatewayService, TenantQuota, make_server
+    from repro_torch.kernels import ops
+
+    label = "(b) fused" if fused else "(a) sequential"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as d:
+        gw = GatewayService(devices=None, reduced=False, max_workers=4,
+                            quotas={t: TenantQuota(1.0)
+                                    for t in GATEWAY_TENANTS},
+                            trace_dir=os.path.join(d, "trace"),
+                            checkpoint_dir=os.path.join(d, "ck"))
+        srv = make_server(gw, port=0, tokens=GATEWAY_TOKENS)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = "http://%s:%d" % srv.server_address[:2]
+        tok = {t: k for k, t in GATEWAY_TOKENS.items()}
+        try:
+            gw.start()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            cids, reports = {}, {}
+            with flash_calls(calls):
+                for i, tenant in enumerate(GATEWAY_TENANTS):
+                    cids[tenant] = http_submit(base, tok[tenant],
+                                               gateway_spec(i))
+                    if not fused:
+                        reports[tenant] = http_wait(base, cids[tenant],
+                                                    tok[tenant])
+                for tenant in GATEWAY_TENANTS:
+                    reports[tenant] = http_wait(base, cids[tenant],
+                                                tok[tenant])
+                makespan = time.perf_counter() - t0
+            s, metrics = http(base, "GET", "/metrics", tok["alice"])
+            expect(s == 200, f"GET /metrics answered {s}")
+            s, health = http(base, "GET", "/healthz")
+            expect(s == 200 and health["status"] == "ok",
+                   f"GET /healthz without a token answered {s}: {health}")
+            s, _ = http(base, "GET", "/metrics", "tok-nobody")
+            expect(s == 401, f"an unknown bearer got {s}, not 401")
+            s, _ = http(base, "GET", f"/campaigns/{cids['alice']}/report",
+                        tok["bob"])
+            expect(s == 404, f"bob read alice's report: {s}, not 404")
+        finally:
+            srv.shutdown()
+            gw.shutdown()
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        forms = dict(ops.forms["flash_attention_bhsd"])
+        by_ns = {ns: dict(c) for ns, c in ops.by_namespace.items()}
+        tasks = list(gw.executor._tasks.values())
+        pp = gw.payload
+        expect(os.path.exists(os.path.join(d, "trace", "trace.json")),
+               "the gateway wrote no trace")
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    done = [t for t in tasks if t.state == TaskState.DONE]
+    expect(len(done) == len(tasks) and not any(t.retries for t in tasks),
+           f"{label}: {len(tasks) - len(done)} tasks not done, "
+           f"{sum(t.retries > 0 for t in tasks)} retried")
+    for tenant, rep in reports.items():
+        expect(rep["state"] == "COMPLETED" and rep["tenant"] == tenant
+               and all(len([h for h in p["history"] if "sequence" in h])
+                       == 2 for p in rep["pipelines"].values())
+               and len(rep["pipelines"]) == GATEWAY_STRUCTURES,
+               f"{label}: {tenant}'s campaign {rep['state']}, designs "
+               f"{ {n: len(p['history']) for n, p in rep['pipelines'].items()} }")
+    want, want_forms, want_ns = implied_gateway_launches(done, pp)
+    expect(counts == want and forms == want_forms and by_ns == want_ns,
+           f"{label}: launches {counts} {forms} {by_ns}, the completed "
+           f"tasks imply {want} {want_forms} {want_ns}")
+    cross = metrics["coalesce"].get("cross_tenant", {}).get("dispatches", 0)
+    expect(cross >= 1 if fused else cross == 0,
+           f"{label}: {cross} cross-tenant fused dispatches")
+    traj = sum(r["trajectories"] for r in reports.values())
+    kinds = collections.Counter((t.kind, t.stage) for t in done)
+    leaders = collections.Counter(
+        t.kind for t in done if t.kind not in ("generate_batch",
+                                               "predict_batch",
+                                               "backbone_batch")
+        or t.result["batch"].get("leader", True))
+    print(f"  {label}: makespan {makespan:.3f} s, {traj} trajectories, "
+          f"{traj / makespan:.3f} candidates/s; {cross} cross-tenant fused "
+          f"dispatches; tasks by kind and stage {dict(kinds)} in "
+          f"{dict(leaders)} dispatches; bucket table "
+          f"{reports['alice']['bucket_table']}", flush=True)
+    for tenant in GATEWAY_TENANTS:
+        w = metrics["tenants"][tenant]["queue_wait_s"]
+        print(f"    {tenant}: p95 queue wait {1e3 * w['p95']:.2f} ms "
+              f"({w['count']} tasks), quota {metrics['quotas'][tenant]}",
+              flush=True)
+    print(f"    launches {counts}, flash by form {forms}, by namespace "
+          f"{by_ns}, equal to what the completed tasks imply; the "
+          f"gateway's own peak device memory {peak:.3f} GiB over the "
+          f"{before / 2 ** 30:.3f} GiB allocated before it; 401 for an "
+          f"unknown bearer, 404 for a foreign report, /healthz 200 "
+          f"without a token", flush=True)
+    return counts, forms, {"makespan": makespan, "trajectories": traj}
+
+
+def faulted_gateway(torch, calls, paged):
+    """Phase 5e (c): carol's im-rp campaign with paged decode beside
+    alice's binder campaign in one gateway with a ``FaultPlan``: a
+    transient error on carol's first ``generate_batch`` dispatch, a slow
+    ``predict_batch`` dispatch, a poison ``predict_batch`` row, a
+    corrupted auto-checkpoint (``checkpoint_every_s`` > 0), and a protocol
+    handler of carol's that raises once. Returns the launch counts."""
+    import tempfile
+    import threading
+
+    from repro_torch.checkpoint.io import CheckpointCorruptError
+    from repro_torch.core.pipeline import TaskState
+    from repro_torch.gateway import GatewayService, make_server
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultPlan, FaultSpec
+
+    carol = lambda t: t.tenant == "carol"              # noqa: E731
+    plan = FaultPlan([
+        FaultSpec(op="error", kind="generate_batch", at=1, where=carol),
+        FaultSpec(op="slow", kind="predict_batch", at=2, delay_s=0.2,
+                  where=carol),
+        FaultSpec(op="poison", kind="predict_batch", at=1, where=carol),
+        FaultSpec(op="corrupt_checkpoint", at=3),
+    ], seed=0)
+    fallback = {}
+    inner = plan.on_checkpoint_saved
+    with tempfile.TemporaryDirectory() as d:
+        gw = GatewayService(devices=None, reduced=False, max_workers=4,
+                            checkpoint_dir=d, checkpoint_every_s=0.1,
+                            fault_plan=plan)
+
+        def probe(path):
+            # right after a corrupted copy lands: the newest file fails
+            # verification and the load falls back to the .1 copy
+            hit = inner(path)
+            if hit:
+                cid = os.path.basename(path)[len("campaign-"):-len(".json")]
+                try:
+                    GatewayService._read_envelope(path)
+                    fallback["newest_ok"] = True
+                except (CheckpointCorruptError, ValueError):
+                    fallback["newest_ok"] = False
+                fallback["previous"] = GatewayService._read_envelope(
+                    path + ".1")
+                fallback["loaded"] = gw.load_campaign_checkpoint(cid)
+                fallback["cid"] = cid
+            return hit
+        plan.on_checkpoint_saved = probe
+        srv = make_server(gw, port=0, tokens=GATEWAY_TOKENS)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = "http://%s:%d" % srv.server_address[:2]
+        tok = {t: k for k, t in GATEWAY_TOKENS.items()}
+        stopped = False
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            # the executor runs a campaign's first tasks from its
+            # submission on; the drive thread routes their completions.
+            # Both are submitted before it starts, so the first round of
+            # auto-checkpoints writes carol's (1) then alice's (2): the
+            # corrupted third write is carol's second copy
+            with flash_calls(calls), paged_calls(paged):
+                c = http_submit(base, tok["carol"], FAULTED_SPEC)
+                a = http_submit(base, tok["alice"], gateway_spec(0, 1))
+                (proto,) = gw._campaigns[c].protocols.values()
+                handler = proto.handlers["predict_batch"]
+                raised = []
+
+                def raise_once(pl, result):
+                    if not raised:
+                        raised.append(pl.name)
+                        raise RuntimeError("injected protocol handler fault")
+                    return handler(pl, result)
+                # handlers run on the drive thread, which is not started yet
+                proto.handlers["predict_batch"] = raise_once
+                gw.start()
+                rep_c = http_wait(base, c, tok["carol"])
+                rep_a = http_wait(base, a, tok["alice"])
+                makespan = time.perf_counter() - t0
+                # a restart leaves the crashed binding's dispatches running
+                # to their end (their results are dropped): the executor's
+                # shutdown waits for them before the counters are read
+                srv.shutdown()
+                gw.shutdown()
+                stopped = True
+        finally:
+            if not stopped:
+                srv.shutdown()
+                gw.shutdown()
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        forms = dict(ops.forms["flash_attention_bhsd"])
+        by_ns = {ns: dict(cn) for ns, cn in ops.by_namespace.items()}
+        tasks = list(gw.executor._tasks.values())
+        pp = gw.payload
+    summary = plan.summary()
+    fired = summary["fired_by_op"]
+    done = [t for t in tasks if t.state == TaskState.DONE]
+    failed = [t for t in tasks if t.state == TaskState.FAILED]
+    res = rep_c.get("resilience", {})
+    dead = res.get("deadletter", [])
+    poison_ev = [e for e in summary["events"] if e["op"] == "poison"]
+    print(f"  (c) faulted: carol's im-rp (paged decode) beside alice's "
+          f"binder, makespan {makespan:.3f} s; carol {rep_c['state']}, "
+          f"restarts {rep_c.get('restarts', 0)} ({rep_c.get('failure')}), "
+          f"{rep_c['trajectories']} trajectories; alice {rep_a['state']}, "
+          f"{rep_a['trajectories']} trajectories; faults fired {fired}; "
+          f"poison dispatches {poison_ev}; dead letters "
+          f"{[(r['kind'], r['class'], r['error']) for r in dead]}; "
+          f"{res.get('retries')} retries; tasks by kind "
+          f"{dict(collections.Counter(t.kind for t in done))} done, "
+          f"{len(failed)} failed", flush=True)
+    expect(rep_c["state"] == "COMPLETED" and rep_c.get("restarts") == 1
+           and "injected protocol handler fault" in rep_c.get("failure", ""),
+           f"carol's campaign {rep_c['state']}, restarts "
+           f"{rep_c.get('restarts')}: the supervisor did not restart it")
+    expect(rep_a["state"] == "COMPLETED" and "restarts" not in rep_a
+           and rep_a["trajectories"] > 0,
+           f"the co-tenant's campaign {rep_a['state']}")
+    expect(fired.get("error") == 1 and fired.get("slow") == 1
+           and fired.get("poison", 0) >= 1
+           and fired.get("corrupt_checkpoint") == 1,
+           f"faults fired {fired}, not the schedule")
+    expect(res.get("faults_injected", {}).get("fired_by_op", {}).get(
+        "error") == 1, f"carol's report carries {res.get('faults_injected')}")
+    poison = [r for r in dead if r["class"] == "permanent"
+              and "poison" in (r["error"] or "")]
+    expect(len(poison) == 1 and poison[0]["kind"] == "predict_batch"
+           and len(failed) == 1 and failed[0].uid == poison[0]["uid"],
+           f"dead letters {dead}, failed tasks "
+           f"{[(t.kind, t.error) for t in failed]}")
+    if poison_ev[0]["fused"]:
+        mates = [t for t in done if t.kind == "predict_batch"
+                 and t.retries == 1 and t.tenant == "carol"]
+        expect(mates, "the poison row's batch-mates did not complete")
+    retried = [t for t in done if t.kind == "generate_batch"
+               and t.tenant == "carol" and t.retries]
+    expect(retried, "no generate_batch retried to done")
+    expect(fallback.get("cid") == c and fallback["newest_ok"] is False
+           and fallback["loaded"] == fallback["previous"]
+           and fallback["loaded"][1] == "carol",
+           f"the corrupted checkpoint did not fall back to .1: "
+           f"{ {k: v for k, v in fallback.items() if k != 'previous'} }")
+    print(f"    the corrupted auto-checkpoint of {c}: the newest copy failed "
+          f"verification, load_campaign_checkpoint returned the .1 copy "
+          f"(tenant carol); device loss is not run: one card", flush=True)
+    want, want_forms, want_ns = implied_gateway_launches(done, pp)
+    n_paged = want["paged_decode_bkgh"]
+    print(f"    launches {counts}, flash by form {forms}, by namespace "
+          f"{by_ns}; implied by the completed tasks: {want}, {want_forms}, "
+          f"{want_ns} ({n_paged} paged: {pp.gen_cfg.n_layers} layers x "
+          f"{n_paged // pp.gen_cfg.n_layers} decode steps)", flush=True)
+    expect(n_paged > 0 and counts == want and forms == want_forms
+           and by_ns == want_ns,
+           f"(c): launches {counts} {forms} {by_ns}, the completed tasks "
+           f"imply {want} {want_forms} {want_ns}")
+    return counts, forms
+
+
+def serve_gateway_cli(torch, pp):
+    """Phase 5e (d): ``python -m repro_torch.launch.serve --gateway --port 0
+    --checkpoint-dir D`` (full width, every CUDA device): its "listening
+    on" line; a single-structure binder campaign over HTTP to its end; a
+    second one interrupted by SIGINT while it runs: the process exits 0
+    after printing the checkpointed campaign and "gateway stopped", and
+    the checkpoint loads in ``ImpressSession.from_checkpoint``."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+
+    from repro_torch.gateway import GatewayService
+    from repro_torch.session import ImpressSession
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        err_path = os.path.join(d, "stderr.log")
+        with open(err_path, "w") as err_file:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve",
+                 "--gateway", "--port", "0", "--checkpoint-dir", d], cwd=d,
+                env=env, stdout=subprocess.PIPE, stderr=err_file, text=True)
+        lines = queue.Queue()
+        reader = threading.Thread(target=lambda: [lines.put(ln) for ln in
+                                                  proc.stdout], daemon=True)
+        reader.start()
+        try:
+            first = lines.get(timeout=180)
+            m = re.match(r"\[serve\] gateway listening on (http://\S+)$",
+                         first.strip())
+            expect(m is not None, f"serve --gateway printed {first!r}")
+            base = m[1]
+            t_up = time.perf_counter() - t0
+            spec = dict(gateway_spec(0, 1))
+            c1 = http_submit(base, None, spec)
+            rep = http_wait(base, c1, None)
+            expect(rep["state"] == "COMPLETED" and rep["trajectories"] > 0,
+                   f"serve --gateway campaign {c1}: {rep['state']}")
+            c2 = http_submit(base, None, dict(spec, seed=1))
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reader.join(timeout=30)
+        out = []
+        while not lines.empty():
+            out.append(lines.get().rstrip("\n"))
+        with open(err_path) as f:
+            err = f.read()
+        expect(rc == 0, f"serve --gateway exited {rc}: {err[-2000:]}")
+        expect(f"[serve] checkpointed 1 live campaign(s) to {d}: ['{c2}']"
+               in out and out[-1] == "[serve] gateway stopped",
+               f"serve --gateway printed {out}")
+        state, tenant = GatewayService._read_envelope(
+            os.path.join(d, f"campaign-{c2}.json"))
+        sess = ImpressSession.from_checkpoint(state, payload=pp,
+                                              devices=[pp.device])
+        try:
+            names = sorted(p.name
+                           for p in sess.coordinator.pipelines.values())
+            rep = sess.run(timeout=120)
+        finally:
+            sess.shutdown()
+    expect(names == sorted(p["name"]
+                           for p in state["coordinator"]["pipelines"])
+           and rep.trajectories > 0,
+           f"the checkpoint of {c2} rebuilt {names}, ran "
+           f"{rep.trajectories} trajectories")
+    print(f"  (d) serve --gateway: listening after {t_up:.1f} s; {c1} "
+          f"completed over HTTP; SIGINT during {c2}: exit 0, "
+          f"\"{out[-2]}\", \"{out[-1]}\"; the checkpoint (tenant "
+          f"{tenant}) loads in ImpressSession.from_checkpoint and runs "
+          f"{rep.trajectories} trajectories", flush=True)
+
+
+def phase_gateway(torch, pp):
+    """Phase 5e: the gateway at full width (progen-s, foldscore-s, the
+    "binder" progen-s and the "multimer" foldscore-m) on one card: (a)
+    alice's then bob's binder campaign, (b) both at once, (c) carol's
+    im-rp with paged decode under a fault plan beside alice, (d) the
+    ``serve --gateway`` entry point in a subprocess; then the flash and
+    paged kernels held to their plain versions at every distinct call of
+    (a)-(c). Returns the launch counts of (a)-(c), by kernel and flash
+    form."""
+    t_phase = time.perf_counter()
+    print(f"phase 5e: the gateway, GatewayService(devices=None, "
+          f"reduced=False, max_workers=4, quotas alice/bob 1.0) over HTTP "
+          f"on 127.0.0.1; each tenant's spec {gateway_spec(0)}", flush=True)
+    calls, paged = set(), []
+    total = collections.Counter()
+    total_forms = collections.Counter()
+    modes = {}
+    for fused in (False, True):
+        counts, forms, modes[fused] = gateway_mode(torch, fused, calls)
+        total.update(counts)
+        total_forms.update(forms)
+    print(f"  fused over sequential: candidates/s x "
+          f"{(modes[True]['trajectories'] / modes[True]['makespan']) / (modes[False]['trajectories'] / modes[False]['makespan']):.3f}, "
+          f"makespan {modes[False]['makespan']:.3f} -> "
+          f"{modes[True]['makespan']:.3f} s", flush=True)
+    counts, forms = faulted_gateway(torch, calls, paged)
+    total.update(counts)
+    total_forms.update(forms)
+    serve_gateway_cli(torch, pp)
+    hold_flash_calls(torch, calls, "phase 5e")
+    hold_paged_calls(torch, paged, "phase 5e")
+    print(f"  phase 5e took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total, total_forms
+
+
+# -- phase 5f: the train launcher ----------------------------------------------
+
+
+@contextlib.contextmanager
+def train_step_tallies(out):
+    """Append to the list ``out`` a (launches, wall ms) pair for each train
+    step ``launch.train`` runs in the block: the launches of its own thread
+    (``ops.tally``) and its synchronized wall time, by a pass-through in
+    ``make_train_step``'s place in ``launch.train``, where ``build`` looks
+    it up."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tr
+
+    inner = tr.make_train_step
+
+    def tallied(cfg, opt):
+        step = inner(cfg, opt)
+
+        def run(params, opt_state, batch):
+            import torch
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ops.tally() as counts:
+                res = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            out.append((dict(counts), 1e3 * (time.perf_counter() - t)))
+            return res
+        return run
+    tr.make_train_step = tallied
+    try:
+        yield out
+    finally:
+        tr.make_train_step = inner
+
+
+def time_train_flash(torch):
+    """The flash kernel at the train launcher's shape (8 rows x 8/4 heads
+    of 32 over 64 patch + 128 token positions, causal, bf16): device ms
+    of the kernel, the plain version and sdpa, and the bound. Returns the
+    kernel record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, S = TRAIN_BATCH, 8, 4, 64 + TRAIN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn(B, h, S, 32, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for h in (H, KV, KV))
+    run_k = lambda: fa.flash_attention_bhsd(q, k, v)          # noqa: E731
+    run_p = lambda: fa.attention_ref(q, k, v)                 # noqa: E731
+    run_l = lambda: F.scaled_dot_product_attention(           # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    err = max_err(run_k(), run_p())
+    err_t = max_err(run_k(), fa.attention_tiled_ref(q, k, v))
+    check(f"flash at the train shape {B} x {H}/{KV} x {S} bf16", err,
+          TOL["bfloat16"])
+    check(f"flash at the train shape {B} x {H}/{KV} x {S} bf16 vs "
+          f"attention_tiled_ref", err_t, TOL["bfloat16"])
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    n_ops = 4 * 32 * B * H * live_pairs(S, S, True, 0)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
+                      graph_ms(torch, run_l))
+    print(f"  flash at the train shape {B} x {H}/{KV} x {S} bf16, device ms "
+          f"per call: kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, "
+          f"bound {b_ms:.6f} ({b_by}); err {err:.3e}", flush=True)
+    return {"name": "flash_attention_bhsd_train", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def phase_train(torch):
+    """Phase 5f: ``launch/train.py`` at full progen-s width on the card:
+    ``train`` for 6 steps with a checkpoint every 3, then ``restore=True``
+    to 9 (3 more steps from step 6), against an uninterrupted 9-step run
+    (losses within ``TRAIN_LOSS_RTOL``); each step's launches (``ops.tally``)
+    held to one bf16 flash launch a layer, and the counters, zeroed before
+    and read after, to that over every step; flash held at every distinct
+    call; ms a step, tokens/s, one profiled step. Returns the kernel
+    record of the train shape, its launches those of the steps run."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import OptConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config("progen-s")
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=9)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=100,
+              device="cuda")
+    print(f"phase 5f: launch/train.py, {cfg.name} at full width ("
+          f"{cfg.n_layers} layers, d {cfg.d_model}), {TRAIN_BATCH} rows x "
+          f"({cfg.frontend_seq} patches + {TRAIN_SEQ} tokens), AdamW lr "
+          f"{opt.lr}: 6 steps with a checkpoint every 3, restore to 9, "
+          f"against 9 uninterrupted", flush=True)
+    record = time_train_flash(torch)
+    steps, calls = [], set()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with train_step_tallies(steps), flash_calls(calls), \
+            tempfile.TemporaryDirectory() as d:
+        _, _, first = tr.train(cfg, opt, steps=6, ckpt_dir=d, ckpt_every=3,
+                               **kw)
+        _, state, more = tr.train(cfg, opt, steps=9, ckpt_dir=d,
+                                  restore=True, **kw)
+        _, _, whole = tr.train(cfg, opt, steps=9, **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    forms = dict(ops.forms["flash_attention_bhsd"])
+    n = cfg.n_layers
+    resumed = first + more
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole))
+    print(f"  losses: 6 steps {[round(x, 4) for x in first]}, resumed "
+          f"{[round(x, 4) for x in more]} (optimizer count "
+          f"{state['count']}), uninterrupted {[round(x, 4) for x in whole]}; "
+          f"max relative difference {rel:.3e} (tol {TRAIN_LOSS_RTOL:.0e})",
+          flush=True)
+    expect(len(first) == 6 and len(more) == 3 and state["count"] == 9
+           and len(whole) == 9, "the restore did not resume at step 6")
+    expect(rel <= TRAIN_LOSS_RTOL, f"resumed losses differ by {rel}")
+    expect(whole[-1] < whole[0], "the train launcher did not lower the loss")
+    per_step = {"flash_attention_bhsd": n,
+                ("flash_attention_bhsd", "seq_bf16"): n}
+    expect(len(steps) == 18 and all(c == per_step for c, _ in steps),
+           f"train steps' own launches {[c for c, _ in steps]}, not {n} "
+           f"bf16 flash launches a step")
+    expect(counts == dict(dict.fromkeys(counts, 0),
+                          flash_attention_bhsd=18 * n)
+           and forms == {"decode": 0, "seq_f32": 0, "seq_bf16": 18 * n},
+           f"train launcher: launches {counts} {forms}, not {18 * n} bf16")
+    walls = [w for _, w in steps[10:]]          # the uninterrupted run
+    ms = statistics.median(walls[1:])
+    print(f"  train step: wall median {ms:.2f} ms ({min(walls[1:]):.2f}-"
+          f"{max(walls[1:]):.2f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} "
+          f"tokens/s; each of the 18 steps {n} bf16 flash launches "
+          f"(ops.tally), the counters {counts['flash_attention_bhsd']}",
+          flush=True)
+    hold_flash_calls(torch, calls, "phase 5f")
+    params, opt_state, step_fn = tr.build(cfg, opt, device="cuda")
+    batch = {k: v.to("cuda") for k, v in lm_batch(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, step=0).items()}
+    for _ in range(2):
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+    profile_step(torch, lambda: step_fn(params, opt_state, batch),
+                 "launch/train.py train step", top=10)
+    record["launches"] = counts["flash_attention_bhsd"]
+    print(f"  phase 5f took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return record
+
+
 def profile_step(torch, fn, label, top=12):
     """Run ``fn`` once under torch.profiler: device time by kernel and the
     device's busy share of the wall time. Returns the device kernels'
@@ -2578,7 +3307,16 @@ def main():
     counts["flash_attention_bhsd_finetune"] = finetune["launches"]
     records.append(finetune)
     counts["flash_attention_bhsd_decode"] = campaign["default"]["decode"]
+    # the gateway's paths add their launches to the records of the forms
+    # they ran: paged decode, flash's bf16 sequence form and its decode form
+    gateway, gateway_forms = phase_gateway(torch, pp)
+    counts["paged_decode_bkgh"] += gateway["paged_decode_bkgh"]
+    counts["flash_attention_bhsd"] += gateway_forms["seq_bf16"]
+    counts["flash_attention_bhsd_decode"] += gateway_forms["decode"]
     del pp
+    train = phase_train(torch)
+    counts["flash_attention_bhsd_train"] = train["launches"]
+    records.append(train)
     wkv = phase_serving(torch)
     counts.update(wkv6_bhtk=wkv["wkv6_bhtk_prefill"],
                   wkv6_bhtk_decode=wkv["wkv6_bhtk_decode"])

@@ -20,11 +20,24 @@ of them concurrently on one executor:
 Ctrl-C in campaign mode is graceful: the campaign is checkpointed (to
 ``--checkpoint-out``) and the partial report printed before exiting.
 ``--evolution`` adds online model evolution (finetune tasks on idle
-devices, the evolved generator hot-swapped). The reference's gateway mode
-is not ported (ROADMAP Queue 1, item 6).
+devices, the evolved generator hot-swapped).
 
-Runs on ``cuda`` (campaign mode: every CUDA device) unless ``--device
-cpu`` is given.
+Gateway mode starts the persistent multi-tenant service instead — one
+resident runtime, campaigns submitted over a JSON HTTP API, co-tenant
+same-bucket batches fused across campaigns:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --gateway --port 8642 \\
+      [--tokens tok-a=alice,tok-b=bob] [--quota alice=2.0:4] \\
+      [--checkpoint-dir DIR] [--reduced --device cpu]
+
+Every behavior lives in ``repro_torch.gateway.GatewayService``; this mode
+parses flags, prints curl examples, and turns Ctrl-C into a graceful
+drain (every live campaign checkpointed to ``--checkpoint-dir``). Its
+payload is at full width unless ``--reduced`` is given; the reference's
+``payload_length`` is not taken (its payload never reads it).
+
+Runs on ``cuda`` (campaign and gateway modes: every CUDA device) unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -149,6 +162,59 @@ def serve_campaign(*, protocols, structures, cycles, candidates,
             stop.set()
 
 
+def serve_gateway(*, host="127.0.0.1", port=8642, tokens=None, quotas=None,
+                  max_workers=8, reduced=True, device="cuda", trace_dir=None,
+                  checkpoint_dir=None):
+    """Start the persistent gateway + its HTTP front-end and block until
+    Ctrl-C, which drains gracefully: every live campaign is checkpointed
+    (written to ``checkpoint_dir`` when given) before the function
+    returns. Runs on every CUDA device for ``device="cuda"``, else on
+    ``device`` alone."""
+    from repro_torch.gateway import GatewayService, make_server
+    devices = None if device == "cuda" else [resolve_device(device)]
+    gw = GatewayService(devices=devices, max_workers=max_workers,
+                        reduced=reduced, quotas=quotas, trace_dir=trace_dir,
+                        checkpoint_dir=checkpoint_dir)
+    gw.start()
+    srv = make_server(gw, host=host, port=port, tokens=tokens)
+    bound_host, bound_port = srv.server_address[:2]
+    base = f"http://{bound_host}:{bound_port}"
+    auth = (f' -H "Authorization: Bearer {next(iter(tokens))}"'
+            if tokens else "")
+    print(f"[serve] gateway listening on {base}", flush=True)
+    print(f"[serve]   submit:  curl{auth} -X POST {base}/campaigns "
+          "-d '{\"structures\": 2, \"receptor_len\": [24, 32], "
+          "\"protocols\": [{\"kind\": \"binder\"}]}'", flush=True)
+    print(f"[serve]   report:  curl{auth} {base}/campaigns/c0000/report",
+          flush=True)
+    print(f"[serve]   metrics: curl{auth} {base}/metrics", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.shutdown()
+        checkpoints = gw.shutdown()
+        if checkpoints:
+            where = (f" to {checkpoint_dir}" if checkpoint_dir
+                     else " (pass --checkpoint-dir to persist)")
+            print(f"[serve] checkpointed {len(checkpoints)} live "
+                  f"campaign(s){where}: {sorted(checkpoints)}", flush=True)
+        print("[serve] gateway stopped", flush=True)
+
+
+def _parse_kv(arg, what):
+    """Parse ``a=x,b=y`` flags (``--tokens``/``--quota``) into a dict."""
+    out = {}
+    for part in filter(None, (arg or "").split(",")):
+        if "=" not in part:
+            raise SystemExit(f"[serve] bad --{what} entry {part!r} "
+                             f"(want key=value[,key=value...])")
+        k, v = part.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out or None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="rwkv6-7b")
@@ -175,7 +241,37 @@ def main(argv=None):
     ap.add_argument("--checkpoint-out", default="impress-checkpoint.json",
                     help="campaign mode: where Ctrl-C writes the campaign "
                          "checkpoint ('' disables)")
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve the persistent multi-tenant gateway "
+                         "(JSON HTTP API) instead")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8642)
+    ap.add_argument("--tokens", default=None, metavar="TOK=TENANT,...",
+                    help="gateway mode: bearer-token auth table; omit for "
+                         "open single-user mode")
+    ap.add_argument("--quota", default=None, metavar="TENANT=SHARE[:CAP],..",
+                    help="gateway mode: per-tenant fair share and optional "
+                         "hard device cap (e.g. alice=2.0:4,bob=1.0)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="gateway mode: Ctrl-C writes every live "
+                         "campaign's checkpoint here")
     args = ap.parse_args(argv)
+    if args.gateway:
+        from repro_torch.gateway import TenantQuota
+        quotas = None
+        if args.quota:
+            quotas = {}
+            for tenant, v in (_parse_kv(args.quota, "quota") or {}).items():
+                share, _, cap = v.partition(":")
+                quotas[tenant] = TenantQuota(
+                    share=float(share or 1.0),
+                    max_devices=int(cap) if cap else None)
+        serve_gateway(host=args.host, port=args.port,
+                      tokens=_parse_kv(args.tokens, "tokens"),
+                      quotas=quotas, reduced=args.reduced,
+                      device=args.device, trace_dir=args.trace_dir,
+                      checkpoint_dir=args.checkpoint_dir)
+        return
     if args.campaign:
         rep = serve_campaign(protocols=args.campaign.split(","),
                              structures=args.structures, cycles=args.cycles,

@@ -1,0 +1,146 @@
+"""Training launcher.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch progen-s \\
+      --steps 100 --batch 8 --seq 128 --ckpt-dir CKPT [--restore]
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 6 --batch 4 --seq 32
+
+Checkpoint/restart is automatic: ``--restore`` resumes from the newest
+snapshot (training state + data cursor), which is the fault-tolerance path
+— kill the process at any step and relaunch.
+
+A port of the JAX package's ``repro.launch.train`` over the port's
+``lm.init_lm``, ``optim`` (AdamW, schedules, ``make_train_step``),
+``CheckpointManager`` and ``data.loader.Prefetcher``. Where it differs:
+
+* It runs on ``--device`` (default ``cuda``); the step is eager
+  (``torch.autograd``), with nothing jitted or donated.
+* ``--arch`` defaults to ``progen-s``: the reference's default,
+  smollm-360m, is not in the port's registry (ROADMAP Queue 1, item 7).
+* Only ``--mesh none`` runs: a mesh raises before any weight is built
+  (sharding is ROADMAP Queue 1, item 8).
+* An arch whose layers the port cannot differentiate raises before any
+  weight is built: ``rwkv`` and ``rglru`` blocks (their kernels have no
+  gradient yet, ROADMAP Queue 2, item 7) and attention with a logit
+  softcap, which ``kernels.flash_attention.FlashAttention`` refuses.
+* The weights are drawn from seed 0 on the device, as the reference draws
+  ``PRNGKey(0)``, so a card and the CPU start from other weights.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.registry import get_config, get_reduced
+from repro_torch.data.loader import Prefetcher
+from repro_torch.data.synthetic import make_batch_iterator
+from repro_torch.models import lm
+from repro_torch.models.common import trainable
+from repro_torch.optim import OptConfig, init_opt_state, make_train_step
+
+NOT_DIFFERENTIABLE = ("rwkv", "rglru")
+
+
+def check_trainable(cfg, mesh=None):
+    """Raise what the port cannot train, before any weight is built.
+    ``mesh`` is None or the CLI's ``--mesh`` value."""
+    if mesh not in (None, "none"):
+        raise NotImplementedError(
+            f"mesh {mesh!r}: sharded training is not ported (ROADMAP Queue "
+            f"1, item 8); run with mesh none")
+    kinds = sorted(set(cfg.layer_kinds) & set(NOT_DIFFERENTIABLE))
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: {kinds} layers have no gradient in the port yet "
+            f"(ROADMAP Queue 2, item 7)")
+    if cfg.attn_logit_softcap > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: attention with logit softcap "
+            f"{cfg.attn_logit_softcap} has no gradient (FlashAttention "
+            f"refuses it)")
+
+
+def build(cfg, opt, mesh=None, device="cuda"):
+    """(trainable params on ``device``, AdamW state, the train step)."""
+    check_trainable(cfg, mesh)
+    dev = resolve_device(device)
+    params = trainable(lm.init_lm(cfg, seed=0, device=dev))
+    opt_state = init_opt_state(dict(params.named_parameters()), opt)
+    return params, opt_state, make_train_step(cfg, opt)
+
+
+def train(cfg, opt, *, steps, batch, seq, ckpt_dir=None, restore=False,
+          ckpt_every=50, mesh=None, log_every=10, seed=0, device="cuda"):
+    """Train ``steps`` steps (from the newest checkpoint's step with
+    ``restore``) on ``make_batch_iterator``'s batches. Returns (params,
+    optimizer state, the losses of the steps this call ran)."""
+    params, opt_state, step_fn = build(cfg, opt, mesh, device)
+    dev = next(params.parameters()).device
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start = 0
+    if restore and mgr is not None and mgr.latest_step() is not None:
+        state, extra, start = mgr.restore(
+            {"params": params, "opt": opt_state})
+        # the manager rebuilds a module without gradients
+        params = trainable(state["params"])
+        opt_state = dict(state["opt"], count=int(state["opt"]["count"]))
+        print(f"[train] restored step {start}")
+    it = Prefetcher(make_batch_iterator(cfg, batch, seq, seed=seed,
+                                        start_step=start))
+    losses = []
+    t0 = time.time()
+    try:
+        for i in range(start, steps):
+            b = {k: v.to(dev) for k, v in next(it).items()}
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+            losses.append(float(metrics["loss"]))
+            if (i + 1) % log_every == 0:
+                tok_s = batch * seq * log_every / (time.time() - t0)
+                print(f"[train] step {i + 1} loss={losses[-1]:.4f} "
+                      f"lr={float(metrics['lr']):.2e} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"tok/s={tok_s:.0f}", flush=True)
+                t0 = time.time()
+            if mgr is not None and (i + 1) % ckpt_every == 0:
+                mgr.save(i + 1, {"params": params, "opt": opt_state})
+    finally:
+        it.close()
+    if mgr is not None:
+        mgr.save(steps, {"params": params, "opt": opt_state}, block=True)
+        mgr.wait()
+    return params, opt_state, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="progen-s")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "sim", "single", "multi"])
+    args = ap.parse_args(argv)
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    opt = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
+                    total_steps=args.steps, microbatches=args.microbatches)
+    _, _, losses = train(cfg, opt, steps=args.steps, batch=args.batch,
+                         seq=args.seq, ckpt_dir=args.ckpt_dir,
+                         restore=args.restore, mesh=args.mesh,
+                         device=args.device)
+    if losses:
+        print(f"[train] done. loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    else:
+        print(f"[train] done: nothing to run past step {args.steps}")
+
+
+if __name__ == "__main__":
+    main()

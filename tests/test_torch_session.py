@@ -454,11 +454,9 @@ def test_serve_campaign_runs_on_the_cpu_and_prints_a_report(tmp_path):
                for ln in lines)
 
 
-def test_serve_campaign_evolution_raises_the_item_5_error(tmp_path):
+def test_serve_campaign_evolution_runs_the_trainer(tmp_path):
     """``--evolution`` runs the campaign with its trainer wired: the report
-    shows evolution enabled and at least one finetune submitted. The name
-    predates the port of model evolution, when the flag was refused with
-    the ROADMAP item 5 error."""
+    shows evolution enabled and at least one finetune submitted."""
     out = _serve(["im-rp", "--device", "cpu", "--evolution", "--structures",
                   "1", "--cycles", "2", "--candidates", "3",
                   "--receptor-len", "12"], tmp_path)
