@@ -2726,10 +2726,12 @@ def faulted_gateway(torch, calls, paged):
            and len(failed) == 1 and failed[0].uid == poison[0]["uid"],
            f"dead letters {dead}, failed tasks "
            f"{[(t.kind, t.error) for t in failed]}")
-    if poison_ev[0]["fused"]:
-        mates = [t for t in done if t.kind == "predict_batch"
-                 and t.retries == 1 and t.tenant == "carol"]
-        expect(mates, "the poison row's batch-mates did not complete")
+    expect(poison_ev and poison_ev[0]["fused"],
+           f"the poison row's first dispatch {poison_ev} was not fused: "
+           f"no batch-mate to complete")
+    mates = [t for t in done if t.kind == "predict_batch"
+             and t.retries == 1 and t.tenant == "carol"]
+    expect(mates, "the poison row's batch-mates did not complete")
     retried = [t for t in done if t.kind == "generate_batch"
                and t.tenant == "carol" and t.retries]
     expect(retried, "no generate_batch retried to done")
@@ -3003,7 +3005,7 @@ def phase_train(torch):
                           flash_attention_bhsd=18 * n)
            and forms == {"decode": 0, "seq_f32": 0, "seq_bf16": 18 * n},
            f"train launcher: launches {counts} {forms}, not {18 * n} bf16")
-    walls = [w for _, w in steps[10:]]          # the uninterrupted run
+    walls = [w for _, w in steps[9:]]           # the uninterrupted run
     ms = statistics.median(walls[1:])
     print(f"  train step: wall median {ms:.2f} ms ({min(walls[1:]):.2f}-"
           f"{max(walls[1:]):.2f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} "

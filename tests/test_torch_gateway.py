@@ -35,12 +35,9 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
-from repro_torch.core.pipeline import ResourceRequest, Task  # noqa: E402
 from repro_torch.core.payload import ProteinPayload  # noqa: E402
 from repro_torch.gateway import (GatewayError, GatewayService,  # noqa: E402
-                                 QuotaManager, TenantQuota, make_server,
-                                 tenant_band)
-from repro_torch.runtime.scheduler import TaskQueue  # noqa: E402
+                                 TenantQuota, make_server)
 from test_torch_session import ported_payload  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -150,31 +147,53 @@ def test_campaign_isolation_and_lifecycle(gateway):
 # -- quotas ------------------------------------------------------------------
 
 
-def _mk(tenant, band, n_dev=1, prio=0):
-    return Task(kind="x", payload={}, resources=ResourceRequest(n_dev),
-                priority=prio, tenant=tenant, band=band)
+def _quota_pkg(name):
+    """One package's quota manager, queue and task types."""
+    import importlib
+
+    mod = lambda m: importlib.import_module(f"{name}.{m}")  # noqa: E731
+    pl = mod("core.pipeline")   # first: the reference's import cycle
+    quotas = mod("gateway.quotas")
+    return types.SimpleNamespace(
+        Task=pl.Task, ResourceRequest=pl.ResourceRequest,
+        QuotaManager=quotas.QuotaManager, TenantQuota=quotas.TenantQuota,
+        tenant_band=quotas.tenant_band,
+        TaskQueue=mod("runtime.scheduler").TaskQueue)
 
 
-def test_quota_hard_cap_and_bounded_wait_fake_clock():
-    """A fake-clock simulation of the dispatch loop: a tenant flooding the
-    queue is pinned at its device cap while the co-tenant's p95 queue wait
-    stays bounded (rejected flood tasks are skipped, not head-blocking)."""
+def _mk(P, tenant, band, n_dev=1):
+    return P.Task(kind="x", payload={}, resources=P.ResourceRequest(n_dev),
+                  tenant=tenant, band=band)
+
+
+def _quota_flood(name):
+    """A fake-clock simulation of the dispatch loop through ``name``'s
+    ``QuotaManager`` and ``TaskQueue``: 40 one-device tasks of a tenant
+    capped at two devices and 8 of an uncapped co-tenant, on four devices,
+    each task holding its grant for one tick. Returns the dispatch order
+    as (tick, tenant, index among the tenant's tasks), each tenant's queue
+    waits, the flood tenant's held devices at each tick, and the
+    manager's stats."""
+    P = _quota_pkg(name)
     clock = {"t": 0.0}
-    qm = QuotaManager({"flood": TenantQuota(share=1.0, max_devices=2),
-                       "coop": TenantQuota(share=1.0)})
-    fb, cb = tenant_band(0, 0), tenant_band(1, 0)
-    q = TaskQueue(aging_s=1e9, now_fn=lambda: clock["t"],
-                  band_shares={fb: 1.0, cb: 1.0})
+    qm = P.QuotaManager({"flood": P.TenantQuota(share=1.0, max_devices=2),
+                         "coop": P.TenantQuota(share=1.0)})
+    fb, cb = P.tenant_band(0, 0), P.tenant_band(1, 0)
+    q = P.TaskQueue(aging_s=1e9, now_fn=lambda: clock["t"],
+                    band_shares={fb: 1.0, cb: 1.0})
     q.set_admission(qm.admit)
 
+    index = {}
     for tenant, band, n in (("flood", fb, 40), ("coop", cb, 8)):
-        for _ in range(n):
-            t = _mk(tenant, band)
+        for i in range(n):
+            t = _mk(P, tenant, band)
             t.timestamps["QUEUED"] = clock["t"]
+            index[t.uid] = i
             q.push(t)
 
     free = 4
     inflight = []   # (finish_time, task, sub)
+    order, held = [], []
     waits = {"flood": [], "coop": []}
     while len(q) or inflight:
         for ft, task, sub in list(inflight):
@@ -189,15 +208,37 @@ def test_quota_hard_cap_and_bounded_wait_fake_clock():
             sub = types.SimpleNamespace(n_devices=task.resources.n_devices)
             qm.granted(task, sub)
             free -= sub.n_devices
+            order.append((clock["t"], task.tenant, index[task.uid]))
             waits[task.tenant].append(
                 clock["t"] - task.timestamps["QUEUED"])
             inflight.append((clock["t"] + 1.0, task, sub))
-        held = sum(s.n_devices for _, t, s in inflight
-                   if t.tenant == "flood")
-        assert held <= 2, "flood tenant exceeded its device cap"
+        held.append(sum(s.n_devices for _, t, s in inflight
+                        if t.tenant == "flood"))
         clock["t"] += 1.0
+    return {"order": order, "waits": waits, "held": held,
+            "stats": qm.stats()}
 
-    stats = qm.stats()
+
+def _quota_refund(name):
+    """admit / denied / granted / released on one tenant capped at two
+    devices: each call's answer and the stats after each step."""
+    P = _quota_pkg(name)
+    qm = P.QuotaManager({"a": P.TenantQuota(max_devices=2)})
+    t1, t2 = _mk(P, "a", 0, n_dev=2), _mk(P, "a", 0, n_dev=2)
+    sub = types.SimpleNamespace(n_devices=2)
+    steps = [lambda: qm.admit(t1), lambda: qm.admit(t2),
+             lambda: qm.denied(t1), lambda: qm.admit(t2),
+             lambda: qm.granted(t2, sub), lambda: qm.released(t2, sub)]
+    return [(step(), qm.stats()) for step in steps]
+
+
+def test_quota_hard_cap_and_bounded_wait_fake_clock():
+    """A fake-clock simulation of the dispatch loop: a tenant flooding the
+    queue is pinned at its device cap while the co-tenant's p95 queue wait
+    stays bounded (rejected flood tasks are skipped, not head-blocking)."""
+    run = _quota_flood("repro_torch")
+    waits, stats = run["waits"], run["stats"]
+    assert max(run["held"]) <= 2, "flood tenant exceeded its device cap"
     assert stats["flood"]["peak_held"] <= 2
     assert stats["flood"]["rejections"] > 0
     assert stats["coop"]["held"] == 0 and stats["flood"]["held"] == 0
@@ -210,16 +251,20 @@ def test_quota_hard_cap_and_bounded_wait_fake_clock():
 def test_quota_admission_refund_on_denied_allocation():
     """admit() reserves; denied() refunds, or a racing allocation failure
     would leak reserved devices until the cap wedges shut."""
-    qm = QuotaManager({"a": TenantQuota(max_devices=2)})
-    t1, t2 = _mk("a", 0, n_dev=2), _mk("a", 0, n_dev=2)
-    assert qm.admit(t1)
-    assert not qm.admit(t2)
-    qm.denied(t1)
-    assert qm.admit(t2)
-    sub = types.SimpleNamespace(n_devices=2)
-    qm.granted(t2, sub)
-    qm.released(t2, sub)
-    assert qm.stats()["a"]["held"] == 0
+    run = _quota_refund("repro_torch")
+    answers = [a for a, _ in run]
+    assert answers[:2] == [True, False]
+    assert answers[3] is True
+    assert run[-1][1]["a"]["held"] == 0
+
+
+@pytest.mark.parametrize("scenario", [_quota_flood, _quota_refund],
+                         ids=["flood", "refund"])
+def test_quota_manager_matches_reference_on_one_fake_clock(scenario):
+    """The same admissions on one fake clock through the reference's
+    ``QuotaManager`` and ``TaskQueue`` and the port's: the same dispatch
+    order, queue waits, held devices, answers and stats."""
+    assert scenario("repro_torch") == scenario("repro")
 
 
 # -- bucket-table refresh ----------------------------------------------------
@@ -461,13 +506,20 @@ def _pkg_gateway(name, payload, **kw):
     return _gw(payload, **kw)
 
 
-def _campaign_run(name, payload, uid0):
+def _campaign_run(name, payload, uid0, faults=()):
     """One tenant's binder campaign through ``name``'s gateway from pipeline
-    uid ``uid0``. Returns (report, DONE tasks by (kind, stage))."""
+    uid ``uid0``, under ``name``'s ``FaultPlan`` of ``faults`` (keyword
+    dicts of ``FaultSpec``) when there are any. Returns (report, DONE tasks
+    by (kind, stage))."""
     import importlib
 
     pipeline = importlib.import_module(f"{name}.core.pipeline")
-    gw = _pkg_gateway(name, payload)
+    kw = {}
+    if faults:
+        res = importlib.import_module(f"{name}.resilience")
+        kw["fault_plan"] = res.FaultPlan(
+            [res.FaultSpec(**f) for f in faults], seed=0)
+    gw = _pkg_gateway(name, payload, **kw)
     try:
         pipeline._uid = itertools.count(uid0)
         cid = gw.submit_campaign(dict(SPEC), tenant="alice")
@@ -479,6 +531,22 @@ def _campaign_run(name, payload, uid0):
     finally:
         gw.shutdown()
     return rep, done
+
+
+def _same_designs(got, want):
+    """Every pipeline accepted the same sequences, cycle by cycle, with
+    fitness within 1e-5."""
+    assert set(got["pipelines"]) == set(want["pipelines"])
+    for name, pl in want["pipelines"].items():
+        want_h = [h for h in pl["history"] if "sequence" in h]
+        got_h = [h for h in got["pipelines"][name]["history"]
+                 if "sequence" in h]
+        assert want_h and [(h["cycle"], list(h["sequence"]))
+                           for h in got_h] \
+            == [(h["cycle"], list(h["sequence"])) for h in want_h], name
+        np.testing.assert_allclose([h["fitness"] for h in got_h],
+                                   [h["fitness"] for h in want_h],
+                                   atol=1e-5)
 
 
 def test_binder_campaign_matches_reference_gateway(binder_payloads):
@@ -498,15 +566,42 @@ def test_binder_campaign_matches_reference_gateway(binder_payloads):
     assert {k for k, _ in g_done} >= {"backbone_batch", "generate_batch",
                                       "predict_batch"}
     assert g_rep["bucket_table"] == w_rep["bucket_table"] == [24, 32, 48]
-    assert set(g_rep["pipelines"]) == set(w_rep["pipelines"])
-    for name, pl in w_rep["pipelines"].items():
-        want = [h for h in pl["history"] if "sequence" in h]
-        got = [h for h in g_rep["pipelines"][name]["history"]
-               if "sequence" in h]
-        assert want and [(h["cycle"], list(h["sequence"])) for h in got] \
-            == [(h["cycle"], list(h["sequence"])) for h in want], name
-        np.testing.assert_allclose([h["fitness"] for h in got],
-                                   [h["fitness"] for h in want], atol=1e-5)
+    _same_designs(g_rep, w_rep)
+
+
+def test_faulted_binder_campaign_matches_reference_gateway(binder_payloads):
+    """The same campaign under one fault schedule in each package's
+    ``FaultPlan``: transient errors on the first generate and second
+    predict dispatches, and a slowed first backbone dispatch. Both
+    gateways fire the same faults with the same events, retry every failed
+    row to done, quarantine nothing, and accept the fault-free designs.
+    The retry count itself is not compared: it is the number of rows the
+    failed dispatches had fused, which the worker threads' timing
+    decides."""
+    ref, noised = binder_payloads
+    from repro.core import pipeline as ref_pipeline
+    from repro_torch.core import pipeline as port_pipeline
+    faults = ({"op": "error", "kind": "generate_batch", "at": 1},
+              {"op": "error", "kind": "predict_batch", "at": 2},
+              {"op": "slow", "kind": "backbone_batch", "at": 1,
+               "delay_s": 0.02})
+    uid0 = max(next(ref_pipeline._uid), next(port_pipeline._uid)) + 1
+    c_rep, _ = _campaign_run("repro_torch", noised, uid0)
+    w_rep, w_done = _campaign_run("repro", ref, uid0, faults)
+    g_rep, g_done = _campaign_run("repro_torch", noised, uid0, faults)
+    assert w_rep["state"] == g_rep["state"] == "COMPLETED"
+    assert g_rep["trajectories"] == w_rep["trajectories"] > 0
+    assert g_done == w_done
+    w_res, g_res = w_rep["resilience"], g_rep["resilience"]
+    assert g_res["faults_injected"] == w_res["faults_injected"]
+    assert g_res["faults_injected"]["fired_by_op"] == {"error": 2,
+                                                       "slow": 1}
+    assert g_res["policy"] == w_res["policy"]
+    for res in (w_res, g_res):
+        assert res["retries"] >= 2 and not res["failed_by_class"]
+        assert "deadletter" not in res
+    _same_designs(g_rep, w_rep)
+    _same_designs(g_rep, c_rep)
 
 
 @pytest.mark.parametrize("writer,reader", [("repro", "repro_torch"),

@@ -15,8 +15,12 @@ uid counter pinned. It holds designs and evidence, never a wall clock."""
 
 import collections
 import itertools
+import os
+import re
+import shutil
 import threading
 import time
+import types
 
 import pytest
 
@@ -609,6 +613,180 @@ def test_shutdown_clean_keeps_legacy_stats_schema():
     assert "unjoined_workers" not in ex.stats()
 
 
+
+# ---------------------------------------------------------------------------
+# the fault plan against the reference's, on one schedule
+# ---------------------------------------------------------------------------
+
+class _Dev:
+    """A stand-in device for the reference's allocator: the fields its
+    mesh reads, no backend."""
+
+    def __init__(self, i):
+        self.id = i
+        self.platform = "cpu"
+        self.process_index = 0
+
+    def __repr__(self):
+        return f"_Dev({self.id})"
+
+
+def _pkg(name):
+    """The names one package's fault scenario needs."""
+    import importlib
+
+    mod = lambda m: importlib.import_module(f"{name}.{m}")  # noqa: E731
+    # the reference test's import order: its package has a cycle that
+    # this order enters at the right end
+    pl = mod("core.pipeline")
+    res, alloc = mod("resilience"), mod("runtime.allocator")
+    ex = mod("runtime.executor")
+    devices = CPUS if name == "repro_torch" else [_Dev(i) for i in range(4)]
+    return types.SimpleNamespace(
+        Task=pl.Task, TaskState=pl.TaskState,
+        ResourceRequest=pl.ResourceRequest, FaultPlan=res.FaultPlan,
+        FaultSpec=res.FaultSpec, RetryPolicy=res.RetryPolicy,
+        maybe_corrupt=res.maybe_corrupt,
+        AsyncExecutor=ex.AsyncExecutor, CoalesceRule=ex.CoalesceRule,
+        DeviceAllocator=alloc.DeviceAllocator,
+        devices=devices)
+
+
+def _fault_specs(P):
+    """One schedule of every op: a transient and a permanent error and a
+    slowdown on solo dispatches, a poison row designated on the second
+    fused dispatch, a device lost under a two-device dispatch, and two
+    corrupted checkpoints."""
+    return P.FaultPlan([
+        P.FaultSpec(op="error", kind="work", at=2, count=1),
+        P.FaultSpec(op="slow", kind="work", at=3, delay_s=0.01),
+        P.FaultSpec(op="error", kind="work", at=4, count=1,
+                    error_class="permanent"),
+        P.FaultSpec(op="poison", kind="batch", at=2),
+        P.FaultSpec(op="device_loss", kind="dl", at=1, device_index=1),
+        P.FaultSpec(op="corrupt_checkpoint", at=2, count=2),
+    ], seed=11)
+
+
+def _fault_scenario(name, ckpt_dir):
+    """Drive one task stream through ``name``'s executor under
+    ``_fault_specs``: four solo tasks, two fused dispatches of three rows,
+    one two-device task, then four checkpoint writes. Returns what it saw,
+    with task uids replaced by their rank among the stream's uids (each
+    package counts uids on its own) and times dropped."""
+    P = _pkg(name)
+    plan = _fault_specs(P)
+    pol = P.RetryPolicy(max_transient_retries=2, backoff_base_s=0.0,
+                        jitter=0.0, breaker_threshold=0)
+    ex = P.AsyncExecutor(P.DeviceAllocator(P.devices), max_workers=1,
+                         retry_policy=pol, fault_plan=plan)
+    ex.register("work", lambda sub, payload: payload["i"])
+    ex.register("batch", lambda sub, payload: payload.get("n", 1))
+    ex.register("dl", lambda sub, payload: sub.n_devices)
+    gate = threading.Event()
+    ex.register("block", lambda sub, payload: gate.wait(10))
+    ex.register_coalescable("batch", P.CoalesceRule(
+        key=lambda t: "x", merge=lambda ms: {"n": len(ms)},
+        split=lambda ms, r: [r] * len(ms), rows=lambda t: 1, max_rows=8))
+    results, uids = [], []
+
+    def submit(t):
+        uids.append(t.uid)
+        ex.submit(t)
+
+    try:
+        for i in range(4):
+            submit(P.Task(kind="work", payload={"i": i}))
+            results.append(ex.drain(timeout=10))
+        for rnd in range(2):
+            gate.clear()
+            submit(P.Task(kind="block", payload={}))
+            time.sleep(0.1)   # the one worker is busy: the rows coalesce
+            for i in range(3):
+                submit(P.Task(kind="batch", payload={"i": i}))
+            gate.set()
+            results += [ex.drain(timeout=10) for _ in range(4)]
+        submit(P.Task(kind="dl", payload={},
+                      resources=P.ResourceRequest(2)))
+        results += [ex.drain(timeout=10) for _ in range(2)]
+    finally:
+        ex.shutdown()
+    assert all(r is not None for r in results), name
+    uids += [r.uid for r in results]
+    rank = {u: i for i, u in enumerate(sorted(set(uids)))}
+    norm = lambda text: re.sub(  # noqa: E731
+        r"uid=(\d+)", lambda m: f"uid=#{rank[int(m.group(1))]}", text)
+
+    src = os.path.join(ckpt_dir, "src.bin")
+    with open(src, "wb") as f:
+        f.write(bytes(range(256)) * 3)
+    flips = []
+    for i in range(4):
+        path = os.path.join(ckpt_dir, f"ckpt-{i}.bin")
+        shutil.copyfile(src, path)
+        hit = P.maybe_corrupt(path, plan)
+        with open(path, "rb") as f:
+            flips.append((hit, f.read()))
+    assert P.maybe_corrupt(src, None) is False
+
+    summ = ex.resilience_summary()
+    for rec in summ.get("deadletter", []):
+        rec.pop("t")
+        rec["uid"] = rank[rec["uid"]]
+        rec["error"] = norm(rec["error"])
+    for ev in summ["faults_injected"]["events"]:
+        if "uid" in ev:
+            ev["uid"] = rank[ev["uid"]]
+        if "path" in ev:
+            ev["path"] = os.path.basename(ev["path"])
+    alloc = ex.allocator
+    return {
+        "results": [(rank[r.uid], r.kind, r.state.name, r.retries,
+                     r.result if r.state.name == "DONE" else None,
+                     norm(r.error.splitlines()[0]) if r.error else None)
+                    for r in results],
+        "summary": summ,
+        "dead_devices": [i for i, d in enumerate(alloc.dead.flat) if d],
+        "device_lost": ex.telemetry.metrics.value("tasks.device_lost",
+                                                  kind="dl"),
+        "flips": flips,
+    }
+
+
+def test_fault_plan_matches_reference_on_one_schedule(tmp_path):
+    """The same ``FaultSpec`` schedule and task stream through the
+    reference's ``FaultPlan`` and ``AsyncExecutor`` and the port's: the
+    same tasks fail, retry, cancel and clone; the same dispatch counts as
+    each spec's ``at``; the same row is poisoned, fused and then solo; the
+    same device is lost; the resilience summaries (retries, failure
+    classes, dead-letter records, fired faults and their events) are
+    equal; and the checkpoint seam flips the same byte of the same
+    writes."""
+    got = {}
+    for name in ("repro", "repro_torch"):
+        d = tmp_path / name
+        d.mkdir()
+        got[name] = _fault_scenario(name, str(d))
+    ref, port = got["repro"], got["repro_torch"]
+    assert port["results"] == ref["results"]
+    assert port["summary"] == ref["summary"]
+    assert port["dead_devices"] == ref["dead_devices"] == [1]
+    assert port["device_lost"] == ref["device_lost"] == 1
+    assert port["flips"] == ref["flips"]
+
+    # the schedule really exercised every op, as the reference fires it
+    fired = port["summary"]["faults_injected"]["fired_by_op"]
+    assert set(fired) == {"error", "slow", "poison", "device_loss",
+                          "corrupt_checkpoint"}
+    assert fired["corrupt_checkpoint"] == 2
+    assert [h for h, _ in port["flips"]] == [False, True, True, False]
+    assert port["flips"][1][1] != port["flips"][0][1]
+    poison = [e for e in port["summary"]["faults_injected"]["events"]
+              if e["op"] == "poison"]
+    assert poison[0]["fused"] and not poison[-1]["fused"]
+    assert len(port["summary"]["deadletter"]) == 2
+    states = collections.Counter(s for _, _, s, *_ in port["results"])
+    assert states["CANCELED"] == 1 and states["FAILED"] == 2
 
 
 # ---------------------------------------------------------------------------
