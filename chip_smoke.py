@@ -152,11 +152,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    over the bf16 ring in place), and the other two kernels not at all.
    Then the full-width fp32 per-layer check over a prompt past the window,
    and one decode step over a full ring under ``torch.profiler``.
-8. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
+8. The dense decoders and whisper's encoder-decoder. (a) llama3-8b,
+   chatglm3-6b, smollm-360m, nemotron-4-15b, llava-next-34b (with its
+   patch stub) and whisper-small (with its frame stub) reduced in fp32,
+   card vs CPU as in 3b: the same greedy tokens, ``lm.generate`` the same,
+   then each layer's prefill + decode held to one prefill on the card
+   (``layer_consistency``); reduced smollm's head dim of 20 is not
+   compiled, so a card call there must raise ``ValueError`` and it runs
+   at head dim 16. (b) nemotron-4-15b and llava-next-34b whole on the meta
+   device: parameters outside the norms equal ``param_count``, the total
+   in the reference's range. (c) ``serve_batch`` at full width, one model
+   at a time (``ARCH_SERVES``: nemotron-4-15b cut to 16 of 32 layers,
+   llava-next-34b to 8 of 60, the cut printed): prefill ms and tokens/s,
+   decode ms a step and tokens/s, peak memory, every logit finite. (d)
+   The counters, zeroed before each serve: flash one sequence launch a
+   layer at prefill (whisper: 12 encoder, 12 self, 12 cross) and one
+   decode launch a self- or cross-attention layer a step. (e) Every
+   distinct flash call of the six serves held to the plain version. (f)
+   The kernel at llama3-8b's prefill and decode and whisper's encoder,
+   cross prefill and cross decode, timed beside the plain version and
+   sdpa, with its bound. (g) One llama3-8b decode step under
+   ``torch.profiler``.
+9. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
-   launches are added to the records of the forms it ran), the card line,
-   then the last line
+   launches are added to the records of the forms it ran; phase 8's five
+   shapes are records of their own, their launches phase 8's serves'),
+   the total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -247,6 +269,21 @@ FAULTED_SPEC = {"structures": 2, "receptor_len": RECEPTOR,
 # prefix); the resumed run's losses against the uninterrupted run's (the
 # embedding's backward accumulates with atomics on the card)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_RTOL = 8, 128, 1e-4
+# phase 8: the dense decoders and whisper-small at full width, one
+# serve_batch each: arch -> (rows, prompt tokens, tokens generated). Each
+# is served at the deepest depth whose fp32 weights fit in the card's free
+# memory with SERVE_HEADROOM bytes to spare (llava-next-34b whole is
+# 137.6 GB of fp32 weights); the headroom holds the bf16 casts of the
+# head and of one layer at use, the activations and the caches (a
+# 16-layer nemotron-4-15b peaked 4.1 GB over its weights on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+ARCH_SERVES = {"llama3-8b": (8, 512, 32),
+               "chatglm3-6b": (8, 512, 32),
+               "smollm-360m": (8, 512, 32),
+               "nemotron-4-15b": (8, 512, 32),
+               "llava-next-34b": (8, 128, 32),
+               "whisper-small": (8, 64, 32)}
+SERVE_HEADROOM = 8e9
 
 
 def expect(cond, msg):
@@ -1077,12 +1114,15 @@ def phase_rglru_flash256(torch):
     return records
 
 
-def greedy(torch, params, prompts, cfg, steps):
+def greedy(torch, params, prompts, cfg, steps, stub=None):
     """Greedy tokens (B, steps) through prefill + decode_step, and the
-    logits of the last decode step."""
+    logits of the last decode step. ``stub``: the frontend's patches or
+    frames, {name: tensor}; the caches hold a patch prefix too."""
     from repro_torch.models import lm
-    logits, caches, t = lm.prefill(params, {"inputs": prompts}, cfg,
-                                   cache_len=prompts.shape[1] + steps)
+    batch = {"inputs": prompts, **(stub or {})}
+    logits, caches, t = lm.prefill(
+        params, batch, cfg,
+        cache_len=lm.prefix_len(batch, cfg) + prompts.shape[1] + steps)
     toks = [lm.sample_tokens(logits, 0.0)]
     for i in range(1, steps):
         logits, caches = lm.decode_step(params, caches, toks[-1], t + i - 1,
@@ -1091,28 +1131,28 @@ def greedy(torch, params, prompts, cfg, steps):
     return torch.cat(toks, dim=1), logits
 
 
-def layer_consistency(torch, params, seq, n_prompt, cfg):
+def layer_consistency(torch, params, seq, n_prompt, cfg, stub=None):
     """Every layer fed the input the prefill gives it: its outputs at the
-    positions after ``n_prompt`` through its own prefill over the first
-    ``n_prompt`` tokens and T=1 decode steps, against its outputs in one
-    prefill over all of ``seq``. Returns the largest error, each layer's
-    relative to the largest magnitude of its prefill output."""
-    from repro_torch.models import blocks
-    from repro_torch.models.common import embed_tokens
-    B, S = seq.shape
-    x = embed_tokens(params.embedding, seq, cfg)
-    positions = torch.arange(S, device=x.device)
+    positions after ``n_prompt`` tokens through its own prefill over the
+    first ``n_prompt`` tokens (after any patch prefix) and T=1 decode
+    steps, against its outputs in one prefill over all of ``seq``; an
+    encoder-decoder's layers read the encoder's output of ``stub``'s
+    frames. Returns the largest error, each layer's relative to the
+    largest magnitude of its prefill output."""
+    from repro_torch.models import blocks, lm
+    x, ctx, n_prefix = lm._context(params, {"inputs": seq, **(stub or {})},
+                                   cfg)
+    B, S = x.shape[:2]
+    n0 = n_prefix + n_prompt
     worst = 0.0
     for layer, kind in zip(params.layers, cfg.layer_kinds):
         def fresh():
             return blocks.init_layer_cache(kind, cfg, B, S, device=x.device)
-        full, _ = blocks.layer_prefill(kind, layer, x,
-                                       {"positions": positions}, cfg,
-                                       fresh())
+        full, _ = blocks.layer_prefill(kind, layer, x, ctx, cfg, fresh())
         _, state = blocks.layer_prefill(
-            kind, layer, x[:, :n_prompt],
-            {"positions": positions[:n_prompt]}, cfg, fresh())
-        for i in range(n_prompt, S):
+            kind, layer, x[:, :n0],
+            dict(ctx, positions=ctx["positions"][:n0]), cfg, fresh())
+        for i in range(n0, S):
             h, state = blocks.layer_decode(kind, layer, x[:, i:i + 1], i, cfg,
                                            state)
             worst = max(worst, max_err(h[:, 0], full[:, i])
@@ -1121,32 +1161,50 @@ def layer_consistency(torch, params, seq, n_prompt, cfg):
     return worst
 
 
-def phase_lm_agreement(torch, label, arch, prompt_len):
-    """A reduced LM in fp32: one model built on the CPU and copied to the
-    card, the same prompts, greedy decoding on the card (kernels) and on
-    the CPU (plain versions)."""
+def frontend_stub(torch, cfg, B, seed):
+    """The frontend's stub for ``B`` rows, {"patches" or "frames": 0.02 x a
+    normal draw of (B, frontend_seq, d_model)} (fp32, CPU), as serve_batch
+    draws it; empty without a frontend."""
+    import numpy as np
+    names = {"vision_patches": "patches", "audio_frames": "frames"}
+    if cfg.frontend not in names:
+        return {}
+    draw = 0.02 * np.random.default_rng(seed).normal(
+        size=(B, cfg.frontend_seq, cfg.d_model))
+    return {names[cfg.frontend]: torch.from_numpy(draw.astype(np.float32))}
+
+
+def phase_lm_agreement(torch, label, arch, prompt_len, cfg=None, note=""):
+    """A reduced LM in fp32 (``cfg``, default the arch's reduced config):
+    one model built on the CPU and copied to the card, the same prompts
+    (and frontend stub), greedy decoding on the card (kernels) and on the
+    CPU (plain versions)."""
     import copy
 
     import numpy as np
     from repro_torch.configs.registry import get_reduced
     from repro_torch.models import lm
 
-    cfg = get_reduced(arch).replace(compute_dtype="float32")
+    cfg = (cfg or get_reduced(arch)).replace(compute_dtype="float32")
     print(f"{label}: small-input agreement, {arch} card vs CPU (reduced, "
-          f"fp32, {prompt_len}-token prompts)", flush=True)
+          f"fp32, {prompt_len}-token prompts{note})", flush=True)
     cpu = lm.init_lm(cfg, seed=0, device="cpu")
     card = copy.deepcopy(cpu).to("cuda")
     prompts = torch.from_numpy(np.random.default_rng(4).integers(
         1, cfg.vocab_size, size=(4, prompt_len)))
+    stub = frontend_stub(torch, cfg, 4, 5)
+    stub_g = {k: v.cuda() for k, v in stub.items()}
     with torch.inference_mode():
-        toks_g, last_g = greedy(torch, card, prompts.cuda(), cfg, 12)
-        toks_c, last_c = greedy(torch, cpu, prompts, cfg, 12)
-        gen_g = lm.generate(card, {"inputs": prompts.cuda()}, cfg, 12)
+        toks_g, last_g = greedy(torch, card, prompts.cuda(), cfg, 12, stub_g)
+        toks_c, last_c = greedy(torch, cpu, prompts, cfg, 12, stub)
+        gen_g = lm.generate(card, {"inputs": prompts.cuda(), **stub_g}, cfg,
+                            12)
     expect(torch.equal(toks_g.cpu(), toks_c), "greedy tokens differ, card vs "
            "CPU")
     expect(torch.equal(gen_g.cpu(), toks_c), "lm.generate differs from the "
            "prefill + decode_step loop")
     check("last-step logits card vs CPU", max_err(last_g.cpu(), last_c), 1e-4)
+    return card, cfg, prompts.cuda(), toks_g, stub_g
 
 
 def new_pipelines(rng, n):
@@ -1600,18 +1658,20 @@ def implied_session_launches(done, pp):
 
 @contextlib.contextmanager
 def flash_calls(seen):
-    """Add to the set ``seen`` each distinct call the block makes to the
-    flash wrapper, as (q shape, k shape, q dtype, K/V dtype, whether K/V
-    are contiguous, keyword arguments), by a pass-through in the wrapper's
-    place in its module, where ``ops`` looks it up at each call; the
-    wrapper itself runs and counts its launches as ever."""
+    """Count in the ``collections.Counter`` ``seen`` each distinct call the
+    block makes to the flash wrapper, as (q shape, k shape, q dtype, K/V
+    dtype, whether K/V are contiguous, keyword arguments), by a
+    pass-through in the wrapper's place in its module, where ``ops`` looks
+    it up at each call; the wrapper itself runs and counts its launches as
+    ever."""
     from repro_torch.kernels import flash_attention as fa
 
     inner = fa.flash_attention_bhsd
 
     def recording(q, k, v, **kw):
-        seen.add((tuple(q.shape), tuple(k.shape), q.dtype, k.dtype,
-                  k.is_contiguous(), tuple(sorted(kw.items()))))
+        key = (tuple(q.shape), tuple(k.shape), q.dtype, k.dtype,
+               k.is_contiguous(), tuple(sorted(kw.items())))
+        seen[key] += 1
         return inner(q, k, v, **kw)
     fa.flash_attention_bhsd = recording
     try:
@@ -1670,8 +1730,8 @@ def run_session(torch, pp, spec, devices, label, *, keep=False, calls=None):
     counters zeroed just before ``run()`` and read just after, held to what
     the completed tasks imply by kernel, flash form and namespace; no task
     failed or retried; every pipeline finished; one report section per
-    protocol; every design in range. The run's flash calls are added to
-    the set ``calls`` (``flash_calls``). Prints the makespan (campaign and
+    protocol; every design in range. The run's flash calls are counted
+    in ``calls`` (``flash_calls``). Prints the makespan (campaign and
     per protocol), tasks by kind and stage, dispatches, designs accepted by
     cycle, the length buckets and first calls per shape key. Returns
     (session or None, report, accepted designs by pipeline)."""
@@ -1683,7 +1743,7 @@ def run_session(torch, pp, spec, devices, label, *, keep=False, calls=None):
     try:
         torch.cuda.synchronize()
         ops.reset_launches()
-        with flash_calls(set() if calls is None else calls):
+        with flash_calls(collections.Counter() if calls is None else calls):
             rep = sess.run(timeout=300)
         torch.cuda.synchronize()
         counts = dict(ops.launches)
@@ -1867,7 +1927,7 @@ def phase_session(torch, pp):
           f"{spec_a.structures} structures (receptor {RECEPTOR} + peptide "
           f"{PEPTIDE}), {N_CAND} candidates, {SESSION_CYCLES} cycles; "
           f"ImpressSession(devices=None) -> all CUDA devices", flush=True)
-    calls = set()                       # the flash calls of every run
+    calls = collections.Counter()       # the flash calls of every run
     sess, rep_a, _ = run_session(torch, pp, spec_a, None, "campaign A",
                                  keep=True, calls=calls)
     try:
@@ -2275,7 +2335,7 @@ def phase_evolution(torch, pp):
           f"{spec.finetune_steps} steps on up to {EVO_BATCH})", flush=True)
     # both runs draw pipeline and task uids (the sampling seeds) from one
     # start, so they run the same design work until a finetune publishes
-    calls = set()                       # the flash calls of both runs
+    calls = collections.Counter()       # the flash calls of both runs
     uid0 = next(pipeline._uid) + 1
     pipeline._uid = itertools.count(uid0)
     _, rep0, acc0 = run_session(torch, pp, base, [cuda0],
@@ -2848,7 +2908,7 @@ def phase_gateway(torch, pp):
     print(f"phase 5e: the gateway, GatewayService(devices=None, "
           f"reduced=False, max_workers=4, quotas alice/bob 1.0) over HTTP "
           f"on 127.0.0.1; each tenant's spec {gateway_spec(0)}", flush=True)
-    calls, paged = set(), []
+    calls, paged = collections.Counter(), []
     total = collections.Counter()
     total_forms = collections.Counter()
     modes = {}
@@ -2971,7 +3031,7 @@ def phase_train(torch):
           f"{opt.lr}: 6 steps with a checkpoint every 3, restore to 9, "
           f"against 9 uninterrupted", flush=True)
     record = time_train_flash(torch)
-    steps, calls = [], set()
+    steps, calls = [], collections.Counter()
     torch.cuda.synchronize()
     ops.reset_launches()
     with train_step_tallies(steps), flash_calls(calls), \
@@ -3252,6 +3312,340 @@ def phase_rg_serving(torch):
     return counts
 
 
+# -- phase 8: the dense decoders and whisper's encoder-decoder ----------------
+
+
+def phase_arch_agreement(torch):
+    """(a) Each new arch reduced in fp32, card vs CPU (``phase_lm_agreement``
+    with the frontend stub), then its prefill + decode held layer by layer
+    to one prefill on the card (``layer_consistency``); reduced smollm's
+    head dim of 20 is no compiled head dim, so a card call there raises
+    and the arch runs at head dim 16."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.models import lm
+
+    for arch in ARCH_SERVES:
+        cfg, note = get_reduced(arch), ""
+        if cfg.head_dim not in HEAD_DIMS:
+            bad = lm.init_lm(cfg.replace(compute_dtype="float32"), seed=0,
+                             device="cuda")
+            try:
+                with torch.inference_mode():
+                    lm.prefill(bad, {"inputs": torch.ones(
+                        (2, 4), dtype=torch.long, device="cuda")}, cfg)
+            except ValueError as e:
+                expect("head dim" in str(e), f"{arch}: {e}")
+                print(f"  {arch} reduced at head dim {cfg.head_dim}: the "
+                      f"card raises ValueError ({str(e)[-60:]})", flush=True)
+            else:
+                raise AssertionError(f"{arch}: head dim {cfg.head_dim} ran "
+                                     "on the card")
+            del bad
+            cfg = cfg.replace(head_dim=16)
+            note = (f"; head_dim 16, not the reduced config's "
+                    f"{get_reduced(arch).head_dim}, which no kernel compiles")
+        card, c32, prompts, toks, stub = phase_lm_agreement(
+            torch, "phase 8a", arch, 10, cfg=cfg, note=note)
+        seq = torch.cat([prompts, toks[:, :-1]], dim=1)
+        with torch.inference_mode():
+            err = layer_consistency(torch, card, seq, 10, c32, stub)
+        check(f"{arch}: every layer, {seq.shape[1] - 10} decode steps vs "
+              f"one prefill, relative to the layer's output scale", err, 1e-4)
+
+
+def phase_arch_structure(torch):
+    """(b) nemotron-4-15b and llava-next-34b whole, on the meta device:
+    parameters outside the norms equal ``param_count``, the total in the
+    reference's range (``tests/test_models.py``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    for arch, (lo, hi) in (("nemotron-4-15b", (14e9, 17e9)),
+                           ("llava-next-34b", (32e9, 37e9))):
+        cfg = get_config(arch)
+        with torch.device("meta"):
+            model = lm.LM(cfg)
+        n = sum(p.numel() for p in model.parameters())
+        norms = sum(p.numel() for name, p in model.named_parameters()
+                    if "norm" in name)
+        print(f"phase 8b: {arch} whole on the meta device: {cfg.n_layers} "
+              f"layers, {n} parameters ({norms} in norms), param_count "
+              f"{cfg.param_count()}, fp32 weights {4 * n / 1e9:.1f} GB",
+              flush=True)
+        expect(n - norms == cfg.param_count(),
+               f"{arch}: {n - norms} parameters outside the norms, "
+               f"param_count {cfg.param_count()}")
+        expect(lo <= n <= hi, f"{arch}: {n} parameters outside [{lo}, {hi}]")
+
+
+def serve_cfg(torch, arch):
+    """The full config of ``arch``, cut to the deepest depth whose fp32
+    weights (``param_count``) fit in the card's free memory with
+    ``SERVE_HEADROOM`` to spare, where the whole model does not; returns
+    (cfg, a note of the depth and the reckoning)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    whole = 4 * cfg.param_count()
+    if whole + SERVE_HEADROOM <= free:
+        return cfg, f"all {cfg.n_layers} layers"
+    expect(not cfg.encoder_segments and set(cfg.layer_kinds) == {"attn"},
+           f"{arch}: only a dense decoder's depth is cut")
+
+    def cut(depth):
+        return cfg.replace(n_layers=depth, segments=((("attn",), depth),))
+    per_layer = 4 * (cut(2).param_count() - cut(1).param_count())
+    fixed = 4 * cut(1).param_count() - per_layer
+    depth = int((free - SERVE_HEADROOM - fixed) // per_layer)
+    expect(depth >= 1, f"{arch}: not one layer fits in {free / 1e9:.1f} GB")
+    return cut(depth), (
+        f"depth cut to {depth} of {cfg.n_layers} layers, the deepest that "
+        f"fits: the whole model's fp32 weights are {whole / 1e9:.1f} GB, "
+        f"{per_layer / 1e9:.2f} GB a layer beside {fixed / 1e9:.2f} GB of "
+        f"embedding and head, {free / 1e9:.1f} GB free with "
+        f"{SERVE_HEADROOM / 1e9:.0f} GB kept for the rest")
+
+
+def implied_flash(cfg, gen):
+    """Flash launches by form that one serve implies: one sequence launch a
+    self-attention layer at prefill (and an encoder layer and a
+    cross-attention layer), one decode launch a self- and a cross-attention
+    layer a step."""
+    n_self = len(cfg.layer_kinds)
+    n_cross = cfg.layer_kinds.count("dec_attn")
+    n_enc = len(cfg.encoder_kinds)
+    seq = n_self + n_cross + n_enc
+    dec = (n_self + n_cross) * (gen - 1)
+    form = "seq_bf16" if cfg.compute_dtype == "bfloat16" else "seq_f32"
+    want = {"decode": dec, "seq_f32": 0, "seq_bf16": 0}
+    want[form] = seq
+    return want
+
+
+def serve_arch(torch, arch, calls):
+    """(c)-(d) ``serve_batch`` at full width: seeded weights drawn on the
+    card, one warm request of 2 tokens at the served prompt length, then
+    the counted serve (launch
+    counters zeroed just before, read just after; every flash call
+    recorded in ``calls``). Returns (params, cfg, flash launches by
+    form)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+
+    cfg, cut = serve_cfg(torch, arch)
+    B, P, G = ARCH_SERVES[arch]
+    kinds = sorted(set(cfg.layer_kinds + cfg.encoder_kinds))
+    front = (f", {cfg.frontend_seq} {cfg.frontend} (stub)"
+             if cfg.frontend else "")
+    print(f"phase 8c: serve_batch {cfg.name} ({cut}; {kinds}; d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, {cfg.norm_type}, "
+          f"rope {cfg.rope_style} x {cfg.rope_fraction}, vocab "
+          f"{cfg.vocab_size}, {cfg.compute_dtype} compute): {B} x {P} prompt "
+          f"tokens{front}, {G} generated", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"  weights drawn on the card in {time.perf_counter() - t0:.2f} s: "
+          f"{n} parameters, {4 * n / 1e9:.2f} GB fp32 (param_count "
+          f"{cfg.param_count()})", flush=True)
+    # one warm request at the served prompt length: library handles,
+    # GEMM plans and the allocator's blocks for these shapes
+    serve_batch(cfg, batch=B, prompt_len=P, gen=2, params=params)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with flash_calls(calls):
+        r = serve_batch(cfg, batch=B, prompt_len=P, gen=G, params=params)
+    counts = dict(ops.launches)
+    forms = dict(ops.forms["flash_attention_bhsd"])
+    toks = r["tokens"]
+    cache = r["cache_len"]
+    G_heads = cfg.n_heads // cfg.n_kv_heads
+    splits = fa.decode_key_splits(
+        B * cfg.n_kv_heads * -(-G_heads // fa.DECODE_GROUP), cache,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"  prefill {r['prefill_s'] * 1e3:.1f} ms ({r['prefill_tok_s']:.0f}"
+          f" prompt tokens/s); decode {r['decode_s'] / (G - 1) * 1e3:.2f} ms "
+          f"per step ({r['decode_tok_s']:.1f} tokens/s over {G - 1} steps); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"every logit finite: {r['logits_finite']}", flush=True)
+    print(f"  launches {counts}, flash by form {forms} (the self cache's "
+          f"{cache} slots in {splits} key range(s) a decode call"
+          f"{', each with its combine launch inside the counted call' if splits > 1 else ''}"
+          f"); row 0 tokens {toks[0, :8].tolist()}", flush=True)
+    expect(toks.shape == (B, G), f"tokens {tuple(toks.shape)}")
+    expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+           "a token outside the vocabulary")
+    expect(r["logits_finite"], f"{arch}: a logit is not finite")
+    want = implied_flash(cfg, G)
+    expect(forms == want, f"{arch}: flash forms {forms}, expected {want}")
+    want = {"paged_decode_bkgh": 0, "wkv6_bhtk": 0, "rglru_btc": 0,
+            "flash_attention_bhsd": sum(want.values())}
+    expect(counts == want, f"{arch}: launches {counts}, expected {want}")
+    return params, cfg, forms
+
+
+def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, n_ops, source):
+    """One ``{"kernels": ...}`` record of the flash kernel at a phase 8
+    shape: the kernel against the plain version (and the bf16 sequence form
+    also against ``attention_tiled_ref``), then the device ms by CUDA-graph
+    replay of the kernel, the plain version and ``scaled_dot_product_
+    attention`` (given contiguous K/V, ``enable_gqa`` where KV < H), and
+    the bound: every input read once and the output written once over the
+    memory rate, or ``n_ops`` over the bf16 peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    kc, vc = k.contiguous(), v.contiguous()
+    run_k = lambda: fa.flash_attention_bhsd(q, k, v, **kw)        # noqa: E731
+    run_p = lambda: fa.attention_ref(q, k, v, **kw)               # noqa: E731
+    run_l = lambda: F.scaled_dot_product_attention(               # noqa: E731
+        q, kc, vc, enable_gqa=k.shape[1] < q.shape[1], **sdpa_kw)
+    got = run_k()
+    err = max_err(got, run_p())
+    check(f"flash {label}", err, TOL[dtype_name(q.dtype)])
+    if q.shape[2] > 1:
+        check(f"flash {label} vs attention_tiled_ref",
+              max_err(got, fa.attention_tiled_ref(q, k, v, **kw)),
+              TOL[dtype_name(q.dtype)])
+    err_l = max_err(run_l(), run_p())
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by = bound_ms(n_bytes, n_ops, dtype_name(q.dtype))
+    ms, lib = graph_ms(torch, run_k), graph_ms(torch, run_l)
+    plain = graph_ms(torch, run_p, iters=4, replays=5)
+    print(f"  flash {label}, device ms per call: kernel {ms:.4f}, plain "
+          f"{plain:.4f}, sdpa {lib:.4f}, bound {b_ms:.6f} ({b_by}, "
+          f"{100 * b_ms / ms:.1f}% of it); err {err:.3e} (sdpa's "
+          f"{err_l:.3e})", flush=True)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def phase8_records(torch):
+    """(f) The flash kernel at phase 8's new shapes: llama3-8b's prefill and
+    its decode over the 544-slot cache, whisper-small's encoder, its cross
+    prefill and its cross decode over 1500 frames. Returns the records."""
+    from repro_torch.configs.registry import get_config
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=bf16)
+
+    seq_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    dec_src = "src/repro_torch/kernels/csrc/flash_decode.cu"
+    out = []
+    llama = get_config("llama3-8b")
+    B, P, G = ARCH_SERVES["llama3-8b"]
+    H, KV, hd = llama.n_heads, llama.n_kv_heads, llama.head_dim
+    q, k, v = rnd(B, H, P, hd), rnd(B, KV, P, hd), rnd(B, KV, P, hd)
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_llama3_prefill",
+        f"llama3-8b prefill {B} x {H}/{KV} x {P}, hd {hd}, causal, bf16",
+        q, k, v, {}, {"is_causal": True},
+        4 * hd * B * H * live_pairs(P, P, True, 0), seq_src))
+    L = P + G
+    q = rnd(B, H, 1, hd)
+    k, v = (rnd(B, L, KV, hd).transpose(1, 2) for _ in range(2))
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_llama3_decode",
+        f"llama3-8b decode {B} x {H}/{KV} x 1 over the {L}-slot cache in "
+        f"place, hd {hd}, bf16", q, k, v, {"causal": False}, {},
+        4 * hd * B * H * L, dec_src))
+    whisper = get_config("whisper-small")
+    B, P, G = ARCH_SERVES["whisper-small"]
+    H, KV, hd, F_ = (whisper.n_heads, whisper.n_kv_heads, whisper.head_dim,
+                     whisper.frontend_seq)
+    q, k, v = rnd(B, H, F_, hd), rnd(B, KV, F_, hd), rnd(B, KV, F_, hd)
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_whisper_encoder",
+        f"whisper-small encoder {B} x {H} x {F_}, hd {hd}, non-causal, bf16",
+        q, k, v, {"causal": False}, {},
+        4 * hd * B * H * F_ * F_, seq_src))
+    q = rnd(B, H, P, hd)
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_whisper_cross",
+        f"whisper-small cross prefill {B} x {H} x {P} over {F_} frames, hd "
+        f"{hd}, bf16", q, k, v, {"causal": False}, {},
+        4 * hd * B * H * P * F_, seq_src))
+    q = rnd(B, H, 1, hd)
+    k, v = (rnd(B, F_, KV, hd).transpose(1, 2) for _ in range(2))
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_whisper_cross_decode",
+        f"whisper-small cross decode {B} x {H} x 1 over the {F_}-frame cross "
+        f"cache in place, hd {hd}, bf16", q, k, v, {"causal": False}, {},
+        4 * hd * B * H * F_, dec_src))
+    return out
+
+
+def phase_archs(torch):
+    """Phase 8: the dense decoders and whisper-small. Returns (records,
+    their launches by record name)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    phase_arch_agreement(torch)
+    phase_arch_structure(torch)
+    calls, by_arch = collections.Counter(), {}
+    for arch in ARCH_SERVES:
+        own = collections.Counter()
+        params, cfg, forms = serve_arch(torch, arch, own)
+        calls.update(own)
+        by_arch[arch] = forms, own
+        if arch == "llama3-8b":      # (g) one decode step, profiled
+            B, P, _ = ARCH_SERVES[arch]
+            with torch.inference_mode():
+                prompt = torch.ones((B, P), dtype=torch.long, device="cuda")
+                _, caches, t = lm.prefill(params, {"inputs": prompt}, cfg,
+                                          cache_len=P + 2)
+                tok = prompt[:, -1:]
+                lm.decode_step(params, caches, tok, t, cfg)        # warm
+                profile_step(torch, lambda: lm.decode_step(
+                    params, caches, tok, t, cfg),
+                    f"phase 8g: one llama3-8b decode step ({B} rows over "
+                    f"{P + 1} cached tokens)")
+            del caches
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (e) every distinct flash call of the six serves, on fresh inputs
+    print(f"phase 8e: {sum(calls.values())} flash calls, {len(calls)} "
+          f"distinct", flush=True)
+    hold_flash_calls(torch, calls, "phase 8")
+    records = phase8_records(torch)
+    # each record's launches: the serve's calls at its shape
+    (llama, _), (_, wcalls) = by_arch["llama3-8b"], by_arch["whisper-small"]
+    wcfg = get_config("whisper-small")
+    F_, G = wcfg.frontend_seq, ARCH_SERVES["whisper-small"][2]
+    enc = sum(c for (qs, ks, *_), c in wcalls.items() if qs[2] == F_)
+    cross = sum(c for (qs, ks, *_), c in wcalls.items()
+                if 1 < qs[2] < F_ == ks[2])
+    cross_dec = sum(c for (qs, ks, *_), c in wcalls.items()
+                    if qs[2] == 1 and ks[2] == F_)
+    n_cross = wcfg.layer_kinds.count("dec_attn")
+    want = (len(wcfg.encoder_kinds), n_cross, n_cross * (G - 1))
+    expect((enc, cross, cross_dec) == want,
+           f"whisper's flash calls: encoder {enc}, cross {cross}, cross "
+           f"decode {cross_dec}; expected {want}")
+    launches = {"flash_attention_bhsd_llama3_prefill": llama["seq_bf16"],
+                "flash_attention_bhsd_llama3_decode": llama["decode"],
+                "flash_attention_bhsd_whisper_encoder": enc,
+                "flash_attention_bhsd_whisper_cross": cross,
+                "flash_attention_bhsd_whisper_cross_decode": cross_dec}
+    print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3327,6 +3721,9 @@ def main():
                   flash_attention_bhsd_hd256=rg["flash_attention_bhsd_hd256"],
                   flash_attention_bhsd_hd256_decode=rg[
                       "flash_attention_bhsd_hd256_decode"])
+    arch_records, arch_launches = phase_archs(torch)
+    records += arch_records
+    counts.update(arch_launches)
     # the design-length record is the same kernel, run on the main path at
     # the engine's shape
     counts["paged_decode_bkgh_256x320"] = counts["paged_decode_bkgh"]

@@ -5,8 +5,11 @@ its ``init_lm`` / ``init_progen`` / ``init_foldscore`` after ``np.asarray``
 on every leaf) and returns the port's ``LM`` / ``ProGen`` / ``FoldScore``
 module holding the same values. Every leaf is a plain copy: the port
 keeps the reference's layouts and keys (an ``rwkv`` layer's ``tm`` dict is
-its ``ssm.Rwkv`` module). Each segment leaf stacked on a leading ``repeats`` axis is split
-into per-layer tensors, in the order ``cfg.layer_kinds`` lists the layers.
+its ``ssm.Rwkv`` module; an ungated MLP has no ``wg`` on either side).
+Each segment leaf stacked on a leading ``repeats`` axis is split into
+per-layer tensors, in the order ``cfg.layer_kinds`` lists the layers
+(``segments`` -> ``layers``), and likewise an encoder's
+(``enc_segments`` -> ``enc_layers``, in ``cfg.encoder_kinds``' order).
 ``payload_namespaces_from_ref`` carries a reference ``ProteinPayload``'s
 every param-set namespace into a port payload.
 
@@ -53,18 +56,25 @@ def _load(module, tree, prefix, take, filled):
         filled.add(path)
 
 
+# (reference key of the stacked segments, port layer list, config field)
+_STACKS = (("segments", "layers", "segments"),
+           ("enc_segments", "enc_layers", "encoder_segments"))
+
+
 def _from_ref(module, params, cfg):
     params = dict(params)
-    segments = params.pop("segments")
+    stacks = [(params.pop(key), name, getattr(cfg, field))
+              for key, name, field in _STACKS if key in params]
     filled = set()
     _load(module, params, "", lambda a: a, filled)
-    layers = iter(enumerate(module.layers))
-    for seg, (kinds, reps) in zip(segments, cfg.segments):
-        for r in range(reps):
-            for i, kind in enumerate(kinds):
-                idx, layer = next(layers)
-                _load(layer, seg[f"{i}_{kind}"], f"layers.{idx}.",
-                      lambda a, r=r: a[r], filled)
+    for segments, name, plan in stacks:
+        layers = iter(enumerate(getattr(module, name)))
+        for seg, (kinds, reps) in zip(segments, plan):
+            for r in range(reps):
+                for i, kind in enumerate(kinds):
+                    idx, layer = next(layers)
+                    _load(layer, seg[f"{i}_{kind}"], f"{name}.{idx}.",
+                          lambda a, r=r: a[r], filled)
     missing = {n for n, _ in module.named_parameters()} - filled
     if missing:
         raise ValueError(f"reference params leave {sorted(missing)} unset")
@@ -103,36 +113,45 @@ def _host(tensors, stacked):
 def ref_tree(module, leaf=_host):
     """``module``'s weights (an LM, ProGen or FoldScore, which carries its
     ``cfg``) in the reference's pytree layout: top-level leaves by their
-    names, and ``segments``, a list with one dict a segment whose
-    ``f"{i}_{kind}"`` entries stack that block position's layer leaves on
-    a leading ``repeats`` axis. Each leaf is ``leaf(tensors, stacked)``, by
-    default a host numpy array."""
+    names, and ``segments`` (and an encoder's ``enc_segments``), a list
+    with one dict a segment whose ``f"{i}_{kind}"`` entries stack that
+    block position's layer leaves on a leading ``repeats`` axis. Each leaf
+    is ``leaf(tensors, stacked)``, by default a host numpy array."""
     cfg = module.cfg
     tree = {}
     for name, p in module.named_parameters():
-        if not name.startswith("layers."):
+        if not _stacked(name):
             _put(tree, name.split("."), leaf([p], False))
-    layers, at, segments = list(module.layers), 0, []
-    for kinds, reps in cfg.segments:
-        seg = {}
-        for i, kind in enumerate(kinds):
-            group = [dict(layers[at + r * len(kinds) + i].named_parameters())
-                     for r in range(reps)]
-            sub = seg[f"{i}_{kind}"] = {}
-            for name in group[0]:
-                _put(sub, name.split("."), leaf([g[name] for g in group],
-                                                True))
-        segments.append(seg)
-        at += reps * len(kinds)
-    tree["segments"] = segments
+    for key, name, field in _STACKS:
+        plan = getattr(cfg, field)
+        if not plan:
+            continue
+        layers, at, segments = list(getattr(module, name)), 0, []
+        for kinds, reps in plan:
+            seg = {}
+            for i, kind in enumerate(kinds):
+                group = [dict(layers[at + r * len(kinds) + i]
+                              .named_parameters()) for r in range(reps)]
+                sub = seg[f"{i}_{kind}"] = {}
+                for pname in group[0]:
+                    _put(sub, pname.split("."),
+                         leaf([g[pname] for g in group], True))
+            segments.append(seg)
+            at += reps * len(kinds)
+        tree[key] = segments
     return tree
+
+
+def _stacked(name):
+    """Whether a parameter is a layer's, stacked on ``repeats`` in the
+    reference's layout."""
+    return name.startswith(tuple(f"{n}." for _, n, _ in _STACKS))
 
 
 def ref_ndims(module):
     """Each parameter's rank in the reference's layout: a layer's leaves
     carry the stacked ``repeats`` axis there, one more than here."""
-    return {n: p.dim() + n.startswith("layers.")
-            for n, p in module.named_parameters()}
+    return {n: p.dim() + _stacked(n) for n, p in module.named_parameters()}
 
 
 def module_from_ref(tree, template):

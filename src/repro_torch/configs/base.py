@@ -4,9 +4,11 @@ The layer stack is described by *segments*: ``(kinds, repeats)`` pairs,
 where ``kinds`` is a tuple of layer-kind strings making up one repeating
 block. The reference scans each segment over stacked parameters; the port
 flattens the segments into one list of layers walked by a Python loop
-(``layer_kinds``). The fields are the reference's, so a config converts
-field by field; the port runs the ``attn``, ``attn_local``, ``rwkv`` and
-``rglru`` kinds.
+(``layer_kinds``; the encoder's, ``encoder_segments``, likewise
+``encoder_kinds``). The fields are the reference's, so a config converts
+field by field; the port runs every kind but the MoE ones: ``attn``,
+``attn_local``, ``rwkv``, ``rglru``, ``enc_attn`` and ``dec_attn``.
+``param_count`` and ``active_param_count`` are the reference's.
 """
 
 from __future__ import annotations
@@ -117,6 +119,55 @@ class ModelConfig:
         """Every layer's kind, in order: the segments flattened."""
         return tuple(k for kinds, reps in self.segments
                      for _ in range(reps) for k in kinds)
+
+    @property
+    def encoder_kinds(self) -> Tuple[str, ...]:
+        """Every encoder layer's kind, in order (empty without an
+        encoder)."""
+        return tuple(k for kinds, reps in self.encoder_segments
+                     for _ in range(reps) for k in kinds)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + per-layer), the
+        reference's reckoning."""
+        d = self.d_model
+        emb = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        per_kind = {}
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        mlp_mult = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        mlp = mlp_mult * d * self.d_ff
+        moe = self.moe_experts * (3 * d * self.moe_d_ff) + d * self.moe_experts
+        if self.moe_shared_expert:
+            moe += 3 * d * self.d_ff
+        per_kind["attn"] = attn + mlp
+        per_kind["attn_local"] = attn + mlp
+        per_kind["enc_attn"] = attn + mlp
+        per_kind["dec_attn"] = 2 * attn + mlp
+        per_kind["moe"] = attn + moe
+        per_kind["attn_local_moe"] = attn + moe
+        per_kind["rglru"] = (2 * d * self.lru_width + self.lru_width * d
+                             + self.conv_width * self.lru_width
+                             + 2 * self.lru_width + mlp)
+        per_kind["rwkv"] = (5 * d * d + d * d        # r,k,v,g,o
+                            + 6 * 32 * d * 2         # ddlerp loras
+                            + d * 64 * 2 + 2 * d     # decay lora, u
+                            + 2 * d * self.d_ff + d * d)  # channel mix
+        total = emb
+        for kinds, reps in self.segments + self.encoder_segments:
+            for k in kinds:
+                total += per_kind[k] * reps
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k experts instead of all)."""
+        if self.moe_experts == 0:
+            return self.param_count()
+        full_moe = self.moe_experts * 3 * self.d_model * self.moe_d_ff
+        active_moe = self.moe_top_k * 3 * self.d_model * self.moe_d_ff
+        n_moe_layers = sum(
+            sum(1 for k in kinds if k in ("moe", "attn_local_moe")) * reps
+            for kinds, reps in self.segments)
+        return self.param_count() - n_moe_layers * (full_moe - active_moe)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

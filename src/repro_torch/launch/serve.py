@@ -1,13 +1,21 @@
 """Serving entry points: LM token serving and design-campaign serving.
 
-LM mode (default) prefills a batch of prompts, then decodes greedily
-through the layers' decode caches (for rwkv6-7b, the RWKV-6 state; for
-recurrentgemma-2b, the RG-LRU states and the local-attention ring caches):
+LM mode (default, ``--arch`` smollm-360m) prefills a batch of prompts,
+then decodes greedily through the layers' decode caches (the dense K/V
+caches of the decoders; for rwkv6-7b, the RWKV-6 state; for
+recurrentgemma-2b, the RG-LRU states and the local-attention ring caches;
+for whisper-small, the decoder's self caches beside the encoder's cross
+caches). llava-next-34b's patches and whisper-small's frames are stubs
+drawn with the prompts:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --reduced --device cpu --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --batch 8 --prompt-len 2560 --gen 32
+
+Every id of ``configs.registry.ARCH_IDS`` serves (llama3-8b, smollm-360m,
+chatglm3-6b, nemotron-4-15b, llava-next-34b, whisper-small, rwkv6-7b,
+recurrentgemma-2b).
 
 Campaign mode runs a declarative design campaign through the
 ``ImpressSession`` facade; one flag serves IM-RP, the CONT-V control, the
@@ -56,23 +64,30 @@ from repro_torch.models import lm
 def serve_batch(cfg, *, batch, prompt_len, gen, temperature=0.0, seed=0,
                 device="cuda", params=None):
     """Seeded weights (or ``params``, an ``lm.LM`` already on ``device``),
-    prompts from ``numpy.random.default_rng(seed + 1)`` in ``[1, vocab)``,
-    one prefill of ``batch x prompt_len`` tokens, then ``gen - 1`` decode
-    steps, sampling as ``lm.generate`` does (noise from a generator seeded
-    ``seed + 2``). Times are wall times that end in a device synchronize.
-    Returns the reference's keys (``tokens``
+    prompts from ``numpy.random.default_rng(seed + 1)`` in ``[1, vocab)``
+    and, where the frontend takes them, stub patches or frames: 0.02 x a
+    normal draw of (batch, frontend_seq, d_model), the reference's stub,
+    from the same generator; one prefill of ``batch x prompt_len``
+    tokens (the encoder's frames first, or the patches prepended, whose
+    slots the caches hold beside the prompt and the generated tokens), then
+    ``gen - 1`` decode steps, sampling as ``lm.generate`` does (noise from
+    a generator seeded ``seed + 2``). Times are wall times that end in a
+    device synchronize. Returns the reference's keys (``tokens``
     (batch, gen), ``prefill_s``, ``decode_s``, ``decode_tok_s``,
-    ``prefill_tok_s``) and ``logits_finite``: whether every logit of the
-    run was finite."""
-    if cfg.frontend:
-        raise ValueError(f"serve_batch: frontend {cfg.frontend!r} is not "
-                         f"ported")
+    ``prefill_tok_s``), ``logits_finite``: whether every logit of the run
+    was finite, and ``cache_len``: the slots of each layer's self cache."""
     dev = resolve_device(device)
     if params is None:
         params = lm.init_lm(cfg, seed=seed, device=dev)
-    prompts = np.random.default_rng(seed + 1).integers(
-        1, cfg.vocab_size, size=(batch, prompt_len))
+    rng = np.random.default_rng(seed + 1)
+    prompts = rng.integers(1, cfg.vocab_size, size=(batch, prompt_len))
     b = {"inputs": torch.from_numpy(prompts).to(dev)}
+    stub = {"vision_patches": "patches", "audio_frames": "frames"}
+    if cfg.frontend in stub:
+        draw = 0.02 * rng.normal(size=(batch, cfg.frontend_seq, cfg.d_model))
+        b[stub[cfg.frontend]] = torch.from_numpy(draw.astype(np.float32)) \
+            .to(dev)
+    cache_len = lm.prefix_len(b, cfg) + prompt_len + gen
     noise = torch.Generator(device=dev).manual_seed(seed + 2)
 
     def sync():
@@ -82,8 +97,7 @@ def serve_batch(cfg, *, batch, prompt_len, gen, temperature=0.0, seed=0,
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, caches, t = lm.prefill(params, b, cfg,
-                                       cache_len=prompt_len + gen)
+        logits, caches, t = lm.prefill(params, b, cfg, cache_len=cache_len)
         sync()
         t_prefill = time.perf_counter() - t0
         finite = torch.isfinite(logits).all()
@@ -105,6 +119,7 @@ def serve_batch(cfg, *, batch, prompt_len, gen, temperature=0.0, seed=0,
         "decode_tok_s": batch * (gen - 1) / max(t_decode, 1e-9),
         "prefill_tok_s": batch * prompt_len / max(t_prefill, 1e-9),
         "logits_finite": bool(finite),
+        "cache_len": cache_len,
     }
 
 
@@ -217,7 +232,7 @@ def _parse_kv(arg, what):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,6 +1,6 @@
 """Training launcher.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch progen-s \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 100 --batch 8 --seq 128 --ckpt-dir CKPT [--restore]
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 6 --batch 4 --seq 32
@@ -15,13 +15,11 @@ A port of the JAX package's ``repro.launch.train`` over the port's
 
 * It runs on ``--device`` (default ``cuda``); the step is eager
   (``torch.autograd``), with nothing jitted or donated.
-* ``--arch`` defaults to ``progen-s``: the reference's default,
-  smollm-360m, is not in the port's registry (ROADMAP Queue 1, item 7).
 * Only ``--mesh none`` runs: a mesh raises before any weight is built
-  (sharding is ROADMAP Queue 1, item 8).
+  (sharding is ROADMAP Queue 1, item 4).
 * An arch whose layers the port cannot differentiate raises before any
   weight is built: ``rwkv`` and ``rglru`` blocks (their kernels have no
-  gradient yet, ROADMAP Queue 2, item 7) and attention with a logit
+  gradient yet, ROADMAP Queue 1, item 3) and attention with a logit
   softcap, which ``kernels.flash_attention.FlashAttention`` refuses.
 * The weights are drawn from seed 0 on the device, as the reference draws
   ``PRNGKey(0)``, so a card and the CPU start from other weights.
@@ -50,12 +48,12 @@ def check_trainable(cfg, mesh=None):
     if mesh not in (None, "none"):
         raise NotImplementedError(
             f"mesh {mesh!r}: sharded training is not ported (ROADMAP Queue "
-            f"1, item 8); run with mesh none")
+            f"1, item 4); run with mesh none")
     kinds = sorted(set(cfg.layer_kinds) & set(NOT_DIFFERENTIABLE))
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: {kinds} layers have no gradient in the port yet "
-            f"(ROADMAP Queue 2, item 7)")
+            f"(ROADMAP Queue 1, item 3)")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention with logit softcap "
@@ -116,7 +114,7 @@ def train(cfg, opt, *, steps, batch, seq, ckpt_dir=None, restore=False,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="progen-s")
+    ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=100)

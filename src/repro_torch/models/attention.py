@@ -1,13 +1,16 @@
-"""GQA causal self-attention: full-sequence, dense (ring) cache prefill and
-decode, paged prefill and paged decode.
+"""GQA attention: full-sequence (causal, local-window, bidirectional and
+cross), dense (ring) cache prefill and decode, the read-only cross cache
+of an encoder-decoder and its one-token read, paged prefill and paged
+decode.
 
 Layouts: q proj (d, H, hd); k/v proj (d, KV, hd); o proj (H, hd, d).
 
 The sequence mixing always goes through ``kernels.ops``: the flash kernel
-for full sequences, prompts and one token over a dense cache (the
-reference's ``attn_impl="pallas"`` branch; its prompt prefill and dense
-decode use a masked softmax, the same function) and the paged decode kernel
-for one token over pages. On CPU tensors those run their plain versions.
+for full sequences, prompts, cross-attention and one token over a dense or
+cross cache (the reference's ``attn_impl="pallas"`` branch; its prompt
+prefill, encoder, cross-attention and dense decode use a masked softmax,
+the same function) and the paged decode kernel for one token over pages.
+On CPU tensors those run their plain versions.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ def make_mask(q_pos, k_pos, causal: bool, window: int):
 
 def attn_fwd(p, x, positions, cfg, *, causal=True, window=0):
     """Full-sequence self-attention through the flash kernel, which masks
-    by index: ``positions`` (arange over the sequence) only feed RoPE.
+    by index: ``positions`` (arange over the sequence) only feed RoPE
+    (``causal=False``: an encoder's). Cross-attention is ``cross_prefill``.
     Returns (B,S,d)."""
     q, k, v = _qkv(p, x, positions, cfg)
     out = kops.flash_attention(q, k, v, causal=causal, window=window,
@@ -99,7 +103,7 @@ def attn_prefill(p, x, positions, cfg, *, cache, window=0):
     return _proj_out(p, out, cfg), cache
 
 
-def attn_decode(p, x, t, cfg, *, cache):
+def attn_decode(p, x, t, cfg, *, cache, cross=False):
     """One-token decode over the dense cache. x (B,1,d); t the token's
     position. Writes K/V at slot t % L in place (t itself for a full
     cache, L > t), then attends over the filled slots, n = min(t + 1, L):
@@ -109,7 +113,15 @@ def attn_decode(p, x, t, cfg, *, cache):
     key ranges then follow the cache's fixed length L, not n) and reads the
     first n slots in place, in their stored dtype (bf16 beside
     recurrentgemma's fp32 query, which the kernel widens as the reference's
-    products promote). Returns (out (B,1,d), cache)."""
+    products promote). With ``cross`` the cache is an encoder's
+    (``init_cross_cache``), read whole and left as it is: no RoPE, no
+    write, and Q projected by ``wq`` cast to x's dtype, as the reference
+    casts it there. Returns (out (B,1,d), cache)."""
+    if cross:
+        q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+        out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                                   softcap=cfg.attn_logit_softcap)
+        return _proj_out(p, out, cfg), cache
     q, k, v = _qkv(p, x, torch.full((1,), t, device=x.device), cfg)
     L = cache["k"].shape[1]
     cache["k"][:, t % L] = k[:, 0]
@@ -117,6 +129,29 @@ def attn_decode(p, x, t, cfg, *, cache):
     n = min(t + 1, L)
     out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
                                softcap=cfg.attn_logit_softcap, seq_k=n)
+    return _proj_out(p, out, cfg), cache
+
+
+def init_cross_cache(p, enc_out, cfg):
+    """The encoder's K/V for cross-attention (whisper's decoder), computed
+    once at prefill and read by every decode step: {"k", "v"} (B, F, KV,
+    hd) in the compute dtype. No RoPE (the reference's cross K/V have
+    none)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, at_use(p.wk, enc_out, cfg))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, at_use(p.wv, enc_out, cfg))
+    return {"k": k, "v": v}
+
+
+def cross_prefill(p, x, enc_out, cfg):
+    """Cross-attention of x (B,S,d) over the encoder output (B,F,d) through
+    the flash kernel, non-causal and without RoPE (the reference's
+    ``attn_fwd(kv_x=enc_out, causal=False, rope=False)``), for the full
+    forward and the prompt alike; the cross cache it builds is what
+    ``attn_decode(cross=True)`` reads. Returns (out (B,S,d), cache)."""
+    cache = init_cross_cache(p, enc_out, cfg)
+    q = torch.einsum("bsd,dhk->bshk", x, at_use(p.wq, x, cfg))
+    out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
+                               softcap=cfg.attn_logit_softcap)
     return _proj_out(p, out, cfg), cache
 
 

@@ -1,12 +1,17 @@
 """Transformer and recurrent layers. The reference stacks each segment's
 layers on a ``repeats`` axis and runs them with ``lax.scan``; the port keeps
 one ``Layer`` module per layer in an ``nn.ModuleList`` walked by a Python
-loop (``cfg.layer_kinds`` gives each layer's kind). Four kinds are ported:
-the dense causal ``"attn"`` kind (the protein models, with its dense cache
-and its paged decode path), the local-window ``"attn_local"`` kind (with
-its dense ring cache), the ``"rwkv"`` kind (RWKV-6 time mix + channel mix,
-with its recurrent state as the decode cache) and the ``"rglru"`` kind (the
-Griffin recurrent block, with its RG-LRU and conv state)."""
+loop (``cfg.layer_kinds`` gives each layer's kind, ``cfg.encoder_kinds``
+an encoder's). Six kinds are ported: the dense causal ``"attn"`` kind (the
+protein models and the dense decoders, with its dense cache and its paged
+decode path), the local-window ``"attn_local"`` kind (with its dense ring
+cache), the ``"rwkv"`` kind (RWKV-6 time mix + channel mix, with its
+recurrent state as the decode cache), the ``"rglru"`` kind (the Griffin
+recurrent block, with its RG-LRU and conv state), the encoder's
+bidirectional ``"enc_attn"`` kind (no decode cache) and the
+encoder-decoder's ``"dec_attn"`` kind (causal self-attention, then
+cross-attention over the encoder output, then the MLP; its cache is
+``{"self": dense cache, "cross": the encoder's K/V}``)."""
 
 from __future__ import annotations
 
@@ -17,9 +22,10 @@ from repro_torch.models import ssm
 from repro_torch.models.common import Norm, norm_fwd
 from repro_torch.models.mlp import Mlp, mlp_fwd
 
-KINDS = ("attn", "attn_local", "rwkv", "rglru")
+KINDS = ("attn", "attn_local", "rwkv", "rglru", "enc_attn", "dec_attn")
 PAGED_KINDS = ("attn",)          # kinds with a paged KV cache
-CACHE_KINDS = ("attn", "attn_local", "rwkv", "rglru")  # dense decode cache
+# kinds with a dense decode cache (an encoder layer runs once, uncached)
+CACHE_KINDS = ("attn", "attn_local", "rwkv", "rglru", "dec_attn")
 
 
 def check_kind(kind, ported=PAGED_KINDS):
@@ -33,9 +39,11 @@ def _window(kind, cfg):
 
 
 class Layer(nn.Module):
-    """``attn`` / ``attn_local``: pre-norm causal self-attention + MLP.
-    ``rglru``: pre-norm Griffin recurrent block (``rec``) + MLP. ``rwkv``:
-    pre-norm time mix + channel mix, both in ``tm``."""
+    """``attn`` / ``attn_local`` / ``enc_attn``: pre-norm self-attention +
+    MLP. ``dec_attn``: the same with pre-norm (``norm_x``) cross-attention
+    (``xattn``) between them. ``rglru``: pre-norm Griffin recurrent block
+    (``rec``) + MLP. ``rwkv``: pre-norm time mix + channel mix, both in
+    ``tm``."""
 
     def __init__(self, kind, cfg, gen=None):
         super().__init__()
@@ -49,6 +57,9 @@ class Layer(nn.Module):
             self.rec = ssm.Rglru(cfg, gen)
         else:
             self.attn = attn.Attention(cfg, gen)
+        if kind == "dec_attn":
+            self.norm_x = Norm(cfg)
+            self.xattn = attn.Attention(cfg, gen)
         self.mlp = Mlp(cfg, gen)
 
 
@@ -72,7 +83,8 @@ def _rglru(p, x, cfg, state):
 
 
 def layer_fwd(kind, p, x, ctx, cfg):
-    """Full-sequence forward. ctx: positions (S,). Returns x."""
+    """Full-sequence forward. ctx: positions (S,), and enc_out (B,F,d) for
+    ``dec_attn``. Returns x."""
     check_kind(kind, KINDS)
     if kind == "rwkv":
         return _rwkv(p, x, cfg, ssm.init_rwkv_state(cfg, x.shape[0],
@@ -81,7 +93,12 @@ def layer_fwd(kind, p, x, ctx, cfg):
         return _rglru(p, x, cfg, ssm.init_rglru_state(cfg, x.shape[0],
                                                       device=x.device))[0]
     h = attn.attn_fwd(p.attn, norm_fwd(p.norm1, x, cfg), ctx["positions"],
-                      cfg, window=_window(kind, cfg))
+                      cfg, causal=kind != "enc_attn",
+                      window=_window(kind, cfg))
+    if kind == "dec_attn":
+        x = x + h
+        h, _ = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
+                                  ctx["enc_out"], cfg)
     return _mlp_after(p, x, h, cfg)
 
 
@@ -90,9 +107,12 @@ def init_layer_cache(kind, cfg, batch, length, device=None):
     slots of an ``attn`` layer (its paged cache is
     ``attention.init_paged_cache``), the ring K/V cache of an
     ``attn_local`` layer, the recurrent state of an ``rwkv`` or ``rglru``
-    layer."""
+    layer. A ``dec_attn`` layer starts from its dense self cache alone:
+    its prefill adds the cross cache it builds from the encoder's output
+    (the reference allocates a zeroed one here, which its prefill
+    replaces)."""
     check_kind(kind, CACHE_KINDS)
-    if kind in ("attn", "attn_local"):
+    if kind in ("attn", "attn_local", "dec_attn"):
         return attn.init_cache(cfg, batch, length,
                                window=_window(kind, cfg), device=device)
     if kind == "rglru":
@@ -101,17 +121,24 @@ def init_layer_cache(kind, cfg, batch, length, device=None):
 
 
 def layer_prefill(kind, p, x, ctx, cfg, cache):
-    """Prompt forward from the cache's state. ctx: positions (S,) (read by
-    the attention kinds only). Returns (x, cache)."""
+    """Prompt forward from the cache's state (``init_layer_cache``'s).
+    ctx: positions (S,) (read by the attention kinds only), and enc_out
+    (B,F,d) for ``dec_attn``, whose cache comes back as {"self", "cross"}.
+    Returns (x, cache)."""
     check_kind(kind, CACHE_KINDS)
     if kind == "rwkv":
         return _rwkv(p, x, cfg, cache)
     if kind == "rglru":
         return _rglru(p, x, cfg, cache)
-    h, cache = attn.attn_prefill(p.attn, norm_fwd(p.norm1, x, cfg),
-                                 ctx["positions"], cfg, cache=cache,
-                                 window=_window(kind, cfg))
-    return _mlp_after(p, x, h, cfg), cache
+    h, self_cache = attn.attn_prefill(p.attn, norm_fwd(p.norm1, x, cfg),
+                                      ctx["positions"], cfg, cache=cache,
+                                      window=_window(kind, cfg))
+    if kind != "dec_attn":
+        return _mlp_after(p, x, h, cfg), self_cache
+    x = x + h
+    h, cross = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
+                                  ctx["enc_out"], cfg)
+    return _mlp_after(p, x, h, cfg), {"self": self_cache, "cross": cross}
 
 
 def layer_decode(kind, p, x, t, cfg, cache):
@@ -121,9 +148,16 @@ def layer_decode(kind, p, x, t, cfg, cache):
         return _rwkv(p, x, cfg, cache)
     if kind == "rglru":
         return _rglru(p, x, cfg, cache)
-    h, cache = attn.attn_decode(p.attn, norm_fwd(p.norm1, x, cfg), t, cfg,
-                                cache=cache)
-    return _mlp_after(p, x, h, cfg), cache
+    self_cache = cache["self"] if kind == "dec_attn" else cache
+    h, self_cache = attn.attn_decode(p.attn, norm_fwd(p.norm1, x, cfg), t,
+                                     cfg, cache=self_cache)
+    if kind != "dec_attn":
+        return _mlp_after(p, x, h, cfg), self_cache
+    x = x + h
+    h, _ = attn.attn_decode(p.xattn, norm_fwd(p.norm_x, x, cfg), t, cfg,
+                            cache=cache["cross"], cross=True)
+    return _mlp_after(p, x, h, cfg), {"self": self_cache,
+                                      "cross": cache["cross"]}
 
 
 def layer_paged_prefill(kind, p, x, ctx, cfg, cache):

@@ -1,4 +1,5 @@
-"""Shared model building blocks: init helper, norms, embeddings, RoPE.
+"""Shared model building blocks: init helper, norms, embeddings, RoPE,
+activations.
 
 Parameters live in ``nn.Module``s in the reference's layouts (so the bridge
 from the JAX package is a plain copy), created in ``cfg.param_dtype`` and
@@ -13,6 +14,7 @@ import copy
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -144,9 +146,11 @@ def rope_angles(positions, head_dim, cfg):
 
 
 def apply_rope(x, positions, cfg):
-    """"half" (llama) style rotation. x: (B, S, H, hd); positions: (S,) or
-    per-row (B, S)."""
-    if cfg.rope_style != "half":
+    """Rotate the first ``rot`` dims of each head (``rope_fraction`` of the
+    head dim), in the "half" (llama: dim i with dim i + rot/2) or the
+    "interleaved" (chatglm: dim 2i with dim 2i + 1) style. x: (B, S, H,
+    hd); positions: (S,) or per-row (B, S)."""
+    if cfg.rope_style not in ("half", "interleaved"):
         raise ValueError(f"rope style {cfg.rope_style!r} is not ported")
     ang, rot = rope_angles(positions, x.shape[-1], cfg)
     if rot == 0:
@@ -157,7 +161,24 @@ def apply_rope(x, positions, cfg):
     else:
         sin, cos = sin[:, :, None, :], cos[:, :, None, :]
     xr, xp = x[..., :rot].float(), x[..., rot:]
-    half = rot // 2
-    x1, x2 = xr[..., :half], xr[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if cfg.rope_style == "interleaved":
+        x1, x2 = xr[..., 0::2], xr[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(xr.shape)
+    else:
+        half = rot // 2
+        x1, x2 = xr[..., :half], xr[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def squared_relu(x):
+    return torch.square(F.relu(x))
+
+
+# the reference's ``jax.nn.gelu`` is the tanh approximation (whisper's own
+# GELU is exact; the reference's function is kept)
+ACTIVATIONS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": squared_relu,
+}

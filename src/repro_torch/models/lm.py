@@ -1,12 +1,16 @@
 """Decoder-only LM with an optional patch prefix (the ``vision_patches``
-frontend the ProGen structure prefix uses): forward, the training loss
-(``lm_loss``, without the reference's MoE aux terms), dense serving over
-each layer's decode cache (recurrent states of ``rwkv`` and ``rglru``
-layers, dense K/V caches of ``attn`` layers, ring K/V caches of
-``attn_local`` layers) and paged serving (``attn`` layers).
+frontend of llava-next-34b, which the ProGen structure prefix also uses),
+and the encoder-decoder (whisper-small's ``audio_frames`` frontend: the
+frames run through the encoder once, each decoder layer cross-attends to
+its output): forward, the training loss (``lm_loss``, without the
+reference's MoE aux terms), dense serving over each layer's decode cache
+(recurrent states of ``rwkv`` and ``rglru`` layers, dense K/V caches of
+``attn`` layers, ring K/V caches of ``attn_local`` layers, self and cross
+caches of ``dec_attn`` layers) and paged serving (``attn`` layers).
 
-Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) optional,
-"targets": (B,S) int, -1 masked, for ``lm_loss``}.
+Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) or "frames":
+(B,F,d) where the frontend takes them, "targets": (B,S) int, -1 masked,
+for ``lm_loss``}.
 
 Serving:
   prefill(params, batch, cfg)  -> logits_last (B,V), caches, t_next
@@ -23,13 +27,16 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
-                                       gumbel_noise, logits_fwd, torch_dtype)
+                                       gumbel_noise, logits_fwd, norm_fwd,
+                                       torch_dtype)
 
 
 class LM(nn.Module):
     """Embedding, layers, final norm and, unless the embedding is tied to
-    it, the LM head. ``cfg`` stays with the weights: the bridge, the
-    checkpoints and the optimizer read the reference's layout from it."""
+    it, the LM head; with ``cfg.encoder_segments`` also the encoder's
+    layers (``enc_layers``) and its final norm (``enc_norm``). ``cfg``
+    stays with the weights: the bridge, the checkpoints and the optimizer
+    read the reference's layout from it."""
 
     def __init__(self, cfg, gen=None):
         super().__init__()
@@ -41,6 +48,10 @@ class LM(nn.Module):
                                  torch_dtype(cfg.param_dtype), gen)
         self.layers = nn.ModuleList(blocks.Layer(kind, cfg, gen)
                                     for kind in cfg.layer_kinds)
+        if cfg.encoder_segments:
+            self.enc_layers = nn.ModuleList(blocks.Layer(kind, cfg, gen)
+                                            for kind in cfg.encoder_kinds)
+            self.enc_norm = Norm(cfg)
 
 
 def init_lm(cfg, seed=0, device="cuda") -> LM:
@@ -54,23 +65,51 @@ def init_lm(cfg, seed=0, device="cuda") -> LM:
         return LM(cfg, gen)
 
 
+def _encode(params, frames, cfg):
+    """The encoder over the frame embeddings (B,F,d): its layers, with RoPE
+    over the frame positions (the reference's stand-in for whisper's
+    learned positions), then its norm. Returns (B,F,d) in the compute
+    dtype."""
+    x = frames.to(torch_dtype(cfg.compute_dtype))
+    ctx = {"positions": torch.arange(x.shape[1], device=x.device)}
+    for layer, kind in zip(params.enc_layers, cfg.encoder_kinds):
+        x = blocks.layer_fwd(kind, layer, x, ctx, cfg)
+    return norm_fwd(params.enc_norm, x, cfg)
+
+
+def _context(params, batch, cfg):
+    """Token embeddings (patches prepended where the frontend takes them)
+    and the layers' context: positions, and the encoder's output where
+    there is an encoder. Returns (x, ctx, n_prefix)."""
+    x, positions, n_prefix = _prefix_embed(params, batch, cfg)
+    ctx = {"positions": positions}
+    if cfg.encoder_segments:
+        ctx["enc_out"] = _encode(params, batch["frames"], cfg)
+    return x, ctx, n_prefix
+
+
+def prefix_len(batch, cfg):
+    """The length of the patch prefix that the batch's tokens follow: the
+    cache slots it takes before them (0 without one)."""
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        return batch["patches"].shape[1]
+    return 0
+
+
 def _prefix_embed(params, batch, cfg):
     """Token embeddings, with patches prepended when present.
     Returns (x, positions, n_prefix)."""
     x = embed_tokens(params.embedding, batch["inputs"], cfg)
-    n_prefix = 0
-    if cfg.frontend == "vision_patches" and "patches" in batch:
-        patches = batch["patches"].to(x.dtype)
-        x = torch.cat([patches, x], dim=1)
-        n_prefix = patches.shape[1]
+    n_prefix = prefix_len(batch, cfg)
+    if n_prefix:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions, n_prefix
 
 
 def lm_hidden(params, batch, cfg):
     """Backbone forward -> hidden (B,S,d) at the token positions."""
-    x, positions, n_prefix = _prefix_embed(params, batch, cfg)
-    ctx = {"positions": positions}
+    x, ctx, n_prefix = _context(params, batch, cfg)
     for layer, kind in zip(params.layers, cfg.layer_kinds):
         x = blocks.layer_fwd(kind, layer, x, ctx, cfg)
     return x[:, n_prefix:]
@@ -124,7 +163,7 @@ def lm_loss(params, batch, cfg):
     MoE is not ported, so a config with experts raises."""
     if cfg.moe_experts:
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported (ROADMAP Queue 1, item 7)")
+            f"{cfg.name}: MoE layers are not ported (ROADMAP Queue 1, item 1)")
     if cfg.ce_chunks > 1:
         loss = _chunked_ce(params, lm_hidden(params, batch, cfg),
                            batch["targets"], cfg)
@@ -141,12 +180,11 @@ def init_caches(cfg, batch, length, device=None):
 
 
 def prefill(params, batch, cfg, cache_len: int = 0):
-    """Run the prompt from fresh caches; returns (last-position logits
-    (B,V), caches, t_next)."""
-    x, positions, _ = _prefix_embed(params, batch, cfg)
+    """Run the prompt from fresh caches (an encoder's frames first, once);
+    returns (last-position logits (B,V), caches, t_next)."""
+    x, ctx, _ = _context(params, batch, cfg)
     S = x.shape[1]
     caches = init_caches(cfg, x.shape[0], max(cache_len, S), device=x.device)
-    ctx = {"positions": positions}
     new_caches = []
     for layer, kind, cache in zip(params.layers, cfg.layer_kinds, caches):
         x, cache = blocks.layer_prefill(kind, layer, x, ctx, cfg, cache)
@@ -170,11 +208,13 @@ def generate(params, batch, cfg, steps, cache_len=0, temperature=0.0,
     """Greedy (``temperature <= 0``) or temperature sampling loop: one
     prefill, then ``steps - 1`` decode steps. Sampling takes
     ``argmax(logits / temperature + g)`` with Gumbel noise ``g`` from
-    ``gen`` (a ``torch.Generator`` on the logits' device). Returns the
-    tokens (B, steps)."""
+    ``gen`` (a ``torch.Generator`` on the logits' device). The default
+    ``cache_len`` holds the prompt, any patch prefix and the steps.
+    Returns the tokens (B, steps)."""
     logits, caches, t = prefill(
         params, batch, cfg,
-        cache_len=cache_len or (batch["inputs"].shape[1] + steps))
+        cache_len=cache_len or (prefix_len(batch, cfg)
+                                + batch["inputs"].shape[1] + steps))
     tok = sample_tokens(logits, temperature, gen)
     toks = [tok]
     for i in range(1, steps):

@@ -189,6 +189,44 @@ def test_flash_bf16_sequence_form(cuda, B, H, KV, S, hd, kw):
     assert np.all(got[:, :, no_key] == 0.0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", [
+    (2, 32, 2, 40, 40, 128, True),             # chatglm3-6b, G = 16
+    (1, 56, 8, 37, 37, 128, True),             # llava-next-34b, G = 7
+    (2, 15, 5, 33, 33, 64, True),              # smollm-360m, G = 3
+    (1, 12, 12, 300, 300, 64, False),          # whisper encoder, mid-tile
+    (2, 12, 12, 9, 1500, 64, False),           # whisper cross prefill
+    (2, 12, 12, 1, 1500, 64, False),           # whisper cross decode
+    (2, 32, 2, 1, 75, 128, False)])            # chatglm3-6b decode, G = 16
+def test_flash_at_the_dense_decoders_and_whispers_shapes(
+        cuda, dtype, B, H, KV, Sq, Sk, hd, causal):
+    """The dense decoders' and whisper's shapes: GQA groups of 16, 7 and
+    3 at hd 128 and 64, a bidirectional pass whose keys end mid-tile,
+    cross-attention with Sq != Sk over 1500 frames (a contiguous copy) and
+    one query over 1500 frames and over a G = 16 cache (strided views of a
+    (B, Sk, KV, hd) cache, as ``attn_decode`` hands them). Against the
+    plain version (and the bf16 sequence form also against the tiled
+    algebra); one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * Sk + H)
+    dt = TORCH_DT[dtype]
+    q = torch.randn(B, H, Sq, hd, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dt)
+            .transpose(1, 2) for _ in range(2))
+    if Sq > 1:
+        k, v = k.contiguous(), v.contiguous()
+    before = _cuda.launches["flash_attention_bhsd"]
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    assert _cuda.launches["flash_attention_bhsd"] == before + 1
+    t = 2e-5 if dtype == "float32" else 2e-2
+    refs = [fa.attention_ref]
+    if Sq > 1 and dtype == "bfloat16":
+        refs.append(fa.attention_tiled_ref)
+    for ref in refs:
+        want = ref(q, k, v, causal=causal)
+        assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), atol=t, rtol=t)
+
+
 PAGE, MAXP = 8, 9                        # 72 keys a row: 3 tiles of 32
 PAGED_LENGTHS = (0, 1, 7, 8, 9, MAXP * PAGE, 40, 65)
 

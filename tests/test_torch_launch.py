@@ -172,12 +172,12 @@ def test_train_refuses_before_any_weight_is_built(case, monkeypatch):
     monkeypatch.setattr(train_mod.lm, "init_lm", no_weights)
     mesh = None
     if case == "mesh sim":
-        cfg, mesh, match = get_reduced("progen-s"), "sim", "Queue 1, item 8"
+        cfg, mesh, match = get_reduced("progen-s"), "sim", "Queue 1, item 4"
     elif case == "softcap":
         cfg, match = dataclasses.replace(
             get_reduced("progen-s"), attn_logit_softcap=30.0), "softcap"
     else:
-        cfg, match = get_config(case), "Queue 2, item 7"
+        cfg, match = get_config(case), "Queue 1, item 3"
     with pytest.raises(NotImplementedError, match=match):
         train_mod.train(cfg, _opt(), steps=2, batch=2, seq=8, mesh=mesh,
                         device="cpu")
@@ -189,13 +189,31 @@ def test_train_refuses_before_any_weight_is_built(case, monkeypatch):
 def test_train_cli_runs_and_resumes(tmp_path, capsys):
     """``python -m repro_torch.launch.train`` (``main``): reduced progen-s
     on the CPU, then ``--restore`` past the saved step."""
-    args = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
-            "--ckpt-dir", str(tmp_path)]
+    args = ["--arch", "progen-s", "--reduced", "--device", "cpu", "--batch",
+            "2", "--seq", "16", "--ckpt-dir", str(tmp_path)]
     train_mod.main(args + ["--steps", "2"])
     train_mod.main(args + ["--steps", "3", "--restore"])
     out = capsys.readouterr().out
     assert "[train] restored step 2" in out
     assert len(re.findall(r"\[train\] done\. loss", out)) == 2
+
+
+def test_train_cli_defaults_to_smollm(tmp_path, capsys, monkeypatch):
+    """``python -m repro_torch.launch.train --reduced --device cpu``
+    without ``--arch`` trains reduced smollm-360m, the reference's default
+    (``repro/launch/train.py``), and checkpoints it."""
+    seen = []
+
+    def spy(arch):
+        seen.append(arch)
+        return get_reduced(arch)
+    monkeypatch.setattr(train_mod, "get_reduced", spy)
+    train_mod.main(["--reduced", "--device", "cpu", "--steps", "2",
+                    "--batch", "2", "--seq", "16", "--ckpt-dir",
+                    str(tmp_path)])
+    assert seen == ["smollm-360m"]
+    assert re.search(r"\[train\] done\. loss \d", capsys.readouterr().out)
+    assert any(tmp_path.iterdir())
 
 
 # -- serve --gateway -----------------------------------------------------------
