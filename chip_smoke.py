@@ -162,8 +162,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at head dim 16. (b) nemotron-4-15b and llava-next-34b whole on the meta
    device: parameters outside the norms equal ``param_count``, the total
    in the reference's range. (c) ``serve_batch`` at full width, one model
-   at a time (``ARCH_SERVES``: nemotron-4-15b cut to 16 of 32 layers,
-   llava-next-34b to 8 of 60, the cut printed): prefill ms and tokens/s,
+   at a time (``ARCH_SERVES``; ``serve_cfg`` keeps the deepest depth whose
+   weights fit in the card's free memory, the cut and its reckoning
+   printed): prefill ms and tokens/s,
    decode ms a step and tokens/s, peak memory, every logit finite. (d)
    The counters, zeroed before each serve: flash one sequence launch a
    layer at prefill (whisper: 12 encoder, 12 self, 12 cross) and one
@@ -173,12 +174,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cross prefill and cross decode, timed beside the plain version and
    sdpa, with its bound. (g) One llama3-8b decode step under
    ``torch.profiler``.
-9. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
+9. Mixture-of-experts and qk-norm: qwen3-moe-30b-a3b and
+   llama4-maverick-400b-a17b. (a) Both reduced in fp32, card vs CPU as in
+   8a (capacity form: the same greedy tokens, ``lm.generate`` the same),
+   then each layer's prefill + decode held to one prefill on the card in
+   the dense form (``moe_impl="dense"``: the capacity form routes a
+   prompt's tokens in one group and a decode step's alone, so only the
+   dense form makes the two agree). (b) Both whole on the meta device:
+   parameters outside the norms equal ``param_count``, the totals and
+   active counts in the reference's ranges. (c) ``serve_batch`` at full
+   width (``MOE_SERVES``: 8 x 512 prompt tokens, 32 generated), each at
+   the deepest depth of its segment's repeats whose weights (by each
+   parameter's dtype: llama4's bf16, its routers fp32) and the draw's
+   fp32 slice fit, the cut and its reckoning printed; prefill and decode
+   ms and tokens/s, peak memory, every logit finite. (d) Counters zeroed
+   before each serve: flash once a layer at prefill and once a layer a
+   decode step, no other kernel. (e) Every distinct flash call of the two
+   serves held to the plain version. (f) Flash at qwen3's prefill and
+   decode, timed beside the plain version and sdpa, with its bound. (g)
+   One qwen3 decode step under ``torch.profiler``, its device time by
+   kind (casts, routing: sort, scatter and gather, GEMMs, flash).
+10. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
    launches are added to the records of the forms it ran; phase 8's five
-   shapes are records of their own, their launches phase 8's serves'),
-   the total time, the card line, then the last line
+   shapes are records of their own, their launches phase 8's serves';
+   phase 9's two likewise), the total time, the card line, then the last
+   line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -284,6 +306,9 @@ ARCH_SERVES = {"llama3-8b": (8, 512, 32),
                "llava-next-34b": (8, 128, 32),
                "whisper-small": (8, 64, 32)}
 SERVE_HEADROOM = 8e9
+# phase 9: the two MoE archs at full width, as ARCH_SERVES
+MOE_SERVES = {"qwen3-moe-30b-a3b": (8, 512, 32),
+              "llama4-maverick-400b-a17b": (8, 512, 32)}
 
 
 def expect(cond, msg):
@@ -3354,58 +3379,93 @@ def phase_arch_agreement(torch):
               f"one prefill, relative to the layer's output scale", err, 1e-4)
 
 
-def phase_arch_structure(torch):
-    """(b) nemotron-4-15b and llava-next-34b whole, on the meta device:
-    parameters outside the norms equal ``param_count``, the total in the
-    reference's range (``tests/test_models.py``)."""
+def whole_on_meta(torch, label, ranges):
+    """Each arch of ``ranges`` (arch -> (total range, active range or
+    None), the reference's, ``tests/test_models.py``) whole on the meta
+    device: parameters outside the norms equal ``param_count``, the total
+    (and the active count) in the range."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import lm
 
-    for arch, (lo, hi) in (("nemotron-4-15b", (14e9, 17e9)),
-                           ("llava-next-34b", (32e9, 37e9))):
+    for arch, ((lo, hi), active_range) in ranges.items():
         cfg = get_config(arch)
         with torch.device("meta"):
             model = lm.LM(cfg)
         n = sum(p.numel() for p in model.parameters())
         norms = sum(p.numel() for name, p in model.named_parameters()
                     if "norm" in name)
-        print(f"phase 8b: {arch} whole on the meta device: {cfg.n_layers} "
+        by_dtype = collections.Counter()
+        for p in model.parameters():
+            by_dtype[dtype_name(p.dtype)] += p.numel() * p.element_size()
+        active = cfg.active_param_count()
+        print(f"{label}: {arch} whole on the meta device: {cfg.n_layers} "
               f"layers, {n} parameters ({norms} in norms), param_count "
-              f"{cfg.param_count()}, fp32 weights {4 * n / 1e9:.1f} GB",
+              f"{cfg.param_count()}, active {active}; weights by dtype (GB) "
+              f"{ {k: round(v / 1e9, 2) for k, v in by_dtype.items()} }",
               flush=True)
         expect(n - norms == cfg.param_count(),
                f"{arch}: {n - norms} parameters outside the norms, "
                f"param_count {cfg.param_count()}")
         expect(lo <= n <= hi, f"{arch}: {n} parameters outside [{lo}, {hi}]")
+        if active_range:
+            alo, ahi = active_range
+            expect(alo <= active <= ahi, f"{arch}: {active} active "
+                   f"parameters outside [{alo}, {ahi}]")
+
+
+def weight_bytes(torch, cfg):
+    """(bytes of ``cfg``'s weights, each parameter at its own dtype, built
+    on the meta device; the largest fp32 temporary their draw makes:
+    ``dense_init`` draws an fp32 weight in place and one of another dtype
+    in fp32 slices of at most ``DRAW_SLICE`` elements)."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import DRAW_SLICE
+    with torch.device("meta"):
+        params = list(lm.LM(cfg).parameters())
+    total = sum(p.numel() * p.element_size() for p in params)
+    temp = max([4 * min(p.numel(), max(1, DRAW_SLICE // p[0].numel())
+                        * p[0].numel())
+                for p in params if p.dtype != torch.float32 and p.dim() > 1]
+               or [0])
+    return total, temp
 
 
 def serve_cfg(torch, arch):
-    """The full config of ``arch``, cut to the deepest depth whose fp32
-    weights (``param_count``) fit in the card's free memory with
-    ``SERVE_HEADROOM`` to spare, where the whole model does not; returns
-    (cfg, a note of the depth and the reckoning)."""
+    """The full config of ``arch``, cut to the deepest number of its
+    segment's repeats whose weights (``weight_bytes``: each parameter at
+    its dtype) and the draw's fp32 temporary fit in the card's free memory
+    with ``SERVE_HEADROOM`` to spare, where the whole model does not;
+    returns (cfg, a note of the depth and the reckoning)."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(arch)
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
-    whole = 4 * cfg.param_count()
-    if whole + SERVE_HEADROOM <= free:
-        return cfg, f"all {cfg.n_layers} layers"
-    expect(not cfg.encoder_segments and set(cfg.layer_kinds) == {"attn"},
-           f"{arch}: only a dense decoder's depth is cut")
+    whole, temp = weight_bytes(torch, cfg)
+    dtypes = (f"{cfg.param_dtype} weights"
+              + (" (routers fp32)" if cfg.moe_experts else ""))
+    if whole + temp + SERVE_HEADROOM <= free:
+        return cfg, (f"all {cfg.n_layers} layers: {whole / 1e9:.1f} GB of "
+                     f"{dtypes}, {free / 1e9:.1f} GB free")
+    expect(not cfg.encoder_segments and len(cfg.segments) == 1,
+           f"{arch}: only one segment's repeats are cut")
+    (kinds, reps), = cfg.segments
 
-    def cut(depth):
-        return cfg.replace(n_layers=depth, segments=((("attn",), depth),))
-    per_layer = 4 * (cut(2).param_count() - cut(1).param_count())
-    fixed = 4 * cut(1).param_count() - per_layer
-    depth = int((free - SERVE_HEADROOM - fixed) // per_layer)
-    expect(depth >= 1, f"{arch}: not one layer fits in {free / 1e9:.1f} GB")
-    return cut(depth), (
-        f"depth cut to {depth} of {cfg.n_layers} layers, the deepest that "
-        f"fits: the whole model's fp32 weights are {whole / 1e9:.1f} GB, "
-        f"{per_layer / 1e9:.2f} GB a layer beside {fixed / 1e9:.2f} GB of "
-        f"embedding and head, {free / 1e9:.1f} GB free with "
-        f"{SERVE_HEADROOM / 1e9:.0f} GB kept for the rest")
+    def cut(n):
+        return cfg.replace(n_layers=len(kinds) * n, segments=((kinds, n),))
+    one = weight_bytes(torch, cut(1))[0]
+    per_rep = weight_bytes(torch, cut(2))[0] - one
+    fixed = one - per_rep
+    n = int((free - SERVE_HEADROOM - temp - fixed) // per_rep)
+    expect(n >= 1, f"{arch}: not one repeat of {kinds} fits in "
+           f"{free / 1e9:.1f} GB")
+    return cut(n), (
+        f"depth cut to {n} of {reps} repeats of {list(kinds)} "
+        f"({len(kinds) * n} of {cfg.n_layers} layers), the deepest that "
+        f"fits: the whole model's {dtypes} are {whole / 1e9:.1f} GB, "
+        f"{per_rep / 1e9:.2f} GB a repeat beside {fixed / 1e9:.2f} GB of "
+        f"embedding and head, the draw's fp32 slice {temp / 1e9:.2f} GB, "
+        f"{free / 1e9:.1f} GB free with {SERVE_HEADROOM / 1e9:.0f} GB kept "
+        f"for the rest")
 
 
 def implied_flash(cfg, gen):
@@ -3424,10 +3484,10 @@ def implied_flash(cfg, gen):
     return want
 
 
-def serve_arch(torch, arch, calls):
-    """(c)-(d) ``serve_batch`` at full width: seeded weights drawn on the
-    card, one warm request of 2 tokens at the served prompt length, then
-    the counted serve (launch
+def serve_arch(torch, arch, calls, phase="phase 8c"):
+    """(c)-(d) ``serve_batch`` at full width (``ARCH_SERVES`` or
+    ``MOE_SERVES``): seeded weights drawn on the card, one warm request of
+    2 tokens at the served prompt length, then the counted serve (launch
     counters zeroed just before, read just after; every flash call
     recorded in ``calls``). Returns (params, cfg, flash launches by
     form)."""
@@ -3437,24 +3497,34 @@ def serve_arch(torch, arch, calls):
     from repro_torch.models import lm
 
     cfg, cut = serve_cfg(torch, arch)
-    B, P, G = ARCH_SERVES[arch]
+    B, P, G = {**ARCH_SERVES, **MOE_SERVES}[arch]
     kinds = sorted(set(cfg.layer_kinds + cfg.encoder_kinds))
     front = (f", {cfg.frontend_seq} {cfg.frontend} (stub)"
              if cfg.frontend else "")
-    print(f"phase 8c: serve_batch {cfg.name} ({cut}; {kinds}; d "
+    shared = " + a shared one" if cfg.moe_shared_expert else ""
+    experts = (f", {cfg.moe_experts} experts of d_ff {cfg.moe_d_ff} top-"
+               f"{cfg.moe_top_k}{shared} ({cfg.moe_impl} form, capacity "
+               f"factor {cfg.moe_capacity_factor})" if cfg.moe_experts
+               else "")
+    print(f"{phase}: serve_batch {cfg.name} ({cut}; {kinds}; d "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, {cfg.norm_type}, "
+          f"{cfg.head_dim}{', qk-norm' if cfg.qk_norm else ''}, d_ff "
+          f"{cfg.d_ff} {cfg.mlp_type}{experts}, {cfg.norm_type}, "
           f"rope {cfg.rope_style} x {cfg.rope_fraction}, vocab "
-          f"{cfg.vocab_size}, {cfg.compute_dtype} compute): {B} x {P} prompt "
-          f"tokens{front}, {G} generated", flush=True)
+          f"{cfg.vocab_size}, {cfg.param_dtype} weights, {cfg.compute_dtype} "
+          f"compute): {B} x {P} prompt tokens{front}, {G} generated",
+          flush=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
     print(f"  weights drawn on the card in {time.perf_counter() - t0:.2f} s: "
-          f"{n} parameters, {4 * n / 1e9:.2f} GB fp32 (param_count "
-          f"{cfg.param_count()})", flush=True)
+          f"{n} parameters, {nbytes / 1e9:.2f} GB (param_count "
+          f"{cfg.param_count()}); peak memory of the draw "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     # one warm request at the served prompt length: library handles,
     # GEMM plans and the allocator's blocks for these shapes
     serve_batch(cfg, batch=B, prompt_len=P, gen=2, params=params)
@@ -3492,8 +3562,8 @@ def serve_arch(torch, arch, calls):
 
 
 def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, n_ops, source):
-    """One ``{"kernels": ...}`` record of the flash kernel at a phase 8
-    shape: the kernel against the plain version (and the bf16 sequence form
+    """One ``{"kernels": ...}`` record of the flash kernel at a phase 8 or
+    9 shape: the kernel against the plain version (and the bf16 sequence form
     also against ``attention_tiled_ref``), then the device ms by CUDA-graph
     replay of the kernel, the plain version and ``scaled_dot_product_
     attention`` (given contiguous K/V, ``enable_gqa`` where KV < H), and
@@ -3595,7 +3665,9 @@ def phase_archs(torch):
 
     t_phase = time.perf_counter()
     phase_arch_agreement(torch)
-    phase_arch_structure(torch)
+    # (b) the two the card cannot hold whole
+    whole_on_meta(torch, "phase 8b", {"nemotron-4-15b": ((14e9, 17e9), None),
+                                      "llava-next-34b": ((32e9, 37e9), None)})
     calls, by_arch = collections.Counter(), {}
     for arch in ARCH_SERVES:
         own = collections.Counter()
@@ -3644,6 +3716,123 @@ def phase_archs(torch):
                 "flash_attention_bhsd_whisper_cross_decode": cross_dec}
     print(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records, launches
+
+
+# phase 9b: the reference's ranges (tests/test_models.py), total and active
+MOE_RANGES = {"qwen3-moe-30b-a3b": ((28e9, 33e9), (2e9, 4.5e9)),
+              "llama4-maverick-400b-a17b": ((360e9, 430e9), (12e9, 20e9))}
+# phase 9g: device time by kind, the first kind whose names a kernel's name
+# holds (case ignored)
+KERNEL_KINDS = (("flash", ("flash_fwd_", "decode_attention_")),
+                ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+                ("routing: sort, scatter, gather, index",
+                 ("sort", "scatter", "gather", "index")),
+                ("casts and copies", ("copy", "cast")))
+
+
+def phase_moe_agreement(torch):
+    """(a) Both MoE archs reduced in fp32, card vs CPU in the capacity form
+    (``phase_lm_agreement``), then each layer's prefill + decode held to
+    one prefill on the card in the dense form."""
+    for arch in MOE_SERVES:
+        card, c32, prompts, toks, _ = phase_lm_agreement(
+            torch, "phase 9a", arch, 10, note="; the capacity form")
+        seq = torch.cat([prompts, toks[:, :-1]], dim=1)
+        with torch.inference_mode():
+            err = layer_consistency(torch, card, seq, 10,
+                                    c32.replace(moe_impl="dense"))
+        check(f"{arch}: every layer in the dense form, {seq.shape[1] - 10} "
+              f"decode steps vs one prefill, relative to the layer's output "
+              f"scale", err, 1e-4)
+
+
+def device_time_by_kind(kernels):
+    """Device ms of the profiled kernels by ``KERNEL_KINDS``, the rest as
+    "other"; printed with each kind's share."""
+    ms = collections.Counter()
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, names in KERNEL_KINDS
+                     if any(n in name for n in names)), "other")
+        ms[kind] += e.self_device_time_total / 1e3
+    total = sum(ms.values())
+    print("  device time by kind: " + "; ".join(
+        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+        for k, v in ms.most_common()), flush=True)
+    return dict(ms)
+
+
+def phase9_records(torch):
+    """(f) Flash at qwen3-moe-30b-a3b's prefill and its decode over the
+    544-slot cache. Returns the records."""
+    from repro_torch.configs.registry import get_config
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=bf16)
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    B, P, G = MOE_SERVES[cfg.name]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = rnd(B, H, P, hd), rnd(B, KV, P, hd), rnd(B, KV, P, hd)
+    out = [flash_record(
+        torch, "flash_attention_bhsd_qwen3_prefill",
+        f"qwen3-moe-30b-a3b prefill {B} x {H}/{KV} x {P}, hd {hd}, causal, "
+        f"bf16", q, k, v, {}, {"is_causal": True},
+        4 * hd * B * H * live_pairs(P, P, True, 0),
+        "src/repro_torch/kernels/csrc/flash_attention.cu")]
+    L = P + G
+    q = rnd(B, H, 1, hd)
+    k, v = (rnd(B, L, KV, hd).transpose(1, 2) for _ in range(2))
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_qwen3_decode",
+        f"qwen3-moe-30b-a3b decode {B} x {H}/{KV} x 1 over the {L}-slot cache "
+        f"in place, hd {hd}, bf16", q, k, v, {"causal": False}, {},
+        4 * hd * B * H * L, "src/repro_torch/kernels/csrc/flash_decode.cu"))
+    return out
+
+
+def phase_moe(torch):
+    """Phase 9: mixture-of-experts and qk-norm. Returns (records, their
+    launches by record name)."""
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    phase_moe_agreement(torch)
+    whole_on_meta(torch, "phase 9b", MOE_RANGES)                     # (b)
+    calls, seq, dec = collections.Counter(), 0, 0
+    for arch in MOE_SERVES:
+        own = collections.Counter()
+        params, cfg, forms = serve_arch(torch, arch, own, "phase 9c")
+        calls.update(own)
+        seq, dec = seq + forms["seq_bf16"], dec + forms["decode"]
+        if arch == "qwen3-moe-30b-a3b":      # (g) one decode step, profiled
+            B, P, _ = MOE_SERVES[arch]
+            with torch.inference_mode():
+                prompt = torch.ones((B, P), dtype=torch.long, device="cuda")
+                _, caches, t = lm.prefill(params, {"inputs": prompt}, cfg,
+                                          cache_len=P + 2)
+                tok = prompt[:, -1:]
+                lm.decode_step(params, caches, tok, t, cfg)        # warm
+                kernels = profile_step(torch, lambda: lm.decode_step(
+                    params, caches, tok, t, cfg),
+                    f"phase 9g: one {arch} decode step ({B} rows over "
+                    f"{P + 1} cached tokens, {cfg.n_layers} layers)")
+                device_time_by_kind(kernels)
+            del caches
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (e) every distinct flash call of the two serves, on fresh inputs
+    print(f"phase 9e: {sum(calls.values())} flash calls, {len(calls)} "
+          f"distinct", flush=True)
+    hold_flash_calls(torch, calls, "phase 9")
+    records = phase9_records(torch)
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records, {"flash_attention_bhsd_qwen3_prefill": seq,
+                     "flash_attention_bhsd_qwen3_decode": dec}
 
 
 def main():
@@ -3724,6 +3913,9 @@ def main():
     arch_records, arch_launches = phase_archs(torch)
     records += arch_records
     counts.update(arch_launches)
+    moe_records, moe_launches = phase_moe(torch)
+    records += moe_records
+    counts.update(moe_launches)
     # the design-length record is the same kernel, run on the main path at
     # the engine's shape
     counts["paged_decode_bkgh_256x320"] = counts["paged_decode_bkgh"]

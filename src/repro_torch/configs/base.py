@@ -6,8 +6,9 @@ block. The reference scans each segment over stacked parameters; the port
 flattens the segments into one list of layers walked by a Python loop
 (``layer_kinds``; the encoder's, ``encoder_segments``, likewise
 ``encoder_kinds``). The fields are the reference's, so a config converts
-field by field; the port runs every kind but the MoE ones: ``attn``,
-``attn_local``, ``rwkv``, ``rglru``, ``enc_attn`` and ``dec_attn``.
+field by field; the port runs every kind: ``attn``, ``attn_local``,
+``rwkv``, ``rglru``, ``enc_attn``, ``dec_attn``, ``moe`` and
+``attn_local_moe``.
 ``param_count`` and ``active_param_count`` are the reference's.
 """
 

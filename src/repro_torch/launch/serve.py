@@ -13,9 +13,10 @@ drawn with the prompts:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-2b --batch 8 --prompt-len 2560 --gen 32
 
-Every id of ``configs.registry.ARCH_IDS`` serves (llama3-8b, smollm-360m,
-chatglm3-6b, nemotron-4-15b, llava-next-34b, whisper-small, rwkv6-7b,
-recurrentgemma-2b).
+Every id of ``configs.registry.ARCH_IDS`` serves (whisper-small,
+recurrentgemma-2b, rwkv6-7b, nemotron-4-15b, smollm-360m, chatglm3-6b,
+llama3-8b, llama4-maverick-400b-a17b, qwen3-moe-30b-a3b, llava-next-34b;
+the two MoE ones route each token through their experts' capacity form).
 
 Campaign mode runs a declarative design campaign through the
 ``ImpressSession`` facade; one flag serves IM-RP, the CONT-V control, the

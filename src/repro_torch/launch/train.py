@@ -16,10 +16,10 @@ A port of the JAX package's ``repro.launch.train`` over the port's
 * It runs on ``--device`` (default ``cuda``); the step is eager
   (``torch.autograd``), with nothing jitted or donated.
 * Only ``--mesh none`` runs: a mesh raises before any weight is built
-  (sharding is ROADMAP Queue 1, item 4).
+  (sharding is ROADMAP Queue 1, item 3).
 * An arch whose layers the port cannot differentiate raises before any
   weight is built: ``rwkv`` and ``rglru`` blocks (their kernels have no
-  gradient yet, ROADMAP Queue 1, item 3) and attention with a logit
+  gradient yet, ROADMAP Queue 1, item 2) and attention with a logit
   softcap, which ``kernels.flash_attention.FlashAttention`` refuses.
 * The weights are drawn from seed 0 on the device, as the reference draws
   ``PRNGKey(0)``, so a card and the CPU start from other weights.
@@ -48,12 +48,12 @@ def check_trainable(cfg, mesh=None):
     if mesh not in (None, "none"):
         raise NotImplementedError(
             f"mesh {mesh!r}: sharded training is not ported (ROADMAP Queue "
-            f"1, item 4); run with mesh none")
+            f"1, item 3); run with mesh none")
     kinds = sorted(set(cfg.layer_kinds) & set(NOT_DIFFERENTIABLE))
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: {kinds} layers have no gradient in the port yet "
-            f"(ROADMAP Queue 1, item 3)")
+            f"(ROADMAP Queue 1, item 2)")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention with logit softcap "

@@ -4,6 +4,8 @@ of an encoder-decoder and its one-token read, paged prefill and paged
 decode.
 
 Layouts: q proj (d, H, hd); k/v proj (d, KV, hd); o proj (H, hd, d).
+With ``cfg.qk_norm`` (qwen3, llama4) each query and key head is
+RMS-normalized over hd by ``q_norm`` / ``k_norm`` (hd,) before RoPE.
 
 The sequence mixing always goes through ``kernels.ops``: the flash kernel
 for full sequences, prompts, cross-attention and one token over a dense or
@@ -19,26 +21,47 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import apply_rope, at_use, torch_dtype, weight
+from repro_torch.models.common import (apply_rope, at_use, rms_norm,
+                                       torch_dtype, weight)
 
 
 class Attention(nn.Module):
     def __init__(self, cfg, gen=None):
         super().__init__()
-        if cfg.qk_norm:
-            raise ValueError("qk_norm attention is not ported")
         d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = torch_dtype(cfg.param_dtype)
         self.wq = weight(gen, (d, H, hd), d, dt)
         self.wk = weight(gen, (d, KV, hd), d, dt)
         self.wv = weight(gen, (d, KV, hd), d, dt)
         self.wo = weight(gen, (H, hd, d), H * hd, dt)
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.ones(hd, dtype=dt),
+                                       requires_grad=False)
+            self.k_norm = nn.Parameter(torch.ones(hd, dtype=dt),
+                                       requires_grad=False)
+
+
+def _q(p, x, cfg, w=None):
+    """Query heads (B,S,H,hd), qk-normed where the config says so: ``w``
+    is the projection as used (default ``wq`` at the compute dtype)."""
+    q = torch.einsum("bsd,dhk->bshk", x,
+                     at_use(p.wq, x, cfg) if w is None else w)
+    return rms_norm(q, p.q_norm, cfg.norm_eps) if cfg.qk_norm else q
+
+
+def _kv(p, x, cfg):
+    """Key and value heads (B,S,KV,hd), the keys qk-normed where the
+    config says so."""
+    k = torch.einsum("bsd,dhk->bshk", x, at_use(p.wk, x, cfg))
+    v = torch.einsum("bsd,dhk->bshk", x, at_use(p.wv, x, cfg))
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return k, v
 
 
 def _qkv(p, x, positions, cfg):
-    q = torch.einsum("bsd,dhk->bshk", x, at_use(p.wq, x, cfg))
-    k = torch.einsum("bsd,dhk->bshk", x, at_use(p.wk, x, cfg))
-    v = torch.einsum("bsd,dhk->bshk", x, at_use(p.wv, x, cfg))
+    q = _q(p, x, cfg)
+    k, v = _kv(p, x, cfg)
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
 
 
@@ -118,7 +141,7 @@ def attn_decode(p, x, t, cfg, *, cache, cross=False):
     write, and Q projected by ``wq`` cast to x's dtype, as the reference
     casts it there. Returns (out (B,1,d), cache)."""
     if cross:
-        q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+        q = _q(p, x, cfg, p.wq.to(x.dtype))
         out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
                                    softcap=cfg.attn_logit_softcap)
         return _proj_out(p, out, cfg), cache
@@ -137,8 +160,7 @@ def init_cross_cache(p, enc_out, cfg):
     once at prefill and read by every decode step: {"k", "v"} (B, F, KV,
     hd) in the compute dtype. No RoPE (the reference's cross K/V have
     none)."""
-    k = torch.einsum("bsd,dhk->bshk", enc_out, at_use(p.wk, enc_out, cfg))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, at_use(p.wv, enc_out, cfg))
+    k, v = _kv(p, enc_out, cfg)
     return {"k": k, "v": v}
 
 
@@ -149,7 +171,7 @@ def cross_prefill(p, x, enc_out, cfg):
     forward and the prompt alike; the cross cache it builds is what
     ``attn_decode(cross=True)`` reads. Returns (out (B,S,d), cache)."""
     cache = init_cross_cache(p, enc_out, cfg)
-    q = torch.einsum("bsd,dhk->bshk", x, at_use(p.wq, x, cfg))
+    q = _q(p, x, cfg)
     out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
                                softcap=cfg.attn_logit_softcap)
     return _proj_out(p, out, cfg), cache

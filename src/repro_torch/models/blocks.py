@@ -11,7 +11,11 @@ recurrent block, with its RG-LRU and conv state), the encoder's
 bidirectional ``"enc_attn"`` kind (no decode cache) and the
 encoder-decoder's ``"dec_attn"`` kind (causal self-attention, then
 cross-attention over the encoder output, then the MLP; its cache is
-``{"self": dense cache, "cross": the encoder's K/V}``)."""
+``{"self": dense cache, "cross": the encoder's K/V}``). The ``"moe"`` and
+``"attn_local_moe"`` kinds are ``"attn"`` and ``"attn_local"`` with the
+mixture-of-experts FFN (``moe.Moe``) in place of the MLP: their
+full-sequence forward hands the router's aux values to the caller, their
+prefill and decode drop them, as the reference's do."""
 
 from __future__ import annotations
 
@@ -21,11 +25,15 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import Norm, norm_fwd
 from repro_torch.models.mlp import Mlp, mlp_fwd
+from repro_torch.models.moe import Moe, moe_fwd
 
-KINDS = ("attn", "attn_local", "rwkv", "rglru", "enc_attn", "dec_attn")
+MOE_KINDS = ("moe", "attn_local_moe")
+KINDS = ("attn", "attn_local", "rwkv", "rglru", "enc_attn", "dec_attn") \
+    + MOE_KINDS
 PAGED_KINDS = ("attn",)          # kinds with a paged KV cache
 # kinds with a dense decode cache (an encoder layer runs once, uncached)
-CACHE_KINDS = ("attn", "attn_local", "rwkv", "rglru", "dec_attn")
+CACHE_KINDS = ("attn", "attn_local", "rwkv", "rglru", "dec_attn") \
+    + MOE_KINDS
 
 
 def check_kind(kind, ported=PAGED_KINDS):
@@ -35,15 +43,17 @@ def check_kind(kind, ported=PAGED_KINDS):
 
 
 def _window(kind, cfg):
-    return cfg.attn_window if kind == "attn_local" else 0
+    return cfg.attn_window if kind in ("attn_local", "attn_local_moe") \
+        else 0
 
 
 class Layer(nn.Module):
     """``attn`` / ``attn_local`` / ``enc_attn``: pre-norm self-attention +
-    MLP. ``dec_attn``: the same with pre-norm (``norm_x``) cross-attention
-    (``xattn``) between them. ``rglru``: pre-norm Griffin recurrent block
-    (``rec``) + MLP. ``rwkv``: pre-norm time mix + channel mix, both in
-    ``tm``."""
+    MLP; ``moe`` / ``attn_local_moe`` the same with the MoE FFN (``moe``)
+    in place of the MLP. ``dec_attn``: the same with pre-norm
+    (``norm_x``) cross-attention (``xattn``) between them. ``rglru``:
+    pre-norm Griffin recurrent block (``rec``) + MLP. ``rwkv``: pre-norm
+    time mix + channel mix, both in ``tm``."""
 
     def __init__(self, kind, cfg, gen=None):
         super().__init__()
@@ -60,7 +70,10 @@ class Layer(nn.Module):
         if kind == "dec_attn":
             self.norm_x = Norm(cfg)
             self.xattn = attn.Attention(cfg, gen)
-        self.mlp = Mlp(cfg, gen)
+        if kind in MOE_KINDS:
+            self.moe = Moe(cfg, gen)
+        else:
+            self.mlp = Mlp(cfg, gen)
 
 
 def _rwkv(p, x, cfg, state):
@@ -71,27 +84,35 @@ def _rwkv(p, x, cfg, state):
     return x + h, state
 
 
-def _mlp_after(p, x, h, cfg):
-    """Residual add of the mixer's output h, then the MLP half."""
+def _ffn_after(p, x, h, cfg):
+    """Residual add of the mixer's output h, then the feed-forward half:
+    the MLP, or the MoE FFN where the layer has one. Returns (x, the
+    router's aux values, {} without experts); prefill and decode drop
+    the aux values."""
     x = x + h
-    return x + mlp_fwd(p.mlp, norm_fwd(p.norm2, x, cfg), cfg)
+    h = norm_fwd(p.norm2, x, cfg)
+    if hasattr(p, "moe"):
+        y, aux = moe_fwd(p.moe, h, cfg)
+        return x + y, aux
+    return x + mlp_fwd(p.mlp, h, cfg), {}
 
 
 def _rglru(p, x, cfg, state):
     h, state = ssm.rglru_block(p.rec, norm_fwd(p.norm1, x, cfg), state, cfg)
-    return _mlp_after(p, x, h, cfg), state
+    return _ffn_after(p, x, h, cfg)[0], state
 
 
 def layer_fwd(kind, p, x, ctx, cfg):
     """Full-sequence forward. ctx: positions (S,), and enc_out (B,F,d) for
-    ``dec_attn``. Returns x."""
+    ``dec_attn``. Returns (x, aux): the MoE kinds' router aux values
+    (``moe.moe_fwd``'s), {} for the other kinds."""
     check_kind(kind, KINDS)
     if kind == "rwkv":
         return _rwkv(p, x, cfg, ssm.init_rwkv_state(cfg, x.shape[0],
-                                                    device=x.device))[0]
+                                                    device=x.device))[0], {}
     if kind == "rglru":
-        return _rglru(p, x, cfg, ssm.init_rglru_state(cfg, x.shape[0],
-                                                      device=x.device))[0]
+        return _rglru(p, x, cfg, ssm.init_rglru_state(
+            cfg, x.shape[0], device=x.device))[0], {}
     h = attn.attn_fwd(p.attn, norm_fwd(p.norm1, x, cfg), ctx["positions"],
                       cfg, causal=kind != "enc_attn",
                       window=_window(kind, cfg))
@@ -99,20 +120,20 @@ def layer_fwd(kind, p, x, ctx, cfg):
         x = x + h
         h, _ = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
                                   ctx["enc_out"], cfg)
-    return _mlp_after(p, x, h, cfg)
+    return _ffn_after(p, x, h, cfg)
 
 
 def init_layer_cache(kind, cfg, batch, length, device=None):
     """The decode cache of one layer: the dense K/V cache of ``length``
-    slots of an ``attn`` layer (its paged cache is
-    ``attention.init_paged_cache``), the ring K/V cache of an
-    ``attn_local`` layer, the recurrent state of an ``rwkv`` or ``rglru``
-    layer. A ``dec_attn`` layer starts from its dense self cache alone:
-    its prefill adds the cross cache it builds from the encoder's output
-    (the reference allocates a zeroed one here, which its prefill
-    replaces)."""
+    slots of an ``attn`` or ``moe`` layer (an ``attn`` layer's paged cache
+    is ``attention.init_paged_cache``), the ring K/V cache of an
+    ``attn_local`` or ``attn_local_moe`` layer, the recurrent state of an
+    ``rwkv`` or ``rglru`` layer. A ``dec_attn`` layer starts from its
+    dense self cache alone: its prefill adds the cross cache it builds
+    from the encoder's output (the reference allocates a zeroed one here,
+    which its prefill replaces)."""
     check_kind(kind, CACHE_KINDS)
-    if kind in ("attn", "attn_local", "dec_attn"):
+    if kind not in ("rglru", "rwkv"):
         return attn.init_cache(cfg, batch, length,
                                window=_window(kind, cfg), device=device)
     if kind == "rglru":
@@ -134,11 +155,11 @@ def layer_prefill(kind, p, x, ctx, cfg, cache):
                                       ctx["positions"], cfg, cache=cache,
                                       window=_window(kind, cfg))
     if kind != "dec_attn":
-        return _mlp_after(p, x, h, cfg), self_cache
+        return _ffn_after(p, x, h, cfg)[0], self_cache
     x = x + h
     h, cross = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
                                   ctx["enc_out"], cfg)
-    return _mlp_after(p, x, h, cfg), {"self": self_cache, "cross": cross}
+    return _ffn_after(p, x, h, cfg)[0], {"self": self_cache, "cross": cross}
 
 
 def layer_decode(kind, p, x, t, cfg, cache):
@@ -152,12 +173,12 @@ def layer_decode(kind, p, x, t, cfg, cache):
     h, self_cache = attn.attn_decode(p.attn, norm_fwd(p.norm1, x, cfg), t,
                                      cfg, cache=self_cache)
     if kind != "dec_attn":
-        return _mlp_after(p, x, h, cfg), self_cache
+        return _ffn_after(p, x, h, cfg)[0], self_cache
     x = x + h
     h, _ = attn.attn_decode(p.xattn, norm_fwd(p.norm_x, x, cfg), t, cfg,
                             cache=cache["cross"], cross=True)
-    return _mlp_after(p, x, h, cfg), {"self": self_cache,
-                                      "cross": cache["cross"]}
+    return _ffn_after(p, x, h, cfg)[0], {"self": self_cache,
+                                         "cross": cache["cross"]}
 
 
 def layer_paged_prefill(kind, p, x, ctx, cfg, cache):
@@ -167,7 +188,7 @@ def layer_paged_prefill(kind, p, x, ctx, cfg, cache):
     h, cache = attn.paged_attn_prefill(
         p.attn, norm_fwd(p.norm1, x, cfg), ctx["positions"], cfg,
         cache=cache, block_tables=ctx["block_tables"])
-    return _mlp_after(p, x, h, cfg), cache
+    return _ffn_after(p, x, h, cfg)[0], cache
 
 
 def layer_paged_decode(kind, p, x, ctx, cfg, cache):
@@ -178,4 +199,4 @@ def layer_paged_decode(kind, p, x, ctx, cfg, cache):
         p.attn, norm_fwd(p.norm1, x, cfg), ctx["positions"], cfg,
         cache=cache, block_tables=ctx["block_tables"],
         lengths=ctx["lengths"])
-    return _mlp_after(p, x, h, cfg), cache
+    return _ffn_after(p, x, h, cfg)[0], cache

@@ -23,13 +23,28 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+DRAW_SLICE = 1 << 27     # elements of one fp32 draw of a non-fp32 weight
+
+
 def dense_init(gen, shape, in_axis_size, dtype=torch.float32):
     """Fan-in scaled normal init drawn from ``gen`` on the generator's own
     device: a CPU generator gives the same weights wherever they are copied
-    to, a CUDA one draws them on the card without a host copy."""
-    scale = 1.0 / np.sqrt(max(in_axis_size, 1))
-    w = torch.randn(shape, generator=gen, device=gen.device)
-    return w.mul_(float(scale)).to(dtype)
+    to, a CUDA one draws them on the card without a host copy. The draw is
+    fp32; a weight of another dtype is drawn in slices of its leading axis
+    of at most ``DRAW_SLICE`` elements, each cast into the weight's own
+    storage, so the fp32 temporary is one slice (llama4's (128, 5120,
+    8192) bf16 experts would need 21.5 GB of fp32 beside their 10.7 GB
+    otherwise)."""
+    scale = float(1.0 / np.sqrt(max(in_axis_size, 1)))
+    if dtype == torch.float32 or not shape:
+        w = torch.randn(shape, generator=gen, device=gen.device)
+        return w.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, DRAW_SLICE // max(1, out[0].numel()))
+    for part in out.split(rows):
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               device=gen.device).mul_(scale))
+    return out
 
 
 def weight(gen, shape, in_axis_size, dtype) -> nn.Parameter:

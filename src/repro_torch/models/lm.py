@@ -2,11 +2,12 @@
 frontend of llava-next-34b, which the ProGen structure prefix also uses),
 and the encoder-decoder (whisper-small's ``audio_frames`` frontend: the
 frames run through the encoder once, each decoder layer cross-attends to
-its output): forward, the training loss (``lm_loss``, without the
-reference's MoE aux terms), dense serving over each layer's decode cache
+its output): forward, the training loss (``lm_loss``, with the MoE
+router's aux terms), dense serving over each layer's decode cache
 (recurrent states of ``rwkv`` and ``rglru`` layers, dense K/V caches of
-``attn`` layers, ring K/V caches of ``attn_local`` layers, self and cross
-caches of ``dec_attn`` layers) and paged serving (``attn`` layers).
+``attn`` and ``moe`` layers, ring K/V caches of ``attn_local`` and
+``attn_local_moe`` layers, self and cross caches of ``dec_attn`` layers)
+and paged serving (``attn`` layers).
 
 Batch dicts: {"inputs": (B,S) int tokens, "patches": (B,P,d) or "frames":
 (B,F,d) where the frontend takes them, "targets": (B,S) int, -1 masked,
@@ -29,6 +30,10 @@ from repro_torch.models import blocks
 from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
                                        gumbel_noise, logits_fwd, norm_fwd,
                                        torch_dtype)
+from repro_torch.models.moe import AUX_KEYS
+
+# the reference's lm_loss coefficients of the MoE load-balance and z losses
+LB_COEF, Z_COEF = 0.01, 1e-4
 
 
 class LM(nn.Module):
@@ -73,7 +78,7 @@ def _encode(params, frames, cfg):
     x = frames.to(torch_dtype(cfg.compute_dtype))
     ctx = {"positions": torch.arange(x.shape[1], device=x.device)}
     for layer, kind in zip(params.enc_layers, cfg.encoder_kinds):
-        x = blocks.layer_fwd(kind, layer, x, ctx, cfg)
+        x, _ = blocks.layer_fwd(kind, layer, x, ctx, cfg)
     return norm_fwd(params.enc_norm, x, cfg)
 
 
@@ -108,16 +113,23 @@ def _prefix_embed(params, batch, cfg):
 
 
 def lm_hidden(params, batch, cfg):
-    """Backbone forward -> hidden (B,S,d) at the token positions."""
+    """Backbone forward -> (hidden (B,S,d) at the token positions, aux):
+    ``moe.AUX_KEYS``' values summed over the layers, fp32 zeros where a
+    layer has no experts (so a dense config reports zeros, as the
+    reference's segment scan pads them)."""
     x, ctx, n_prefix = _context(params, batch, cfg)
+    auxs = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for layer, kind in zip(params.layers, cfg.layer_kinds):
-        x = blocks.layer_fwd(kind, layer, x, ctx, cfg)
-    return x[:, n_prefix:]
+        x, aux = blocks.layer_fwd(kind, layer, x, ctx, cfg)
+        for k, v in aux.items():
+            auxs[k] = auxs[k] + v
+    return x[:, n_prefix:], auxs
 
 
 def lm_logits(params, batch, cfg):
-    """Full-sequence forward -> logits (B,S,padded_vocab)."""
-    return logits_fwd(params, lm_hidden(params, batch, cfg), cfg)
+    """Full-sequence forward -> logits (B,S,padded_vocab) (the router's
+    aux values are ``lm_hidden``'s)."""
+    return logits_fwd(params, lm_hidden(params, batch, cfg)[0], cfg)
 
 
 def cross_entropy(logits, targets):
@@ -158,18 +170,17 @@ def _chunked_ce(params, x, targets, cfg):
 
 def lm_loss(params, batch, cfg):
     """Next-token CE of ``batch["targets"]`` (-1 masks a position) over the
-    forward of ``batch["inputs"]``; returns (loss, metrics). The reference
-    adds its MoE router's aux losses here (its ``lb_coef`` and ``z_coef``);
-    MoE is not ported, so a config with experts raises."""
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported (ROADMAP Queue 1, item 1)")
+    forward of ``batch["inputs"]``, plus ``LB_COEF`` x the MoE load-balance
+    loss and ``Z_COEF`` x the router z-loss (summed over the layers; zeros
+    without experts); returns (loss, metrics): ``ce_loss``, the three aux
+    values (``moe.AUX_KEYS``) and ``loss``."""
+    x, aux = lm_hidden(params, batch, cfg)
     if cfg.ce_chunks > 1:
-        loss = _chunked_ce(params, lm_hidden(params, batch, cfg),
-                           batch["targets"], cfg)
+        ce = _chunked_ce(params, x, batch["targets"], cfg)
     else:
-        loss = cross_entropy(lm_logits(params, batch, cfg), batch["targets"])
-    return loss, {"ce_loss": loss, "loss": loss}
+        ce = cross_entropy(logits_fwd(params, x, cfg), batch["targets"])
+    loss = ce + LB_COEF * aux["moe_lb_loss"] + Z_COEF * aux["moe_z_loss"]
+    return loss, {"ce_loss": ce, **aux, "loss": loss}
 
 
 def init_caches(cfg, batch, length, device=None):

@@ -421,7 +421,7 @@ def _foldscore_trunk(params, seqs, target, cfg):
     x = x + (target.float() @ params.heads.tgt)[:, None].to(x.dtype)
     ctx = {"positions": torch.arange(seqs.shape[1], device=seqs.device)}
     for layer, kind in zip(params.layers, cfg.layer_kinds):
-        x = blocks.layer_fwd(kind, layer, x, ctx, cfg)
+        x, _ = blocks.layer_fwd(kind, layer, x, ctx, cfg)
     return norm_fwd(params.final_norm, x, cfg).float()
 
 

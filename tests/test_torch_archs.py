@@ -135,14 +135,18 @@ def test_configs_match_reference(arch, reduced):
 
 
 def test_registry_holds_the_references_dense_ids_and_refuses_moe():
+    """The registry holds all ten of the reference's ids, in its order, the
+    two MoE ones included: each returns the reference's fields, full and
+    reduced. The name dates from before the MoE configs were ported (the
+    registry refused them) and is kept so the test's history stays one
+    series; an unknown id still raises."""
     from repro.configs.registry import ARCH_IDS as REF_IDS
-    assert ARCH_IDS == tuple(a for a in REF_IDS
-                             if a not in ("llama4-maverick-400b-a17b",
-                                          "qwen3-moe-30b-a3b"))
+    assert ARCH_IDS == REF_IDS and len(ARCH_IDS) == 10
     for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"):
-        for get in (get_config, get_reduced):
-            with pytest.raises(KeyError, match="MoE.*ROADMAP Queue 1"):
-                get(arch)
+        for get, ref_get in ((get_config, ref_get_config),
+                             (get_reduced, ref_get_reduced)):
+            assert dataclasses.asdict(get(arch)) == \
+                dataclasses.asdict(ref_get(arch))
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
 

@@ -93,9 +93,18 @@ def _wait(gw, cid, tenant=None, timeout=180.0):
 def test_cross_tenant_fusion(gateway):
     """Two tenants' same-bucket same-stage tasks fuse into shared device
     batches; the coalesce evidence names members from both tenants in one
-    dispatch."""
-    a = gateway.submit_campaign(dict(SPEC), tenant="alice")
-    b = gateway.submit_campaign(dict(SPEC, seed=1), tenant="bob")
+    dispatch. The one device is held busy while both tenants submit, so
+    their first-stage tasks are queued together whatever the host's thread
+    scheduling: on a loaded host bob's submission can land after alice's
+    first dispatch has closed its 5 ms admission window, and the two
+    campaigns then run out of phase without ever sharing a dispatch."""
+    held = gateway.allocator.request(1)
+    assert held is not None
+    try:
+        a = gateway.submit_campaign(dict(SPEC), tenant="alice")
+        b = gateway.submit_campaign(dict(SPEC, seed=1), tenant="bob")
+    finally:
+        gateway.allocator.release(held)
     ra = _wait(gateway, a)
     rb = _wait(gateway, b)
     assert ra["trajectories"] > 0 and rb["trajectories"] > 0

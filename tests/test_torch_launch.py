@@ -172,12 +172,12 @@ def test_train_refuses_before_any_weight_is_built(case, monkeypatch):
     monkeypatch.setattr(train_mod.lm, "init_lm", no_weights)
     mesh = None
     if case == "mesh sim":
-        cfg, mesh, match = get_reduced("progen-s"), "sim", "Queue 1, item 4"
+        cfg, mesh, match = get_reduced("progen-s"), "sim", "Queue 1, item 3"
     elif case == "softcap":
         cfg, match = dataclasses.replace(
             get_reduced("progen-s"), attn_logit_softcap=30.0), "softcap"
     else:
-        cfg, match = get_config(case), "Queue 1, item 3"
+        cfg, match = get_config(case), "Queue 1, item 2"
     with pytest.raises(NotImplementedError, match=match):
         train_mod.train(cfg, _opt(), steps=2, batch=2, seq=8, mesh=mesh,
                         device="cpu")

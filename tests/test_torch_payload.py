@@ -69,7 +69,14 @@ def payloads(dtype, length_buckets=None):
             progen=bridge.progen_from_ref(npy(ref.gen_params), pg),
             foldscore=bridge.foldscore_from_ref(npy(ref.fold_params), pf))
         _PAYLOADS[key] = (ref, port)
-    return _PAYLOADS[key]
+    ref, port = _PAYLOADS[key]
+    # the pair is shared by every test file of the process that imports
+    # this one, and a session or executor registered with a payload
+    # installs its campaign's length buckets on it (``register_all``):
+    # hand each caller the bucket table the pair was cached for
+    ref.length_buckets = port.length_buckets = (
+        tuple(length_buckets) if length_buckets else None)
+    return ref, port
 
 
 def jax_noise(row_key, length):
@@ -216,11 +223,21 @@ def test_predict_batch_matches_reference(dtype, masked):
     want = ref.predict_batch(_RefMesh(), payload)
     got = port.predict_batch(CPU, payload)
     t = 2e-2 if dtype == "bfloat16" else 1e-5
-    for g, w in zip(got["rows"], want["rows"]):
+    # the worst error by key, so that a failure names it
+    errs = {k: max(abs(float(g[k]) - float(w[k])) - t * abs(float(w[k]))
+                   for g, w in zip(got["rows"], want["rows"]))
+            for k in ("plddt", "ptm", "pae")}
+    worst = max(errs, key=errs.get)
+    for i, (g, w) in enumerate(zip(got["rows"], want["rows"])):
         assert_allclose([g[k] for k in ("plddt", "ptm", "pae")],
                         [w[k] for k in ("plddt", "ptm", "pae")],
-                        atol=t, rtol=t)
-    assert got["batch"] == want["batch"]
+                        atol=t, rtol=t,
+                        err_msg=f"row {i}; worst key {worst}: |got - want| "
+                                f"exceeds rtol x |want| by {errs[worst]:.3e} "
+                                f"(atol {t}); got {g}, want {w}")
+    assert got["batch"] == want["batch"], (
+        "length buckets: reference", ref.length_buckets, "port",
+        port.length_buckets)
 
 
 def _gen_payload(seed, n=2, length=6, frontend_seq=8):

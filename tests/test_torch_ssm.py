@@ -314,17 +314,20 @@ def test_rwkv_channelmix_matches_reference(T):
 def test_dense_attn_cache_is_not_ported():
     """progen-s's ``attn`` layers' dense K/V cache IS ported now (the
     dense sampler's), so is whisper's ``dec_attn`` cache (its self cache;
-    prefill adds the cross cache it builds), and a kind the port lacks
-    raises. The name dates from before the dense kind was ported and
-    is kept so the test's history stays one series."""
+    prefill adds the cross cache it builds), so is a ``moe`` layer's
+    dense K/V cache, and a kind without a decode cache (the encoder's
+    ``enc_attn``) raises. The name dates from before the dense kind was
+    ported and is kept so the test's history stays one series."""
     caches = lm.init_caches(get_reduced("progen-s"), 2, 8)
     assert [c["k"].shape for c in caches] == [(2, 8, 2, 16)] * 2
     assert blocks.init_layer_cache("rwkv", get_reduced(ARCH), 2, 8)[
         "S"].shape == (2, 4, 16, 16)
     dec = blocks.init_layer_cache("dec_attn", get_reduced(ARCH), 2, 8)
     assert dec["k"].shape == (2, 8, 4, 16)
+    assert blocks.init_layer_cache("moe", get_reduced(ARCH), 2, 8)[
+        "k"].shape == (2, 8, 4, 16)
     with pytest.raises(ValueError, match="not ported"):
-        blocks.init_layer_cache("moe", get_reduced(ARCH), 2, 8)
+        blocks.init_layer_cache("enc_attn", get_reduced(ARCH), 2, 8)
 
 
 # ---------------------------------------------------------------------------
