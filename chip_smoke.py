@@ -194,13 +194,41 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    decode, timed beside the plain version and sdpa, with its bound. (g)
    One qwen3 decode step under ``torch.profiler``, its device time by
    kind (casts, routing: sort, scatter and gather, GEMMs, flash).
-10. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
+10. Training the SSM archs. (a) The autograd Functions of the path on the
+   card: ``WKV6`` at 8 x 64 x 512 x 64 in fp32 and bf16, ``RGLRU`` at 8 x
+   2560 x 2560 and ``FlashAttention`` at recurrentgemma-2b's 8 x 10/1 x
+   2560, hd 256, window 2048, fp32; each gradient at a seeded upstream
+   against autograd through the plain version, relative to its max, to
+   ``TOL``; one launch a forward, and a backward's (RGLRU's reverse scan:
+   one), which autograd runs on its own thread, counted in the forward's
+   ``ops.tally``; each backward's time a call beside its forward
+   kernel's. (b) Both archs reduced in fp32 with remat "full": 5
+   ``make_train_step`` steps on the card and on the CPU from one set of
+   weights and batches, losses to 1e-5 relative and weights to 1e-4 (5d
+   b's tolerances), each card step's launches held. (c) ``launch/train.py``
+   at full width, bf16 compute, the configs' remat "full" and CE chunks,
+   ``SSM_TRAIN_STEPS`` steps, no checkpoint: rwkv6-7b at 8 x 512 and
+   recurrentgemma-2b at 4 x 2560, each at the deepest depth (of its first
+   segment's repeats) whose 16 bytes a parameter, kept layer inputs and a
+   step's transient memory, measured on a one-repeat model, fit with
+   ``SERVE_HEADROOM`` to spare, the reckoning printed; losses finite,
+   every weight leaf moved; ms a step, tokens/s, peak memory. (d) Each
+   step's launches (``ops.tally``) and the counters (zeroed before, read
+   after): wkv6's prefill form twice a ``rwkv`` layer (forward and
+   remat's recompute), rglru three times an ``rglru`` layer (forward,
+   recompute, the backward's reverse scan), flash's fp32 sequence form
+   twice an ``attn_local`` layer, nothing else. (e) One more step of each
+   under ``torch.profiler`` (the device alone), device time by kind
+   (``TRAIN_KINDS``). (f) rglru and flash's fp32 form timed at
+   recurrentgemma-2b's 4 x 2560, records of their own.
+11. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
    launches are added to the records of the forms it ran; phase 8's five
    shapes are records of their own, their launches phase 8's serves';
-   phase 9's two likewise), the total time, the card line, then the last
-   line
+   phase 9's two likewise; phase 10's wkv6 launches are added to phase
+   6's record, its shape, and its rglru and flash launches are the 4 x
+   2560 records'), the total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -233,6 +261,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -309,6 +338,15 @@ SERVE_HEADROOM = 8e9
 # phase 9: the two MoE archs at full width, as ARCH_SERVES
 MOE_SERVES = {"qwen3-moe-30b-a3b": (8, 512, 32),
               "llama4-maverick-400b-a17b": (8, 512, 32)}
+# phase 10: launch/train.py on the SSM archs at full width: arch -> (rows,
+# tokens a row), rwkv6-7b at phase 6's prompt shape, recurrentgemma-2b past
+# its 2048 window and not a multiple of it; steps a run
+SSM_TRAINS = {"rwkv6-7b": (8, 512), "recurrentgemma-2b": (4, 2560)}
+SSM_TRAIN_STEPS = 4
+# phase 10b: card vs CPU, reduced, fp32, remat full: rows x tokens, steps;
+# losses to 1e-5 relative and weights to 1e-4 after them (phase 5d b's)
+SSM_AGREE_SHAPES = {"rwkv6-7b": (4, 40), "recurrentgemma-2b": (4, 24)}
+SSM_AGREE_STEPS = 5
 
 
 def expect(cond, msg):
@@ -1023,11 +1061,8 @@ def phase_rglru_flash256(torch):
     against their plain versions on the card, then their device times at
     recurrentgemma-2b's prefill and decode shapes, in fp32 as the path runs
     them. Returns the two kernel records for the JSON line."""
-    import numpy as np
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru
-    from repro_torch.models.attention import make_mask
 
     print("phase 2c: rglru and flash head dim 256 parity on the card",
           flush=True)
@@ -1073,35 +1108,53 @@ def phase_rglru_flash256(torch):
     flash_form_parity(torch, g)
 
     # timings, in fp32 as the path runs them; inputs rotate past 100 MB as
-    # in phase 2b
-    records = []
-    for label, T in (("prefill", P), ("decode", 1)):
-        n_bytes = 4 * (3 * B * T * C + 2 * B * C)
-        b_ms, b_by = bound_ms(n_bytes, 2 * B * T * C, "float32")
-        sets = [rglru_inputs(torch, g, B, T, C, h0=T == 1)
-                for _ in range(-(-100_000_000 // n_bytes))]
-        err = max_err(rglru.rglru_btc(*sets[0])[0],
-                      rglru.rglru_ref(*sets[0])[0])
-        turn = itertools.cycle(sets)
-        run_k = lambda: rglru.rglru_btc(*next(turn))
-        run_p = lambda: rglru.rglru_ref(*next(turn))
-        ms = graph_ms(torch, run_k)
-        plain = graph_ms(torch, run_p, iters=2, replays=2)
-        print(f"  rglru {label} {B}x{T}x{C} fp32, device ms per call: kernel "
-              f"{ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} ({b_by}); wall "
-              f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}; "
-              f"err {err:.3e}", flush=True)
-        if not records:                # the record holds the prefill shape
-            records.append({"name": "rglru_btc", "route": "cuda",
-                            "source": "src/repro_torch/kernels/csrc/rglru.cu",
-                            "replaces": "src/repro/kernels/rglru.py:44",
-                            "launches": 0, "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain, "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": None})
-        del sets
+    # in phase 2b; the record holds the prefill shape
+    records = [dict(time_rglru(torch, g, B, P, C, "prefill"),
+                    name="rglru_btc")]
+    time_rglru(torch, g, B, 1, C, "decode")
+    records.append(dict(time_flash256(torch, g, B, P, "prefill"),
+                        name="flash_attention_bhsd_hd256"))
+    records.append(time_flash_decode(torch, g, B, H, W, 256))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
 
-    # the fp32 sequence form at the prefill: 8 x 10 x 2560, MQA, window 2048
-    hd, S = 256, P
+
+def time_rglru(torch, g, B, T, C, label):
+    """rglru at (B, T, C) fp32: the kernel's and the plain version's device
+    time per call, inputs rotating past 100 MB, and the bound. Returns the
+    kernel's record without its name."""
+    from repro_torch.kernels import rglru
+
+    n_bytes = 4 * (3 * B * T * C + 2 * B * C)
+    b_ms, b_by = bound_ms(n_bytes, 2 * B * T * C, "float32")
+    sets = [rglru_inputs(torch, g, B, T, C, h0=T == 1)
+            for _ in range(-(-100_000_000 // n_bytes))]
+    err = max_err(rglru.rglru_btc(*sets[0])[0], rglru.rglru_ref(*sets[0])[0])
+    turn = itertools.cycle(sets)
+    run_k = lambda: rglru.rglru_btc(*next(turn))              # noqa: E731
+    run_p = lambda: rglru.rglru_ref(*next(turn))              # noqa: E731
+    ms = graph_ms(torch, run_k)
+    plain = graph_ms(torch, run_p, iters=2, replays=2)
+    print(f"  rglru {label} {B}x{T}x{C} fp32, device ms per call: kernel "
+          f"{ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} ({b_by}); wall "
+          f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}; "
+          f"err {err:.3e}", flush=True)
+    return {"route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru.py:44", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def time_flash256(torch, g, B, S, label, H=10, W=2048, hd=256):
+    """Flash's fp32 sequence form at recurrentgemma-2b's attention (B x
+    H/1 x S, hd 256, causal, window W): the kernel's, the plain version's
+    and sdpa's device time per call, inputs rotating past 100 MB, and the
+    bound. Returns the kernel's record without its name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import make_mask
+
     n_bytes = 4 * (2 * B * H * S * hd + 2 * B * S * hd)
     n_ops = 4 * hd * B * H * live_pairs(S, S, True, W)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
@@ -1114,29 +1167,23 @@ def phase_rglru_flash256(torch):
     err = max_err(fa.flash_attention_bhsd(*sets[0], **kw),
                   fa.attention_ref(*sets[0], **kw))
     turn = itertools.cycle(sets)
-    run_k = lambda: fa.flash_attention_bhsd(*next(turn), **kw)
-    run_p = lambda: fa.attention_ref(*next(turn), **kw)
-    run_l = lambda: F.scaled_dot_product_attention(
+    run_k = lambda: fa.flash_attention_bhsd(*next(turn), **kw)  # noqa: E731
+    run_p = lambda: fa.attention_ref(*next(turn), **kw)         # noqa: E731
+    run_l = lambda: F.scaled_dot_product_attention(             # noqa: E731
         *next(turn), attn_mask=mask, enable_gqa=True)
     reps = dict(iters=2, replays=2)
     ms, plain, lib = (graph_ms(torch, run_k, **reps),
                       graph_ms(torch, run_p, **reps),
                       graph_ms(torch, run_l, **reps))
-    print(f"  flash hd 256 prefill {B}x{H}x{S} window {W} MQA fp32 "
+    print(f"  flash hd 256 {label} {B}x{H}x{S} window {W} MQA fp32 "
           f"(register-tiled form), device ms per call: kernel {ms:.4f}, "
           f"plain {plain:.4f}, sdpa {lib:.4f}, bound {b_ms:.6f} ({b_by}); "
           f"err {err:.3e}", flush=True)
-    records.append({
-        "name": "flash_attention_bhsd_hd256", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:82",
-        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-    del sets, turn
-    records.append(time_flash_decode(torch, g, B, H, W, hd))
-    gc.collect()
-    torch.cuda.empty_cache()
-    return records
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
 def greedy(torch, params, prompts, cfg, steps, stub=None):
@@ -2603,12 +2650,24 @@ def gateway_mode(torch, fused, calls):
             t0 = time.perf_counter()
             cids, reports = {}, {}
             with flash_calls(calls):
-                for i, tenant in enumerate(GATEWAY_TENANTS):
-                    cids[tenant] = http_submit(base, tok[tenant],
-                                               gateway_spec(i))
-                    if not fused:
-                        reports[tenant] = http_wait(base, cids[tenant],
-                                                    tok[tenant])
+                # fused: the card is held while both tenants submit, so
+                # their first-stage tasks are queued together; else bob's
+                # submission can land after alice's first dispatch has
+                # closed its 5 ms admission window, and the two campaigns
+                # run out of phase without ever sharing a dispatch
+                held = gw.allocator.request(1) if fused else None
+                expect(not fused or held is not None,
+                       "(b) fused: the card could not be held")
+                try:
+                    for i, tenant in enumerate(GATEWAY_TENANTS):
+                        cids[tenant] = http_submit(base, tok[tenant],
+                                                   gateway_spec(i))
+                        if not fused:
+                            reports[tenant] = http_wait(
+                                base, cids[tenant], tok[tenant])
+                finally:
+                    if held is not None:
+                        gw.allocator.release(held)
                 for tenant in GATEWAY_TENANTS:
                     reports[tenant] = http_wait(base, cids[tenant],
                                                 tok[tenant])
@@ -2960,12 +3019,12 @@ def phase_gateway(torch, pp):
 
 
 @contextlib.contextmanager
-def train_step_tallies(out):
+def train_step_tallies(out, first=None):
     """Append to the list ``out`` a (launches, wall ms) pair for each train
     step ``launch.train`` runs in the block: the launches of its own thread
     (``ops.tally``) and its synchronized wall time, by a pass-through in
     ``make_train_step``'s place in ``launch.train``, where ``build`` looks
-    it up."""
+    it up. ``first(params)`` runs before the block's first step."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train as tr
 
@@ -2976,6 +3035,8 @@ def train_step_tallies(out):
 
         def run(params, opt_state, batch):
             import torch
+            if first is not None and not out:
+                first(params)
             torch.cuda.synchronize()
             t = time.perf_counter()
             with ops.tally() as counts:
@@ -3111,15 +3172,17 @@ def phase_train(torch):
     return record
 
 
-def profile_step(torch, fn, label, top=12):
+def profile_step(torch, fn, label, top=12, cpu=True):
     """Run ``fn`` once under torch.profiler: device time by kernel and the
-    device's busy share of the wall time. Returns the device kernels'
-    profiler events."""
+    device's busy share of the wall time. ``cpu=False`` traces the device
+    alone (a step of tens of thousands of launches then takes seconds, not
+    tens of seconds, to summarize). Returns the device kernels' profiler
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3746,14 +3809,14 @@ def phase_moe_agreement(torch):
               f"scale", err, 1e-4)
 
 
-def device_time_by_kind(kernels):
-    """Device ms of the profiled kernels by ``KERNEL_KINDS``, the rest as
-    "other"; printed with each kind's share."""
+def device_time_by_kind(kernels, kinds=KERNEL_KINDS, other="other"):
+    """Device ms of the profiled kernels by ``kinds`` (``KERNEL_KINDS``),
+    the rest as ``other``; printed with each kind's share."""
     ms = collections.Counter()
     for e in kernels:
         name = e.key.lower()
-        kind = next((k for k, names in KERNEL_KINDS
-                     if any(n in name for n in names)), "other")
+        kind = next((k for k, names in kinds
+                     if any(n in name for n in names)), other)
         ms[kind] += e.self_device_time_total / 1e3
     total = sum(ms.values())
     print("  device time by kind: " + "; ".join(
@@ -3833,6 +3896,349 @@ def phase_moe(torch):
     print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records, {"flash_attention_bhsd_qwen3_prefill": seq,
                      "flash_attention_bhsd_qwen3_decode": dec}
+
+# ---------------------------------------------------------------------------
+# phase 10: training the SSM archs
+# ---------------------------------------------------------------------------
+
+# phase 10e: a train step's device time by kind; the rest is the plain
+# backwards' elementwise ops and reductions, the norms, gates and AdamW
+TRAIN_KINDS = (("wkv6 kernel", ("wkv6_",)),
+               ("rglru kernel", ("rglru_kernel",)),
+               ("flash kernel", ("flash_fwd_",)),
+               ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+               ("casts and copies", ("copy", "cast")))
+TRAIN_OTHER = "elementwise and reductions (plain backwards, norms, AdamW)"
+
+
+def function_parity(torch, label, fn, plain, ins, ups, fwd_ms, n_bwd):
+    """(a) One autograd Function on the card: its gradients at the seeded
+    upstream ``ups`` against autograd through ``plain`` on the same inputs,
+    each relative to the plain gradient's max, to ``TOL`` of the inputs'
+    dtype; one launch a forward and ``n_bwd`` a backward, which autograd
+    runs on a thread of its own and which counts in the forward's
+    ``ops.tally`` all the same; then its backward's time a call beside the
+    forward kernel's ``fwd_ms``. Returns the backward's ms."""
+    from repro_torch.kernels import ops
+
+    def launched(counts):
+        return sum(v for k, v in counts.items() if isinstance(k, str))
+    name = dtype_name(ins[0].dtype)
+    xs = [x.detach().requires_grad_() for x in ins]
+    with ops.tally() as counts:
+        outs = fn(*xs)
+    n_fwd, base = launched(counts), sum(ops.launches.values())
+    got = torch.autograd.grad(outs, xs, ups, retain_graph=True)
+    torch.cuda.synchronize()
+    n = sum(ops.launches.values()) - base
+    expect(n_fwd == 1 and n == n_bwd and launched(counts) == 1 + n_bwd,
+           f"{label}: {n_fwd} launches forward, {n} backward (the forward's "
+           f"tally {dict(counts)}), not 1 and {n_bwd}")
+    want = torch.autograd.grad(plain(*xs), xs, ups)
+    for i, (a, b) in enumerate(zip(got, want)):
+        scale = float(b.float().abs().max()) or 1.0
+        check(f"{label} d(input {i}) / max |d| ({scale:.3e})",
+              max_err(a, b) / scale, TOL[name])
+    del want
+    bwd_ms = wall_ms(torch, lambda: torch.autograd.grad(
+        outs, xs, ups, retain_graph=True), iters=3, warmup=1)
+    print(f"  {label}: forward kernel {fwd_ms:.4f} ms a call (device); "
+          f"backward {bwd_ms:.2f} ms a call (between events), {n_bwd} "
+          f"launch(es)", flush=True)
+    return bwd_ms
+
+
+def phase10_functions(torch):
+    """(a) ``WKV6``, ``RGLRU`` and ``FlashAttention`` at the training
+    shapes against autograd through their plain versions. Returns the
+    backwards' ms by label."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru, rwkv6
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    out = {}
+    B, H, T, K = SERVE_BATCH, 64, SERVE_PROMPT, 64
+    for dt in (torch.float32, torch.bfloat16):
+        ins = wkv_inputs(torch, g, B, H, T, K, dt)
+        ups = (torch.randn(B, H, T, K, generator=g, device="cuda").to(dt),
+               torch.randn(B, H, K, K, generator=g, device="cuda"))
+        fwd = graph_ms(torch, lambda: rwkv6.wkv6_bhtk(*ins), iters=4,
+                       replays=3)
+        label = f"WKV6 {B}x{H}x{T}x{K} {dtype_name(dt)}"
+        out[label] = function_parity(torch, label, rwkv6.wkv6_grad,
+                                     rwkv6.wkv6_ref, ins, ups, fwd, 0)
+        del ins, ups
+    B, T, C = RG_BATCH, RG_PROMPT, 2560
+    ins = rglru_inputs(torch, g, B, T, C)
+    ups = tuple(torch.randn(*x.shape, generator=g, device="cuda")
+                for x in (ins[0], ins[2]))
+    fwd = graph_ms(torch, lambda: rglru.rglru_btc(*ins), iters=4, replays=3)
+    label = f"RGLRU {B}x{T}x{C} fp32"
+    out[label] = function_parity(torch, label, rglru.rglru_grad,
+                                 rglru.rglru_ref, ins, ups, fwd, 1)
+    print(f"  RGLRU's reverse scan is the forward kernel at the same shape: "
+          f"{fwd:.4f} ms a call (device)", flush=True)
+    del ins, ups
+    H, S, hd, W = 10, RG_PROMPT, 256, 2048
+    ins = tuple(torch.randn(B, n, S, hd, generator=g, device="cuda")
+                for n in (H, 1, 1))
+    ups = torch.randn(B, H, S, hd, generator=g, device="cuda")
+    kw = dict(window=W)
+    fwd = graph_ms(torch, lambda: fa.flash_attention_bhsd(*ins, **kw),
+                   iters=2, replays=2)
+    label = f"FlashAttention {B}x{H}/1x{S} hd {hd} window {W} fp32"
+    out[label] = function_parity(
+        torch, label, lambda q, k, v: fa.flash_attention_grad(q, k, v, **kw),
+        lambda q, k, v: fa.attention_ref(q, k, v, **kw), ins, ups, fwd, 0)
+    del ins, ups
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_step_launches(cfg):
+    """One train step's launches with remat "full": wkv6's prefill form
+    twice a ``rwkv`` layer (forward, recompute), rglru three times an
+    ``rglru`` layer (forward, recompute, the backward's reverse scan),
+    flash's fp32 sequence form twice an ``attn_local`` layer (the residual
+    stream is fp32: ``emb_scale``); the plain backwards launch none."""
+    kinds = cfg.layer_kinds
+    n_wkv, n_rg = 2 * kinds.count("rwkv"), 3 * kinds.count("rglru")
+    n_fa = 2 * kinds.count("attn_local")
+    want = {}
+    if n_wkv:
+        want.update({"wkv6_bhtk": n_wkv, ("wkv6_bhtk", "prefill"): n_wkv})
+    if n_rg:
+        want["rglru_btc"] = n_rg
+    if n_fa:
+        want.update({"flash_attention_bhsd": n_fa,
+                     ("flash_attention_bhsd", "seq_f32"): n_fa})
+    return want
+
+
+def ssm_train_agreement(torch):
+    """(b) Both archs reduced in fp32 with remat "full": ``SSM_AGREE_STEPS``
+    ``make_train_step`` steps from one set of weights and batches on the
+    card and on the CPU; the losses to ``EVO_LOSS_RTOL`` relative, every
+    weight to ``EVO_PARAM_ATOL``, each card step's launches
+    (``ssm_step_launches``)."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import trainable
+    from repro_torch.optim import OptConfig, init_opt_state, make_train_step
+
+    opt = OptConfig(lr=5e-4, warmup_steps=0, total_steps=10)
+    for arch, (B, S) in SSM_AGREE_SHAPES.items():
+        cfg = get_reduced(arch).replace(compute_dtype="float32",
+                                        remat="full")
+        base = lm.init_lm(cfg, seed=0, device="cpu")
+        batches = [lm_batch(cfg, B, S, seed=3, step=i)
+                   for i in range(SSM_AGREE_STEPS)]
+        out, tallies = {}, []
+        for dev in ("cuda", "cpu"):
+            params = trainable(base, dev)
+            state = init_opt_state(dict(params.named_parameters()), opt)
+            step, losses = make_train_step(cfg, opt), []
+            for b in batches:
+                with ops.tally() as counts:
+                    params, state, m = step(params, state, {
+                        k: v.to(dev) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+                if dev == "cuda":
+                    tallies.append(dict(counts))
+            out[dev] = losses, dict(params.named_parameters())
+        (gl, gp), (cl, cp) = out["cuda"], out["cpu"]
+        want = ssm_step_launches(cfg)
+        expect(all(c == want for c in tallies), f"{arch} reduced: card "
+               f"steps' launches {tallies}, not {want} a step")
+        print(f"  {arch} reduced, {SSM_AGREE_STEPS} steps fp32, remat full, "
+              f"{B} x {S}: losses card {[round(x, 5) for x in gl]}, CPU "
+              f"{[round(x, 5) for x in cl]}; {want} a card step", flush=True)
+        check(f"{arch} reduced train losses card vs CPU, relative",
+              max(abs(a - b) / abs(b) for a, b in zip(gl, cl)),
+              EVO_LOSS_RTOL)
+        check(f"{arch} reduced trained weights card vs CPU",
+              max(max_err(gp[n].detach().cpu(), cp[n].detach())
+                  for n in cp), EVO_PARAM_ATOL)
+
+
+def n_params(torch, cfg):
+    """Parameters of ``cfg``'s LM, built on the meta device."""
+    from repro_torch.models import lm
+    with torch.device("meta"):
+        return sum(p.numel() for p in lm.LM(cfg).parameters())
+
+
+def train_cfg(torch, arch, B, S):
+    """The full config of ``arch``, its first segment's repeats cut to the
+    deepest that trains in the card's free memory: 16 bytes a parameter
+    (fp32 weights, gradients and two AdamW moments; the update runs in
+    slices), the layer inputs remat keeps, and a step's transient memory
+    (one layer's recompute, its backward, a CE chunk) as measured on a
+    one-repeat model, with ``SERVE_HEADROOM`` to spare. Returns (cfg, the
+    reckoning printed)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import OptConfig
+
+    cfg = get_config(arch)
+    (kinds, reps), *rest = cfg.segments
+
+    def cut(n):
+        segs = ((kinds, n),) + tuple(rest)
+        return cfg.replace(n_layers=sum(len(k) * r for k, r in segs),
+                           segments=segs)
+    elem = 4 if cfg.emb_scale else 2          # the residual stream's dtype
+    saved = B * S * cfg.d_model * elem        # one layer's kept input
+    probe = cut(1)
+    params, opt_state, step = tr.build(probe, OptConfig(), device="cuda")
+    batch = {k: v.cuda() for k, v in lm_batch(probe, B, S).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    one = n_params(torch, probe)
+    transient = torch.cuda.max_memory_allocated() - 16 * one
+    del params, opt_state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    per_rep = n_params(torch, cut(2)) - one
+
+    def need(n):
+        return 16 * (one + (n - 1) * per_rep) + saved * cut(n).n_layers \
+            + transient
+    n = reps
+    while n > 1 and need(n) + SERVE_HEADROOM > free:
+        n -= 1
+    expect(need(n) + SERVE_HEADROOM <= free, f"{arch}: not one repeat of "
+           f"{kinds} trains in {free / 1e9:.1f} GB")
+    whole = n_params(torch, cfg)
+    note = (f"{'all' if n == reps else 'cut to'} {cut(n).n_layers} of "
+            f"{cfg.n_layers} layers ({n} of {reps} repeats of {list(kinds)}"
+            f"): 16 B x {(one + (n - 1) * per_rep) / 1e9:.3f}B parameters "
+            f"(whole model {whole / 1e9:.3f}B, param_count "
+            f"{cfg.param_count() / 1e9:.3f}B) + {saved / 1e6:.0f} MB of "
+            f"kept input a layer + {transient / 1e9:.2f} GB measured on a "
+            f"{probe.n_layers}-layer step = {need(n) / 1e9:.1f} GB, "
+            f"{free / 1e9:.1f} GB free, {SERVE_HEADROOM / 1e9:.0f} GB kept")
+    return cut(n), note
+
+
+def ssm_train(torch, arch):
+    """(c)-(e) ``launch/train.py`` on ``arch`` at full width, the depth
+    from ``train_cfg``: ``SSM_TRAIN_STEPS`` steps of ``SSM_TRAINS`` rows x
+    tokens, bf16 compute, the config's remat and CE chunks, no checkpoint;
+    each step's launches (``ops.tally``) and the counters (zeroed before,
+    read after) held to ``ssm_step_launches``; every loss finite, every
+    weight leaf moved; ms a step, tokens/s, peak memory; then one more
+    step under ``torch.profiler``. Returns the counters."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import OptConfig, make_train_step
+
+    B, S = SSM_TRAINS[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cfg, note = train_cfg(torch, arch, B, S)
+    print(f"  the depth reckoning took {time.perf_counter() - t:.1f} s",
+          flush=True)
+    print(f"phase 10c: launch/train.py, {arch} at full width (d "
+          f"{cfg.d_model}, {cfg.compute_dtype} compute, remat {cfg.remat}, "
+          f"{cfg.ce_chunks} CE chunks), {B} x {S} tokens, "
+          f"{SSM_TRAIN_STEPS} steps; depth {note}", flush=True)
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
+    steps, sums = [], {}
+
+    def first(params):
+        for n, p in params.named_parameters():
+            sums[n] = float(torch.linalg.vector_norm(p.detach(),
+                                                     dtype=torch.float64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with train_step_tallies(steps, first):
+        params, opt_state, losses = tr.train(
+            cfg, opt, steps=SSM_TRAIN_STEPS, batch=B, seq=S, log_every=100,
+            device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(ops.launches)
+    forms = {k: dict(v) for k, v in ops.forms.items()}
+    want = ssm_step_launches(cfg)
+    expect(len(steps) == SSM_TRAIN_STEPS
+           and all(c == want for c, _ in steps),
+           f"{arch}: steps' launches {[c for c, _ in steps]}, not {want}")
+    total = {k: v * SSM_TRAIN_STEPS for k, v in want.items()
+             if isinstance(k, str)}
+    expect(counts == dict(dict.fromkeys(counts, 0), **total),
+           f"{arch}: counters {counts}, not {total}")
+    expect(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    still = [n for n, p in params.named_parameters() if float(
+        torch.linalg.vector_norm(p.detach(), dtype=torch.float64))
+        == sums[n]]
+    expect(not still, f"{arch}: leaves that did not move: {still[:6]}")
+    walls = [w for _, w in steps]
+    ms = statistics.median(walls[1:])
+    print(f"  {arch}: losses {[round(x, 4) for x in losses]}; step wall "
+          f"{[round(w, 1) for w in walls]} ms, median of the last "
+          f"{len(walls) - 1} {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s; "
+          f"peak {peak / 1e9:.2f} GB; {want} a step (ops.tally), counters "
+          f"{counts}, forms {forms['wkv6_bhtk']} {forms['flash_attention_bhsd']}"
+          f"; all {len(sums)} weight leaves moved", flush=True)
+    step_fn = make_train_step(cfg, opt)
+    batch = {k: v.cuda() for k, v in lm_batch(cfg, B, S, seed=0,
+                                              step=0).items()}
+    t = time.perf_counter()
+    kernels = profile_step(torch, lambda: step_fn(params, opt_state, batch),
+                           f"phase 10e: one {arch} train step", top=10,
+                           cpu=False)
+    device_time_by_kind(kernels, TRAIN_KINDS, TRAIN_OTHER)
+    print(f"  the profiled step and its summary took "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    del params, opt_state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ssm_train(torch):
+    """Phase 10: training rwkv6-7b and recurrentgemma-2b. Returns (the new
+    records, launches by record name)."""
+    t_phase = time.perf_counter()
+    print("phase 10a: the SSM path's autograd Functions on the card vs "
+          "autograd through their plain versions", flush=True)
+    bwd = phase10_functions(torch)
+    print(f"  phase 10a took {time.perf_counter() - t_phase:.1f} s; phase "
+          f"10b: reduced SSM training, card vs CPU", flush=True)
+    ssm_train_agreement(torch)
+    counts = {}
+    for arch in SSM_TRAINS:
+        print(f"  {time.perf_counter() - t_phase:.1f} s into phase 10",
+              flush=True)
+        counts[arch] = ssm_train(torch, arch)
+    rg = counts["recurrentgemma-2b"]
+    print("phase 10f: the kernels at recurrentgemma-2b's training shape",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    B, S = SSM_TRAINS["recurrentgemma-2b"]
+    records = [dict(time_rglru(torch, g, B, S, 2560, "train"),
+                    name="rglru_btc_train"),
+               dict(time_flash256(torch, g, B, S, "train"),
+                    name="flash_attention_bhsd_hd256_train")]
+    print("  plain backwards, ms a call: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in bwd.items()), flush=True)
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return records, {
+        "wkv6_bhtk": counts["rwkv6-7b"]["wkv6_bhtk"],
+        "rglru_btc_train": rg["rglru_btc"],
+        "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
 
 
 def main():
@@ -3916,6 +4322,12 @@ def main():
     moe_records, moe_launches = phase_moe(torch)
     records += moe_records
     counts.update(moe_launches)
+    # training adds wkv6's prefill launches to phase 6's record (its shape)
+    # and has records of its own at recurrentgemma-2b's 4 x 2560
+    train_records, train_launches = phase_ssm_train(torch)
+    records += train_records
+    counts["wkv6_bhtk"] += train_launches.pop("wkv6_bhtk")
+    counts.update(train_launches)
     # the design-length record is the same kernel, run on the main path at
     # the engine's shape
     counts["paged_decode_bkgh_256x320"] = counts["paged_decode_bkgh"]

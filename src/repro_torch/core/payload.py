@@ -1038,8 +1038,9 @@ class FinetunePayload:
                     for n, p in params.named_parameters():
                         p.copy_(resume["params"][n])
                 st = resume["opt_state"]
-                opt_state = {
-                    k: {n: t.to(devices[0]) for n, t in st[k].items()}
+                opt_state = {   # copies: the step updates them in place
+                    k: {n: t.to(devices[0], copy=True)
+                        for n, t in st[k].items()}
                     for k in ("m", "v")}
                 opt_state["count"] = int(st["count"])
                 start = int(resume["step"])

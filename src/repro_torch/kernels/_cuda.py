@@ -18,7 +18,10 @@ running (``namespace``; the payload's task functions enter it), so a run can
 show which model ran. ``tally`` counts the launches one thread makes inside
 a block, so a run can read one task's launches while others run. All are
 updated under a lock: the executor's worker threads launch kernels at the
-same time.
+same time. Autograd runs a CUDA backward on a thread of its own; a
+backward that launches (``RGLRU``'s, or a rematerialized layer's forward
+run again) counts in the namespace and tallies that were current when its
+forward ran (``running``, captured then, and ``resume``).
 ``build_log`` holds the wall seconds of each build that ran ``nvcc`` in this
 process (``obs.torchwatch`` counts them).
 """
@@ -93,6 +96,24 @@ def tally():
         yield counts
     finally:
         _running.tallies = outer
+
+
+def running():
+    """This thread's namespace and tallies, for ``resume`` on another."""
+    return (getattr(_running, "namespace", None),
+            getattr(_running, "tallies", ()))
+
+
+@contextlib.contextmanager
+def resume(state):
+    """Count this thread's launches inside the block as the thread whose
+    ``running()`` gave ``state`` counts its own."""
+    outer = running()
+    _running.namespace, _running.tallies = state
+    try:
+        yield
+    finally:
+        _running.namespace, _running.tallies = outer
 
 
 def nvcc() -> str:

@@ -3,9 +3,10 @@
 Model code calls these with model-layout tensors; each converts to the
 kernel layout and calls the kernel wrapper, which takes the plain version
 for a CPU tensor and launches the CUDA kernel for a CUDA tensor (or
-raises). ``flash_attention`` goes through the kernel's autograd Function
-(``flash_attention_grad``) only when grad mode is on and an input
-requires grad, as in a finetune step; every serving call takes the wrapper
+raises). ``flash_attention``, ``wkv6`` and ``rglru`` go through their
+kernel's autograd Function (``flash_attention_grad``, ``wkv6_grad``,
+``rglru_grad``) only when grad mode is on and an input requires grad, as
+in a finetune or train step; every serving call takes the wrapper
 directly. ``launches`` holds one plain-integer launch count per kernel,
 ``forms`` the flash and wkv6 kernels' counts split by form,
 ``by_namespace`` the counts split by param-set namespace.
@@ -23,6 +24,10 @@ from repro_torch.kernels._cuda import (  # noqa: F401
     by_namespace, forms, launches, reset_launches, tally)
 
 
+def _training(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     seq_k=None):
     """Model layout: q (B,S,H,hd); k/v (B,T,KV,hd). Returns (B,S,H,hd).
@@ -35,8 +40,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if q.shape[1] > 1:
         kt, vt = kt.contiguous(), vt.contiguous()
     fn = _fa.flash_attention_bhsd
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if _training(q, k, v):
         fn = _fa.flash_attention_grad
         kt, vt = kt.contiguous(), vt.contiguous()
     out = fn(q.transpose(1, 2).contiguous(), kt, vt, causal=causal,
@@ -62,12 +66,16 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
 def wkv6(r, k, v, logw, u, s0):
     """r/k/v/logw (B,H,T,K), any T >= 1; u (H,K); s0 (B,H,K,K).
     Returns y (B,H,T,K) in r's dtype, s_T (B,H,K,K) fp32."""
-    return _wk.wkv6_bhtk(r, k, v, logw.float().contiguous(), u.float(),
-                         s0.float().contiguous())
+    args = (r, k, v, logw.float().contiguous(), u.float(),
+            s0.float().contiguous())
+    fn = _wk.wkv6_grad if _training(*args) else _wk.wkv6_bhtk
+    return fn(*args)
 
 
 def rglru(a, b, h0):
     """a/b (B,T,C), any T >= 1; h0 (B,C). Returns h (B,T,C) fp32, h_T (B,C)
     fp32."""
-    return _rg.rglru_btc(a.float().contiguous(), b.float().contiguous(),
-                         h0.float().contiguous())
+    args = (a.float().contiguous(), b.float().contiguous(),
+            h0.float().contiguous())
+    fn = _rg.rglru_grad if _training(*args) else _rg.rglru_btc
+    return fn(*args)

@@ -9,7 +9,9 @@ Returns h (B, T, C) and h_T (B, C), both fp32.
 
 ``rglru_btc`` takes the plain version for CPU tensors and launches the CUDA
 kernel (``csrc/rglru.cu``, one thread per channel walking the tokens in
-order, any T >= 1) for CUDA tensors.
+order, any T >= 1) for CUDA tensors. ``rglru_grad`` is the same function
+with a gradient (``RGLRU``): its backward is the same recurrence run
+backwards in time, so it calls ``rglru_btc`` again, on flipped inputs.
 """
 
 from __future__ import annotations
@@ -59,3 +61,44 @@ def _launch(a, b, h0):
         h_T.data_ptr(), B, T, C, *_cuda.device_and_stream(dev))
     _cuda.check_launch(name, err)
     return h, h_T
+
+
+# ---------------------------------------------------------------------------
+# training: the gradient
+# ---------------------------------------------------------------------------
+
+class RGLRU(torch.autograd.Function):
+    """``rglru_btc`` with a gradient. The forward is the wrapper as it is
+    (one kernel launch on CUDA tensors). With g_t the loss's gradient with
+    respect to h_t through every later step,
+
+      g_t = gh_t + a_{t+1} g_{t+1},   g_{T-1} = gh_{T-1} + gT,
+
+    an RG-LRU recurrence in reversed time with decay a_next and input gh,
+    started from gT: one more ``rglru_btc`` call (one launch). Then db = g,
+    da = g h_{t-1} (h_{-1} = h0) and dh0 = a_0 g_0."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_T = rglru_btc(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        ctx.running = _cuda.running()
+        return h, h_T
+
+    @staticmethod
+    def backward(ctx, gh, gT):
+        a, h0, h = ctx.saved_tensors
+        gh = torch.zeros_like(h) if gh is None else gh.float()
+        gT = torch.zeros_like(h0) if gT is None else gT.float()
+        a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+        with _cuda.resume(ctx.running):
+            g = rglru_btc(a_next.flip(1).contiguous(),
+                          gh.flip(1).contiguous(), gT.contiguous())[0]
+        g = g.flip(1)
+        h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+        return g * h_prev, g, a[:, 0] * g[:, 0]
+
+
+def rglru_grad(a, b, h0):
+    """``rglru_btc``'s contract, differentiable in a, b and h0."""
+    return RGLRU.apply(a, b, h0)

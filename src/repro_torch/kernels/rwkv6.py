@@ -13,7 +13,9 @@ Returns y (B, H, T, K) in r's dtype and s_T (B, H, K, K) in fp32.
 ``wkv6_bhtk`` takes the plain version for CPU tensors and launches a CUDA
 kernel (``csrc/wkv6.cu``, token-serial) for CUDA tensors: the decode kernel
 at T = 1, the prefill kernel at T > 1 (``wkv6_serial_ref`` repeats its
-order of operations). ``_cuda.forms`` counts the two apart.
+order of operations). ``_cuda.forms`` counts the two apart. ``wkv6_grad``
+is the same function with a gradient (``WKV6``): the kernel's forward and
+a plain backward.
 """
 
 from __future__ import annotations
@@ -38,36 +40,49 @@ def wkv6_ref(r, k, v, logw, u, s0, chunk=32):
     sums), not taken as a difference of prefix sums as the reference does:
     near logw = -e^5 a prefix sum reaches ~-4700 within 32 tokens, and
     differences of such sums lose ~5e-4 to fp32 rounding."""
-    B, H, T, K = r.shape
     S = s0.float()
     uf = u.float()[None, :, None, :]                              # (1,H,1,K)
     ys = []
-    for t0 in range(0, T, chunk):
-        rr, kk, vv, lw = (x[:, :, t0:t0 + chunk].float()
-                          for x in (r, k, v, logw))               # (B,H,C,K)
-        C = rr.shape[2]
-        before = torch.ones(C, C, dtype=torch.bool, device=r.device).tril(-1)
-        # carry-in: r_t decayed over the chunk's tokens before t
-        ecl = torch.cat([torch.zeros_like(lw[:, :, :1]),
-                         lw.cumsum(2)[:, :, :-1]], dim=2)
-        y = (rr * ecl.exp()) @ S
-        # D[t, j] = exp(sum of logw_i, j < i < t), for j < t
-        m = lw[:, :, None, :, :] * before[:, :, None]            # [t, i<t]
-        tail = m.flip(3).cumsum(3).flip(3)                    # sum over i>=j
-        D = torch.cat([tail[:, :, :, 1:], torch.zeros_like(tail[:, :, :, :1])],
-                      dim=3).exp()
-        scores = (rr[:, :, :, None, :] * kk[:, :, None, :, :] * D).sum(-1)
-        scores = scores * before
-        bonus = (rr * uf * kk).sum(-1, keepdim=True)              # (B,H,C,1)
-        y = y + scores @ vv + bonus * vv
-        # state: S decays over the whole chunk, k_j over the tokens after j
-        after = lw.flip(2).cumsum(2).flip(2)
-        after = torch.cat([after[:, :, 1:], torch.zeros_like(lw[:, :, :1])],
-                          dim=2)
-        S = S * lw.sum(2)[..., None].exp() \
-            + (kk * after.exp()).transpose(-1, -2) @ vv
+    for t0 in range(0, r.shape[2], chunk):
+        y, S = _chunk_fwd(*_chunk(r, k, v, logw, t0, chunk), uf, S)
         ys.append(y)
     return torch.cat(ys, dim=2).to(r.dtype), S
+
+
+def _chunk(r, k, v, logw, t0, chunk):
+    """Tokens t0 .. t0 + chunk - 1 of r, k, v and logw, in fp32."""
+    return (x[:, :, t0:t0 + chunk].float() for x in (r, k, v, logw))
+
+
+def _chunk_state(kk, vv, lw, S):
+    """The state after one chunk: S decays over the whole chunk, k_j over
+    the tokens after j."""
+    after = lw.flip(2).cumsum(2).flip(2)
+    after = torch.cat([after[:, :, 1:], torch.zeros_like(lw[:, :, :1])],
+                      dim=2)
+    return S * lw.sum(2)[..., None].exp() \
+        + (kk * after.exp()).transpose(-1, -2) @ vv
+
+
+def _chunk_fwd(rr, kk, vv, lw, uf, S):
+    """One chunk of ``wkv6_ref`` on fp32 (B,H,C,K) pieces from state S:
+    returns (y (B,H,C,K) fp32, the state after the chunk)."""
+    C = rr.shape[2]
+    before = torch.ones(C, C, dtype=torch.bool, device=rr.device).tril(-1)
+    # carry-in: r_t decayed over the chunk's tokens before t
+    ecl = torch.cat([torch.zeros_like(lw[:, :, :1]),
+                     lw.cumsum(2)[:, :, :-1]], dim=2)
+    y = (rr * ecl.exp()) @ S
+    # D[t, j] = exp(sum of logw_i, j < i < t), for j < t
+    m = lw[:, :, None, :, :] * before[:, :, None]                # [t, i<t]
+    tail = m.flip(3).cumsum(3).flip(3)                        # sum over i>=j
+    D = torch.cat([tail[:, :, :, 1:], torch.zeros_like(tail[:, :, :, :1])],
+                  dim=3).exp()
+    scores = (rr[:, :, :, None, :] * kk[:, :, None, :, :] * D).sum(-1)
+    scores = scores * before
+    bonus = (rr * uf * kk).sum(-1, keepdim=True)                  # (B,H,C,1)
+    y = y + scores @ vv + bonus * vv
+    return y, _chunk_state(kk, vv, lw, S)
 
 
 def wkv6_serial_ref(r, k, v, logw, u, s0, *, chunk=CHUNK, groups=None):
@@ -145,3 +160,63 @@ def _launch(r, k, v, logw, u, s0):
         _cuda.DTYPE_CODES[r.dtype], *_cuda.device_and_stream(dev))
     _cuda.check_launch(name, err, "decode" if T == 1 else "prefill")
     return y, s_T
+
+
+# ---------------------------------------------------------------------------
+# training: the gradient
+# ---------------------------------------------------------------------------
+
+GRAD_CHUNK = 32     # tokens the plain backward recomputes at a time
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6_bhtk`` with a gradient: the forward is the wrapper as it is
+    (one kernel launch on CUDA tensors), the backward plain (no launch).
+    It takes the state at each chunk's start from one no-grad pass of
+    ``_chunk_state``, then recomputes ``wkv6_ref``'s chunks under autograd
+    one at a time, last to first, each given dy and the gradient of the
+    state it hands on: the (B,H,C,C,K) pieces of one chunk are alive at a
+    time, not those of the whole sequence."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        y, s_T = wkv6_bhtk(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return y, s_T
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        r, k, v, logw, u, s0 = ctx.saved_tensors
+        starts = range(0, r.shape[2], GRAD_CHUNK)
+        S = [s0.float()]
+        with torch.no_grad():
+            for t0 in starts[:-1]:
+                _, kk, vv, lw = _chunk(r, k, v, logw, t0, GRAD_CHUNK)
+                S.append(_chunk_state(kk, vv, lw, S[-1]))
+        dS = torch.zeros_like(S[0]) if dS is None else dS.float()
+        du = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        parts = []
+        for t0, S0 in zip(reversed(starts), reversed(S)):
+            leaves = [x.detach().requires_grad_() for x in
+                      _chunk(r, k, v, logw, t0, GRAD_CHUNK)]
+            ul = u.detach().float().requires_grad_()
+            S0 = S0.detach().requires_grad_()
+            with torch.enable_grad():
+                y, S1 = _chunk_fwd(*leaves, ul[None, :, None, :], S0)
+                outs, grads = [S1], [dS]
+                if dy is not None:
+                    outs.append(y)
+                    grads.append(dy[:, :, t0:t0 + GRAD_CHUNK].float())
+                *g, gu, dS = torch.autograd.grad(
+                    outs, leaves + [ul, S0], grads, allow_unused=True)
+            parts.append([torch.zeros_like(x) if gx is None else gx
+                          for x, gx in zip(leaves, g)])
+            du = du + gu
+        dr, dk, dv, dlogw = (torch.cat(p[::-1], dim=2).to(x.dtype)
+                             for p, x in zip(zip(*parts), (r, k, v, logw)))
+        return dr, dk, dv, dlogw, du.to(u.dtype), dS.to(s0.dtype)
+
+
+def wkv6_grad(r, k, v, logw, u, s0):
+    """``wkv6_bhtk``'s contract, differentiable in every input."""
+    return WKV6.apply(r, k, v, logw, u, s0)

@@ -2,8 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 100 --batch 8 --seq 128 --ckpt-dir CKPT [--restore]
-  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
-      --steps 6 --batch 4 --seq 32
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --reduced --device cpu --steps 6 --batch 4 --seq 32
 
 Checkpoint/restart is automatic: ``--restore`` resumes from the newest
 snapshot (training state + data cursor), which is the fault-tolerance path
@@ -14,13 +14,16 @@ A port of the JAX package's ``repro.launch.train`` over the port's
 ``CheckpointManager`` and ``data.loader.Prefetcher``. Where it differs:
 
 * It runs on ``--device`` (default ``cuda``); the step is eager
-  (``torch.autograd``), with nothing jitted or donated.
+  (``torch.autograd``), nothing jitted; it updates the weights and moments
+  in place, as the reference donates them to its jitted step.
 * Only ``--mesh none`` runs: a mesh raises before any weight is built
-  (sharding is ROADMAP Queue 1, item 3).
-* An arch whose layers the port cannot differentiate raises before any
-  weight is built: ``rwkv`` and ``rglru`` blocks (their kernels have no
-  gradient yet, ROADMAP Queue 1, item 2) and attention with a logit
-  softcap, which ``kernels.flash_attention.FlashAttention`` refuses.
+  (sharding is ROADMAP Queue 1, item 2).
+* Every arch of ``configs.registry.ARCH_IDS`` trains, the ``rwkv`` and
+  ``rglru`` layers through their kernels' autograd Functions
+  (``kernels.rwkv6.WKV6``, ``kernels.rglru.RGLRU``), each layer
+  rematerialized as the config's ``remat`` says. Attention with a logit
+  softcap raises before any weight is built:
+  ``kernels.flash_attention.FlashAttention`` refuses it.
 * The weights are drawn from seed 0 on the device, as the reference draws
   ``PRNGKey(0)``, so a card and the CPU start from other weights.
 """
@@ -39,8 +42,6 @@ from repro_torch.models import lm
 from repro_torch.models.common import trainable
 from repro_torch.optim import OptConfig, init_opt_state, make_train_step
 
-NOT_DIFFERENTIABLE = ("rwkv", "rglru")
-
 
 def check_trainable(cfg, mesh=None):
     """Raise what the port cannot train, before any weight is built.
@@ -48,12 +49,7 @@ def check_trainable(cfg, mesh=None):
     if mesh not in (None, "none"):
         raise NotImplementedError(
             f"mesh {mesh!r}: sharded training is not ported (ROADMAP Queue "
-            f"1, item 3); run with mesh none")
-    kinds = sorted(set(cfg.layer_kinds) & set(NOT_DIFFERENTIABLE))
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: {kinds} layers have no gradient in the port yet "
-            f"(ROADMAP Queue 1, item 2)")
+            f"1, item 2); run with mesh none")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention with logit softcap "

@@ -15,12 +15,22 @@ cross-attention over the encoder output, then the MLP; its cache is
 ``"attn_local_moe"`` kinds are ``"attn"`` and ``"attn_local"`` with the
 mixture-of-experts FFN (``moe.Moe``) in place of the MLP: their
 full-sequence forward hands the router's aux values to the caller, their
-prefill and decode drop them, as the reference's do."""
+prefill and decode drop them, as the reference's do.
+
+``layer_fwd_remat`` is the training forward under the reference's
+``_remat`` (``cfg.remat``): "full" keeps only the layer's input and runs
+the layer again in the backward pass, "dots" keeps the matrix products'
+outputs as well (the reference's ``dots_saveable``)."""
 
 from __future__ import annotations
 
+import contextlib
+
+import torch
+import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.kernels import _cuda
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import Norm, norm_fwd
@@ -121,6 +131,53 @@ def layer_fwd(kind, p, x, ctx, cfg):
         h, _ = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
                                   ctx["enc_out"], cfg)
     return _ffn_after(p, x, h, cfg)
+
+
+REMATS = ("none", "full", "dots")
+# what the "dots" policy keeps: the outputs of the matrix products
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _within(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _remat_contexts(cfg):
+    """(forward, recompute) contexts of one rematerialized layer. The
+    recompute runs on autograd's thread and counts its kernel launches as
+    the forward's thread (``_cuda.resume``)."""
+    carried = _cuda.resume(_cuda.running())
+    if cfg.remat == "full":
+        return contextlib.nullcontext(), carried
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    fwd, recompute = create_selective_checkpoint_contexts(_save_dots)
+    return fwd, _within(recompute, carried)
+
+
+def layer_fwd_remat(kind, p, x, ctx, cfg):
+    """``layer_fwd`` as the reference trains it: with grad on and
+    ``cfg.remat`` "full" or "dots", under ``torch.utils.checkpoint``; with
+    grad off or remat "none", as it is. No layer draws random numbers, so
+    the recompute needs no RNG state to give the same values."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat {cfg.remat!r} not in {REMATS}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return layer_fwd(kind, p, x, ctx, cfg)
+    return torch.utils.checkpoint.checkpoint(
+        layer_fwd, kind, p, x, ctx, cfg, use_reentrant=False,
+        preserve_rng_state=False,
+        context_fn=lambda: _remat_contexts(cfg))
 
 
 def init_layer_cache(kind, cfg, batch, length, device=None):

@@ -78,7 +78,7 @@ def _encode(params, frames, cfg):
     x = frames.to(torch_dtype(cfg.compute_dtype))
     ctx = {"positions": torch.arange(x.shape[1], device=x.device)}
     for layer, kind in zip(params.enc_layers, cfg.encoder_kinds):
-        x, _ = blocks.layer_fwd(kind, layer, x, ctx, cfg)
+        x, _ = blocks.layer_fwd_remat(kind, layer, x, ctx, cfg)
     return norm_fwd(params.enc_norm, x, cfg)
 
 
@@ -113,14 +113,16 @@ def _prefix_embed(params, batch, cfg):
 
 
 def lm_hidden(params, batch, cfg):
-    """Backbone forward -> (hidden (B,S,d) at the token positions, aux):
+    """Backbone forward -> (hidden (B,S,d) at the token positions, aux),
+    each layer rematerialized in training as ``cfg.remat`` says
+    (``blocks.layer_fwd_remat``):
     ``moe.AUX_KEYS``' values summed over the layers, fp32 zeros where a
     layer has no experts (so a dense config reports zeros, as the
     reference's segment scan pads them)."""
     x, ctx, n_prefix = _context(params, batch, cfg)
     auxs = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
     for layer, kind in zip(params.layers, cfg.layer_kinds):
-        x, aux = blocks.layer_fwd(kind, layer, x, ctx, cfg)
+        x, aux = blocks.layer_fwd_remat(kind, layer, x, ctx, cfg)
         for k, v in aux.items():
             auxs[k] = auxs[k] + v
     return x[:, n_prefix:], auxs

@@ -57,38 +57,57 @@ def global_norm(tree):
     return torch.stack(leaves).sum().sqrt()
 
 
+def clip_scale(norm, max_norm):
+    """The factor ``clip_by_global_norm`` scales every gradient by."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm):
     """Scale every gradient by min(1, max_norm / norm); returns (clipped
     gradients in their own dtypes, the norm before clipping)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return {n: (g.float() * scale).to(g.dtype)
             for n, g in grads.items()}, norm
 
 
-def _is_matrix(p, rank):
+def is_matrix(p, rank):
+    """Whether weight decay applies: a rank of 2 or more (``rank`` the
+    reference layout's, else ``p``'s own)."""
     return (p.dim() if rank is None else rank) >= 2
 
 
-def adamw_update(grads, opt_state, params, opt: OptConfig, lr, ranks=None):
-    """One AdamW step in fp32, bias-corrected by ``1 - b ** count``.
-    Returns (new params in their dtypes, new optimizer state); nothing is
-    updated in place."""
-    count = int(opt_state["count"]) + 1
+def adamw_leaf(opt: OptConfig, count, lr):
+    """AdamW's update of one leaf (or any piece of one) at step ``count``
+    (1 on the first), bias-corrected by ``1 - b ** count``:
+    ``update(g, m, v, p, matrix)`` returns (new p, m, v), each in its own
+    dtype, computed in fp32; ``matrix`` adds the weight decay."""
     f32 = np.float32
     c1 = float(f32(1.0) - f32(opt.b1) ** f32(count))
     c2 = float(f32(1.0) - f32(opt.b2) ** f32(count))
     b1, b2 = opt.b1, opt.b2
     mdt = getattr(torch, opt.moment_dtype)
+
+    def update(g, m, v, p, matrix):
+        g = g.float()
+        m = b1 * m.float() + (1 - b1) * g
+        v = b2 * v.float() + (1 - b2) * g.square()
+        step = (m / c1) / (torch.sqrt(v / c2) + opt.eps)
+        if matrix:
+            step = step + opt.weight_decay * p.float()
+        return (p.float() - lr * step).to(p.dtype), m.to(mdt), v.to(mdt)
+    return update
+
+
+def adamw_update(grads, opt_state, params, opt: OptConfig, lr, ranks=None):
+    """One AdamW step (``adamw_leaf``) over every leaf. Returns (new params
+    in their dtypes, new optimizer state); nothing is updated in place."""
+    count = int(opt_state["count"]) + 1
+    update = adamw_leaf(opt, count, lr)
     ranks = ranks or {}
     new_p, new_m, new_v = {}, {}, {}
     for n, p in params.items():
-        g = grads[n].float()
-        m = b1 * opt_state["m"][n].float() + (1 - b1) * g
-        v = b2 * opt_state["v"][n].float() + (1 - b2) * g.square()
-        step = (m / c1) / (torch.sqrt(v / c2) + opt.eps)
-        if _is_matrix(p, ranks.get(n)):
-            step = step + opt.weight_decay * p.float()
-        new_p[n] = (p.float() - lr * step).to(p.dtype)
-        new_m[n], new_v[n] = m.to(mdt), v.to(mdt)
+        new_p[n], new_m[n], new_v[n] = update(
+            grads[n], opt_state["m"][n], opt_state["v"][n], p,
+            is_matrix(p, ranks.get(n)))
     return new_p, {"m": new_m, "v": new_v, "count": count}

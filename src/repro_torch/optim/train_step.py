@@ -17,6 +17,12 @@ are summed on ``params``' device before the single update, and so are the
 metrics (a shard's loss normalized by sums over the whole batch makes the
 sum the whole batch's loss). After the update every replica takes the
 new values.
+
+The step writes the new parameters and moments into ``params`` and
+``opt_state``'s moment tensors, as the reference's launcher donates both
+to its jitted step, and updates a leaf in flat slices of ``UPDATE_SLICE``
+elements: past the gradients, the update holds one slice's fp32
+temporaries, not a second copy of the weights, gradients and moments.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import lm
-from repro_torch.optim.optimizers import (OptConfig, adamw_update,
-                                          clip_by_global_norm)
+from repro_torch.optim.optimizers import (OptConfig, adamw_leaf,
+                                          clip_scale, global_norm, is_matrix)
 from repro_torch.optim.schedules import make_schedule
+
+UPDATE_SLICE = 1 << 26      # elements of a leaf the update takes at a time
 
 
 def _trained(module):
@@ -77,19 +85,30 @@ def make_train_step(cfg, opt: OptConfig, loss_fn=None):
             else:
                 grads = {k: v + g[k].to(dev) for k, v in grads.items()}
                 metrics = {k: v + m[k].to(dev) for k, v in metrics.items()}
-        grads, gnorm = clip_by_global_norm(grads, opt.clip_norm)
+        gnorm = global_norm(grads)
+        scale = clip_scale(gnorm, opt.clip_norm)
         lr = schedule(opt_state["count"])
-        named = dict(_trained(params))
-        new, opt_state = adamw_update(
-            grads, opt_state, {n: p.detach() for n, p in named.items()},
-            opt, lr, ref_ndims(params))
+        count = int(opt_state["count"]) + 1
+        update = adamw_leaf(opt, count, lr)
+        ranks = ref_ndims(params)
+        m, v = opt_state["m"], opt_state["v"]
         with torch.no_grad():
-            for n, p in named.items():
-                p.copy_(new[n])
+            for n, p in _trained(params):
+                g = grads.pop(n).reshape(-1)
+                flat = [p.view(-1), m[n].view(-1), v[n].view(-1)]
+                for i in range(0, g.numel(), UPDATE_SLICE):
+                    pieces = [x[i:i + UPDATE_SLICE] for x in flat]
+                    gi = g[i:i + UPDATE_SLICE]
+                    new = update((gi.float() * scale).to(gi.dtype),
+                                 pieces[1], pieces[2], pieces[0],
+                                 is_matrix(p, ranks.get(n)))
+                    for x, y in zip(pieces, new):
+                        x.copy_(y)
             for r in replicas or ():
                 if r is not params:
-                    for n, p in _trained(r):
-                        p.copy_(new[n])
+                    for (_, a), (_, b) in zip(_trained(r), _trained(params)):
+                        a.copy_(b)
+        opt_state = {"m": m, "v": v, "count": count}
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
     return train_step
