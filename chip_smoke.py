@@ -221,14 +221,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    under ``torch.profiler`` (the device alone), device time by kind
    (``TRAIN_KINDS``). (f) rglru and flash's fp32 form timed at
    recurrentgemma-2b's 4 x 2560, records of their own.
-11. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
+11. Sharding and cost accounting on a one-rank NCCL mesh (1, 1) over
+   ("data", "model"), the card being one GPU (multi-rank numerics are the
+   CPU tests' ``tests/test_torch_mesh_train.py``). (a) ``launch/train.py``
+   with ``--mesh none`` and then ``--mesh sim`` from seed 0
+   (``MESH_TRAINS``: smollm-360m whole, 8 x 512; rwkv6-7b at 2 layers and
+   recurrentgemma-2b at one (rglru, rglru, attn_local) block, 4 x 512;
+   full width, 4 steps): every mesh parameter a DTensor, losses within
+   1e-5 and weights within 1e-4 relative of the unsharded run, each step's
+   launches (``ops.tally``) the unsharded run's by kernel and form and the
+   remat rule's; the gathered uses and gradient reductions a step. (b) A
+   mesh checkpoint at step 2 of smollm-360m: the loss of step 3 from the
+   saved weights, the restored mesh run's and a ``--mesh none`` launcher's
+   restored from the same file all bitwise equal. (c) One smollm-360m mesh
+   step under ``distributed.cost``'s counter: its ``Roofline`` record
+   (FLOPs, bytes and collective bytes a device, attention and mixer tags,
+   6·N·D), the measured step time and the step's model-FLOP share (mfu)
+   at the bf16 peak; then one more step under ``torch.profiler`` (the
+   device alone), device time by kind. (d) ``python -m
+   repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` and rwkv6-7b
+   ``decode_32k`` on the single-pod mesh, in two subprocesses on fake
+   256-rank groups: each roofline line and bottleneck. (e) Flash at
+   smollm-360m's train shape (8 x 15/5 x 512, hd 64, bf16), its own
+   record.
+12. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
    launches are added to the records of the forms it ran; phase 8's five
    shapes are records of their own, their launches phase 8's serves';
    phase 9's two likewise; phase 10's wkv6 launches are added to phase
    6's record, its shape, and its rglru and flash launches are the 4 x
-   2560 records'), the total time, the card line, then the last line
+   2560 records'; phase 11's mesh runs add theirs to the records of the
+   kernels and forms they ran, smollm-360m's flash shape its own), the
+   total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -272,8 +297,6 @@ from importlib import metadata
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12                        # H100 SXM device memory
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}        # flash, as the CPU tests
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 WKV_STATE_TOL = {"atol": 1e-4, "rtol": 1e-3}       # test_kernels.py's own
@@ -347,6 +370,18 @@ SSM_TRAIN_STEPS = 4
 # losses to 1e-5 relative and weights to 1e-4 after them (phase 5d b's)
 SSM_AGREE_SHAPES = {"rwkv6-7b": (4, 40), "recurrentgemma-2b": (4, 24)}
 SSM_AGREE_STEPS = 5
+# phase 11: launch/train.py --mesh sim on a one-rank NCCL mesh, at full
+# width: arch -> (rows, tokens a row, layers kept; None: the whole model).
+# rwkv6-7b keeps 2 layers, recurrentgemma-2b one repeat of its (rglru,
+# rglru, attn_local) block, so its local attention runs
+MESH_TRAINS = {"smollm-360m": (8, 512, None), "rwkv6-7b": (4, 512, 2),
+               "recurrentgemma-2b": (4, 512, 3)}
+MESH_STEPS = 4
+# mesh against --mesh none from one seed: the finetune's tolerances (5d b)
+MESH_LOSS_RTOL, MESH_WEIGHT_RTOL = 1e-5, 1e-4
+# phase 11d: launch/dryrun.py cells on the single-pod mesh
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 600
 
 
 def expect(cond, msg):
@@ -414,10 +449,25 @@ def graph_ms(torch, fn, iters=20, replays=10):
 
 def bound_ms(n_bytes, n_ops, dtype):
     """The least time for the work: bytes over the memory rate or operations
-    over the peak rate for their type, whichever is larger."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    over the peak rate for their type, whichever is larger (the card's
+    rates: ``distributed.roofline``)."""
+    from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
+    t_bytes = n_bytes / HBM_BW * 1e3
+    t_ops = n_ops / PEAK_FLOPS_BY_DTYPE[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound(q, k, v, causal=True, window=0, seq_k=None):
+    """(bound ms, what bounds it) of one flash call on these tensors, its
+    bytes and operations from ``distributed.cost.flash_work``: q read and
+    the output written, K and V read once, 4 hd operations a live (q, k)
+    pair, at the peak of q's dtype."""
+    from repro_torch.distributed import cost
+    B, H, Sq, hd = q.shape
+    flops, n_bytes = cost.flash_work(
+        B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
+        q.element_size(), k.element_size(), causal, window)
+    return bound_ms(n_bytes, flops, dtype_name(q.dtype))
 
 
 def max_err(got, want):
@@ -528,11 +578,10 @@ def time_paged(torch, pa, rng, B, n_tok, maxp, n_split=None, cold=False):
     weighs a dead key's value by 0 turns a NaN there into NaN. Returns a
     dict of the numbers."""
     import numpy as np
+    from repro_torch.distributed import cost
     KV, G, hd = 4, 2, 32
-    live = B * n_tok
-    n_bytes = (2 * B * KV * G * hd + 2 * live * KV * hd) * 2 \
-        + (B * maxp + B) * 4
-    b_ms, b_by = bound_ms(n_bytes, 4 * hd * G * KV * live, "bfloat16")
+    n_ops, n_bytes = cost.paged_work(B, KV, G, hd, B * n_tok, maxp, 2)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
     sets = [paged_inputs(torch, rng, np.full(B, n_tok), torch.bfloat16,
                          maxp=maxp, trash=0.0)
             for _ in range(-(-100_000_000 // n_bytes) if cold else 1)]
@@ -697,9 +746,7 @@ def phase_kernels(torch):
         run_l = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=H != KV)
         err = max_err(run_k(), run_p())
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        n_ops = 4 * hd * B * H * S * (S + 1) // 2      # live causal pairs
-        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        b_ms, b_by = flash_bound(q, k, v)
         ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
                           graph_ms(torch, run_l))
         print(f"  flash {label} bf16, device ms per call: kernel {ms:.4f}, "
@@ -736,13 +783,13 @@ def wkv_inputs(torch, g, B, H, T, K, dtype, s0=True, logw_ends=False):
 
 
 def wkv_bound(B, H, T, K, elem):
-    """(bound ms, what bounds it, bytes) of one wkv6 call. Bytes: r/k/v
-    read and y written in the compute dtype, logw read in fp32, u read, s0
-    read and s_T written in fp32. Operations: two fp32 multiply-adds per
-    state element per token (the output and the state update)."""
-    n = B * H * T * K
-    n_bytes = 4 * n * elem + 4 * n + 4 * H * K + 2 * 4 * B * H * K * K
-    return (*bound_ms(n_bytes, 4 * B * H * T * K * K, "float32"), n_bytes)
+    """(bound ms, what bounds it, bytes) of one wkv6 call, its work from
+    ``distributed.cost.wkv6_work``: r/k/v read and y written in the compute
+    dtype, logw read in fp32, u read, s0 read and s_T written in fp32; two
+    fp32 multiply-adds per state element per token."""
+    from repro_torch.distributed import cost
+    n_ops, n_bytes = cost.wkv6_work(B, H, T, K, elem)
+    return (*bound_ms(n_bytes, n_ops, "float32"), n_bytes)
 
 
 def phase_wkv6(torch):
@@ -829,16 +876,6 @@ def rglru_inputs(torch, g, B, T, C, h0=True):
     return a, b, h
 
 
-def live_pairs(Sq, Sk, causal, window):
-    """(q, k) pairs a mask leaves live, queries and keys indexed from 0."""
-    n = 0
-    for r in range(Sq):
-        lo = max(0, r - window + 1) if window > 0 else 0
-        hi = min(r, Sk - 1) if causal else Sk - 1
-        n += max(0, hi - lo + 1)
-    return n
-
-
 def ring_view(torch, g, B, L, KV, n, hd, dtype):
     """The first n slots of a (B, L, KV, hd) ring cache as a (B, KV, n, hd)
     strided view; with n = L the whole cache, as ``attn_decode`` hands it
@@ -914,13 +951,15 @@ def time_flash_decode(torch, g, B, H, L, hd):
     function; sdpa takes one dtype, so it gets the ring widened to fp32).
     Returns the kernel's JSON record."""
     import torch.nn.functional as F
+    from repro_torch.distributed import cost
     from repro_torch.kernels import flash_attention as fa
 
     record = None
     for kvdt in (torch.bfloat16, torch.float32):
         kv_elem = 2 if kvdt == torch.bfloat16 else 4
-        n_bytes = 2 * B * H * hd * 4 + 2 * B * L * hd * kv_elem
-        b_ms, b_by = bound_ms(n_bytes, 4 * hd * B * H * L, "float32")
+        n_ops, n_bytes = cost.flash_work(B, H, 1, 1, L, hd, 4, kv_elem,
+                                         causal=False)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
         sets = []
         for _ in range(-(-100_000_000 // n_bytes)):
             q = torch.randn(B, H, 1, hd, generator=g, device="cuda")
@@ -974,6 +1013,7 @@ def phase_dense_decode(torch):
     checks that recurrentgemma-2b's decode (8 x 10/1 heads over its
     2048-key ring) keeps 16 ranges. Returns the kernel's JSON record."""
     import torch.nn.functional as F
+    from repro_torch.distributed import cost
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import flash_attention as fa
 
@@ -1030,8 +1070,8 @@ def phase_dense_decode(torch):
     k, v = (ring_view(torch, g, B, L, KV, L, hd, dt) for _ in range(2))
     err = max_err(fa.flash_attention_bhsd(q, k, v, causal=False, seq_k=n),
                   fa.attention_ref(q, k, v, causal=False, seq_k=n))
-    n_bytes = 2 * q.numel() * 2 + 2 * B * KV * n * hd * 2
-    b_ms, b_by = bound_ms(n_bytes, 4 * hd * B * H * n, "bfloat16")
+    n_ops, n_bytes = cost.flash_work(B, H, KV, 1, n, hd, 2, 2, causal=False)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
     run_k = lambda: fa.flash_attention_bhsd(q, k, v, causal=False, seq_k=n)
     run_p = lambda: fa.attention_ref(q, k, v, causal=False, seq_k=n)
     kn, vn = k[:, :, :n], v[:, :, :n]
@@ -1126,8 +1166,9 @@ def time_rglru(torch, g, B, T, C, label):
     kernel's record without its name."""
     from repro_torch.kernels import rglru
 
-    n_bytes = 4 * (3 * B * T * C + 2 * B * C)
-    b_ms, b_by = bound_ms(n_bytes, 2 * B * T * C, "float32")
+    from repro_torch.distributed import cost
+    n_ops, n_bytes = cost.rglru_work(B, T, C)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
     sets = [rglru_inputs(torch, g, B, T, C, h0=T == 1)
             for _ in range(-(-100_000_000 // n_bytes))]
     err = max_err(rglru.rglru_btc(*sets[0])[0], rglru.rglru_ref(*sets[0])[0])
@@ -1156,11 +1197,10 @@ def time_flash256(torch, g, B, S, label, H=10, W=2048, hd=256):
     from repro_torch.models.attention import make_mask
 
     n_bytes = 4 * (2 * B * H * S * hd + 2 * B * S * hd)
-    n_ops = 4 * hd * B * H * live_pairs(S, S, True, W)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
     sets = [tuple(torch.randn(B, n, S, hd, generator=g, device="cuda")
                   for n in (H, 1, 1))
             for _ in range(-(-100_000_000 // n_bytes))]
+    b_ms, b_by = flash_bound(*sets[0], window=W)
     mask = make_mask(torch.arange(S, device="cuda"),
                      torch.arange(S, device="cuda"), True, W)
     kw = dict(causal=True, window=W)
@@ -2130,9 +2170,7 @@ def finetune_flash(torch):
     o = run_k()
     run_b = lambda: fa.attention_bwd(q, k, v, o, fa.attention_lse(q, k), do)
     err = max_err(o, run_p())
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    n_ops = 4 * 32 * B * H * live_pairs(S, S, True, 0)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    b_ms, b_by = flash_bound(q, k, v)
     ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
                       graph_ms(torch, run_l))
     bwd = wall_ms(torch, run_b, iters=50, warmup=5)
@@ -3030,8 +3068,8 @@ def train_step_tallies(out, first=None):
 
     inner = tr.make_train_step
 
-    def tallied(cfg, opt):
-        step = inner(cfg, opt)
+    def tallied(cfg, opt, **kw):
+        step = inner(cfg, opt, **kw)
 
         def run(params, opt_state, batch):
             import torch
@@ -3074,9 +3112,7 @@ def time_train_flash(torch):
           TOL["bfloat16"])
     check(f"flash at the train shape {B} x {H}/{KV} x {S} bf16 vs "
           f"attention_tiled_ref", err_t, TOL["bfloat16"])
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    n_ops = 4 * 32 * B * H * live_pairs(S, S, True, 0)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    b_ms, b_by = flash_bound(q, k, v)
     ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
                       graph_ms(torch, run_l))
     print(f"  flash at the train shape {B} x {H}/{KV} x {S} bf16, device ms "
@@ -3624,14 +3660,13 @@ def serve_arch(torch, arch, calls, phase="phase 8c"):
     return params, cfg, forms
 
 
-def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, n_ops, source):
+def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, source):
     """One ``{"kernels": ...}`` record of the flash kernel at a phase 8 or
     9 shape: the kernel against the plain version (and the bf16 sequence form
     also against ``attention_tiled_ref``), then the device ms by CUDA-graph
     replay of the kernel, the plain version and ``scaled_dot_product_
     attention`` (given contiguous K/V, ``enable_gqa`` where KV < H), and
-    the bound: every input read once and the output written once over the
-    memory rate, or ``n_ops`` over the bf16 peak."""
+    the bound (``flash_bound``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
@@ -3648,8 +3683,7 @@ def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, n_ops, source):
               max_err(got, fa.attention_tiled_ref(q, k, v, **kw)),
               TOL[dtype_name(q.dtype)])
     err_l = max_err(run_l(), run_p())
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    b_ms, b_by = bound_ms(n_bytes, n_ops, dtype_name(q.dtype))
+    b_ms, b_by = flash_bound(q, k, v, **kw)
     ms, lib = graph_ms(torch, run_k), graph_ms(torch, run_l)
     plain = graph_ms(torch, run_p, iters=4, replays=5)
     print(f"  flash {label}, device ms per call: kernel {ms:.4f}, plain "
@@ -3684,16 +3718,14 @@ def phase8_records(torch):
     out.append(flash_record(
         torch, "flash_attention_bhsd_llama3_prefill",
         f"llama3-8b prefill {B} x {H}/{KV} x {P}, hd {hd}, causal, bf16",
-        q, k, v, {}, {"is_causal": True},
-        4 * hd * B * H * live_pairs(P, P, True, 0), seq_src))
+        q, k, v, {}, {"is_causal": True}, seq_src))
     L = P + G
     q = rnd(B, H, 1, hd)
     k, v = (rnd(B, L, KV, hd).transpose(1, 2) for _ in range(2))
     out.append(flash_record(
         torch, "flash_attention_bhsd_llama3_decode",
         f"llama3-8b decode {B} x {H}/{KV} x 1 over the {L}-slot cache in "
-        f"place, hd {hd}, bf16", q, k, v, {"causal": False}, {},
-        4 * hd * B * H * L, dec_src))
+        f"place, hd {hd}, bf16", q, k, v, {"causal": False}, {}, dec_src))
     whisper = get_config("whisper-small")
     B, P, G = ARCH_SERVES["whisper-small"]
     H, KV, hd, F_ = (whisper.n_heads, whisper.n_kv_heads, whisper.head_dim,
@@ -3702,21 +3734,19 @@ def phase8_records(torch):
     out.append(flash_record(
         torch, "flash_attention_bhsd_whisper_encoder",
         f"whisper-small encoder {B} x {H} x {F_}, hd {hd}, non-causal, bf16",
-        q, k, v, {"causal": False}, {},
-        4 * hd * B * H * F_ * F_, seq_src))
+        q, k, v, {"causal": False}, {}, seq_src))
     q = rnd(B, H, P, hd)
     out.append(flash_record(
         torch, "flash_attention_bhsd_whisper_cross",
         f"whisper-small cross prefill {B} x {H} x {P} over {F_} frames, hd "
-        f"{hd}, bf16", q, k, v, {"causal": False}, {},
-        4 * hd * B * H * P * F_, seq_src))
+        f"{hd}, bf16", q, k, v, {"causal": False}, {}, seq_src))
     q = rnd(B, H, 1, hd)
     k, v = (rnd(B, F_, KV, hd).transpose(1, 2) for _ in range(2))
     out.append(flash_record(
         torch, "flash_attention_bhsd_whisper_cross_decode",
         f"whisper-small cross decode {B} x {H} x 1 over the {F_}-frame cross "
         f"cache in place, hd {hd}, bf16", q, k, v, {"causal": False}, {},
-        4 * hd * B * H * F_, dec_src))
+        dec_src))
     return out
 
 
@@ -3844,7 +3874,6 @@ def phase9_records(torch):
         torch, "flash_attention_bhsd_qwen3_prefill",
         f"qwen3-moe-30b-a3b prefill {B} x {H}/{KV} x {P}, hd {hd}, causal, "
         f"bf16", q, k, v, {}, {"is_causal": True},
-        4 * hd * B * H * live_pairs(P, P, True, 0),
         "src/repro_torch/kernels/csrc/flash_attention.cu")]
     L = P + G
     q = rnd(B, H, 1, hd)
@@ -3853,7 +3882,7 @@ def phase9_records(torch):
         torch, "flash_attention_bhsd_qwen3_decode",
         f"qwen3-moe-30b-a3b decode {B} x {H}/{KV} x 1 over the {L}-slot cache "
         f"in place, hd {hd}, bf16", q, k, v, {"causal": False}, {},
-        4 * hd * B * H * L, "src/repro_torch/kernels/csrc/flash_decode.cu"))
+        "src/repro_torch/kernels/csrc/flash_decode.cu"))
     return out
 
 
@@ -4240,6 +4269,311 @@ def phase_ssm_train(torch):
         "rglru_btc_train": rg["rglru_btc"],
         "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
 
+# ---------------------------------------------------------------------------
+# phase 11: sharding and cost accounting
+# ---------------------------------------------------------------------------
+
+
+def mesh_cfg(arch, layers):
+    """The full config of ``arch``, its first segment's repeats cut to
+    ``layers`` layers (None: the whole model) and the other segments
+    dropped."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    (kinds, _), *_ = cfg.segments
+    reps = layers // len(kinds)
+    return cfg.replace(segments=((kinds, reps),),
+                       n_layers=reps * len(kinds))
+
+
+def mesh_step_launches(cfg):
+    """One train step's launches with remat "full": the SSM archs' rule
+    (``ssm_step_launches``) and flash's bf16 sequence form twice an
+    ``attn`` layer (forward, recompute)."""
+    want = ssm_step_launches(cfg)
+    n = 2 * cfg.layer_kinds.count("attn")
+    if n:
+        want.update({"flash_attention_bhsd": n,
+                     ("flash_attention_bhsd", "seq_bf16"): n})
+    return want
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| (over 1 where b is all zeros)."""
+    return max_err(a, b) / (float(b.float().abs().max()) or 1.0)
+
+
+def mesh_train(torch, arch, mesh):
+    """(a) ``launch/train.py`` on ``arch`` (``MESH_TRAINS``), ``MESH_STEPS``
+    steps with ``mesh=None`` and then on the one-rank mesh from the same
+    seed: losses to ``MESH_LOSS_RTOL`` and weights to ``MESH_WEIGHT_RTOL``
+    relative (each leaf's max error over its max), each step's launches
+    (``ops.tally``) the unsharded run's and ``mesh_step_launches``'; the
+    gathered uses and gradient reductions a step. Returns the mesh run:
+    (cfg, params, AdamW state, its counters, step walls in ms)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import OptConfig
+
+    B, S, layers = MESH_TRAINS[arch]
+    cfg = mesh_cfg(arch, layers)
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=MESH_STEPS)
+    print(f"phase 11a: launch/train.py --mesh none, then --mesh sim (1, 1) "
+          f"over (data, model), {arch} at full width (d {cfg.d_model}, "
+          f"{cfg.n_layers} of {mesh_cfg(arch, None).n_layers} layers, "
+          f"{cfg.compute_dtype} compute, remat {cfg.remat}, {cfg.ce_chunks} "
+          f"CE chunks), {B} x {S} tokens, {MESH_STEPS} steps", flush=True)
+    runs = {}
+    for kind in ("none", "sim"):
+        steps, uses = [], dict(sharding.gathers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with train_step_tallies(steps):
+            params, state, losses = tr.train(
+                cfg, opt, steps=MESH_STEPS, batch=B, seq=S, log_every=100,
+                mesh=mesh if kind == "sim" else None, device="cuda")
+        torch.cuda.synchronize()
+        runs[kind] = {"params": params, "state": state, "losses": losses,
+                      "steps": steps, "counts": dict(ops.launches),
+                      "gathers": {k: (sharding.gathers[k] - uses[k])
+                                  / MESH_STEPS for k in uses}}
+        if kind == "none":
+            del state, runs[kind]["state"]
+    none, sim = runs["none"], runs["sim"]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(sim["losses"], none["losses"]))
+    want = dict(none["params"].named_parameters())
+    weight_err = max(rel_err(sharding.whole(p).detach(), want[n].detach())
+                     for n, p in sim["params"].named_parameters())
+    tallies = [c for c, _ in sim["steps"]]
+    expect(all(sharding.is_dtensor(p) for p in sim["params"].parameters()),
+           f"{arch}: a parameter of the mesh run is not a DTensor")
+    expect(tallies == [c for c, _ in none["steps"]] and all(
+        c == mesh_step_launches(cfg) for c in tallies),
+           f"{arch}: the mesh steps' launches {tallies}, the unsharded "
+           f"run's {[c for c, _ in none['steps']]}, the rule "
+           f"{mesh_step_launches(cfg)}")
+    walls = {k: statistics.median([w for _, w in r["steps"]][1:])
+             for k, r in runs.items()}
+    g = sim["gathers"]
+    print(f"  {arch}: losses none {[round(x, 5) for x in none['losses']]}, "
+          f"mesh {[round(x, 5) for x in sim['losses']]}; step wall median "
+          f"none {walls['none']:.1f} ms, mesh {walls['sim']:.1f} ms; "
+          f"{mesh_step_launches(cfg)} a step in both; a mesh step "
+          f"{g['uses']:.0f} gathered uses (an all-gather each on a mesh of "
+          f"more than one rank; remat's recompute gathers again) and "
+          f"{g['reductions']:.0f} gradient reductions (a reduce-scatter "
+          f"each), none of which sends anything on this one-rank mesh",
+          flush=True)
+    check(f"{arch} mesh vs none train losses, relative", loss_err,
+          MESH_LOSS_RTOL)
+    check(f"{arch} mesh vs none trained weights, relative to each leaf's "
+          f"max", weight_err, MESH_WEIGHT_RTOL)
+    expect(g["uses"] >= g["reductions"] > 0 and g["uses"] == int(g["uses"]),
+           f"{arch}: gathers a step {g}")
+    del runs["none"], none, want
+    return (cfg, sim["params"], sim["state"], sim["counts"],
+            [w for _, w in sim["steps"]])
+
+
+def mesh_checkpoint(torch, mesh):
+    """(b) A mesh checkpoint round trip on smollm-360m: 2 steps saving at
+    step 2; step 3's loss from the saved weights (no-grad ``lm_loss`` on
+    the mesh) equal bitwise to the loss the restored mesh run's step 3
+    reports, and to the ``--mesh none`` launcher's restored from the same
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+
+    arch = "smollm-360m"
+    B, S, layers = MESH_TRAINS[arch]
+    cfg = mesh_cfg(arch, layers)
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=MESH_STEPS)
+    kw = dict(batch=B, seq=S, log_every=100, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        params, _, first = tr.train(cfg, opt, steps=2, ckpt_dir=f"{d}/mesh",
+                                    ckpt_every=2, mesh=mesh, **kw)
+        shutil.copytree(f"{d}/mesh", f"{d}/none")
+        batch = {k: v.cuda() for k, v in sharding.local_rows(
+            lm_batch(cfg, B, S, seed=0, step=2), mesh).items()}
+        with torch.no_grad():
+            want = float(lm.lm_loss(params, batch, cfg)[0])
+        del params
+        gc.collect()
+        _, _, on_mesh = tr.train(cfg, opt, steps=3, ckpt_dir=f"{d}/mesh",
+                                 restore=True, mesh=mesh, **kw)
+        gc.collect()
+        _, _, on_none = tr.train(cfg, opt, steps=3, ckpt_dir=f"{d}/none",
+                                 restore=True, **kw)
+    print(f"phase 11b: {arch} mesh checkpoint at step 2 (losses "
+          f"{[round(x, 5) for x in first]}): step 3's loss from the saved "
+          f"weights {want!r}; restored on the mesh {on_mesh!r}, restored "
+          f"into --mesh none {on_none!r}", flush=True)
+    expect(on_mesh == [want], f"the mesh restore's step 3 loss {on_mesh} "
+           f"is not {want} bitwise")
+    expect(on_none == [want], f"the --mesh none restore's step 3 loss "
+           f"{on_none} is not {want} bitwise")
+
+
+def mesh_roofline(torch, cfg, params, state, mesh, walls):
+    """(c) One smollm-360m mesh step counted by ``distributed.cost`` on the
+    card: the ``Roofline`` record (FLOPs, bytes and collective bytes per
+    device, the attention and mixer tags, 6·N·D), the measured step time
+    (the median of (a)'s steps after the first) and the step's model-FLOP
+    share at the bf16 peak. Returns the record."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed import cost, sharding
+    from repro_torch.distributed.roofline import PEAK_FLOPS, Roofline
+    from repro_torch.optim import OptConfig, make_train_step
+
+    B, S, _ = MESH_TRAINS[cfg.name]
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=MESH_STEPS)
+    step = make_train_step(cfg, opt, mesh=mesh)
+    batch = {k: v.cuda() for k, v in sharding.local_rows(
+        lm_batch(cfg, B, S, seed=0, step=MESH_STEPS), mesh).items()}
+    t = time.perf_counter()
+    with cost.counting() as c:
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    t_count = time.perf_counter() - t
+    total = c.total
+    attn, mix = c.select("flashattn|sdpattn"), c.select(
+        "wkvscan|rgscan|moeffn")
+    roof = Roofline(
+        flops_per_device=total.flops, hbm_bytes_per_device=total.bytes,
+        collective_bytes_per_device=total.coll_total, chips=mesh.size(),
+        model_flops=cost.model_flops(cfg, "train", B * S),
+        collectives={k: round(v) for k, v in total.coll.items() if v})
+    step_s = statistics.median(walls[1:]) / 1e3
+    rec = dict(roof.to_dict(), step_s=step_s, mfu=roof.mfu(step_s),
+               attn_tagged={"flops": attn.flops, "bytes": attn.bytes},
+               mixer_tagged={"flops": mix.flops, "bytes": mix.bytes},
+               peak_flops=PEAK_FLOPS, count_s=t_count)
+    print(f"phase 11c: {cfg.name} mesh train step ({B} x {S}) counted on "
+          f"the card in {t_count:.1f} s: {json.dumps(rec)}", flush=True)
+    print(f"  6·N·D {roof.model_flops:.4e} FLOPs against {total.flops:.4e} "
+          f"counted (model_flops_ratio {roof.model_flops_ratio:.3f}: remat's "
+          f"recompute, attention, norms and AdamW); step {step_s * 1e3:.1f} "
+          f"ms measured against a {roof.t_bound * 1e3:.1f} ms roofline "
+          f"({roof.bottleneck}); smollm-360m train step mfu "
+          f"{roof.mfu(step_s):.4f}", flush=True)
+    expect(total.coll_total == 0, f"a one-rank mesh counted collective "
+           f"bytes {total.coll}")
+    expect(attn.flops > 0 and mix.flops == 0 and total.flops
+           > roof.model_flops, f"phase 11c: counts {rec}")
+    kernels = profile_step(torch, lambda: step(params, state, batch),
+                           f"phase 11c: one {cfg.name} mesh train step",
+                           top=8, cpu=False)
+    device_time_by_kind(kernels, TRAIN_KINDS, TRAIN_OTHER)
+    return rec
+
+
+def mesh_dryrun(torch):
+    """(d) ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_CELLS`` on the single-pod mesh, in subprocesses run together
+    (each joins a fake group of 256 ranks on the host; nothing reaches the
+    card): each cell's roofline line and its bottleneck."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [(arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", d],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+            for arch, shape in DRYRUN_CELLS]
+        outs = []
+        for arch, shape, p in procs:
+            try:
+                out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for _, _, q in procs:
+                    q.kill()
+                    q.communicate()
+                raise
+            expect(p.returncode == 0, f"dryrun {arch} {shape}: exit "
+                   f"{p.returncode}\n{err[-3000:]}")
+            with open(os.path.join(d, f"{arch}_{shape}_single.json")) as f:
+                outs.append((json.load(f), out))
+    print(f"phase 11d: launch/dryrun.py, {len(outs)} cells on a fake "
+          f"256-rank single-pod mesh in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    for rec, out in outs:
+        expect(rec["applicable"] and rec["chips"] == 256
+               and rec["roofline"]["flops_per_device"] > 0,
+               f"dryrun record {rec}")
+        print(f"  {out.strip().splitlines()[0]}", flush=True)
+        print(f"  {rec['arch']} {rec['shape']}: bottleneck "
+              f"{rec['roofline']['bottleneck']}, collectives "
+              f"{rec['roofline']['collectives']}, attention "
+              f"{rec['attn_tagged']['flops']:.4e} and mixer "
+              f"{rec['mixer_tagged']['flops']:.4e} FLOPs a device, "
+              f"arguments {rec['memory_analysis']['argument_size_bytes']} "
+              f"B a rank", flush=True)
+
+
+def phase_mesh(torch):
+    """Phase 11: sharding and cost accounting on a one-rank NCCL mesh.
+    Returns (the new record, launches by record name)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as tr
+
+    t_phase = time.perf_counter()
+    mesh = tr.make_mesh("sim", "cuda")
+    expect(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+           and tuple(mesh.shape) == (1, 1),
+           f"phase 11: mesh {mesh}, backend {dist.get_backend()}")
+    try:
+        launches = {}
+        for arch in MESH_TRAINS:
+            cfg, params, state, counts, walls = mesh_train(torch, arch, mesh)
+            launches[arch] = counts
+            if arch == "smollm-360m":
+                smollm = mesh_roofline(torch, cfg, params, state, mesh, walls)
+            del params, state
+        mesh_checkpoint(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_dryrun(torch)
+    print("phase 11e: flash at smollm-360m's train shape", flush=True)
+    B, S, _ = MESH_TRAINS["smollm-360m"]
+    cfg = mesh_cfg("smollm-360m", None)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (torch.randn(B, h, S, cfg.head_dim, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    record = flash_record(
+        torch, "flash_attention_bhsd_smollm_train",
+        f"smollm-360m train {B} x {cfg.n_heads}/{cfg.n_kv_heads} x {S}, hd "
+        f"{cfg.head_dim}, causal, bf16", q, k, v, {}, {"is_causal": True},
+        "src/repro_torch/kernels/csrc/flash_attention.cu")
+    print(f"  smollm-360m step: mfu {smollm['mfu']:.4f}; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    rw, rg = launches["rwkv6-7b"], launches["recurrentgemma-2b"]
+    return [record], {
+        "flash_attention_bhsd_smollm_train":
+            launches["smollm-360m"]["flash_attention_bhsd"],
+        "wkv6_bhtk": rw["wkv6_bhtk"], "rglru_btc_train": rg["rglru_btc"],
+        "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
+
 
 def main():
     import torch
@@ -4328,6 +4662,12 @@ def main():
     records += train_records
     counts["wkv6_bhtk"] += train_launches.pop("wkv6_bhtk")
     counts.update(train_launches)
+    # the mesh runs add their launches to the records of the kernels and
+    # forms they ran; smollm-360m's flash shape is a record of its own
+    mesh_records, mesh_launches = phase_mesh(torch)
+    records += mesh_records
+    for name, n in mesh_launches.items():
+        counts[name] = counts.get(name, 0) + n
     # the design-length record is the same kernel, run on the main path at
     # the engine's shape
     counts["paged_decode_bkgh_256x320"] = counts["paged_decode_bkgh"]

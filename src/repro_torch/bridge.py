@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import whole
 from repro_torch.learn.param_store import ParamStore
 from repro_torch.models.lm import LM
 from repro_torch.models.protein import FoldScore, ProGen
@@ -105,7 +106,9 @@ def _put(tree, path, leaf):
 
 
 def _host(tensors, stacked):
-    """The default ``ref_tree`` leaf: a host numpy copy, stacked."""
+    """The default ``ref_tree`` leaf: a host numpy copy, stacked (a DTensor
+    gathered whole first)."""
+    tensors = [whole(t) for t in tensors]
     t = torch.stack(tensors) if stacked else tensors[0]
     return t.detach().cpu().numpy()
 

@@ -26,7 +26,11 @@ decode, so the ``CheckpointManager`` can fall back to an older copy.
 optional ``fault_plan`` (anything with ``on_checkpoint_saved(path)``)
 sees the just-written file: the chaos path for this machinery. The
 reference's per-host ``shard_suffix`` is not ported: the port writes one
-file per checkpoint.
+file per checkpoint. A DTensor leaf (a mesh run's parameters and moments)
+is gathered whole before it is written, and ``load_pytree``'s
+``placements`` distributes each loaded leaf again, as the reference's
+restore ``device_put``s to its ``shardings``; so a checkpoint restores into
+any mesh, or none.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import zlib
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import distribute_params, whole
 
 MANIFEST = ".manifest.json"
 
@@ -85,7 +91,7 @@ def _treedef(tree) -> str:
 def _host(leaf):
     """(numpy array, dtype name) of a leaf; bf16 as 2-byte voids."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2")), \
                 "bfloat16"
@@ -170,19 +176,30 @@ def _as_tensor(arr, dtype, device):
     return t.to(device)
 
 
-def _rebuild(template, arrays, path, where):
+def _sub(placements, key):
+    return None if placements is None else placements.get(key)
+
+
+def _rebuild(template, arrays, path, where, placements=None):
     """``template``'s structure holding the stored arrays: tensors like the
-    template's tensors (dtype, device), numpy arrays elsewhere."""
+    template's tensors (dtype, device), numpy arrays elsewhere; a tensor
+    whose ``placements`` entry is (mesh, placements) distributed so, a
+    module's parameters by the entry's {name: (mesh, placements)}."""
     if isinstance(template, nn.Module):
         from repro_torch.bridge import module_from_ref, ref_tree
         spec = ref_tree(template, leaf=lambda ts, stacked: ts[0])
         tree = _rebuild(spec, arrays, path, where)
-        return module_from_ref(tree, template)
+        out = module_from_ref(tree, template)
+        if placements:
+            distribute_params(out, placements)
+        return out
     if isinstance(template, dict):
-        return {k: _rebuild(v, arrays, path + (str(k),), where)
+        return {k: _rebuild(v, arrays, path + (str(k),), where,
+                            _sub(placements, k))
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
-        return type(template)(_rebuild(v, arrays, path + (str(i),), where)
+        return type(template)(_rebuild(v, arrays, path + (str(i),), where,
+                                       _sub(placements, i))
                               for i, v in enumerate(template))
     key = "/".join(path)
     try:
@@ -191,7 +208,12 @@ def _rebuild(template, arrays, path, where):
         raise CheckpointCorruptError(
             f"array {key!r} missing from {where}") from e
     if isinstance(template, torch.Tensor):
-        return _as_tensor(arr, template.dtype, template.device)
+        t = _as_tensor(arr, template.dtype, template.device)
+        if placements is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        mesh, pl = placements
+        return distribute_tensor(t, mesh, pl, src_data_rank=None)
     want = np.asarray(template).dtype
     if arr.dtype != want:
         arr = arr.view(want) if arr.dtype.kind == "V" \
@@ -204,14 +226,17 @@ def _checksums(path):
     return (manifest.get("checksums") or {}) if manifest else {}
 
 
-def load_pytree(template, path):
+def load_pytree(template, path, placements=None):
     """Load into the structure of ``template``: a module comes back as a
     new module of its class (``bridge.module_from_ref``), a tensor as a
     tensor of the template's dtype on its device, anything else as a numpy
-    array of its dtype. Every array read is checked against the manifest's
-    crc32; a checkpoint without a manifest loads unchecked."""
+    array of its dtype. ``placements`` mirrors ``template`` where leaves
+    are to be DTensors: (mesh, placements) for a tensor, {parameter name:
+    (mesh, placements)} for a module. Every array read is checked against
+    the manifest's crc32; a checkpoint without a manifest loads
+    unchecked."""
     arrays = _read_arrays(path, _checksums(path))
-    return _rebuild(template, arrays, (), f"{path}.npz")
+    return _rebuild(template, arrays, (), f"{path}.npz", placements)
 
 
 def verify_checkpoint(path) -> bool:

@@ -8,6 +8,11 @@ newest ``keep`` checkpoints, tracks a JSON "latest" pointer that is only
 advanced after a fully successful write, and can persist arbitrary
 JSON-serializable state (``extra``) alongside. ``restore`` verifies every
 array and falls back to the newest intact copy.
+
+On a mesh every rank calls ``save`` (the snapshot gathers each sharded
+leaf whole, which every rank takes part in) and rank 0 alone writes; every
+rank restores from the same file, each leaf distributed to its
+``placements``.
 """
 
 from __future__ import annotations
@@ -18,10 +23,12 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.checkpoint.io import (MANIFEST, CheckpointCorruptError,
                                        load_pytree, save_pytree)
+from repro_torch.distributed.sharding import whole
 
 
 def _snapshot(state):
@@ -30,7 +37,7 @@ def _snapshot(state):
         from repro_torch.bridge import ref_tree
         return ref_tree(state)
     if isinstance(state, torch.Tensor):
-        return state.detach().to("cpu", copy=True)
+        return whole(state).detach().to("cpu", copy=True)
     if isinstance(state, dict):
         return {k: _snapshot(v) for k, v in state.items()}
     if isinstance(state, (list, tuple)):
@@ -54,8 +61,11 @@ class CheckpointManager:
 
     def save(self, step, state, *, extra=None, block=False):
         """state: a tree of tensors / arrays, or a module. extra: a
-        JSON-serializable dict (coordinator / protocol state)."""
+        JSON-serializable dict (coordinator / protocol state). In a
+        process group of several ranks only rank 0 writes."""
         state = _snapshot(state)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
 
         def write():
             base = self._base(step)
@@ -105,8 +115,9 @@ class CheckpointManager:
         with open(p) as f:
             return json.load(f)["step"]
 
-    def restore(self, template, step=None):
-        """Restore the requested (default: latest) step. Every array is
+    def restore(self, template, step=None, *, placements=None):
+        """Restore the requested (default: latest) step, each leaf with a
+        ``placements`` entry as a DTensor (``io.load_pytree``). Every array is
         checksum-verified against its manifest; a corrupted checkpoint
         falls back to the next-oldest
         retained step instead of failing the restart — the returned step
@@ -123,7 +134,7 @@ class CheckpointManager:
         for s in candidates:
             base = self._base(s)
             try:
-                state = load_pytree(template, base)
+                state = load_pytree(template, base, placements)
             except CheckpointCorruptError as e:
                 last_err = e
                 print(f"[checkpoint] step {s} failed verification "

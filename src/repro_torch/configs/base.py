@@ -172,3 +172,34 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell (a copy of the reference's)."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and why not if skipped.
+
+    ``long_500k`` needs sub-quadratic sequence mixing: it runs only for
+    ssm/hybrid families (constant-size or windowed state); pure
+    full-attention archs skip it.
+    """
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, "long_500k skipped: full-attention arch (quadratic prefill, unbounded KV)"
+    return True, ""

@@ -1,0 +1,480 @@
+"""Sharding rule engine: FSDP / TP / SP / EP, divisibility-aware (a port of
+the JAX package's ``repro.distributed.sharding``).
+
+Parameters are assigned specs by *path + shape* rules (t5x-style logical
+axes, resolved against the mesh). A tensor axis is sharded on a mesh axis
+only when the dimension divides evenly; otherwise the rule falls through to
+replication — this is how whisper's 12 heads or smollm's 15 heads stay
+replicated on ``model`` while their FFNs carry the tensor parallelism.
+
+A spec is the port's own value, not JAX's ``PartitionSpec``: a tuple with,
+for each tensor dim, a tuple of mesh-axis names or None (the reference's
+``P()`` is ``()``; a dim past the spec's end is replicated). ``placements``
+turns it into DTensor placements on a torch ``DeviceMesh``. The rules work
+on any mesh object with axis names and a device-array shape: a
+``DeviceMesh`` (``mesh_dim_names``, ``shape``) or the reference's test
+stubs (``axis_names``, ``devices.shape``), so they run without a process
+group.
+
+The port's parameters live per layer (``bridge``); the rules are the
+reference's, keyed by the reference's paths and stacked shapes
+(``param_paths``): a stacked leaf ``(repeats, ...)`` has a None repeats
+axis, so the port's per-layer leaf takes the same spec without it. Caches
+likewise (``cache_spec_tree``).
+
+Storage and compute (``shard_module``, ``gather``): each trainable
+parameter is a DTensor with its spec's placements, stored sharded and
+gathered at use, as the reference's "FSDP storage (gather-at-use)" does
+(``models.common.at_use`` casts the local shard to the compute dtype, then
+gathers). Activations are plain local tensors. In this slice the compute is
+data-parallel over ``dp_axes``: ranks along ``model`` hold the same rows and
+compute the same thing. Tensor-parallel compute over ``model`` (heads, ff,
+experts, lru split) and context parallelism (``use_context_parallel``) are
+not ported yet, so ``constrain`` has nothing to tell and returns its input.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+import sys
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# meshes and activation constraints
+# ---------------------------------------------------------------------------
+
+_ACTIVE: list = []  # stack of (mesh, cfg, mode)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, cfg, mode: str = "train"):
+    """Install mesh + config so ``constrain`` and ``use_context_parallel``
+    see them."""
+    _ACTIVE.append((mesh, cfg, mode))
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+def active_mode() -> str:
+    return _ACTIVE[-1][2] if _ACTIVE else "train"
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    names = getattr(mesh, "axis_names", None)
+    return tuple(names if names is not None else mesh.mesh_dim_names)
+
+
+def _axes(mesh) -> dict:
+    shape = (mesh.devices.shape if hasattr(mesh, "devices")
+             else tuple(mesh.shape))
+    return dict(zip(axis_names(mesh), shape))
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def _fit(dim: int, axes, mesh) -> Optional[Tuple[str, ...]]:
+    """Return the mesh axes if ``dim`` divides their product, else None."""
+    if axes is None:
+        return None
+    if isinstance(axes, str):
+        axes = (axes,)
+    size = int(np.prod([_axes(mesh)[a] for a in axes]))
+    return tuple(axes) if dim % size == 0 and dim >= size else None
+
+
+def resolve_logical(logical, shape, mesh, cfg):
+    """Map a tuple of logical names to a spec for ``shape``."""
+    spec = []
+    for dim, name in zip(shape, logical):
+        if name is None:
+            spec.append(None)
+            continue
+        axes = {
+            "batch": dp_axes(mesh),
+            "expert_group": dp_axes(mesh),
+            "expert_group_all": dp_axes(mesh) + ("model",),
+            "data2d": ("data",),
+            "seq": (("model",) if getattr(cfg, "sequence_parallel", False)
+                    else None),
+            "vocab": ("model",),
+            "heads": ("model",),
+            "kv_heads": ("model",),
+            "experts": ("model",),
+            "ff": ("model",),
+            "lru": ("model",),
+            "fsdp": ("data",) if getattr(cfg, "fsdp", False) else None,
+            "model": ("model",),
+        }[name]
+        fit = _fit(dim, axes, mesh)
+        if fit is None and name == "expert_group_all":
+            fit = _fit(dim, dp_axes(mesh), mesh)  # fall back to dp-only
+        spec.append(fit)
+    return tuple(spec)
+
+
+def constrain(x, logical):
+    """The reference's activation constraint. Compute here is data-parallel
+    on local tensors, so there is no layout to impose: ``x`` as it is."""
+    return x
+
+
+def use_context_parallel(n_heads: int) -> bool:
+    """Whether the reference shards attention's query sequence over
+    ``model`` (the head axis does not divide it: whisper 12, smollm 15, RG
+    10, llava 56 vs 16-way TP). Not run by the port yet."""
+    if not _ACTIVE:
+        return False
+    m = _axes(_ACTIVE[-1][0]).get("model", 1)
+    return n_heads % m != 0 and m > 1
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+# (path regex, logical axes per dim). First match wins. "F" = fsdp.
+_PARAM_RULES = [
+    (r"embedding/tok$", ("vocab", "fsdp")),
+    (r"lm_head/w$", ("fsdp", "vocab")),
+    (r"(attn|xattn)/wq$", ("fsdp", "heads", None)),
+    (r"(attn|xattn)/w[kv]$", ("fsdp", "kv_heads", None)),
+    (r"(attn|xattn)/wo$", ("heads", None, "fsdp")),
+    (r"mlp/w[ig]$", ("fsdp", "ff")),
+    (r"mlp/wo$", ("ff", "fsdp")),
+    (r"moe/router$", ("fsdp", None)),
+    (r"moe/w[ig]$", ("experts", "fsdp", None)),
+    (r"moe/wo$", ("experts", None, "fsdp")),
+    (r"moe/shared/w[ig]$", ("fsdp", "ff")),
+    (r"moe/shared/wo$", ("ff", "fsdp")),
+    (r"tm/w[rkvg]$", ("fsdp", "heads_flat")),
+    (r"tm/wo$", ("heads_flat", "fsdp")),
+    (r"tm/wc[k]$", ("fsdp", "ff")),
+    (r"tm/wcv$", ("ff", "fsdp")),
+    (r"tm/wcr$", ("fsdp", None)),
+    (r"tm/(a_[rkvgw]|aw)$", ("fsdp", None)),
+    (r"tm/(b_[rkvgw]|bw)$", (None, "fsdp")),
+    (r"rec/(win|wgate)$", ("fsdp", "lru")),
+    (r"rec/w[ri]$", (None, "lru")),
+    (r"rec/conv_w$", (None, "lru")),
+    (r"rec/wout$", ("lru", "fsdp")),
+    (r"protein/.*", None),
+]
+
+
+def param_spec(path_str: str, shape, mesh, cfg, mode: str = "train"):
+    """mode="train": FSDP storage (gather-at-use) for big archs.
+    mode="serve": decode-time 2D tensor sharding — there is no optimizer
+    state to co-shard, and per-step FSDP weight gathers dwarf the one-token
+    compute. Instead the would-be-FSDP dim shards over ``data`` as a
+    second tensor axis."""
+    ndim = len(shape)
+    if mode == "serve" and re.search(r"moe/w[igo]$", path_str):
+        # serve-time experts are stationary: huge experts (ep mode) 2D
+        # (experts x data-on-f); small experts (fsdp mode) experts->model
+        if getattr(cfg, "moe_parallelism", "ep") == "ep":
+            logical = (None,) * (ndim - 3) + (
+                ("experts", "data2d", None) if path_str.endswith("wo")
+                else ("experts", None, "data2d"))
+        else:
+            logical = (None,) * (ndim - 3) + ("experts", None, None)
+        return resolve_logical(logical, shape, mesh, cfg)
+    # moe_parallelism="fsdp" (training): experts replicated at use, storage
+    # sharded over the data axis only
+    if (getattr(cfg, "moe_parallelism", "ep") == "fsdp"
+            and re.search(r"moe/w[igo]$", path_str)):
+        logical = (None,) * (ndim - 3) + (None, "fsdp", None)
+        return resolve_logical(logical, shape, mesh, cfg)
+    for pat, logical in _PARAM_RULES:
+        if re.search(pat, path_str):
+            if logical is None:
+                return ()
+            logical = tuple(
+                ("heads" if l == "heads_flat" else l) for l in logical)
+            if mode == "serve":
+                logical = tuple(("data2d" if l == "fsdp" else l)
+                                for l in logical)
+            # stacked segment params carry a leading repeats axis
+            extra = ndim - len(logical)
+            logical = (None,) * extra + logical
+            return resolve_logical(logical, shape, mesh, cfg)
+    return ()  # norms, biases, 1-D params: replicated
+
+
+def _leaves(tree, path=()):
+    """(path string, leaf) pairs of a tree of dicts and lists (anything
+    else, a tuple too, is a leaf)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def param_paths(module):
+    """Each parameter of ``module`` (an LM, ProGen or FoldScore) by its port
+    name: (the reference's path string, the reference's shape, whether the
+    reference stacks it on a leading repeats axis)."""
+    from repro_torch.bridge import ref_tree
+    names = {id(p): n for n, p in module.named_parameters()}
+    tree = ref_tree(module, leaf=lambda ts, stacked: (tuple(ts), stacked))
+    out = {}
+    for path, (tensors, stacked) in _leaves(tree):
+        shape = tuple(tensors[0].shape)
+        if stacked:
+            shape = (len(tensors),) + shape
+        for t in tensors:
+            out[names[id(t)]] = (path, shape, stacked)
+    return out
+
+
+def _drop_repeats(spec, ndim, stacked):
+    """A reference spec padded to ``ndim`` dims, its repeats entry dropped
+    from a stacked leaf's."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    if stacked:
+        if spec[0] is not None:
+            raise ValueError(f"spec {spec} shards the repeats axis")
+        spec = spec[1:]
+    return spec
+
+
+def param_spec_tree(module, mesh, cfg, mode: str = "train"):
+    """{port parameter name: spec}, each the reference's rule for the
+    parameter's reference path and stacked shape, without the repeats
+    entry; one entry a tensor dim."""
+    return {name: _drop_repeats(param_spec(path, shape, mesh, cfg, mode),
+                                len(shape), stacked)
+            for name, (path, shape, stacked) in param_paths(module).items()}
+
+
+# ---------------------------------------------------------------------------
+# cache / activation specs
+# ---------------------------------------------------------------------------
+
+
+def cache_spec(path_str: str, shape, mesh, cfg):
+    """KV caches (R,B,L,KV,hd), ssm states (R,B,...). Shard batch over dp,
+    kv-head axis over model when divisible."""
+    ndim = len(shape)
+    if path_str.endswith("pos"):
+        return ()
+    if re.search(r"/(k|v)$", path_str) and ndim >= 4:
+        # (..., B, L, KV, hd): shard KV heads over model when divisible,
+        # else fall back to sharding head_dim
+        logical = [None] * ndim
+        logical[-4] = "batch"
+        logical[-2] = "kv_heads"
+        spec = resolve_logical(tuple(logical), shape, mesh, cfg)
+        if spec[-2] is None:
+            logical[-2] = None
+            logical[-1] = "model"
+            spec = resolve_logical(tuple(logical), shape, mesh, cfg)
+        return spec
+    if path_str.endswith("S") and ndim >= 3:  # rwkv state (R,B,H,K,K)
+        logical = [None] * ndim
+        logical[-4] = "batch"
+        logical[-3] = "heads"
+        return resolve_logical(tuple(logical), shape, mesh, cfg)
+    if re.search(r"/(h|conv|shift_tm|shift_cm)$", path_str):
+        logical = [None] * ndim
+        # batch is the leading post-repeats axis
+        logical[1 if ndim > 1 else 0] = "batch"
+        if path_str.endswith(("h", "conv")):
+            logical[-1] = "lru"
+        return resolve_logical(tuple(logical), shape, mesh, cfg)
+    return ()
+
+
+def cache_spec_tree(caches, mesh, cfg):
+    """Specs mirroring the port's per-layer caches (``lm.init_caches``: one
+    dict a layer), each the reference's rule for the layer's path in its
+    segment cache (``"{segment}/{i}_{kind}/..."``) and the shape stacked on
+    the segment's repeats, without the repeats entry. A ``dec_attn``
+    layer's fresh cache is its self-attention cache alone (its prefill adds
+    ``{"self", "cross"}``): the reference's ``self/`` entry."""
+    where = [(s, i, kind, reps) for s, (kinds, reps) in enumerate(cfg.segments)
+             for _ in range(reps) for i, kind in enumerate(kinds)]
+    out = []
+    for (s, i, kind, reps), cache in zip(where, caches):
+        specs = {}
+        fresh = kind == "dec_attn" and "self" not in cache
+        for path, leaf in _leaves(cache):
+            shape = (reps,) + tuple(leaf.shape)
+            ref = f"{s}/{i}_{kind}/{'self/' * fresh}{path}"
+            spec = cache_spec(ref, shape, mesh, cfg)
+            _put(specs, path.split("/"),
+                 _drop_repeats(spec, len(shape), True))
+        out.append(specs)
+    return out
+
+
+def _put(tree, keys, value):
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = value
+
+
+def batch_spec(mesh, cfg=None):
+    return (dp_axes(mesh),)
+
+
+def tokens_sharding(mesh, shape):
+    """(B, S) int tokens: shard batch over dp axes when divisible; the
+    spec (``()`` replicated)."""
+    if shape[0] % dp_size(mesh) == 0:
+        return (dp_axes(mesh),)
+    return ()
+
+
+# ---------------------------------------------------------------------------
+# DTensor storage on a torch DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def placements(spec, mesh):
+    """The DTensor placements of ``spec`` on ``mesh``, one a mesh dim: a
+    tensor dim sharded over axes gets ``Shard(dim)`` on each of them (in the
+    mesh's order, JAX's major-to-minor, so a rank holds the chunk the
+    reference's device holds), every other mesh dim ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(axis_names(mesh))
+    index = {a: i for i, a in enumerate(axis_names(mesh))}
+    for dim, axes in enumerate(spec):
+        for a in axes or ():
+            out[index[a]] = Shard(dim)
+    return out
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (without importing DTensor's module,
+    which takes a second: no DTensor exists before it is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def local(t):
+    """A DTensor's local shard, a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def whole(t):
+    """A DTensor gathered into one plain tensor (every rank takes part), a
+    plain tensor as it is; no gradient flows back."""
+    return t.detach().full_tensor() if is_dtensor(t) else t
+
+
+def _owner(module, name):
+    *path, leaf = name.split(".")
+    for part in path:
+        module = getattr(module, part)
+    return module, leaf
+
+
+def shard_module(module, mesh, cfg, mode: str = "train"):
+    """Make each parameter of ``module`` a DTensor with its spec's
+    placements (``param_spec_tree``), in place; returns {name:
+    placements}."""
+    pl = {name: placements(spec, mesh)
+          for name, spec in param_spec_tree(module, mesh, cfg, mode).items()}
+    distribute_params(module, {n: (mesh, p) for n, p in pl.items()})
+    return pl
+
+
+def distribute_params(module, where):
+    """Replace each parameter named in ``where`` ({name: (mesh,
+    placements)}) by a DTensor parameter of that layout, in place. Every
+    rank holds the same full weights (drawn from one seed or read from one
+    checkpoint), so each keeps its own chunk and nothing is sent."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    for name, (mesh, pl) in where.items():
+        owner, leaf = _owner(module, name)
+        p = getattr(owner, leaf)
+        d = distribute_tensor(p.detach(), mesh, pl, src_data_rank=None)
+        chunk = d.to_local()
+        if chunk.untyped_storage().nbytes() > chunk.numel() \
+                * chunk.element_size():
+            # a chunk that views the whole: give it storage of its own
+            d = DTensor.from_local(chunk.clone(), mesh, pl, shape=d.shape,
+                                   stride=d.stride())
+        setattr(owner, leaf, nn.Parameter(d, requires_grad=p.requires_grad))
+
+
+# one count a gathered use of a DTensor parameter (an all-gather over the
+# mesh dims that shard it) and one a use's gradient reduction (a
+# reduce-scatter over those dims, an all-reduce over the others); a mesh dim
+# of one rank sends nothing
+gathers = {"uses": 0, "reductions": 0}
+_gather_lock = threading.Lock()
+
+
+def _count(key):
+    with _gather_lock:
+        gathers[key] += 1
+
+
+class _Counted(torch.autograd.Function):
+    """The identity, counting the gradient reduction its backward stands
+    for."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count("reductions")
+        return g
+
+
+def gather(w, dtype):
+    """DTensor parameter ``w`` as one plain tensor of ``dtype``: the local
+    shard is cast first, so the all-gather moves ``dtype`` bytes. The
+    gradient of the result is taken as a partial sum on every rank
+    (``Partial`` on each mesh dim): its backward reduce-scatters it onto the
+    shard (all-reduces it where ``w`` is replicated), so each rank's leaf
+    gets the sum of every rank's gradient."""
+    from torch.distributed.tensor import Partial
+    full = w.to(dtype).full_tensor(
+        grad_placements=[Partial()] * w.device_mesh.ndim)
+    _count("uses")
+    return _Counted.apply(full) if full.requires_grad else full
+
+
+def dp_size(mesh) -> int:
+    """Ranks along the dp axes: how many ways the batch is split."""
+    return int(np.prod([_axes(mesh)[a] for a in dp_axes(mesh)]))
+
+
+def dp_index(mesh):
+    """(this rank's index along the dp axes, major-to-minor, their size)."""
+    sizes = _axes(mesh)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    index, size = 0, 1
+    for a in dp_axes(mesh):
+        index, size = index * sizes[a] + coord[a], size * sizes[a]
+    return index, size
+
+
+def local_rows(batch, mesh):
+    """This rank's rows of a global batch dict, as ``tokens_sharding``
+    shards them: a 1/dp slice of each tensor's leading axis, or all of it
+    where the rows do not divide."""
+    n = next(iter(batch.values())).shape[0]
+    if not tokens_sharding(mesh, (n,)):
+        return dict(batch)
+    i, size = dp_index(mesh)
+    rows = n // size
+    return {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}

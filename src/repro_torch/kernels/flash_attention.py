@@ -30,6 +30,12 @@ computes this backward in XLA, outside any Pallas kernel, and the JAX
 package has no backward Pallas kernel: the plain backward follows the
 reference and is not a fallback. It launches no kernel. With ``softcap >
 0`` it raises, as the reference's chunked XLA path asserts.
+
+Cost accounting (``distributed.cost``): each call reports
+``cost.flash_work`` over its live keys under the ``flashattn`` tag (the
+backward re-enters the tag) to an active counter, whatever implements it,
+and on the ``meta`` device returns an empty output of the right shape and
+dtype (the dry run's path).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import cost
 from repro_torch.kernels import _cuda
 
 NAME = "flash_attention_bhsd"
@@ -222,15 +229,22 @@ def decode_key_splits(blocks: int, capacity: int, n_sms: int) -> int:
 def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
                          seq_q=None, seq_k=None):
     """q (B,H,Sq,hd); k/v (B,KV,Sk,hd). Returns (B,H,Sq,hd) in q's dtype."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap, seq_q=seq_q, seq_k=seq_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"{NAME}: no kernel for {q.device}")
-    seq_q, seq_k = _check(q, k, v, seq_q, seq_k)
-    if q.shape[2] == 1:
-        return _launch_decode(q, k, v, causal, softcap, seq_q, seq_k)
-    return _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k)
+    B, H, Sq, hd = q.shape
+    work = lambda: cost.flash_work(                              # noqa: E731
+        B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
+        q.element_size(), k.element_size(), causal, window)
+    with cost.counted("flashattn", work):
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, seq_q=seq_q, seq_k=seq_k)
+        if q.device.type != "cuda":
+            raise ValueError(f"{NAME}: no kernel for {q.device}")
+        seq_q, seq_k = _check(q, k, v, seq_q, seq_k)
+        if q.shape[2] == 1:
+            return _launch_decode(q, k, v, causal, softcap, seq_q, seq_k)
+        return _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k)
 
 
 def _check(q, k, v, seq_q, seq_k):
@@ -407,8 +421,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, o = ctx.saved_tensors
-        lse = attention_lse(q, k, **ctx.args)
-        dq, dk, dv = attention_bwd(q, k, v, o, lse, g, **ctx.args)
+        with cost.tag("flashattn"):
+            lse = attention_lse(q, k, **ctx.args)
+            dq, dk, dv = attention_bwd(q, k, v, o, lse, g, **ctx.args)
         return dq, dk, dv, None, None, None
 
 

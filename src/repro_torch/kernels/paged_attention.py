@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import cost
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import flash_attention as fa
 
@@ -133,13 +134,25 @@ def paged_decode_splits(B: int, KV: int, G: int, maxp: int, page: int,
 def paged_decode_bkgh(q, k_pages, v_pages, block_tables, lengths, *,
                       page_size: int):
     """q (B, KV, G, hd); k/v_pages (P, KV, page_size, hd); block_tables
-    (B, maxp) i32; lengths (B,) i32. Returns (B, KV, G, hd) in q's dtype."""
-    if q.device.type == "cpu":
-        return paged_decode_ref(q, k_pages, v_pages, block_tables, lengths,
-                                page_size=page_size)
-    if q.device.type != "cuda":
-        raise ValueError(f"{NAME}: no kernel for {q.device}")
-    return _launch(q, k_pages, v_pages, block_tables, lengths, page_size)
+    (B, maxp) i32; lengths (B,) i32. Returns (B, KV, G, hd) in q's dtype.
+    Its cost (``distributed.cost.paged_work``) counts the live tokens, the
+    sum of ``lengths``, or every slot of the block tables on ``meta``."""
+    B, KV, G, hd = q.shape
+    maxp = block_tables.shape[1]
+
+    def work():
+        live = B * maxp * page_size if lengths.is_meta \
+            else int(lengths.sum())
+        return cost.paged_work(B, KV, G, hd, live, maxp, q.element_size())
+    with cost.counted("flashattn", work):
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return paged_decode_ref(q, k_pages, v_pages, block_tables,
+                                    lengths, page_size=page_size)
+        if q.device.type != "cuda":
+            raise ValueError(f"{NAME}: no kernel for {q.device}")
+        return _launch(q, k_pages, v_pages, block_tables, lengths, page_size)
 
 
 def _launch(q, k_pages, v_pages, block_tables, lengths, page_size,

@@ -12,12 +12,18 @@ kernel (``csrc/rglru.cu``, one thread per channel walking the tokens in
 order, any T >= 1) for CUDA tensors. ``rglru_grad`` is the same function
 with a gradient (``RGLRU``): its backward is the same recurrence run
 backwards in time, so it calls ``rglru_btc`` again, on flipped inputs.
+
+Cost accounting (``distributed.cost``): each call reports
+``cost.rglru_work`` under the ``rgscan`` tag to an active counter,
+whatever implements it, and on the ``meta`` device returns empty outputs
+of the right shapes and dtypes (the dry run's path).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import cost
 from repro_torch.kernels import _cuda
 
 
@@ -37,11 +43,15 @@ def rglru_ref(a, b, h0):
 def rglru_btc(a, b, h0):
     """a/b (B,T,C) fp32; h0 (B,C) fp32. Returns h (B,T,C) fp32 and h_T
     (B,C) fp32."""
-    if a.device.type == "cpu":
-        return rglru_ref(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_btc: no kernel for {a.device}")
-    return _launch(a, b, h0)
+    with cost.counted("rgscan", lambda: cost.rglru_work(*a.shape)):
+        if a.device.type == "meta":
+            return (torch.empty_like(a, dtype=torch.float32),
+                    torch.empty_like(h0, dtype=torch.float32))
+        if a.device.type == "cpu":
+            return rglru_ref(a, b, h0)
+        if a.device.type != "cuda":
+            raise ValueError(f"rglru_btc: no kernel for {a.device}")
+        return _launch(a, b, h0)
 
 
 def _launch(a, b, h0):

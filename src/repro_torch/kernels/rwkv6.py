@@ -16,12 +16,19 @@ at T = 1, the prefill kernel at T > 1 (``wkv6_serial_ref`` repeats its
 order of operations). ``_cuda.forms`` counts the two apart. ``wkv6_grad``
 is the same function with a gradient (``WKV6``): the kernel's forward and
 a plain backward.
+
+Cost accounting (``distributed.cost``): each call reports
+``cost.wkv6_work`` under the ``wkvscan`` tag (the backward re-enters the
+tag) to an active counter, whatever implements it, and on the ``meta``
+device returns empty outputs of the right shapes and dtypes (the dry
+run's path).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import cost
 from repro_torch.kernels import _cuda
 
 HEAD_DIMS = (16, 64)   # the CUDA kernel's templates: reduced and full rwkv6
@@ -123,11 +130,17 @@ def wkv6_serial_ref(r, k, v, logw, u, s0, *, chunk=CHUNK, groups=None):
 def wkv6_bhtk(r, k, v, logw, u, s0):
     """r/k/v/logw (B,H,T,K); u (H,K); s0 (B,H,K,K) fp32. Returns y
     (B,H,T,K) in r's dtype and s_T (B,H,K,K) fp32."""
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, logw, u, s0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6_bhtk: no kernel for {r.device}")
-    return _launch(r, k, v, logw, u, s0)
+    B, H, T, K = r.shape
+    with cost.counted("wkvscan",
+                      lambda: cost.wkv6_work(B, H, T, K, r.element_size())):
+        if r.device.type == "meta":
+            return torch.empty_like(r), torch.empty_like(s0,
+                                                         dtype=torch.float32)
+        if r.device.type == "cpu":
+            return wkv6_ref(r, k, v, logw, u, s0)
+        if r.device.type != "cuda":
+            raise ValueError(f"wkv6_bhtk: no kernel for {r.device}")
+        return _launch(r, k, v, logw, u, s0)
 
 
 def _launch(r, k, v, logw, u, s0):
@@ -186,6 +199,11 @@ class WKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dS):
+        with cost.tag("wkvscan"):
+            return WKV6._backward(ctx, dy, dS)
+
+    @staticmethod
+    def _backward(ctx, dy, dS):
         r, k, v, logw, u, s0 = ctx.saved_tensors
         starts = range(0, r.shape[2], GRAD_CHUNK)
         S = [s0.float()]

@@ -4,6 +4,7 @@
       --steps 100 --batch 8 --seq 128 --ckpt-dir CKPT [--restore]
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --reduced --device cpu --steps 6 --batch 4 --seq 32
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh sim ...
 
 Checkpoint/restart is automatic: ``--restore`` resumes from the newest
 snapshot (training state + data cursor), which is the fault-tolerance path
@@ -16,8 +17,19 @@ A port of the JAX package's ``repro.launch.train`` over the port's
 * It runs on ``--device`` (default ``cuda``); the step is eager
   (``torch.autograd``), nothing jitted; it updates the weights and moments
   in place, as the reference donates them to its jitted step.
-* Only ``--mesh none`` runs: a mesh raises before any weight is built
-  (sharding is ROADMAP Queue 1, item 2).
+* ``--mesh sim|single|multi`` builds the reference's meshes on a
+  ``torch.distributed`` group (``launch.mesh``: a torchrun rendezvous from
+  the environment, else one rank; NCCL on ``cuda``, gloo on ``cpu``):
+  ``sim`` is (n, 1) over ("data", "model") on the group's n ranks,
+  ``single`` / ``multi`` the production (16, 16) / (2, 16, 16) meshes. The
+  parameters are stored sharded by the reference's rules and gathered at
+  use (``distributed.sharding``); each data-parallel rank trains on its
+  rows of the one global batch, so a mesh run and ``--mesh none`` see the
+  same tokens; only rank 0 logs and writes checkpoints. Compute is
+  data-parallel: tensor-parallel compute over ``model`` and context
+  parallelism are not ported (ROADMAP Queue 1), so ranks along ``model``
+  repeat their rows' work. A checkpoint restores across meshes, ``none``
+  included.
 * Every arch of ``configs.registry.ARCH_IDS`` trains, the ``rwkv`` and
   ``rglru`` layers through their kernels' autograd Functions
   (``kernels.rwkv6.WKV6``, ``kernels.rglru.RGLRU``), each layer
@@ -33,11 +45,16 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch.distributed as dist
+
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.data.loader import Prefetcher
 from repro_torch.data.synthetic import make_batch_iterator
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import (init_distributed, make_production_mesh,
+                                     make_sim_mesh)
 from repro_torch.models import lm
 from repro_torch.models.common import trainable
 from repro_torch.optim import OptConfig, init_opt_state, make_train_step
@@ -45,11 +62,13 @@ from repro_torch.optim import OptConfig, init_opt_state, make_train_step
 
 def check_trainable(cfg, mesh=None):
     """Raise what the port cannot train, before any weight is built.
-    ``mesh`` is None or the CLI's ``--mesh`` value."""
-    if mesh not in (None, "none"):
+    ``mesh`` is None or a DeviceMesh."""
+    if mesh is not None and cfg.moe_experts and cfg.moe_impl == "dense" \
+            and sharding.dp_size(mesh) > 1:
         raise NotImplementedError(
-            f"mesh {mesh!r}: sharded training is not ported (ROADMAP Queue "
-            f"1, item 2); run with mesh none")
+            f"{cfg.name}: the dense MoE form's load-balance loss is a "
+            f"product of whole-batch means, which data-parallel ranks "
+            f"cannot split; train the capacity form on a mesh")
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
             f"{cfg.name}: attention with logit softcap "
@@ -58,12 +77,24 @@ def check_trainable(cfg, mesh=None):
 
 
 def build(cfg, opt, mesh=None, device="cuda"):
-    """(trainable params on ``device``, AdamW state, the train step)."""
+    """(trainable params on ``device``, stored sharded on ``mesh`` when one
+    is given, AdamW state, the train step)."""
     check_trainable(cfg, mesh)
     dev = resolve_device(device)
     params = trainable(lm.init_lm(cfg, seed=0, device=dev))
+    if mesh is not None:
+        sharding.shard_module(params, mesh, cfg)
     opt_state = init_opt_state(dict(params.named_parameters()), opt)
-    return params, opt_state, make_train_step(cfg, opt)
+    return params, opt_state, make_train_step(cfg, opt, mesh=mesh)
+
+
+def state_placements(params, mesh):
+    """The restore placements of ``{"params": ..., "opt": ...}``: each
+    moment takes its parameter's."""
+    if mesh is None:
+        return None
+    pl = {n: (mesh, list(p.placements)) for n, p in params.named_parameters()}
+    return {"params": pl, "opt": {"m": pl, "v": pl}}
 
 
 def train(cfg, opt, *, steps, batch, seq, ckpt_dir=None, restore=False,
@@ -72,26 +103,32 @@ def train(cfg, opt, *, steps, batch, seq, ckpt_dir=None, restore=False,
     ``restore``) on ``make_batch_iterator``'s batches. Returns (params,
     optimizer state, the losses of the steps this call ran)."""
     params, opt_state, step_fn = build(cfg, opt, mesh, device)
-    dev = next(params.parameters()).device
+    dev = sharding.local(next(params.parameters())).device
+    lead = mesh is None or dist.get_rank() == 0
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if restore and mgr is not None and mgr.latest_step() is not None:
         state, extra, start = mgr.restore(
-            {"params": params, "opt": opt_state})
+            {"params": params, "opt": opt_state},
+            placements=state_placements(params, mesh))
         # the manager rebuilds a module without gradients
         params = trainable(state["params"])
         opt_state = dict(state["opt"], count=int(state["opt"]["count"]))
-        print(f"[train] restored step {start}")
+        if lead:
+            print(f"[train] restored step {start}")
     it = Prefetcher(make_batch_iterator(cfg, batch, seq, seed=seed,
                                         start_step=start))
     losses = []
     t0 = time.time()
     try:
         for i in range(start, steps):
-            b = {k: v.to(dev) for k, v in next(it).items()}
+            b = next(it)
+            if mesh is not None:
+                b = sharding.local_rows(b, mesh)
+            b = {k: v.to(dev) for k, v in b.items()}
             params, opt_state, metrics = step_fn(params, opt_state, b)
             losses.append(float(metrics["loss"]))
-            if (i + 1) % log_every == 0:
+            if lead and (i + 1) % log_every == 0:
                 tok_s = batch * seq * log_every / (time.time() - t0)
                 print(f"[train] step {i + 1} loss={losses[-1]:.4f} "
                       f"lr={float(metrics['lr']):.2e} "
@@ -105,7 +142,21 @@ def train(cfg, opt, *, steps, batch, seq, ckpt_dir=None, restore=False,
     if mgr is not None:
         mgr.save(steps, {"params": params, "opt": opt_state}, block=True)
         mgr.wait()
+        if mesh is not None:        # rank 0's files before any rank reads
+            dist.barrier()
     return params, opt_state, losses
+
+
+def make_mesh(kind, device="cuda"):
+    """The CLI's ``--mesh``: None for ``none``; else joins the process
+    group (``launch.mesh.init_distributed``) and builds the reference's
+    mesh of that name."""
+    if kind == "none":
+        return None
+    _, world = init_distributed(device)
+    if kind == "sim":
+        return make_sim_mesh(world, (world, 1), ("data", "model"))
+    return make_production_mesh(multi_pod=kind == "multi")
 
 
 def main(argv=None):
@@ -126,10 +177,13 @@ def main(argv=None):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     opt = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                     total_steps=args.steps, microbatches=args.microbatches)
+    mesh = make_mesh(args.mesh, args.device)
     _, _, losses = train(cfg, opt, steps=args.steps, batch=args.batch,
                          seq=args.seq, ckpt_dir=args.ckpt_dir,
-                         restore=args.restore, mesh=args.mesh,
+                         restore=args.restore, mesh=mesh,
                          device=args.device)
+    if mesh is not None and dist.get_rank() != 0:
+        return
     if losses:
         print(f"[train] done. loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     else:

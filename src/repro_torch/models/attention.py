@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import (apply_rope, at_use, rms_norm,
+from repro_torch.models.common import (apply_rope, at_use, cast, rms_norm,
                                        torch_dtype, weight)
 
 
@@ -141,7 +141,7 @@ def attn_decode(p, x, t, cfg, *, cache, cross=False):
     write, and Q projected by ``wq`` cast to x's dtype, as the reference
     casts it there. Returns (out (B,1,d), cache)."""
     if cross:
-        q = _q(p, x, cfg, p.wq.to(x.dtype))
+        q = _q(p, x, cfg, cast(p.wq, x.dtype))
         out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
                                    softcap=cfg.attn_logit_softcap)
         return _proj_out(p, out, cfg), cache

@@ -6,6 +6,11 @@ from the JAX package is a plain copy), created in ``cfg.param_dtype`` and
 cast to ``cfg.compute_dtype`` at use. The forward functions are plain
 functions on tensors that take those modules, like the reference's
 functions take its parameter dicts.
+
+Every read of a parameter goes through ``cast`` (``at_use`` for a weight
+against an activation): a parameter stored sharded as a DTensor
+(``distributed.sharding.shard_module``) is gathered there, its local shard
+cast first, so a layer always computes on plain local tensors.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import gather, is_dtensor
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -100,9 +107,9 @@ def norm_fwd(p, x, cfg):
         x = x - x.mean(-1, keepdim=True)
     var = x.square().mean(-1, keepdim=True)
     x = x * torch.rsqrt(var + cfg.norm_eps)
-    x = x * p.scale.float()
+    x = x * cast(p.scale, torch.float32)
     if cfg.norm_type == "layernorm":
-        x = x + p.bias.float()
+        x = x + cast(p.bias, torch.float32)
     return x.to(dt)
 
 
@@ -110,7 +117,7 @@ def rms_norm(x, scale, eps=1e-6):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
-    return (x * scale.float()).to(dt)
+    return (x * cast(scale, torch.float32)).to(dt)
 
 
 def gumbel_noise(gen, shape, device):
@@ -118,6 +125,12 @@ def gumbel_noise(gen, shape, device):
     u = torch.rand(shape, generator=gen, device=device)
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def cast(w, dtype):
+    """Parameter ``w`` in ``dtype`` as a layer uses it: a plain tensor cast,
+    a DTensor's local shard cast, then gathered (``sharding.gather``)."""
+    return gather(w, dtype) if is_dtensor(w) else w.to(dtype)
 
 
 def at_use(w, x, cfg):
@@ -128,7 +141,7 @@ def at_use(w, x, cfg):
     residual stream, see ``embed_tokens``) the weight is rounded to bf16 and
     the product runs in fp32."""
     cdt = torch_dtype(cfg.compute_dtype)
-    return w.to(cdt).to(torch.promote_types(x.dtype, cdt))
+    return cast(w, cdt).to(torch.promote_types(x.dtype, cdt))
 
 
 def embed_tokens(p, tokens, cfg):
@@ -136,8 +149,12 @@ def embed_tokens(p, tokens, cfg):
     reference multiplies them by ``np.sqrt(d).astype(np.float32)``, a numpy
     scalar, which JAX promotes as an fp32 array: the result is fp32 (the
     embedding rounded to the compute dtype, then scaled in fp32), and the
-    model's residual stream stays fp32 from there on."""
-    x = p.tok[tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    model's residual stream stays fp32 from there on. A sharded table is
+    gathered whole in its own dtype, then indexed as a plain one is: the
+    lookup's backward then sums repeated tokens' gradients in the
+    parameter's dtype, as unsharded, not in the compute dtype."""
+    tok = cast(p.tok, p.tok.dtype) if is_dtensor(p.tok) else p.tok
+    x = tok[tokens.long()].to(torch_dtype(cfg.compute_dtype))
     if cfg.emb_scale:
         x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return x

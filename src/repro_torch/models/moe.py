@@ -18,7 +18,9 @@ The router computes in fp32; the expert products in the compute dtype.
 Top-k takes a stable descending sort of the router's probabilities, so
 among equal probabilities the lower expert index comes first, as
 ``jax.lax.top_k`` orders them (``torch.topk`` promises no order there).
-The reference's sharding constraints are left out: sharding is not ported.
+The reference's sharding constraints have nothing to constrain here: on a
+mesh the compute is data-parallel over local rows
+(``distributed.sharding``), the experts gathered at use like every weight.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.common import ACTIVATIONS, at_use, torch_dtype, weight
+from repro_torch.distributed import cost
+from repro_torch.models.common import (ACTIVATIONS, at_use, cast,
+                                       torch_dtype, weight)
 from repro_torch.models.mlp import GATES, Mlp, mlp_fwd
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
@@ -63,7 +67,7 @@ def capacity(n_group_tokens: int, cfg) -> int:
 def _route(p, x, cfg):
     """fp32 router logits (..., E), their softmax, and the top-k gates
     (renormalized, floor 1e-9) and expert ids (..., k)."""
-    logits = x.float() @ p.router.float()
+    logits = x.float() @ cast(p.router, torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = top[..., :cfg.moe_top_k], idx[..., :cfg.moe_top_k]
@@ -105,10 +109,12 @@ def moe_fwd(p, x, cfg, n_groups: int = 0):
     """x (B, S, d) -> (y (B, S, d), {"moe_lb_loss", "moe_z_loss",
     "moe_drop_frac"}): the dense form with ``cfg.moe_impl == "dense"``,
     else the capacity form over ``n_groups`` groups (default B, one a
-    sequence)."""
+    sequence), tagged ``moeffn`` for the cost counter as the reference's
+    is."""
     if cfg.moe_impl == "dense":
         return moe_fwd_dense(p, x, cfg)
-    return _moe_fwd_capacity(p, x, cfg, n_groups)
+    with cost.tag("moeffn"):
+        return _moe_fwd_capacity(p, x, cfg, n_groups)
 
 
 def dispatch_slots(idx, E, C):

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import torch_dtype, weight
+from repro_torch.models.common import cast, torch_dtype, weight
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -76,9 +76,9 @@ def init_rwkv_state(cfg, batch, device=None, dtype=torch.float32):
 def _ddlerp(p, s, x, dx, xx):
     """Finch data-dependent token-shift interpolation for stream s."""
     cdt = xx.dtype
-    lora = torch.tanh(xx @ getattr(p, f"a_{s}").to(cdt)) \
-        @ getattr(p, f"b_{s}").to(cdt)
-    return x + dx * (getattr(p, f"mu_{s}").to(x.dtype) + lora)
+    lora = torch.tanh(xx @ cast(getattr(p, f"a_{s}"), cdt)) \
+        @ cast(getattr(p, f"b_{s}"), cdt)
+    return x + dx * (cast(getattr(p, f"mu_{s}"), x.dtype) + lora)
 
 
 def rwkv_streams(p, x, shift_prev, cfg):
@@ -87,14 +87,15 @@ def rwkv_streams(p, x, shift_prev, cfg):
     cdt = x.dtype
     xs = torch.cat([shift_prev[:, None].to(cdt), x[:, :-1]], dim=1)
     dx = xs - x
-    xx = x + dx * p.mu_x.to(cdt)
-    r = _ddlerp(p, "r", x, dx, xx) @ p.wr.to(cdt)
-    k = _ddlerp(p, "k", x, dx, xx) @ p.wk.to(cdt)
-    v = _ddlerp(p, "v", x, dx, xx) @ p.wv.to(cdt)
-    g = F.silu(_ddlerp(p, "g", x, dx, xx) @ p.wg.to(cdt))
+    xx = x + dx * cast(p.mu_x, cdt)
+    r = _ddlerp(p, "r", x, dx, xx) @ cast(p.wr, cdt)
+    k = _ddlerp(p, "k", x, dx, xx) @ cast(p.wk, cdt)
+    v = _ddlerp(p, "v", x, dx, xx) @ cast(p.wv, cdt)
+    g = F.silu(_ddlerp(p, "g", x, dx, xx) @ cast(p.wg, cdt))
     mw = _ddlerp(p, "w", x, dx, xx)
     logw = -torch.exp(torch.clamp(
-        p.w0.float() + (torch.tanh(mw @ p.aw.to(cdt)) @ p.bw.to(cdt)).float(),
+        cast(p.w0, torch.float32)
+        + (torch.tanh(mw @ cast(p.aw, cdt)) @ cast(p.bw, cdt)).float(),
         -12.0, 5.0))
     return r, k, v, g, torch.clamp(logw, max=-1e-6)
 
@@ -112,7 +113,7 @@ def rwkv_timemix(p, x, state, cfg):
     K = cfg.rwkv_head_dim
     H = d // K
     r, k, v, g, logw = rwkv_streams(p, x, state["shift_tm"], cfg)
-    u = p.u.float().reshape(H, K)
+    u = cast(p.u, torch.float32).reshape(H, K)
     y, S = kops.wkv6(_heads(r, K), _heads(k, K), _heads(v, K),
                      _heads(logw, K), u, state["S"])
     # per-head group norm, in fp32
@@ -120,8 +121,9 @@ def rwkv_timemix(p, x, state, cfg):
     mu = yg.mean(-1, keepdim=True)
     var = yg.var(-1, keepdim=True, correction=0)
     yg = ((yg - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, T, d)
-    y = (yg * p.gn_scale.float() + p.gn_bias.float()).to(x.dtype)
-    y = (y * g) @ p.wo.to(x.dtype)
+    y = (yg * cast(p.gn_scale, torch.float32)
+         + cast(p.gn_bias, torch.float32)).to(x.dtype)
+    y = (y * g) @ cast(p.wo, x.dtype)
     new_state = {"S": S, "shift_tm": x[:, -1].float(),
                  "shift_cm": state["shift_cm"]}
     return y, new_state
@@ -133,10 +135,10 @@ def rwkv_channelmix(p, x, state, cfg):
     cdt = x.dtype
     xs = torch.cat([state["shift_cm"][:, None].to(cdt), x[:, :-1]], dim=1)
     dx = xs - x
-    xk = x + dx * p.mu_ck.to(cdt)
-    xr = x + dx * p.mu_cr.to(cdt)
-    kk = torch.square(torch.relu(xk @ p.wck.to(cdt)))
-    y = torch.sigmoid(xr @ p.wcr.to(cdt)) * (kk @ p.wcv.to(cdt))
+    xk = x + dx * cast(p.mu_ck, cdt)
+    xr = x + dx * cast(p.mu_cr, cdt)
+    kk = torch.square(torch.relu(xk @ cast(p.wck, cdt)))
+    y = torch.sigmoid(xr @ cast(p.wcr, cdt)) * (kk @ cast(p.wcv, cdt))
     return y, dict(state, shift_cm=x[:, -1].float())
 
 
@@ -187,9 +189,9 @@ def init_rglru_state(cfg, batch, device=None, dtype=torch.float32):
 
 def _rglru_gates(p, u):
     """u (B,T,C) post-conv branch -> (a fp32, gated input b fp32)."""
-    r = torch.sigmoid(u @ p.wr.to(u.dtype) + p.br.to(u.dtype))
-    i = torch.sigmoid(u @ p.wi.to(u.dtype) + p.bi.to(u.dtype))
-    log_a0 = F.logsigmoid(p.lam.float())                           # (C,)
+    r = torch.sigmoid(u @ cast(p.wr, u.dtype) + cast(p.br, u.dtype))
+    i = torch.sigmoid(u @ cast(p.wi, u.dtype) + cast(p.bi, u.dtype))
+    log_a0 = F.logsigmoid(cast(p.lam, torch.float32))              # (C,)
     log_a = RGLRU_C * r.float() * log_a0                           # <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) \
@@ -203,8 +205,9 @@ def causal_conv1d(u, w, b, prev):
     inputs before u[:, 0]. Returns (out (B,T,C), the last W-1 inputs)."""
     W, T = w.shape[0], u.shape[1]
     x = torch.cat([prev.to(u.dtype), u], dim=1)
-    out = sum(x[:, i:i + T] * w[i].to(u.dtype) for i in range(W))
-    return out + b.to(u.dtype), x[:, -(W - 1):]
+    w = cast(w, u.dtype)
+    out = sum(x[:, i:i + T] * w[i] for i in range(W))
+    return out + cast(b, u.dtype), x[:, -(W - 1):]
 
 
 def rglru_block(p, x, state, cfg):
@@ -213,10 +216,10 @@ def rglru_block(p, x, state, cfg):
     cast to it, as the reference computes (fp32 for recurrentgemma, whose
     residual stream is fp32). Returns (y, new_state)."""
     cdt = x.dtype
-    gate = F.gelu(x @ p.wgate.to(cdt), approximate="tanh")
-    u = x @ p.win.to(cdt)
+    gate = F.gelu(x @ cast(p.wgate, cdt), approximate="tanh")
+    u = x @ cast(p.win, cdt)
     u, conv_state = causal_conv1d(u, p.conv_w, p.conv_b, state["conv"])
     a, b = _rglru_gates(p, u)
     h, h_T = kops.rglru(a, b, state["h"])
-    y = (gate * h.to(cdt)) @ p.wout.to(cdt)
+    y = (gate * h.to(cdt)) @ cast(p.wout, cdt)
     return y, {"h": h_T, "conv": conv_state.float()}

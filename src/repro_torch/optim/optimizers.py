@@ -13,6 +13,11 @@ leading ``repeats`` axis: a layer's norm scale (d,) is a (repeats, d)
 leaf there and is decayed, the final norm's scale (d,) is not. ``ranks``
 (``bridge.ref_ndims``) carries those ranks; without it a tensor's own rank
 decides.
+
+On a mesh (``distributed.sharding.shard_module``) parameters, gradients and
+moments are DTensors: the moments take their parameter's placements, the
+update runs on each rank's local shard (``train_step``), and
+``global_norm`` sums every element once across the ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -41,20 +49,43 @@ class OptConfig:
 
 
 def init_opt_state(params, opt: OptConfig):
-    """Zero moments in ``opt.moment_dtype`` beside each parameter, and a
-    step count of 0."""
+    """Zero moments in ``opt.moment_dtype`` beside each parameter (a
+    DTensor parameter's with its placements), and a step count of 0."""
     mdt = getattr(torch, opt.moment_dtype)
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        return {n: torch.zeros_like(p, dtype=mdt, requires_grad=False)
                 for n, p in params.items()}
     return {"m": zeros(), "v": zeros(), "count": 0}
 
 
 def global_norm(tree):
-    """sqrt of the sum of every leaf's squares, in fp32 (a 0-d tensor)."""
-    leaves = [x.float().square().sum() for x in tree.values()]
-    return torch.stack(leaves).sum().sqrt()
+    """sqrt of the sum of every leaf's squares, in fp32 (a 0-d tensor).
+    With DTensor leaves each rank sums its local shards, one rank of each
+    group of replicas counting a shard, and one all-reduce adds the ranks'
+    sums, so every element counts once."""
+    leaves = list(tree.values())
+    sharded = [is_dtensor(x) for x in leaves]
+    if not any(sharded):
+        return torch.stack([x.float().square().sum()
+                            for x in leaves]).sum().sqrt()
+    if not all(sharded):
+        raise TypeError("global_norm: DTensor and plain leaves mixed")
+    total = torch.stack([_shard_square_sum(x) for x in leaves]).sum()
+    if dist.get_world_size() > 1:      # one rank's sum is the whole
+        dist.all_reduce(total)
+    return total.sqrt()
+
+
+def _shard_square_sum(x):
+    """The local shard's sum of squares, or 0 on a rank that is not the
+    first of its replicas (coordinate 0 on every mesh dim that replicates
+    ``x``)."""
+    s = x.to_local().float().square().sum()
+    coord = x.device_mesh.get_coordinate()
+    first = all(c == 0 for c, pl in zip(coord, x.placements)
+                if pl.is_replicate())
+    return s if first else torch.zeros_like(s)
 
 
 def clip_scale(norm, max_norm):

@@ -18,6 +18,23 @@ metrics (a shard's loss normalized by sums over the whole batch makes the
 sum the whole batch's loss). After the update every replica takes the
 new values.
 
+On a mesh (``mesh``, the parameters DTensors from
+``distributed.sharding.shard_module``) ``batch`` is this rank's rows of the
+global batch (``sharding.local_rows``) and compute is data-parallel. Each
+use of a parameter gathers it, and its gradient is summed over every rank
+of the mesh (``sharding.gather``): over the data-parallel ranks, whose
+rows differ, and over the ranks along ``model``, which hold the same rows
+and compute the same gradient. So each rank's loss is divided by the
+mesh's size, ``dp x model``: the sum over ranks is then ``model x sum_dp
+g_r / (dp x model) = mean_dp g_r``, the gradient of the global batch's
+mean loss, whenever each rank's loss is the mean over its rows of per-row
+(per-group) terms of equal weight (the CE over ``lm_batch``'s unmasked
+targets, the MoE capacity form's aux terms). The metrics are all-reduced
+to their global means; clipping takes the norm across ranks
+(``optimizers.global_norm``); AdamW runs on each rank's local shards, so a
+replicated leaf gets the same all-reduced gradient on every rank and stays
+bitwise equal across them.
+
 The step writes the new parameters and moments into ``params`` and
 ``opt_state``'s moment tensors, as the reference's launcher donates both
 to its jitted step, and updates a leaf in flat slices of ``UPDATE_SLICE``
@@ -28,7 +45,9 @@ temporaries, not a second copy of the weights, gradients and moments.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import local
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import (OptConfig, adamw_leaf,
                                           clip_scale, global_norm, is_matrix)
@@ -41,15 +60,17 @@ def _trained(module):
     return [(n, p) for n, p in module.named_parameters() if p.requires_grad]
 
 
-def make_train_step(cfg, opt: OptConfig, loss_fn=None):
+def make_train_step(cfg, opt: OptConfig, loss_fn=None, mesh=None):
     from repro_torch.bridge import ref_ndims
     schedule = make_schedule(opt)
     loss_fn = loss_fn or (lambda p, b: lm.lm_loss(p, b, cfg))
+    ranks_in_mesh = 1 if mesh is None else mesh.size()
 
     def grads_of(module, batch):
         named = _trained(module)
         loss, metrics = loss_fn(module, batch)
-        grads = torch.autograd.grad(loss, [p for _, p in named],
+        grads = torch.autograd.grad(loss / ranks_in_mesh if mesh is not None
+                                    else loss, [p for _, p in named],
                                     allow_unused=True)
         # a parameter the loss does not reach gets zeros, as in JAX
         return ({n: torch.zeros_like(p) if g is None else g
@@ -62,8 +83,8 @@ def make_train_step(cfg, opt: OptConfig, loss_fn=None):
         n = opt.microbatches
         mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
               for k, v in batch.items()}
-        acc = {name: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+        acc = {name: torch.zeros_like(p, dtype=torch.float32,
+                                      requires_grad=False)
                for name, p in _trained(module)}
         ms = []
         for i in range(n):
@@ -85,6 +106,8 @@ def make_train_step(cfg, opt: OptConfig, loss_fn=None):
             else:
                 grads = {k: v + g[k].to(dev) for k, v in grads.items()}
                 metrics = {k: v + m[k].to(dev) for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = _global_means(metrics, ranks_in_mesh)
         gnorm = global_norm(grads)
         scale = clip_scale(gnorm, opt.clip_norm)
         lr = schedule(opt_state["count"])
@@ -94,8 +117,8 @@ def make_train_step(cfg, opt: OptConfig, loss_fn=None):
         m, v = opt_state["m"], opt_state["v"]
         with torch.no_grad():
             for n, p in _trained(params):
-                g = grads.pop(n).reshape(-1)
-                flat = [p.view(-1), m[n].view(-1), v[n].view(-1)]
+                g = local(grads.pop(n)).reshape(-1)
+                flat = [local(x).view(-1) for x in (p, m[n], v[n])]
                 for i in range(0, g.numel(), UPDATE_SLICE):
                     pieces = [x[i:i + UPDATE_SLICE] for x in flat]
                     gi = g[i:i + UPDATE_SLICE]
@@ -112,3 +135,13 @@ def make_train_step(cfg, opt: OptConfig, loss_fn=None):
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
     return train_step
+
+
+def _global_means(metrics, n):
+    """Each 0-d metric averaged over the mesh's ``n`` ranks (one
+    all-reduce)."""
+    keys = sorted(metrics)
+    total = torch.stack([metrics[k].float() for k in keys])
+    if n > 1:
+        dist.all_reduce(total)
+    return dict(zip(keys, total / n))

@@ -86,9 +86,15 @@ def test_rglru_plain_matches_pallas_kernel_and_oracle(B, T, C):
 
 
 def test_rglru_refuses_other_devices():
-    x = torch.zeros(1, 2, 4, device="meta")
+    """A device other than the CPU, CUDA and meta (the dry run's, which
+    gives shapes) raises."""
+    from test_torch_kernels import Elsewhere
+    x = Elsewhere(1, 2, 4)
     with pytest.raises(ValueError):
-        rglru.rglru_btc(x, x, x[:, 0])
+        rglru.rglru_btc(x, x, Elsewhere(1, 4))
+    m = torch.zeros(1, 2, 4, device="meta")
+    h, h_T = rglru.rglru_btc(m, m, m[:, 0])
+    assert h.is_meta and h.shape == m.shape and h_T.shape == (1, 4)
 
 
 # ---------------------------------------------------------------------------

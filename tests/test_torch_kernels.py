@@ -158,14 +158,35 @@ def test_flash_bhsd_masks_pre_pad_lengths():
     assert np.all(got[:, :, S:] == 0.0)
 
 
+class Elsewhere(torch.Tensor):
+    """A tensor without data on a device the kernels do not serve (any
+    device type but the CPU, CUDA and meta): every op on it raises."""
+
+    @staticmethod
+    def __new__(cls, *shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor without data")
+
+
 def test_kernels_refuse_other_devices():
-    q = torch.zeros(1, 1, 1, 16, device="meta")
+    """A device other than the CPU (the plain versions), CUDA (the kernels)
+    and meta (the dry run's shapes, ``distributed.cost``) raises."""
+    q = Elsewhere(1, 1, 1, 16)
     with pytest.raises(ValueError):
         fa.flash_attention_bhsd(q, q, q)
     with pytest.raises(ValueError):
         pa.paged_decode_bkgh(q, q, q, q, q, page_size=1)
     with pytest.raises(ValueError):
-        rwkv6.wkv6_bhtk(q, q, q, q, q[0, 0], q)
+        rwkv6.wkv6_bhtk(q, q, q, q, Elsewhere(1, 16), q)
+    m = torch.zeros(1, 1, 1, 16, device="meta")
+    assert fa.flash_attention_bhsd(m, m, m).is_meta
+    y, s = rwkv6.wkv6_bhtk(m, m, m, m, m[0, 0], torch.zeros(
+        1, 1, 16, 16, device="meta"))
+    assert y.shape == m.shape and s.shape == (1, 1, 16, 16) and s.is_meta
 
 
 # ---------------------------------------------------------------------------

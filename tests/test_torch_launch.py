@@ -164,23 +164,27 @@ def test_resumed_run_equals_uninterrupted_run_bitwise(tmp_path):
 
 @pytest.mark.parametrize("case", ["mesh sim", "softcap"])
 def test_train_refuses_before_any_weight_is_built(case, monkeypatch):
-    """A mesh (sharding is not ported) and attention with a logit softcap
-    (no gradient) raise before ``lm.init_lm`` runs."""
+    """The dense MoE form on a data-parallel mesh (its load-balance loss
+    does not split over ranks) and attention with a logit softcap (no
+    gradient) raise before ``lm.init_lm`` runs. A mesh is only read for
+    its axes here, so a stub stands for a (2, 1) ("data", "model") one."""
     def no_weights(*a, **k):
         raise AssertionError("weights were built")
     monkeypatch.setattr(train_mod.lm, "init_lm", no_weights)
     mesh = None
     if case == "mesh sim":
-        cfg, mesh, match = get_reduced("progen-s"), "sim", "Queue 1, item 2"
+        class Mesh:
+            axis_names = ("data", "model")
+            devices = np.empty((2, 1), dtype=object)
+        cfg, mesh, match = dataclasses.replace(
+            get_reduced("qwen3-moe-30b-a3b"), moe_impl="dense"), Mesh(), \
+            "dense MoE"
     else:
         cfg, match = dataclasses.replace(
             get_reduced("progen-s"), attn_logit_softcap=30.0), "softcap"
     with pytest.raises(NotImplementedError, match=match):
         train_mod.train(cfg, _opt(), steps=2, batch=2, seq=8, mesh=mesh,
                         device="cpu")
-    if case == "mesh sim":
-        with pytest.raises(NotImplementedError, match=match):
-            train_mod.main(["--reduced", "--device", "cpu", "--mesh", "sim"])
 
 
 def test_train_cli_runs_and_resumes(tmp_path, capsys):

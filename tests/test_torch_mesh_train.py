@@ -1,0 +1,224 @@
+"""Training on a mesh (``repro_torch.distributed.sharding``,
+``launch/mesh.py``, ``launch/train.py --mesh``) against the same launcher
+unsharded, on the CPU.
+
+Four gloo ranks, spawned with a free localhost port, form a 2 x 2
+("data", "model") mesh. Each reduced arch (fp32 compute, so a row's
+products round alike however the batch is split; the full config's
+``fsdp`` and ``moe_parallelism``) trains 2 steps there and 2 steps with
+``mesh=None`` on the same global batches: losses within 1e-5 and weights
+within 1e-4 relative; every copy of a shard (ranks that differ only along
+mesh dims that replicate it) bitwise equal; the mesh checkpoint restores
+on four ranks and on one, and the unsharded run's restores on four. Each
+spawn joins with a time limit of its own, so a hung rank fails its test.
+"""
+
+import multiprocessing
+import shutil
+import socket
+
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.configs.registry import get_config, get_reduced  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import train as tr  # noqa: E402
+from repro_torch.launch.mesh import make_sim_mesh  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+
+ARCHS = ("smollm-360m", "rwkv6-7b", "recurrentgemma-2b", "qwen3-moe-30b-a3b")
+RANKS, MESH = 4, (2, 2)
+B, S, STEPS = 4, 16, 2
+LOSS_RTOL, WEIGHT_RTOL = 1e-5, 1e-4
+JOIN_S = 240
+
+
+def config(arch):
+    full = get_config(arch)
+    return get_reduced(arch).replace(compute_dtype="float32", fsdp=full.fsdp,
+                                     moe_parallelism=full.moe_parallelism)
+
+
+def opt():
+    return OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+
+
+def run(cfg, steps, ckpt_dir, mesh=None, restore=False):
+    return tr.train(cfg, opt(), steps=steps, batch=B, seq=S, mesh=mesh,
+                    ckpt_dir=str(ckpt_dir), restore=restore, log_every=100,
+                    device="cpu")
+
+
+def shard_key(p):
+    """Where a local shard sits: its coordinates on the mesh dims that
+    shard the leaf (ranks equal here hold copies of one shard)."""
+    return tuple(c for c, pl in zip(p.device_mesh.get_coordinate(),
+                                    p.placements) if pl.is_shard())
+
+
+def _worker(rank, port, arch, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=RANKS)
+    try:
+        mesh = make_sim_mesh(RANKS, MESH, ("data", "model"))
+        cfg = config(arch)
+        params, _, losses = run(cfg, STEPS, out / "mesh", mesh)
+        res = {"losses": losses,
+               "local": {n: (shard_key(p), p.to_local().detach().clone())
+                         for n, p in params.named_parameters()},
+               "whole": {n: sharding.whole(p)
+                         for n, p in params.named_parameters()}}
+        params, _, res["resumed_losses"] = run(cfg, STEPS + 1, out / "mesh",
+                                               mesh, restore=True)
+        res["resumed"] = {n: sharding.whole(p)
+                          for n, p in params.named_parameters()}
+        params, _, res["from_none_losses"] = run(cfg, STEPS + 1,
+                                                 out / "from_none", mesh,
+                                                 restore=True)
+        res["from_none"] = {n: sharding.whole(p)
+                            for n, p in params.named_parameters()}
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(arch, out):
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_worker, args=(r, port, arch, out))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(JOIN_S)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.terminate()
+        p.join(10)
+    assert not hung, f"{len(hung)} rank(s) still running after {JOIN_S} s"
+    assert [p.exitcode for p in procs] == [0] * RANKS
+    return [torch.load(out / f"rank{r}.pt") for r in range(RANKS)]
+
+
+def rel(a, b):
+    """max |a - b| / max |b| (1 where b is all zeros)."""
+    scale = float(b.abs().max()) or 1.0
+    return float((a - b).abs().max()) / scale
+
+
+def assert_weights(got, module, what):
+    want = dict(module.named_parameters())
+    assert got.keys() == want.keys()
+    worst = max(rel(got[n], want[n].detach()) for n in want)
+    assert worst <= WEIGHT_RTOL, f"{what}: weights off by {worst:.2e}"
+
+
+def assert_losses(got, want, what):
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    assert len(got) == len(want) and worst <= LOSS_RTOL, \
+        f"{what}: losses {got} vs {want}"
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_train_agrees_with_unsharded(arch, tmp_path):
+    cfg = config(arch)
+    none2, _, losses = run(cfg, STEPS, tmp_path / "none")
+    shutil.copytree(tmp_path / "none", tmp_path / "from_none")
+    none3, _, tail = run(cfg, STEPS + 1, tmp_path / "none", restore=True)
+    losses += tail
+    ranks = spawn(arch, tmp_path)
+    for r, res in enumerate(ranks):
+        assert_losses(res["losses"], losses[:STEPS], f"rank {r}")
+        assert_losses(res["resumed_losses"], losses[STEPS:],
+                      f"rank {r} resumed")
+        assert_losses(res["from_none_losses"], losses[STEPS:],
+                      f"rank {r} from the unsharded checkpoint")
+    assert_weights(ranks[0]["whole"], none2, "mesh")
+    assert_weights(ranks[0]["resumed"], none3, "mesh resumed on 4 ranks")
+    assert_weights(ranks[0]["from_none"], none3,
+                   "unsharded checkpoint resumed on 4 ranks")
+    # every copy of a shard is bitwise equal
+    for name in ranks[0]["local"]:
+        copies = {}
+        for res in ranks:
+            key, t = res["local"][name]
+            first = copies.setdefault(key, t)
+            assert torch.equal(first, t), name
+    # the mesh checkpoint holds the gathered weights and restores on one rank
+    state, _, step = CheckpointManager(str(tmp_path / "mesh")).restore(
+        {"params": none2}, step=STEPS)
+    assert step == STEPS
+    for n, p in state["params"].named_parameters():
+        assert torch.equal(p, ranks[0]["whole"][n]), n
+    one = tmp_path / "one"
+    one.mkdir()
+    for f in (tmp_path / "mesh").glob(f"ckpt_{STEPS:08d}*"):
+        shutil.copy(f, one)
+    (one / "latest.json").write_text(f'{{"step": {STEPS}}}')
+    params, _, tail = run(cfg, STEPS + 1, one, restore=True)
+    assert_losses(tail, losses[STEPS:], "mesh checkpoint resumed on 1 rank")
+    assert_weights({n: p.detach() for n, p in params.named_parameters()},
+                   none3, "mesh checkpoint resumed on 1 rank")
+
+
+@pytest.fixture
+def one_rank():
+    """A one-rank gloo group (no sockets), torn down after the test."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_sim_mesh(1, (1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "wkv6", "rglru",
+                                    "paged_decode_attention"])
+def test_dtensor_reaching_a_kernel_raises(kernel, one_rank):
+    """``kernels/ops.py`` refuses a DTensor outright (the kernels read raw
+    pointers); it never unwraps one to its local shard."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape):
+        return distribute_tensor(torch.randn(*shape, generator=g), one_rank,
+                                 [Replicate(), Replicate()])
+    args = {"flash_attention": (t(1, 4, 2, 8), t(1, 4, 2, 8), t(1, 4, 2, 8)),
+            "wkv6": (t(1, 2, 3, 4),) * 4 + (t(2, 4), t(1, 2, 4, 4)),
+            "rglru": (t(1, 3, 4), t(1, 3, 4), t(1, 4)),
+            "paged_decode_attention": (t(1, 1, 2, 8), t(2, 2, 4, 8),
+                                       t(2, 2, 4, 8), torch.zeros(1, 1),
+                                       torch.ones(1))}[kernel]
+    kw = {"page_size": 4} if kernel == "paged_decode_attention" else {}
+    with pytest.raises(TypeError, match="DTensor"):
+        getattr(ops, kernel)(*args, **kw)
+
+
+def test_train_cli_mesh_sim_on_one_rank(tmp_path, capsys):
+    """``python -m repro_torch.launch.train --mesh sim`` (``main``) without
+    a rendezvous in the environment joins a one-rank gloo group on the CPU
+    and trains as ``--mesh none`` does, to the same losses."""
+    args = ["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--steps", "2"]
+    try:
+        tr.main(args + ["--mesh", "sim"])
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    tr.main(args)
+    done = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("[train] done")]
+    assert len(done) == 2 and done[0] == done[1]
