@@ -241,10 +241,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    device alone), device time by kind. (d) ``python -m
    repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` and rwkv6-7b
    ``decode_32k`` on the single-pod mesh, in two subprocesses on fake
-   256-rank groups: each roofline line and bottleneck. (e) Flash at
+   256-rank groups started with the phase (they run on the host beside
+   (a)-(c)): each roofline line and bottleneck. (e) Flash at
    smollm-360m's train shape (8 x 15/5 x 512, hd 64, bf16), its own
-   record.
-12. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
+   record. Since the step is tensor-parallel over "model", a one-rank
+   mesh computes the unsharded code path.
+12. Tensor-parallel training over "model". (a) The kernels at the local
+   shapes the split hands each rank, held to their plain versions and timed
+   beside their bounds (flash beside sdpa), records of their own: flash at
+   llama3-8b's 4 x 8/2 x 512 and chatglm3-6b's 4 x 8/1 x 512 (hd 128,
+   bf16), wkv6 at rwkv6-7b's 4 x 16 x 512 x 64, rglru at
+   recurrentgemma-2b's 4 x 512 x 640; then flash 4 x 10/1 x 512 (fp32, hd
+   256) and wkv6 4 x 64 x 512 x 64, phase 11's shapes, held and timed. (b)
+   Four processes on the card join a gloo group with CUDA tensors (NCCL
+   refuses two ranks on one device) as a (1, 4) ("data", "model") mesh;
+   each of ``TP_TRAINS`` (llama3-8b, chatglm3-6b, rwkv6-7b at 2 layers,
+   recurrentgemma-2b at one block) trains ``TP_STEPS`` steps of 4 x 512
+   with ``launch/train.py``, in fp32 and in its config's bf16, against
+   ``--mesh none`` run in this process from the same seed, whose gradients
+   and weights the ranks read by CUDA IPC: every step's loss to 1e-5 (fp32;
+   rwkv6-7b's first step only) or 2e-2 (bf16), the first step's gradients
+   to ``tp_grad_tol`` of each leaf's max, each step's launches the
+   unsharded step's by kernel and form; printed: the weights, each rank's
+   step walls, all-reduces a step and their bytes, FLOPs and MFU (one step
+   under ``distributed.cost``'s counter).
+13. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
    launches are added to the records of the forms it ran; phase 8's five
@@ -252,8 +273,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase 9's two likewise; phase 10's wkv6 launches are added to phase
    6's record, its shape, and its rglru and flash launches are the 4 x
    2560 records'; phase 11's mesh runs add theirs to the records of the
-   kernels and forms they ran, smollm-360m's flash shape its own), the
-   total time, the card line, then the last line
+   kernels and forms they ran, smollm-360m's flash shape its own; phase
+   12's bf16 runs are the four local-shape records' launches, rank 0's,
+   recurrentgemma-2b's attention adding to the hd-256 training record),
+   the total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
@@ -382,6 +405,36 @@ MESH_LOSS_RTOL, MESH_WEIGHT_RTOL = 1e-5, 1e-4
 # phase 11d: launch/dryrun.py cells on the single-pod mesh
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
+# phase 12: launch/train.py tensor-parallel over "model" on a (1, 4) mesh of
+# four processes sharing the one card over gloo with CUDA tensors (NCCL
+# refuses two ranks on one device), at full width: arch -> layers kept
+# (recurrentgemma-2b one (rglru, rglru, attn_local) block, its 10 heads
+# replicated); rows x tokens, steps; each arch once in fp32 (the check)
+# and once in its config's compute dtype (the path)
+TP_TRAINS = {"llama3-8b": 2, "chatglm3-6b": 2, "rwkv6-7b": 2,
+             "recurrentgemma-2b": 3}
+TP_RANKS, TP_MESH = 4, (1, 4)
+TP_BATCH, TP_SEQ, TP_STEPS = 4, 512, 4
+# against --mesh none from one seed: every step's loss, to 1e-5 in fp32 and
+# 2e-2 in bf16; rwkv6-7b's fp32 losses after the first step are printed,
+# since AdamW's normalized step carries the split's rounding into its
+# zero-initialised leaves (its mu_x: ~1 of the leaf's max after 4 steps)
+TP_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the first step's gradients (the same weights), each leaf's max error over
+# its max: in fp32 to the card's bound against autograd (2e-5: phases 5d,
+# 10a); where splitting every feed-forward down-projection's sum in 4, with
+# no mesh, moves the unsharded step's gradients further (this table, read
+# by tools/tp_rounding.py at phase 12's shapes on an NVIDIA H100 80GB HBM3
+# at 700 W; the unsplit step repeats bitwise), to TP_FLOOR_X times that
+# move. rwkv6-7b's bf16 `u` gradient is a leaf 133x below the model's
+# largest, whose sum cancels: one split moves it 1.79 of its max
+TP_SPLIT_MOVES = {("rwkv6-7b", "float32"): 3.334e-3,
+                  ("llama3-8b", "bfloat16"): 1.345e-2,
+                  ("chatglm3-6b", "bfloat16"): 1.370e-2,
+                  ("rwkv6-7b", "bfloat16"): 1.787,
+                  ("recurrentgemma-2b", "bfloat16"): 3.356e-3}
+TP_GRAD_RTOL, TP_FLOOR_X = 2e-5, 10
+TP_TIMEOUT_S = 400          # a config's four ranks, from its task to results
 
 
 def expect(cond, msg):
@@ -836,34 +889,42 @@ def phase_wkv6(torch):
                 check_close(f"wkv6 {label} {name} s_T vs wkv6_serial_ref", s,
                             s_ser, **WKV_STATE_TOL)
 
-    # timings at the serving path's shapes, in bf16 as the path runs them.
-    # Calls rotate over enough input sets to fill twice the 50 MB L2, as
-    # the path's calls find their state cold (a layer's weights pass
-    # through L2 between two calls).
-    dt, records = torch.bfloat16, []
-    for label, T in (("prefill", SERVE_PROMPT), ("decode", 1)):
-        b_ms, b_by, n_bytes = wkv_bound(B, H, T, K, 2)
-        sets = [wkv_inputs(torch, g, B, H, T, K, dt, s0=T == 1)
-                for _ in range(-(-100_000_000 // n_bytes))]
-        err = max_err(rwkv6.wkv6_bhtk(*sets[0])[0],
-                      rwkv6.wkv6_ref(*sets[0])[0])
-        turn = itertools.cycle(sets)
-        run_k = lambda: rwkv6.wkv6_bhtk(*next(turn))
-        run_p = lambda: rwkv6.wkv6_ref(*next(turn))
-        ms = graph_ms(torch, run_k)
-        plain = graph_ms(torch, run_p, iters=4, replays=3)
-        print(f"  wkv6 {label} {B}x{H}x{T}x{K} bf16, device ms per call: "
-              f"kernel {ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} "
-              f"({b_by}); wall per back-to-back call: kernel "
-              f"{wall_ms(torch, run_k):.4f}; err {err:.3e}", flush=True)
-        records.append({"name": "wkv6_bhtk" if T > 1 else "wkv6_bhtk_decode",
-                        "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
-                        "replaces": "src/repro/kernels/rwkv6.py:69",
-                        "launches": 0, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
-    return records
+    # timings at the serving path's shapes, in bf16 as the path runs them
+    return [dict(time_wkv6(torch, g, B, H, T, K, label),
+                 name="wkv6_bhtk" if T > 1 else "wkv6_bhtk_decode")
+            for label, T in (("prefill", SERVE_PROMPT), ("decode", 1))]
+
+
+def time_wkv6(torch, g, B, H, T, K, label):
+    """wkv6 at (B, H, T, K) in bf16, as the paths run it: the kernel held
+    to the plain version (phase 2b's tolerance), then the kernel's and the
+    plain version's device time per call and the bound. Calls rotate
+    over enough input sets to fill twice the 50 MB L2, as the path's calls
+    find their state cold (a layer's weights pass through L2 between two
+    calls). Returns the kernel's record without its name."""
+    from repro_torch.kernels import rwkv6
+
+    dt = torch.bfloat16
+    b_ms, b_by, n_bytes = wkv_bound(B, H, T, K, 2)
+    sets = [wkv_inputs(torch, g, B, H, T, K, dt, s0=T == 1)
+            for _ in range(-(-100_000_000 // n_bytes))]
+    err = check_close(f"wkv6 {label} {B}x{H}x{T}x{K} bf16 y vs wkv6_ref",
+                      rwkv6.wkv6_bhtk(*sets[0])[0],
+                      rwkv6.wkv6_ref(*sets[0])[0], TOL["bfloat16"],
+                      TOL["bfloat16"])
+    turn = itertools.cycle(sets)
+    run_k = lambda: rwkv6.wkv6_bhtk(*next(turn))                # noqa: E731
+    run_p = lambda: rwkv6.wkv6_ref(*next(turn))                 # noqa: E731
+    ms = graph_ms(torch, run_k)
+    plain = graph_ms(torch, run_p, iters=4, replays=3)
+    print(f"  wkv6 {label} {B}x{H}x{T}x{K} bf16, device ms per call: "
+          f"kernel {ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} "
+          f"({b_by}); wall per back-to-back call: kernel "
+          f"{wall_ms(torch, run_k):.4f}; err {err:.3e}", flush=True)
+    return {"route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:69", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def rglru_inputs(torch, g, B, T, C, h0=True):
@@ -1161,8 +1222,9 @@ def phase_rglru_flash256(torch):
 
 
 def time_rglru(torch, g, B, T, C, label):
-    """rglru at (B, T, C) fp32: the kernel's and the plain version's device
-    time per call, inputs rotating past 100 MB, and the bound. Returns the
+    """rglru at (B, T, C) fp32: the kernel held to the plain version, then
+    the kernel's and the plain version's device time per call, inputs
+    rotating past 100 MB, and the bound. Returns the
     kernel's record without its name."""
     from repro_torch.kernels import rglru
 
@@ -1172,6 +1234,7 @@ def time_rglru(torch, g, B, T, C, label):
     sets = [rglru_inputs(torch, g, B, T, C, h0=T == 1)
             for _ in range(-(-100_000_000 // n_bytes))]
     err = max_err(rglru.rglru_btc(*sets[0])[0], rglru.rglru_ref(*sets[0])[0])
+    check(f"rglru {label} {B}x{T}x{C} fp32 vs rglru_ref", err, RGLRU_TOL)
     turn = itertools.cycle(sets)
     run_k = lambda: rglru.rglru_btc(*next(turn))              # noqa: E731
     run_p = lambda: rglru.rglru_ref(*next(turn))              # noqa: E731
@@ -1189,9 +1252,10 @@ def time_rglru(torch, g, B, T, C, label):
 
 def time_flash256(torch, g, B, S, label, H=10, W=2048, hd=256):
     """Flash's fp32 sequence form at recurrentgemma-2b's attention (B x
-    H/1 x S, hd 256, causal, window W): the kernel's, the plain version's
-    and sdpa's device time per call, inputs rotating past 100 MB, and the
-    bound. Returns the kernel's record without its name."""
+    H/1 x S, hd 256, causal, window W): the kernel held to the plain
+    version, then the kernel's, the plain version's and sdpa's device time
+    per call, inputs rotating past 100 MB, and the bound. Returns the
+    kernel's record without its name."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.attention import make_mask
@@ -1206,6 +1270,8 @@ def time_flash256(torch, g, B, S, label, H=10, W=2048, hd=256):
     kw = dict(causal=True, window=W)
     err = max_err(fa.flash_attention_bhsd(*sets[0], **kw),
                   fa.attention_ref(*sets[0], **kw))
+    check(f"flash hd 256 {label} {B}x{H}x{S} window {W} fp32 vs "
+          f"attention_ref", err, TOL["float32"])
     turn = itertools.cycle(sets)
     run_k = lambda: fa.flash_attention_bhsd(*next(turn), **kw)  # noqa: E731
     run_p = lambda: fa.attention_ref(*next(turn), **kw)         # noqa: E731
@@ -4481,43 +4547,46 @@ def mesh_roofline(torch, cfg, params, state, mesh, walls):
     return rec
 
 
-def mesh_dryrun(torch):
-    """(d) ``python -m repro_torch.launch.dryrun`` for each of
-    ``DRYRUN_CELLS`` on the single-pod mesh, in subprocesses run together
-    (each joins a fake group of 256 ranks on the host; nothing reaches the
-    card): each cell's roofline line and its bottleneck."""
-    import tempfile
-
+def start_dryrun(d):
+    """(d) Starts ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_CELLS`` on the single-pod mesh, in subprocesses writing to
+    the directory ``d`` (each joins a fake group of 256 ranks on the host;
+    nothing reaches the card, so they run beside phase 11's training).
+    Returns [(arch, shape, process)]."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        procs = [(arch, shape, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single", "--out", d],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-            for arch, shape in DRYRUN_CELLS]
-        outs = []
-        for arch, shape, p in procs:
-            try:
-                out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                for _, _, q in procs:
-                    q.kill()
-                    q.communicate()
-                raise
-            expect(p.returncode == 0, f"dryrun {arch} {shape}: exit "
-                   f"{p.returncode}\n{err[-3000:]}")
-            with open(os.path.join(d, f"{arch}_{shape}_single.json")) as f:
-                outs.append((json.load(f), out))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        log = open(os.path.join(d, f"{arch}_{shape}.log"), "w")
+        with log:
+            procs.append((arch, shape, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "single",
+                 "--out", d], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def mesh_dryrun(d, procs, t):
+    """(d) Waits for ``start_dryrun``'s subprocesses (started at ``t``),
+    then prints each cell's roofline line and its bottleneck."""
+    outs = []
+    for arch, shape, p in procs:
+        p.wait(timeout=max(1.0, t + DRYRUN_TIMEOUT_S - time.perf_counter()))
+        with open(os.path.join(d, f"{arch}_{shape}.log")) as f:
+            out = f.read()
+        expect(p.returncode == 0, f"dryrun {arch} {shape}: exit "
+               f"{p.returncode}\n{out[-3000:]}")
+        with open(os.path.join(d, f"{arch}_{shape}_single.json")) as f:
+            outs.append((json.load(f), out))
     print(f"phase 11d: launch/dryrun.py, {len(outs)} cells on a fake "
-          f"256-rank single-pod mesh in {time.perf_counter() - t:.1f} s",
-          flush=True)
+          f"256-rank single-pod mesh, done {time.perf_counter() - t:.1f} s "
+          f"after their start (beside phase 11a-c)", flush=True)
     for rec, out in outs:
         expect(rec["applicable"] and rec["chips"] == 256
                and rec["roofline"]["flops_per_device"] > 0,
                f"dryrun record {rec}")
-        print(f"  {out.strip().splitlines()[0]}", flush=True)
+        print(f"  {[ln for ln in out.splitlines() if 'chips=' in ln][0]}",
+              flush=True)
         print(f"  {rec['arch']} {rec['shape']}: bottleneck "
               f"{rec['roofline']['bottleneck']}, collectives "
               f"{rec['roofline']['collectives']}, attention "
@@ -4530,29 +4599,42 @@ def mesh_dryrun(torch):
 def phase_mesh(torch):
     """Phase 11: sharding and cost accounting on a one-rank NCCL mesh.
     Returns (the new record, launches by record name)."""
+    import tempfile
+
     import torch.distributed as dist
 
     from repro_torch.launch import train as tr
 
     t_phase = time.perf_counter()
-    mesh = tr.make_mesh("sim", "cuda")
-    expect(dist.get_backend() == "nccl" and mesh.device_type == "cuda"
-           and tuple(mesh.shape) == (1, 1),
-           f"phase 11: mesh {mesh}, backend {dist.get_backend()}")
-    try:
-        launches = {}
-        for arch in MESH_TRAINS:
-            cfg, params, state, counts, walls = mesh_train(torch, arch, mesh)
-            launches[arch] = counts
-            if arch == "smollm-360m":
-                smollm = mesh_roofline(torch, cfg, params, state, mesh, walls)
-            del params, state
-        mesh_checkpoint(torch, mesh)
-    finally:
-        dist.destroy_process_group()
-    gc.collect()
-    torch.cuda.empty_cache()
-    mesh_dryrun(torch)
+    with tempfile.TemporaryDirectory() as d:
+        dry = start_dryrun(d)
+        try:
+            mesh = tr.make_mesh("sim", "cuda")
+            expect(dist.get_backend() == "nccl"
+                   and mesh.device_type == "cuda"
+                   and tuple(mesh.shape) == (1, 1),
+                   f"phase 11: mesh {mesh}, backend {dist.get_backend()}")
+            try:
+                launches = {}
+                for arch in MESH_TRAINS:
+                    cfg, params, state, counts, walls = mesh_train(
+                        torch, arch, mesh)
+                    launches[arch] = counts
+                    if arch == "smollm-360m":
+                        smollm = mesh_roofline(torch, cfg, params, state,
+                                               mesh, walls)
+                    del params, state
+                mesh_checkpoint(torch, mesh)
+            finally:
+                dist.destroy_process_group()
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh_dryrun(d, dry, t_phase)
+        finally:
+            for _, _, p in dry:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
     print("phase 11e: flash at smollm-360m's train shape", flush=True)
     B, S, _ = MESH_TRAINS["smollm-360m"]
     cfg = mesh_cfg("smollm-360m", None)
@@ -4573,6 +4655,384 @@ def phase_mesh(torch):
             launches["smollm-360m"]["flash_attention_bhsd"],
         "wkv6_bhtk": rw["wkv6_bhtk"], "rglru_btc_train": rg["rglru_btc"],
         "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: tensor-parallel training over model
+# ---------------------------------------------------------------------------
+
+
+def tp_cfg(arch, dtype):
+    """``mesh_cfg`` at phase 12's depth, computing in ``dtype``."""
+    return mesh_cfg(arch, TP_TRAINS[arch]).replace(compute_dtype=dtype)
+
+
+def tp_opt():
+    from repro_torch.optim import OptConfig
+    return OptConfig(lr=3e-4, warmup_steps=1, total_steps=TP_STEPS)
+
+
+def tp_batch(torch, cfg, mesh, step):
+    """``launch.train``'s batch of ``step`` on the card: this rank's rows
+    on a mesh."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.distributed import sharding
+    batch = lm_batch(cfg, TP_BATCH, TP_SEQ, seed=0, step=step)
+    if mesh is not None:
+        batch = sharding.local_rows(batch, mesh)
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def tp_first_grads(torch, cfg, mesh):
+    """The first step's ``lm_loss`` gradients from seed 0's weights, as
+    ``launch.train`` builds them (stored sharded on ``mesh``; the step
+    tensor-parallel there): {name: gradient}."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import lm
+    from repro_torch.models.common import trainable
+    params = trainable(lm.init_lm(cfg, seed=0, device="cuda"))
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        sharding.shard_module(params, mesh, cfg)
+        scope = sharding.activation_sharding(mesh, cfg, "train")
+    named = list(params.named_parameters())
+    with scope:
+        loss = lm.lm_loss(params, tp_batch(torch, cfg, mesh, 0), cfg)[0]
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    return {n: g.detach() for (n, _), g in zip(named, grads)}
+
+
+def shard_of(full, p):
+    """Rank's shard of the whole tensor ``full`` as DTensor ``p`` holds it:
+    chunk ``coordinate`` of each mesh dim that shards it (a plain ``p``:
+    all of it)."""
+    if not hasattr(p, "placements"):
+        return full
+    mesh = p.device_mesh
+    for size, c, pl in zip(mesh.shape, mesh.get_coordinate(), p.placements):
+        if pl.is_shard():
+            full = full.chunk(size, dim=pl.dim)[c]
+    return full
+
+
+def leaf_errors(named, ref):
+    """{name: (max |this rank's shard - ref's|, max |ref|)} over (name,
+    tensor) pairs against the whole tensors ``ref``; read on the card, no
+    collective (gloo has no all-gather of CUDA tensors)."""
+    out = {}
+    for n, t in named:
+        got = (t.to_local() if hasattr(t, "to_local") else t).detach()
+        out[n] = (max_err(got, shard_of(ref[n], t)),
+                  float(ref[n].float().abs().max()))
+    return out
+
+
+def tp_train(torch, cfg, mesh):
+    """``launch/train.py``'s ``train`` on ``cfg`` for ``TP_STEPS`` steps at
+    ``TP_BATCH`` x ``TP_SEQ`` (``mesh`` None: ``--mesh none``): (params,
+    AdamW state, losses, each step's (launches, wall ms))."""
+    from repro_torch.launch import train as tr
+    steps = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    with train_step_tallies(steps):
+        params, state, losses = tr.train(
+            cfg, tp_opt(), steps=TP_STEPS, batch=TP_BATCH, seq=TP_SEQ,
+            log_every=100, mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    return params, state, losses, steps
+
+
+def tp_counted_step(torch, cfg, params, state, mesh, walls):
+    """One more train step under ``distributed.cost``'s counter: FLOPs,
+    bytes and collectives (calls and bytes by kind) of this rank, its
+    ``Roofline`` on the mesh's ranks, and the MFU of the median measured
+    step (after the first)."""
+    from repro_torch.distributed import cost
+    from repro_torch.distributed.roofline import Roofline
+    from repro_torch.optim import make_train_step
+    step = make_train_step(cfg, tp_opt(), mesh=mesh)
+    batch = tp_batch(torch, cfg, mesh, TP_STEPS)
+    with cost.counting() as c:
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    roof = Roofline(
+        flops_per_device=c.total.flops, hbm_bytes_per_device=c.total.bytes,
+        collective_bytes_per_device=c.total.coll_total, chips=TP_RANKS,
+        model_flops=cost.model_flops(cfg, "train", TP_BATCH * TP_SEQ),
+        collectives={k: round(v) for k, v in c.total.coll.items() if v})
+    step_s = statistics.median(walls[1:]) / 1e3
+    return {"flops": c.total.flops, "bytes": c.total.bytes,
+            "calls": dict(c.calls), "coll": dict(c.total.coll),
+            "step_s": step_s, "mfu": roof.mfu(step_s),
+            "t_bound_s": roof.t_bound, "bottleneck": roof.bottleneck}
+
+
+def tp_rank_run(torch, arch, dtype, ref, mesh):
+    """One rank's share of a phase 12 config: the first step's gradients
+    and the trained weights against ``ref`` (--mesh none's, whole), the
+    losses, each step's launches and wall, one counted step."""
+    cfg = tp_cfg(arch, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grads = tp_first_grads(torch, cfg, mesh)
+    out = {"grads": leaf_errors(grads.items(), ref["grads"])}
+    del grads
+    params, state, losses, steps = tp_train(torch, cfg, mesh)
+    out.update(losses=losses, steps=steps, weights=leaf_errors(
+        params.named_parameters(), ref["weights"]))
+    out["counted"] = tp_counted_step(torch, cfg, params, state, mesh,
+                                     [w for _, w in steps])
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_worker(rank, port, tasks, results):
+    """A phase 12 rank: joins the gloo group on ``port`` with the card as
+    its device, builds the (1, 4) mesh, then runs each task (arch, dtype,
+    --mesh none's whole gradients and weights, shared from the parent's
+    memory on the card) until it gets None. A failure is reported, then
+    raised."""
+    import traceback
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_sim_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=TP_RANKS)
+    try:
+        mesh = make_sim_mesh(TP_RANKS, TP_MESH, ("data", "model"),
+                             device_type="cuda")
+        _cuda.lib()
+        while (task := tasks.get()) is not None:
+            arch, dtype, ref = task
+            results.put((rank, tp_rank_run(torch, arch, dtype, ref, mesh)))
+            del task, ref
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_results(results, procs):
+    """The four ranks' results of one config, in rank order; raises on a
+    rank's failure or when one does not answer in ``TP_TIMEOUT_S``."""
+    import queue
+    got = {}
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    while len(got) < TP_RANKS:
+        try:
+            rank, res = results.get(timeout=5.0)
+        except queue.Empty:
+            missing = sorted(set(range(TP_RANKS)) - set(got))
+            expect(time.perf_counter() < deadline and all(
+                procs[r].exitcode is None for r in missing),
+                f"phase 12: ranks {missing} gave no result (exit codes "
+                f"{[p.exitcode for p in procs]}, {TP_TIMEOUT_S} s "
+                f"allowed)")
+            continue
+        expect("error" not in res, f"phase 12 rank {rank}: "
+               f"{res.get('error')}")
+        got[rank] = res
+    return [got[r] for r in range(TP_RANKS)]
+
+
+def tp_grad_tol(arch, dtype):
+    """Phase 12's bound on the first step's gradients: ``TP_FLOOR_X``
+    times the split's own move where ``TP_SPLIT_MOVES`` has one, else
+    ``TP_GRAD_RTOL``."""
+    move = TP_SPLIT_MOVES.get((arch, dtype))
+    return TP_GRAD_RTOL if move is None else TP_FLOOR_X * move
+
+
+def tp_hold(arch, dtype, cfg, none, ranks):
+    """Phase 12's holds of one config: every rank's losses against --mesh
+    none's (rwkv6-7b's fp32 first step only: ``TP_LOSS_RTOL``), the first
+    step's gradients (``tp_grad_tol``), each step's launches exactly the
+    unsharded step's by kernel and form; prints the weights' worst leaf
+    and each rank's step, collectives and MFU. Returns rank 0's launches
+    summed over the steps."""
+    rtol = TP_LOSS_RTOL[dtype]
+    held = 1 if (arch, dtype) == ("rwkv6-7b", "float32") else TP_STEPS
+    for r, res in enumerate(ranks):
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(res["losses"], none["losses"])]
+        expect(len(errs) == TP_STEPS, f"{arch} {dtype} rank {r}: "
+               f"{len(errs)} losses")
+        steps = f"steps 1-{held}" if held > 1 else "step 1"
+        check(f"{arch} {dtype} rank {r} losses of {steps} vs --mesh none, "
+              f"relative", max(errs[:held]), rtol)
+        tallies = [c for c, _ in res["steps"]]
+        expect(tallies == [c for c, _ in none["steps"]]
+               and len(tallies) == TP_STEPS,
+               f"{arch} {dtype} rank {r}: launches a step {tallies}, "
+               f"--mesh none's {[c for c, _ in none['steps']]}")
+    errs = [abs(a - b) / abs(b)
+            for a, b in zip(ranks[0]["losses"], none["losses"])]
+    print(f"  {arch} {dtype}: losses "
+          f"{[round(x, 5) for x in ranks[0]['losses']]}, --mesh none "
+          f"{[round(x, 5) for x in none['losses']]}, relative "
+          f"{['%.2e' % e for e in errs]}", flush=True)
+
+    def worst(key):
+        names = ranks[0][key]
+        errs = {n: max(res[key][n][0] for res in ranks) / (
+            ranks[0][key][n][1] or 1.0) for n in names}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+    g_err, g_name = worst("grads")
+    w_err, w_name = worst("weights")
+    print(f"  {arch} {dtype}: first step's gradients' worst leaf {g_name} "
+          f"{g_err:.3e} of its max; weights after {TP_STEPS} steps' worst "
+          f"leaf {w_name} {w_err:.3e} of its max (AdamW's normalized step "
+          f"carries the split's rounding; tests/test_torch_mesh_train.py "
+          f"holds the reduced models' weights)", flush=True)
+    check(f"{arch} {dtype} first step's gradients vs --mesh none, each "
+          f"leaf's max error over its max", g_err, tp_grad_tol(arch, dtype))
+    for r, res in enumerate(ranks):
+        c = res["counted"]
+        walls = [round(w, 1) for _, w in res["steps"]]
+        print(f"  {arch} {dtype} rank {r}: launches a step "
+              f"{res['steps'][0][0]}; step walls {walls} ms (--mesh "
+              f"none {[round(w, 1) for _, w in none['steps']]}); a step's "
+              f"collectives {c['calls']} calls, {{"
+              + ", ".join(f"{k}: {v:.0f} B" for k, v in c["coll"].items())
+              + f"}}; {c['flops']:.4e} FLOPs, {c['bytes']:.4e} B; mfu "
+              f"{c['mfu']:.5f} (roofline {c['t_bound_s'] * 1e3:.1f} ms, "
+              f"{c['bottleneck']}); peak {res['peak_gb']:.2f} GB", flush=True)
+    expect(all(res["counted"]["calls"].get("all-reduce", 0) > 0
+               for res in ranks), f"{arch} {dtype}: no all-reduce counted")
+    total = collections.Counter()
+    for counts, _ in ranks[0]["steps"]:
+        total.update(counts)
+    return total
+
+
+def tp_records(torch):
+    """The kernels at the local shapes tensor parallelism hands them, each
+    held to its plain version, timed beside its bound (flash beside sdpa):
+    flash at llama3-8b's 4 x 8/2 x 512 and chatglm3-6b's 4 x 8/1 x 512 (hd
+    128, causal, bf16), wkv6 at rwkv6-7b's 4 x 16 x 512 x 64, rglru at
+    recurrentgemma-2b's 4 x 512 x 640; then, held and timed too, the two
+    shapes of phase 11's mesh runs, flash 4 x 10/1 x 512 (fp32, hd 256,
+    window 2048) and wkv6 4 x 64 x 512 x 64 (PERF.md's rows of them).
+    Returns the four records."""
+    g = torch.Generator(device="cuda").manual_seed(43)
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    records = []
+    for name, arch, kv in (("flash_attention_bhsd_tp_llama3", "llama3-8b",
+                            2),
+                           ("flash_attention_bhsd_tp_chatglm3",
+                            "chatglm3-6b", 1)):
+        cfg = mesh_cfg(arch, None)
+        h = cfg.n_heads // TP_MESH[1]
+        q, k, v = (torch.randn(TP_BATCH, n, TP_SEQ, cfg.head_dim,
+                               generator=g, device="cuda",
+                               dtype=torch.bfloat16) for n in (h, kv, kv))
+        records.append(flash_record(
+            torch, name, f"{arch} TP rank {TP_BATCH} x {h}/{kv} x {TP_SEQ}, "
+            f"hd {cfg.head_dim}, causal, bf16", q, k, v, {},
+            {"is_causal": True}, src))
+    H = mesh_cfg("rwkv6-7b", None).d_model // 64 // TP_MESH[1]
+    records.append(dict(time_wkv6(torch, g, TP_BATCH, H, TP_SEQ, 64,
+                                  "TP rank"), name="wkv6_bhtk_tp"))
+    C = mesh_cfg("recurrentgemma-2b", None).lru_width // TP_MESH[1]
+    records.append(dict(time_rglru(torch, g, TP_BATCH, TP_SEQ, C, "TP rank"),
+                        name="rglru_btc_tp"))
+    print("  phase 11's mesh-run shapes:", flush=True)
+    time_flash256(torch, g, TP_BATCH, TP_SEQ, "mesh run")
+    time_wkv6(torch, g, TP_BATCH, 64, TP_SEQ, 64, "mesh run")
+    return records
+
+
+def phase_tp(torch):
+    """Phase 12: tensor-parallel training over ``model``. Four processes on
+    the one card join a gloo group (CUDA tensors) as a (1, 4) ("data",
+    "model") mesh while the kernels are held and timed at the ranks' local
+    shapes here (``tp_records``); then each of ``TP_TRAINS`` trains
+    ``TP_STEPS`` steps there, in fp32 and in its config's dtype, held
+    against --mesh none run here from the same seed (``tp_hold``).
+    Returns (the records, launches by record name)."""
+    import multiprocessing
+    import socket
+
+    t_phase = time.perf_counter()
+    print(f"phase 12: tensor-parallel training over model, {TP_RANKS} "
+          f"processes on the one card as a {TP_MESH} (data, model) mesh over "
+          f"gloo with CUDA tensors; {TP_BATCH} x {TP_SEQ} tokens, "
+          f"{TP_STEPS} steps; the step walls are 4 processes sharing one "
+          f"card and gloo's host-staged all-reduces, not NCCL scaling",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tasks = [ctx.Queue() for _ in range(TP_RANKS)]
+    results = ctx.Queue()
+    procs = [ctx.Process(target=tp_worker, args=(r, port, tasks[r], results),
+                         daemon=True) for r in range(TP_RANKS)]
+    for p in procs:         # the ranks start up while the kernels are timed
+        p.start()
+    launches = {}
+    try:
+        records = tp_records(torch)
+        for dtype in ("float32", None):
+            for arch in TP_TRAINS:
+                cdt = dtype or mesh_cfg(arch, None).compute_dtype
+                cfg = tp_cfg(arch, cdt)
+                t0 = time.perf_counter()
+                grads = tp_first_grads(torch, cfg, None)
+                params, state, losses, steps = tp_train(torch, cfg, None)
+                del state
+                ref = {"grads": grads, "weights": {
+                    n: p.detach() for n, p in params.named_parameters()}}
+                gc.collect()
+                torch.cuda.empty_cache()
+                t1 = time.perf_counter()
+                for q in tasks:
+                    q.put((arch, cdt, ref))
+                ranks = tp_results(results, procs)
+                print(f"phase 12: {arch} ({cfg.n_layers} of "
+                      f"{mesh_cfg(arch, None).n_layers} layers, d "
+                      f"{cfg.d_model}) {cdt}: --mesh none {t1 - t0:.1f} s, "
+                      f"the mesh {time.perf_counter() - t1:.1f} s",
+                      flush=True)
+                total = tp_hold(arch, cdt, cfg, {"losses": losses,
+                                                 "steps": steps}, ranks)
+                if dtype is None:
+                    launches[arch] = total
+                del ref, grads, params, ranks
+                gc.collect()
+                torch.cuda.empty_cache()
+        for q in tasks:
+            q.put(None)
+        for p in procs:
+            p.join(60)
+        expect([p.exitcode for p in procs] == [0] * TP_RANKS,
+               f"phase 12 ranks' exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    fa = ("flash_attention_bhsd", "seq_bf16")
+    out = {"flash_attention_bhsd_tp_llama3": launches["llama3-8b"][fa],
+           "flash_attention_bhsd_tp_chatglm3": launches["chatglm3-6b"][fa],
+           "wkv6_bhtk_tp": launches["rwkv6-7b"]["wkv6_bhtk"],
+           "rglru_btc_tp": launches["recurrentgemma-2b"]["rglru_btc"],
+           "flash_attention_bhsd_hd256_train":
+               launches["recurrentgemma-2b"]["flash_attention_bhsd"]}
+    expect(all(n > 0 for n in out.values()), f"phase 12 launches {out}")
+    print(f"  launches on the path (rank 0, the configs' dtypes): {out}; "
+          f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records, out
 
 
 def main():
@@ -4667,6 +5127,13 @@ def main():
     mesh_records, mesh_launches = phase_mesh(torch)
     records += mesh_records
     for name, n in mesh_launches.items():
+        counts[name] = counts.get(name, 0) + n
+    # tensor-parallel training: the kernels at the ranks' local shapes are
+    # records of their own; recurrentgemma's replicated attention adds to
+    # the hd-256 training record
+    tp_records_, tp_launches = phase_tp(torch)
+    records += tp_records_
+    for name, n in tp_launches.items():
         counts[name] = counts.get(name, 0) + n
     # the design-length record is the same kernel, run on the main path at
     # the engine's shape

@@ -13,7 +13,9 @@ conventions:
             scatters count the touched bytes (2·|result|, 2·|update|).
   coll      collectives (``_c10d_functional`` all-gather, reduce-scatter,
             all-reduce, all-to-all, and ``c10d``'s in-place all-reduce):
-            result bytes per device, by kind.
+            result bytes per device, by kind (``Counter.calls`` counts
+            them). A tensor-parallel step's all-reduces are the
+            functional ones of ``distributed.sharding``.
 
 Each kernel counts by a formula over its shapes, whatever implements it:
 the wrappers in ``kernels/`` report ``flash_work``, ``wkv6_work``,
@@ -193,6 +195,7 @@ class Counter(TorchDispatchMode):
         self.by_tags: Dict[tuple, Cost] = {}
         self.tags: list = []
         self.opaque = 0
+        self.calls: Dict[str, int] = {}   # collectives called, by kind
 
     def add(self, c: Cost, tags=()):
         self.total += c
@@ -213,7 +216,10 @@ class Counter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self.opaque:
-            self.add(op_cost(func, args, kwargs, out))
+            c = op_cost(func, args, kwargs, out)
+            for kind in c.coll:
+                self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.add(c)
         return out
 
 

@@ -22,15 +22,43 @@ reference's, keyed by the reference's paths and stacked shapes
 axis, so the port's per-layer leaf takes the same spec without it. Caches
 likewise (``cache_spec_tree``).
 
-Storage and compute (``shard_module``, ``gather``): each trainable
-parameter is a DTensor with its spec's placements, stored sharded and
-gathered at use, as the reference's "FSDP storage (gather-at-use)" does
-(``models.common.at_use`` casts the local shard to the compute dtype, then
-gathers). Activations are plain local tensors. In this slice the compute is
-data-parallel over ``dp_axes``: ranks along ``model`` hold the same rows and
-compute the same thing. Tensor-parallel compute over ``model`` (heads, ff,
-experts, lru split) and context parallelism (``use_context_parallel``) are
-not ported yet, so ``constrain`` has nothing to tell and returns its input.
+Storage (``shard_module``): each trainable parameter is a DTensor with its
+spec's placements, as the reference stores it. Activations are plain local
+tensors; a kernel never sees a DTensor.
+
+Compute (``gather``, ``tp``). In a train step on a mesh
+(``activation_sharding(mesh, cfg, "train")``, which ``optim.train_step``
+enters) the step is tensor-parallel over ``model``, as GSPMD computes the
+reference's jitted step from the same rules. ``gather`` collects a
+parameter over the dp axes only (the reference's FSDP storage on
+``data``, gathered at use) and hands the layer its local ``model`` shard:
+each rank computes the column-parallel products on its heads, ff, lru or
+vocab slice and the row-parallel products (``attn/wo``, ``mlp/wo``,
+``tm/wo``, ``tm/wcv``, ``rec/wout``) on its rows of the weight, as
+Megatron-LM splits them. ``copy_to_model`` goes before each column-parallel
+product (identity forward, all-reduce of the gradient over ``model``) and
+``reduce_from_model`` after each row-parallel one (all-reduce forward,
+identity backward), so the residual stream and every replicated parameter's
+gradient are the same on every ``model`` rank. A replicated parameter that
+each rank slices to its own heads or channels (rwkv's ``u``, the group
+norm, the rglru gates' biases, a KV projection that the rules replicate) is
+gathered with ``use="partial"``: its gradient is summed over ``model``.
+Where a head or channel axis does not divide ``model`` the rules replicate
+the weights and the layer computes whole on every rank (attention with
+whisper's 12, smollm's 15, recurrentgemma's 10 or llava's 56 heads on 16
+ranks); MoE experts are gathered whole (``use="whole"``): expert
+parallelism, sequence and context parallelism (``use_context_parallel``)
+are not ported, so ``constrain`` has nothing to tell and returns its
+input. Serving on a mesh (``mode="serve"``) and a step outside the train
+step's context gather every parameter whole and compute data-parallel.
+
+The collectives of the compute are ``torch.distributed``'s functional ones
+(``_functional_collectives``), which ``distributed/cost.py`` counts by kind
+and the dry run's fake group accepts; they are all-reduces, and the one
+all-gather (``gather_from_model``, the rglru gates' input) is an all-reduce
+of the rank's slice in a zeroed buffer, so the same code runs on NCCL and
+on gloo with CUDA tensors (four processes sharing one card), whose
+all-gather of CUDA tensors does not complete under torch 2.11.
 """
 
 from __future__ import annotations
@@ -39,7 +67,7 @@ import contextlib
 import re
 import sys
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -439,18 +467,171 @@ class _Counted(torch.autograd.Function):
         return g
 
 
-def gather(w, dtype):
-    """DTensor parameter ``w`` as one plain tensor of ``dtype``: the local
-    shard is cast first, so the all-gather moves ``dtype`` bytes. The
-    gradient of the result is taken as a partial sum on every rank
-    (``Partial`` on each mesh dim): its backward reduce-scatters it onto the
-    shard (all-reduces it where ``w`` is replicated), so each rank's leaf
-    gets the sum of every rank's gradient."""
-    from torch.distributed.tensor import Partial
-    full = w.to(dtype).full_tensor(
-        grad_placements=[Partial()] * w.device_mesh.ndim)
+def gather(w, dtype, use: str = "local"):
+    """DTensor parameter ``w`` as one plain tensor of ``dtype``; the local
+    shard is cast first, so the collectives move ``dtype`` bytes.
+
+    Outside a tensor-parallel step (``tp``) all of ``w``, its gradient taken
+    as a partial sum on every rank (``Partial`` on each mesh dim): the
+    backward reduce-scatters it onto the shard (all-reduces it where ``w``
+    is replicated). In one, ``w`` is gathered over the dp axes only (its
+    gradient a partial sum there) and along ``model`` ``use`` says what the
+    layer takes: ``"local"`` the rank's shard of a parameter sharded over
+    ``model`` (all of a replicated one), its gradient that shard's whole
+    gradient; ``"whole"`` all of it, every ``model`` rank using it alike
+    (the same gradient on each); ``"partial"`` all of it, each rank using
+    its own part (the gradient summed over ``model``)."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = w.device_mesh
+    if tp().mesh is None:
+        full = w.to(dtype).full_tensor(grad_placements=[Partial()]
+                                       * mesh.ndim)
+    else:
+        target, grads = [], []
+        for axis, pl in zip(axis_names(mesh), w.placements):
+            if axis != "model":
+                target.append(Replicate())
+                grads.append(Partial())
+            elif use == "local":
+                target.append(pl)
+                grads.append(pl)
+            else:
+                target.append(Replicate())
+                grads.append(Partial() if use == "partial" else Replicate())
+        full = w.to(dtype).redistribute(mesh, target).to_local(
+            grad_placements=grads)
     _count("uses")
     return _Counted.apply(full) if full.requires_grad else full
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute over ``model``
+# ---------------------------------------------------------------------------
+
+
+class TP(NamedTuple):
+    """This rank's place along ``model`` in a tensor-parallel step: its
+    index, the axis' size, the train step's mesh (None off one) and the
+    axis' process group."""
+    rank: int
+    size: int
+    mesh: object
+    group: object
+
+
+_OFF = TP(0, 1, None, None)
+
+
+def tp() -> TP:
+    """The tensor-parallel step in force: the innermost
+    ``activation_sharding`` when it is a train-mode ``DeviceMesh`` with a
+    ``model`` axis, else rank 0 of 1 with no mesh."""
+    if not _ACTIVE:
+        return _OFF
+    mesh, _, mode = _ACTIVE[-1]
+    names = axis_names(mesh)
+    if mode != "train" or "model" not in names or not hasattr(
+            mesh, "get_group"):
+        return _OFF
+    dim = names.index("model")
+    return TP(mesh.get_local_rank(dim), mesh.size(dim), mesh,
+              mesh.get_group(dim))
+
+
+def split_lo(w, dim: int):
+    """The first index along tensor dim ``dim`` of this rank's shard of
+    parameter ``w`` when the step is tensor-parallel over more than one
+    rank and ``w`` is sharded over ``model`` on that dim, else None (the
+    layer sees all of it)."""
+    t = tp()
+    if t.size == 1 or not is_dtensor(w):
+        return None
+    pl = w.placements[axis_names(w.device_mesh).index("model")]
+    if not pl.is_shard(dim):
+        return None
+    return t.rank * (w.shape[dim] // t.size)
+
+
+def rank_slice(n: int) -> slice:
+    """This rank's contiguous share of an axis of ``n`` entries split over
+    ``model`` (a DTensor shard's rows: chunk ``rank`` of ``size``)."""
+    t = tp()
+    k = n // t.size
+    return slice(t.rank * k, (t.rank + 1) * k)
+
+
+def _all_reduce(x, group, op="sum"):
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_reduce(x.contiguous(), op, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.part = (rank * x.shape[-1], (rank + 1) * x.shape[-1])
+        buf = x.new_zeros(x.shape[:-1] + (x.shape[-1] * size,))
+        buf[..., ctx.part[0]:ctx.part[1]] = x
+        return _all_reduce(buf, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.part[0]:ctx.part[1]], None, None, None
+
+
+def copy_to_model(x):
+    """Before a column-parallel product: ``x`` as it is, its gradient
+    all-reduced over ``model`` (each rank's product gives only its columns'
+    share of it)."""
+    t = tp()
+    return x if t.size == 1 else _CopyToModel.apply(x, t.group)
+
+
+def reduce_from_model(x):
+    """After a row-parallel product: the sum of every ``model`` rank's
+    partial ``x`` (an all-reduce), its gradient passed on as it is."""
+    t = tp()
+    return x if t.size == 1 else _ReduceFromModel.apply(x, t.group)
+
+
+def max_over_model(x):
+    """The elementwise max of ``x`` over the ``model`` ranks, no gradient."""
+    t = tp()
+    return x if t.size == 1 else _all_reduce(x.detach(), t.group, "max")
+
+
+def gather_from_model(x):
+    """Every ``model`` rank's slice of the last dim, in rank order: each
+    rank's ``x`` written into a zeroed full-width buffer and the buffers
+    all-reduced, which is exact (one rank's value and zeros). Its backward
+    takes the rank's slice of the gradient, so the gradient must be the
+    same on every rank: put ``copy_to_model`` after it where each rank's
+    use differs."""
+    t = tp()
+    return x if t.size == 1 else _GatherFromModel.apply(x, t.group, t.rank,
+                                                        t.size)
 
 
 def dp_size(mesh) -> int:

@@ -17,14 +17,23 @@ decode step once under ``distributed.cost``'s counter: rank 0's local ops,
 the kernels by their formulas, the collectives its DTensors issue. Nothing
 is allocated and nothing needs a card.
 
-What the counts say: the port's compute is data-parallel (tensor-parallel
-compute over ``model`` is not ported: ROADMAP Queue 1), so a rank computes
-its dp shard's whole step and ``model_flops_ratio`` is about 1/|model| of
-the reference's; the bytes are eager PyTorch's (no fusion: every op's
-operands and result). Decode caches hold the rank's batch rows, replicated
-along ``model``. ``memory_analysis`` gives the arguments a rank holds
-(parameters, AdamW moments and its batch rows, or its caches); temp bytes
-are null, since no compiler plans the step's buffers.
+What the counts say: a train cell's step is tensor-parallel over
+``model``, as the reference's GSPMD step is (``distributed.sharding``):
+each rank computes its heads, ff, lru and vocab slice (the kernels at
+their local shapes) and the parameters are gathered over ``data`` only;
+the all-reduces of the row-parallel products and of the column-parallel
+products' gradients are counted by kind. Attention whose heads do not
+divide ``model`` (smollm, whisper, recurrentgemma, llava) and the MoE
+experts still compute whole on every ``model`` rank, and the residual
+stream's norms and elementwise ops are replicated (no sequence
+parallelism), so ``model_flops_ratio`` stays under the reference's there.
+Prefill and decode cells compute data-parallel, every weight gathered
+whole at use (serving on a mesh is ROADMAP Queue 1). The bytes are eager
+PyTorch's (no fusion: every op's operands and result). Decode caches hold
+the rank's batch rows, replicated along ``model``. ``memory_analysis``
+gives the arguments a rank holds (parameters, AdamW moments and its batch
+rows, or its caches); temp bytes are null, since no compiler plans the
+step's buffers.
 
 ``--attn-impl`` is left out: the port has one attention path, the flash
 kernel (its formula here), where the reference can pick its naive XLA
@@ -144,7 +153,8 @@ def run_cell(arch, shape, mesh_kind, overrides=None, *, reduced=False):
             params = trainable(params)
         shd.shard_module(params, mesh, cfg, mode)
         fn, held, tokens = step_of(cfg, sc, mesh, params)
-        with shd.activation_sharding(mesh, cfg, mode), \
+        compute = "train" if sc.kind == "train" else "serve"
+        with shd.activation_sharding(mesh, cfg, compute), \
                 cost.counting() as counter:
             fn()
         t_count = time.time() - t0

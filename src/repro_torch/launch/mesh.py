@@ -65,13 +65,17 @@ def make_production_mesh(*, multi_pod: bool = False):
     return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
 
 
-def make_sim_mesh(n_devices: int, shape=None, axes=None):
+def make_sim_mesh(n_devices: int, shape=None, axes=None, device_type=None):
     """A small mesh over the process group's first ``n_devices`` ranks (all
-    of them: a DeviceMesh spans its group)."""
+    of them: a DeviceMesh spans its group), e.g. (1, m) or (d, m) over
+    ("data", "model"). ``device_type`` defaults to the group's backend's
+    (``cuda`` for NCCL, ``cpu`` for gloo); a gloo group can carry CUDA
+    tensors too, with ``device_type="cuda"``."""
     from torch.distributed.device_mesh import init_device_mesh
     shape = tuple(shape or (n_devices,))
     axes = tuple(axes or (f"d{i}" for i in range(len(shape))))
     if int(np.prod(shape)) != n_devices or n_devices != dist.get_world_size():
         raise ValueError(f"mesh {shape} over {n_devices} of "
                          f"{dist.get_world_size()} ranks")
-    return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type or _device_type(), shape,
+                            mesh_dim_names=axes)

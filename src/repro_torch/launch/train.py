@@ -4,7 +4,8 @@
       --steps 100 --batch 8 --seq 128 --ckpt-dir CKPT [--restore]
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --reduced --device cpu --steps 6 --batch 4 --seq 32
-  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh sim ...
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh sim \
+      --model 2 ...
 
 Checkpoint/restart is automatic: ``--restore`` resumes from the newest
 snapshot (training state + data cursor), which is the fault-tolerance path
@@ -20,16 +21,17 @@ A port of the JAX package's ``repro.launch.train`` over the port's
 * ``--mesh sim|single|multi`` builds the reference's meshes on a
   ``torch.distributed`` group (``launch.mesh``: a torchrun rendezvous from
   the environment, else one rank; NCCL on ``cuda``, gloo on ``cpu``):
-  ``sim`` is (n, 1) over ("data", "model") on the group's n ranks,
-  ``single`` / ``multi`` the production (16, 16) / (2, 16, 16) meshes. The
-  parameters are stored sharded by the reference's rules and gathered at
-  use (``distributed.sharding``); each data-parallel rank trains on its
-  rows of the one global batch, so a mesh run and ``--mesh none`` see the
-  same tokens; only rank 0 logs and writes checkpoints. Compute is
-  data-parallel: tensor-parallel compute over ``model`` and context
-  parallelism are not ported (ROADMAP Queue 1), so ranks along ``model``
-  repeat their rows' work. A checkpoint restores across meshes, ``none``
-  included.
+  ``sim`` is (n / m, m) over ("data", "model") on the group's n ranks,
+  ``m`` from ``--model`` (default 1), ``single`` / ``multi`` the
+  production (16, 16) / (2, 16, 16) meshes. The parameters are stored
+  sharded by the reference's rules; the step is tensor-parallel over
+  ``model`` (heads, ff, lru and vocab split, ``distributed.sharding``) and
+  each data-parallel rank trains on its rows of the one global batch, so
+  a mesh run and ``--mesh none`` see the same tokens; only rank 0 logs
+  and writes checkpoints. Expert, sequence and context parallelism are not
+  ported (ROADMAP Queue 1): MoE experts, and attention whose heads do not
+  divide ``model``, compute whole on every ``model`` rank. A checkpoint
+  restores across meshes, ``none`` included.
 * Every arch of ``configs.registry.ARCH_IDS`` trains, the ``rwkv`` and
   ``rglru`` layers through their kernels' autograd Functions
   (``kernels.rwkv6.WKV6``, ``kernels.rglru.RGLRU``), each layer
@@ -147,15 +149,19 @@ def train(cfg, opt, *, steps, batch, seq, ckpt_dir=None, restore=False,
     return params, opt_state, losses
 
 
-def make_mesh(kind, device="cuda"):
+def make_mesh(kind, device="cuda", model=1):
     """The CLI's ``--mesh``: None for ``none``; else joins the process
     group (``launch.mesh.init_distributed``) and builds the reference's
-    mesh of that name."""
+    mesh of that name (``sim``: ``model`` ranks along "model")."""
     if kind == "none":
         return None
     _, world = init_distributed(device)
     if kind == "sim":
-        return make_sim_mesh(world, (world, 1), ("data", "model"))
+        if world % model:
+            raise ValueError(f"--model {model} does not divide the group's "
+                             f"{world} ranks")
+        return make_sim_mesh(world, (world // model, model),
+                             ("data", "model"))
     return make_production_mesh(multi_pod=kind == "multi")
 
 
@@ -173,11 +179,13 @@ def main(argv=None):
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--mesh", default="none",
                     choices=["none", "sim", "single", "multi"])
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks along the model axis of --mesh sim")
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     opt = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                     total_steps=args.steps, microbatches=args.microbatches)
-    mesh = make_mesh(args.mesh, args.device)
+    mesh = make_mesh(args.mesh, args.device, args.model)
     _, _, losses = train(cfg, opt, steps=args.steps, batch=args.batch,
                          seq=args.seq, ckpt_dir=args.ckpt_dir,
                          restore=args.restore, mesh=mesh,

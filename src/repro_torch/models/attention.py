@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (apply_rope, at_use, cast, rms_norm,
                                        torch_dtype, weight)
@@ -41,32 +42,76 @@ class Attention(nn.Module):
                                        requires_grad=False)
 
 
-def _q(p, x, cfg, w=None):
+def _q(p, x, cfg, w=None, use="local"):
     """Query heads (B,S,H,hd), qk-normed where the config says so: ``w``
-    is the projection as used (default ``wq`` at the compute dtype)."""
+    is the projection as used (default ``wq`` at the compute dtype); ``use``
+    is the norm scale's (``sharding.gather``)."""
     q = torch.einsum("bsd,dhk->bshk", x,
                      at_use(p.wq, x, cfg) if w is None else w)
-    return rms_norm(q, p.q_norm, cfg.norm_eps) if cfg.qk_norm else q
+    return rms_norm(q, p.q_norm, cfg.norm_eps, use) if cfg.qk_norm else q
 
 
-def _kv(p, x, cfg):
+def _kv(p, x, cfg, heads=None, use="local"):
     """Key and value heads (B,S,KV,hd), the keys qk-normed where the
-    config says so."""
-    k = torch.einsum("bsd,dhk->bshk", x, at_use(p.wk, x, cfg))
-    v = torch.einsum("bsd,dhk->bshk", x, at_use(p.wv, x, cfg))
+    config says so; ``heads`` the KV heads to compute (all where None),
+    from projections each rank slices (``use="partial"``)."""
+    k = torch.einsum("bsd,dhk->bshk", x, at_use(p.wk, x, cfg, heads, 1))
+    v = torch.einsum("bsd,dhk->bshk", x, at_use(p.wv, x, cfg, heads, 1))
     if cfg.qk_norm:
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps, use)
     return k, v
 
 
+def _split(p):
+    """Whether attention computes this rank's heads: a tensor-parallel
+    step whose rules split ``wq``'s heads over ``model`` (they replicate it
+    where the heads do not divide, and attention then runs whole)."""
+    return sharding.split_lo(p.wq, 1) is not None
+
+
+def _kv_heads(p, cfg, n_q):
+    """The KV heads that this rank's ``n_q`` query heads read, where the
+    rules replicate ``wk`` / ``wv`` (the KV heads do not divide ``model``):
+    query head ``h`` reads KV head ``h // (H / KV)``. One entry a distinct
+    KV head where they group evenly (flash then pairs local query head
+    ``j`` with entry ``j // (n_q / entries)``, as GQA does), else one a
+    query head; None where ``wk`` is split, whose shard is the KV heads the
+    rank's query heads read."""
+    if sharding.split_lo(p.wk, 1) is not None:
+        return None
+    h0 = sharding.split_lo(p.wq, 1)
+    group = cfg.n_heads // cfg.n_kv_heads
+    reads = [(h0 + j) // group for j in range(n_q)]
+    kv = sorted(set(reads))
+    even = n_q % len(kv) == 0 and reads == [
+        h for h in kv for _ in range(n_q // len(kv))]
+    return kv if even else reads
+
+
+def _project(p, x, kv_x, cfg):
+    """(q (B,S,H,hd), k, v (B,T,KV,hd)) from x and kv_x, before RoPE. In a
+    tensor-parallel step with ``wq`` split, this rank's query heads and the
+    KV heads they read (``_kv_heads``), each input behind
+    ``copy_to_model``; never the local query heads beside all KV heads,
+    which flash's GQA mapping would pair wrongly."""
+    if not _split(p):
+        return (_q(p, x, cfg),) + _kv(p, kv_x, cfg)
+    xc = sharding.copy_to_model(x)
+    kc = xc if kv_x is x else sharding.copy_to_model(kv_x)
+    q = _q(p, xc, cfg, use="partial")
+    return (q,) + _kv(p, kc, cfg, _kv_heads(p, cfg, q.shape[2]), "partial")
+
+
 def _qkv(p, x, positions, cfg):
-    q = _q(p, x, cfg)
-    k, v = _kv(p, x, cfg)
+    q, k, v = _project(p, x, x, cfg)
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
 
 
 def _proj_out(p, out, cfg):
-    return torch.einsum("bshk,hkd->bsd", out, at_use(p.wo, out, cfg))
+    """The output projection; in a tensor-parallel step over this rank's
+    heads' rows of ``wo``, summed over ``model``."""
+    y = torch.einsum("bshk,hkd->bsd", out, at_use(p.wo, out, cfg))
+    return sharding.reduce_from_model(y) if _split(p) else y
 
 
 def make_mask(q_pos, k_pos, causal: bool, window: int):
@@ -170,8 +215,8 @@ def cross_prefill(p, x, enc_out, cfg):
     ``attn_fwd(kv_x=enc_out, causal=False, rope=False)``), for the full
     forward and the prompt alike; the cross cache it builds is what
     ``attn_decode(cross=True)`` reads. Returns (out (B,S,d), cache)."""
-    cache = init_cross_cache(p, enc_out, cfg)
-    q = _q(p, x, cfg)
+    q, k, v = _project(p, x, enc_out, cfg)
+    cache = {"k": k, "v": v}
     out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
                                softcap=cfg.attn_logit_softcap)
     return _proj_out(p, out, cfg), cache

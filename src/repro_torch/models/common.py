@@ -10,7 +10,10 @@ functions take its parameter dicts.
 Every read of a parameter goes through ``cast`` (``at_use`` for a weight
 against an activation): a parameter stored sharded as a DTensor
 (``distributed.sharding.shard_module``) is gathered there, its local shard
-cast first, so a layer always computes on plain local tensors.
+cast first, so a layer always computes on plain local tensors: in a
+tensor-parallel train step the rank's ``model`` shard of it
+(``sharding.gather``), and the layer computes its heads, channels or
+vocab entries (``sharding.split_lo``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import gather, is_dtensor
 
 
@@ -113,11 +117,11 @@ def norm_fwd(p, x, cfg):
     return x.to(dt)
 
 
-def rms_norm(x, scale, eps=1e-6):
+def rms_norm(x, scale, eps=1e-6, use="local"):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
-    return (x * cast(scale, torch.float32)).to(dt)
+    return (x * cast(scale, torch.float32, use)).to(dt)
 
 
 def gumbel_noise(gen, shape, device):
@@ -127,21 +131,34 @@ def gumbel_noise(gen, shape, device):
     return -torch.log(-torch.log(u))
 
 
-def cast(w, dtype):
+def cast(w, dtype, use="local"):
     """Parameter ``w`` in ``dtype`` as a layer uses it: a plain tensor cast,
-    a DTensor's local shard cast, then gathered (``sharding.gather``)."""
-    return gather(w, dtype) if is_dtensor(w) else w.to(dtype)
+    a DTensor's local shard cast, then gathered (``sharding.gather``, where
+    ``use`` says what a tensor-parallel step takes of it)."""
+    return gather(w, dtype, use) if is_dtensor(w) else w.to(dtype)
 
 
-def at_use(w, x, cfg):
+def cast_part(w, dtype, part, dim=-1):
+    """The ``part`` (a slice or a list of indices of dim ``dim``) of
+    replicated parameter ``w`` that this rank's heads or channels read in a
+    tensor-parallel step, in ``dtype``; its gradient is summed over
+    ``model``. All of ``w`` (``cast``) where ``part`` is None."""
+    if part is None:
+        return cast(w, dtype)
+    full = cast(w, dtype, "partial")
+    return full[(slice(None),) * (dim % full.dim()) + (part,)]
+
+
+def at_use(w, x, cfg, part=None, dim=-1):
     """Weight ``w`` as the reference uses it against activation ``x``: cast
     to ``cfg.compute_dtype``, then promoted with ``x``'s dtype as JAX
     promotes a product. The identity beyond the cast when ``x`` is already
     in the compute dtype; with fp32 ``x`` and bf16 compute (recurrentgemma's
     residual stream, see ``embed_tokens``) the weight is rounded to bf16 and
-    the product runs in fp32."""
+    the product runs in fp32. ``part``: the entries of dim ``dim`` that
+    this rank reads of a replicated weight (``cast_part``)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    return cast(w, cdt).to(torch.promote_types(x.dtype, cdt))
+    return cast_part(w, cdt, part, dim).to(torch.promote_types(x.dtype, cdt))
 
 
 def embed_tokens(p, tokens, cfg):
@@ -150,22 +167,47 @@ def embed_tokens(p, tokens, cfg):
     scalar, which JAX promotes as an fp32 array: the result is fp32 (the
     embedding rounded to the compute dtype, then scaled in fp32), and the
     model's residual stream stays fp32 from there on. A sharded table is
-    gathered whole in its own dtype, then indexed as a plain one is: the
-    lookup's backward then sums repeated tokens' gradients in the
-    parameter's dtype, as unsharded, not in the compute dtype."""
+    gathered in its own dtype, then indexed as a plain one is: the lookup's
+    backward then sums repeated tokens' gradients in the parameter's dtype,
+    as unsharded, not in the compute dtype. In a tensor-parallel step the
+    table is split over the vocab: each rank looks up the tokens of its
+    rows, zeros for the others, and the ranks' lookups are summed
+    (``reduce_from_model``; one rank's value and zeros, so exact)."""
     tok = cast(p.tok, p.tok.dtype) if is_dtensor(p.tok) else p.tok
-    x = tok[tokens.long()].to(torch_dtype(cfg.compute_dtype))
+    lo = sharding.split_lo(p.tok, 0)
+    cdt = torch_dtype(cfg.compute_dtype)
+    if lo is None:
+        x = tok[tokens.long()].to(cdt)
+    else:
+        ids = tokens.long() - lo
+        own = ((ids >= 0) & (ids < tok.shape[0]))[..., None]
+        rows = tok[ids.clamp(0, tok.shape[0] - 1)]
+        x = sharding.reduce_from_model(
+            torch.where(own, rows, torch.zeros_like(rows)).to(cdt))
     if cfg.emb_scale:
         x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return x
 
 
 def logits_fwd(params, x, cfg):
-    """Final norm + LM head. ``params`` is the top-level LM module."""
+    """Final norm + LM head. ``params`` is the top-level LM module. In a
+    tensor-parallel step where the head (or the tied table) is split over
+    the vocab, the logits of this rank's vocab entries, from
+    ``vocab_lo(params, cfg)`` on."""
     x = norm_fwd(params.final_norm, x, cfg)
+    if vocab_lo(params, cfg) is not None:
+        x = sharding.copy_to_model(x)
     if cfg.tie_embeddings:
         return x @ at_use(params.embedding.tok, x, cfg).T
     return x @ at_use(params.lm_head.w, x, cfg)
+
+
+def vocab_lo(params, cfg):
+    """The first vocab entry of this rank's logits when the step is
+    tensor-parallel and the head is split over the vocab, else None."""
+    if cfg.tie_embeddings:
+        return sharding.split_lo(params.embedding.tok, 0)
+    return sharding.split_lo(params.lm_head.w, 1)
 
 
 def rope_angles(positions, head_dim, cfg):

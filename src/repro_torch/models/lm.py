@@ -25,11 +25,12 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
                                        gumbel_noise, logits_fwd, norm_fwd,
-                                       torch_dtype)
+                                       torch_dtype, vocab_lo)
 from repro_torch.models.moe import AUX_KEYS
 
 # the reference's lm_loss coefficients of the MoE load-balance and z losses
@@ -134,32 +135,51 @@ def lm_logits(params, batch, cfg):
     return logits_fwd(params, lm_hidden(params, batch, cfg)[0], cfg)
 
 
-def cross_entropy(logits, targets):
-    """Mean CE over valid (target >= 0) positions, computed in fp32."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
-    ce = lse - gold
+def _ce_sums(lf, targets, lo=None):
+    """(CE summed over the valid (target >= 0) positions, their count) of
+    fp32 logits ``lf``. With ``lo`` they are this rank's vocab entries from
+    ``lo`` on (a tensor-parallel step, ``common.vocab_lo``): the max is
+    taken over ``model`` (no gradient), the sum of exponentials and the
+    gold logit, which only the rank that holds it contributes, are summed
+    over ``model``."""
+    ids = targets.clamp_min(0).long()
+    if lo is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, ids[..., None])[..., 0]
+    else:
+        m = sharding.max_over_model(lf.detach().amax(-1))
+        lse = torch.log(sharding.reduce_from_model(
+            torch.exp(lf - m[..., None]).sum(-1))) + m
+        ids = ids - lo
+        own = (ids >= 0) & (ids < lf.shape[-1])
+        gold = lf.gather(-1, ids.clamp(0, lf.shape[-1] - 1)[..., None])[..., 0]
+        gold = sharding.reduce_from_model(
+            torch.where(own, gold, torch.zeros_like(gold)))
     valid = (targets >= 0).float()
-    return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def cross_entropy(logits, targets, lo=None):
+    """Mean CE over valid (target >= 0) positions, computed in fp32;
+    ``lo`` as ``_ce_sums`` takes it."""
+    total, count = _ce_sums(logits.float(), targets, lo)
+    return total / count.clamp_min(1.0)
 
 
 def _chunked_ce(params, x, targets, cfg):
     """Sequence-chunked logits + CE: peak memory is one chunk of
     (tokens / chunks, padded_vocab) fp32 logits instead of the whole
-    sequence's. Each chunk's logits are recomputed in the backward pass."""
+    sequence's (of this rank's vocab entries in a tensor-parallel step).
+    Each chunk's logits are recomputed in the backward pass."""
     n = cfg.ce_chunks
     S = x.shape[1]
     if S % n:
         raise ValueError(f"{S} positions in {n} CE chunks")
     c = S // n
+    lo = vocab_lo(params, cfg)
 
     def body(xi, ti):
-        lf = logits_fwd(params, xi, cfg).float()
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = lf.gather(-1, ti.clamp_min(0).long()[..., None])[..., 0]
-        valid = (ti >= 0).float()
-        return ((lse - gold) * valid).sum(), valid.sum()
+        return _ce_sums(logits_fwd(params, xi, cfg).float(), ti, lo)
 
     total = count = 0.0
     for i in range(n):
@@ -180,7 +200,8 @@ def lm_loss(params, batch, cfg):
     if cfg.ce_chunks > 1:
         ce = _chunked_ce(params, x, batch["targets"], cfg)
     else:
-        ce = cross_entropy(logits_fwd(params, x, cfg), batch["targets"])
+        ce = cross_entropy(logits_fwd(params, x, cfg), batch["targets"],
+                           vocab_lo(params, cfg))
     loss = ce + LB_COEF * aux["moe_lb_loss"] + Z_COEF * aux["moe_z_loss"]
     return loss, {"ce_loss": ce, **aux, "loss": loss}
 

@@ -1,12 +1,16 @@
 """Feed-forward blocks: the gated SwiGLU / GeGLU and the ungated
 squared-ReLU / GELU, weights cast to the compute dtype at use. The ungated
-forms have no ``wg``, as the reference builds them."""
+forms have no ``wg``, as the reference builds them. In a tensor-parallel
+step (``distributed.sharding``) each rank computes its slice of ``d_ff``:
+``wi`` / ``wg`` column-parallel, ``wo`` row-parallel and summed over
+``model``."""
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.models.common import ACTIVATIONS, at_use, torch_dtype, weight
 
 GATES = {"swiglu": F.silu, "geglu": ACTIVATIONS["gelu"]}
@@ -27,10 +31,14 @@ class Mlp(nn.Module):
 
 
 def mlp_fwd(p, x, cfg):
+    split = sharding.split_lo(p.wi, 1) is not None
+    if split:
+        x = sharding.copy_to_model(x)
     h = x @ at_use(p.wi, x, cfg)
     if cfg.mlp_type in GATES:
         g = x @ at_use(p.wg, x, cfg)
         h = GATES[cfg.mlp_type](g) * h
     else:
         h = ACTIVATIONS[cfg.mlp_type](h)
-    return h @ at_use(p.wo, h, cfg)
+    y = h @ at_use(p.wo, h, cfg)
+    return sharding.reduce_from_model(y) if split else y

@@ -19,8 +19,9 @@ Top-k takes a stable descending sort of the router's probabilities, so
 among equal probabilities the lower expert index comes first, as
 ``jax.lax.top_k`` orders them (``torch.topk`` promises no order there).
 The reference's sharding constraints have nothing to constrain here: on a
-mesh the compute is data-parallel over local rows
-(``distributed.sharding``), the experts gathered at use like every weight.
+mesh the experts are gathered whole at use and every ``model`` rank
+computes all of them on its rows (expert parallelism is not ported); the
+shared expert's MLP is tensor-parallel over ``d_ff`` (``mlp.mlp_fwd``).
 """
 
 from __future__ import annotations
@@ -75,15 +76,22 @@ def _route(p, x, cfg):
     return logits, probs, gate, idx
 
 
+def _expert_w(w, x, cfg):
+    """An expert weight as ``at_use`` casts it, gathered whole over
+    ``model`` (``sharding.gather``'s ``use="whole"``)."""
+    cdt = torch_dtype(cfg.compute_dtype)
+    return cast(w, cdt, "whole").to(torch.promote_types(x.dtype, cdt))
+
+
 def _experts(p, h, cfg, eq_in, eq_out):
     """The batched expert FFN over the expert axis of ``h``."""
-    a = torch.einsum(eq_in, h, at_use(p.wi, h, cfg))
+    a = torch.einsum(eq_in, h, _expert_w(p.wi, h, cfg))
     if cfg.mlp_type in GATES:
-        g = torch.einsum(eq_in, h, at_use(p.wg, h, cfg))
+        g = torch.einsum(eq_in, h, _expert_w(p.wg, h, cfg))
         a = GATES[cfg.mlp_type](g) * a
     else:
         a = ACTIVATIONS[cfg.mlp_type](a)
-    return torch.einsum(eq_out, a, at_use(p.wo, a, cfg))
+    return torch.einsum(eq_out, a, _expert_w(p.wo, a, cfg))
 
 
 def _z_loss(logits):

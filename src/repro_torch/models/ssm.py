@@ -9,6 +9,16 @@ RWKV-6, ``ops.rglru`` for the RG-LRU.
 State dicts (decode cache and prefill output), one per layer:
   rwkv:  {"S": (B,H,K,K) fp32, "shift_tm": (B,d) fp32, "shift_cm": (B,d) fp32}
   rglru: {"h": (B,C) fp32, "conv": (B,W-1,C) fp32}
+
+In a tensor-parallel train step (``distributed.sharding``) the time mix
+computes this rank's heads (``tm/w[rkvg]`` column-parallel, ``tm/wo``
+row-parallel; the decay LoRA's ``bw``, ``w0``, ``u`` and the group norm
+replicated and sliced to them), the channel mix its slice of ``d_ff``
+(``wck`` / ``wcv``, ``wcr`` whole), and the Griffin block its lru channels
+(``win`` / ``wgate`` / ``conv_w`` and the gates' columns, ``wout``
+row-parallel), the gates' input ``u`` gathered over ``model`` once a block
+(``wr`` / ``wi`` take all of it). A kernel runs on the rank's heads or
+channels; the states it returns are theirs.
 """
 
 from __future__ import annotations
@@ -17,8 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import cast, torch_dtype, weight
+from repro_torch.models.common import cast, cast_part, torch_dtype, weight
 
 LORA_MIX = 32
 LORA_DECAY = 64
@@ -81,21 +92,29 @@ def _ddlerp(p, s, x, dx, xx):
     return x + dx * (cast(getattr(p, f"mu_{s}"), x.dtype) + lora)
 
 
-def rwkv_streams(p, x, shift_prev, cfg):
+def rwkv_streams(p, x, shift_prev, cfg, part=None, use="local"):
     """r, k, v, g and logw (fp32, in [-e^5, -1e-6]) for a whole sequence.
-    x (B,T,d); shift_prev (B,d) is the token before x[:, 0]."""
+    x (B,T,d); shift_prev (B,d) is the token before x[:, 0]. ``part``: in a
+    tensor-parallel step, this rank's channels (its heads), each product's
+    input behind ``copy_to_model``; ``use`` the projections' gather."""
     cdt = x.dtype
     xs = torch.cat([shift_prev[:, None].to(cdt), x[:, :-1]], dim=1)
     dx = xs - x
     xx = x + dx * cast(p.mu_x, cdt)
-    r = _ddlerp(p, "r", x, dx, xx) @ cast(p.wr, cdt)
-    k = _ddlerp(p, "k", x, dx, xx) @ cast(p.wk, cdt)
-    v = _ddlerp(p, "v", x, dx, xx) @ cast(p.wv, cdt)
-    g = F.silu(_ddlerp(p, "g", x, dx, xx) @ cast(p.wg, cdt))
-    mw = _ddlerp(p, "w", x, dx, xx)
+
+    def into(s):
+        m = _ddlerp(p, s, x, dx, xx)
+        return m if part is None else sharding.copy_to_model(m)
+    r = into("r") @ cast(p.wr, cdt, use)
+    k = into("k") @ cast(p.wk, cdt, use)
+    v = into("v") @ cast(p.wv, cdt, use)
+    g = F.silu(into("g") @ cast(p.wg, cdt, use))
+    lora = torch.tanh(_ddlerp(p, "w", x, dx, xx) @ cast(p.aw, cdt))
+    if part is not None:
+        lora = sharding.copy_to_model(lora)
     logw = -torch.exp(torch.clamp(
-        cast(p.w0, torch.float32)
-        + (torch.tanh(mw @ cast(p.aw, cdt)) @ cast(p.bw, cdt)).float(),
+        cast_part(p.w0, torch.float32, part)
+        + (lora @ cast_part(p.bw, cdt, part)).float(),
         -12.0, 5.0))
     return r, k, v, g, torch.clamp(logw, max=-1e-6)
 
@@ -106,24 +125,44 @@ def _heads(x, K):
     return x.reshape(B, T, d // K, K).transpose(1, 2).contiguous()
 
 
+def _timemix_split(p, cfg):
+    """(this rank's channels of the time mix, the gather of its head-split
+    projections): in a tensor-parallel step that splits ``tm/w[rkvg]``
+    over ``model`` at whole heads, the rank's heads' channels and "local";
+    where the heads do not divide, None and "whole" (the layer computes
+    whole on every rank); off a split None and "local"."""
+    if sharding.split_lo(p.wr, 1) is None:
+        return None, "local"
+    if (cfg.d_model // cfg.rwkv_head_dim) % sharding.tp().size:
+        return None, "whole"
+    return sharding.rank_slice(cfg.d_model), "local"
+
+
 def rwkv_timemix(p, x, state, cfg):
     """Time-mix layer over a sequence (any T >= 1: a prompt or one decode
-    token). Returns (y, new_state)."""
+    token). Returns (y, new_state); in a tensor-parallel step the state's
+    ``S`` holds this rank's heads."""
     B, T, d = x.shape
     K = cfg.rwkv_head_dim
-    H = d // K
-    r, k, v, g, logw = rwkv_streams(p, x, state["shift_tm"], cfg)
-    u = cast(p.u, torch.float32).reshape(H, K)
+    part, use = _timemix_split(p, cfg)
+    r, k, v, g, logw = rwkv_streams(p, x, state["shift_tm"], cfg, part, use)
+    H = r.shape[-1] // K
+    u = cast_part(p.u, torch.float32, part).reshape(H, K).contiguous()
+    s0 = state["S"]
+    if part is not None:                  # fresh, aligned: the rank's heads
+        s0 = s0[:, sharding.rank_slice(d // K)].contiguous()
     y, S = kops.wkv6(_heads(r, K), _heads(k, K), _heads(v, K),
-                     _heads(logw, K), u, state["S"])
+                     _heads(logw, K), u, s0)
     # per-head group norm, in fp32
     yg = y.transpose(1, 2).float()                                # (B,T,H,K)
     mu = yg.mean(-1, keepdim=True)
     var = yg.var(-1, keepdim=True, correction=0)
-    yg = ((yg - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, T, d)
-    y = (yg * cast(p.gn_scale, torch.float32)
-         + cast(p.gn_bias, torch.float32)).to(x.dtype)
-    y = (y * g) @ cast(p.wo, x.dtype)
+    yg = ((yg - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, T, H * K)
+    y = (yg * cast_part(p.gn_scale, torch.float32, part)
+         + cast_part(p.gn_bias, torch.float32, part)).to(x.dtype)
+    y = (y * g) @ cast(p.wo, x.dtype, use)
+    if part is not None:
+        y = sharding.reduce_from_model(y)
     new_state = {"S": S, "shift_tm": x[:, -1].float(),
                  "shift_cm": state["shift_cm"]}
     return y, new_state
@@ -137,8 +176,14 @@ def rwkv_channelmix(p, x, state, cfg):
     dx = xs - x
     xk = x + dx * cast(p.mu_ck, cdt)
     xr = x + dx * cast(p.mu_cr, cdt)
+    split = sharding.split_lo(p.wck, 1) is not None
+    if split:
+        xk = sharding.copy_to_model(xk)
     kk = torch.square(torch.relu(xk @ cast(p.wck, cdt)))
-    y = torch.sigmoid(xr @ cast(p.wcr, cdt)) * (kk @ cast(p.wcv, cdt))
+    kv = kk @ cast(p.wcv, cdt)
+    if split:
+        kv = sharding.reduce_from_model(kv)
+    y = torch.sigmoid(xr @ cast(p.wcr, cdt)) * kv
     return y, dict(state, shift_cm=x[:, -1].float())
 
 
@@ -187,11 +232,18 @@ def init_rglru_state(cfg, batch, device=None, dtype=torch.float32):
                                 dtype=dtype, device=device)}
 
 
-def _rglru_gates(p, u):
-    """u (B,T,C) post-conv branch -> (a fp32, gated input b fp32)."""
-    r = torch.sigmoid(u @ cast(p.wr, u.dtype) + cast(p.br, u.dtype))
-    i = torch.sigmoid(u @ cast(p.wi, u.dtype) + cast(p.bi, u.dtype))
-    log_a0 = F.logsigmoid(cast(p.lam, torch.float32))              # (C,)
+def _rglru_gates(p, u, part=None):
+    """u (B,T,C) post-conv branch -> (a fp32, gated input b fp32). In a
+    tensor-parallel step ``u`` is this rank's lru channels ``part``: the
+    gates' products take all of them (``wr`` / ``wi`` are (C, C), split by
+    their columns), gathered over ``model``."""
+    u_all = u if part is None else sharding.copy_to_model(
+        sharding.gather_from_model(u))
+    r = torch.sigmoid(u_all @ cast(p.wr, u.dtype)
+                      + cast_part(p.br, u.dtype, part))
+    i = torch.sigmoid(u_all @ cast(p.wi, u.dtype)
+                      + cast_part(p.bi, u.dtype, part))
+    log_a0 = F.logsigmoid(cast_part(p.lam, torch.float32, part))    # (C,)
     log_a = RGLRU_C * r.float() * log_a0                           # <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) \
@@ -199,27 +251,38 @@ def _rglru_gates(p, u):
     return a, b
 
 
-def causal_conv1d(u, w, b, prev):
+def causal_conv1d(u, w, b, prev, part=None):
     """Depthwise causal conv as the reference writes it: a sum of W
     shifted products plus the bias. u (B,T,C); w (W,C); prev (B,W-1,C) the
-    inputs before u[:, 0]. Returns (out (B,T,C), the last W-1 inputs)."""
+    inputs before u[:, 0] (``part`` of the channels in a tensor-parallel
+    step, ``w`` the rank's shard and ``b`` sliced). Returns (out (B,T,C),
+    the last W-1 inputs)."""
     W, T = w.shape[0], u.shape[1]
     x = torch.cat([prev.to(u.dtype), u], dim=1)
     w = cast(w, u.dtype)
     out = sum(x[:, i:i + T] * w[i] for i in range(W))
-    return out + cast(b, u.dtype), x[:, -(W - 1):]
+    return out + cast_part(b, u.dtype, part), x[:, -(W - 1):]
 
 
 def rglru_block(p, x, state, cfg):
     """The Griffin recurrent block over a sequence (any T >= 1: a prompt or
     one decode token). x (B,T,d); products in x's dtype with the weights
     cast to it, as the reference computes (fp32 for recurrentgemma, whose
-    residual stream is fp32). Returns (y, new_state)."""
+    residual stream is fp32). Returns (y, new_state); in a tensor-parallel
+    step the state holds this rank's lru channels."""
     cdt = x.dtype
+    part = None
+    h0, prev = state["h"], state["conv"]
+    if sharding.split_lo(p.win, 1) is not None:
+        part = sharding.rank_slice(cfg.lru_width)
+        x = sharding.copy_to_model(x)
+        h0, prev = h0[:, part].contiguous(), prev[..., part]
     gate = F.gelu(x @ cast(p.wgate, cdt), approximate="tanh")
     u = x @ cast(p.win, cdt)
-    u, conv_state = causal_conv1d(u, p.conv_w, p.conv_b, state["conv"])
-    a, b = _rglru_gates(p, u)
-    h, h_T = kops.rglru(a, b, state["h"])
+    u, conv_state = causal_conv1d(u, p.conv_w, p.conv_b, prev, part)
+    a, b = _rglru_gates(p, u, part)
+    h, h_T = kops.rglru(a, b, h0)
     y = (gate * h.to(cdt)) @ cast(p.wout, cdt)
+    if part is not None:
+        y = sharding.reduce_from_model(y)
     return y, {"h": h_T, "conv": conv_state.float()}

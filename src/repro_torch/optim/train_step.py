@@ -20,20 +20,25 @@ new values.
 
 On a mesh (``mesh``, the parameters DTensors from
 ``distributed.sharding.shard_module``) ``batch`` is this rank's rows of the
-global batch (``sharding.local_rows``) and compute is data-parallel. Each
-use of a parameter gathers it, and its gradient is summed over every rank
-of the mesh (``sharding.gather``): over the data-parallel ranks, whose
-rows differ, and over the ranks along ``model``, which hold the same rows
-and compute the same gradient. So each rank's loss is divided by the
-mesh's size, ``dp x model``: the sum over ranks is then ``model x sum_dp
-g_r / (dp x model) = mean_dp g_r``, the gradient of the global batch's
-mean loss, whenever each rank's loss is the mean over its rows of per-row
-(per-group) terms of equal weight (the CE over ``lm_batch``'s unmasked
-targets, the MoE capacity form's aux terms). The metrics are all-reduced
-to their global means; clipping takes the norm across ranks
-(``optimizers.global_norm``); AdamW runs on each rank's local shards, so a
-replicated leaf gets the same all-reduced gradient on every rank and stays
-bitwise equal across them.
+global batch (``sharding.local_rows``) and the step is tensor-parallel over
+``model``: the loss and its gradients run inside
+``sharding.activation_sharding(mesh, cfg, "train")``, where each rank
+computes its ``model`` shard of the layers (``sharding.gather``,
+``copy_to_model``, ``reduce_from_model``). Every rank along ``model`` then
+holds the same loss of its dp shard's rows, and each leaf's gradient is
+already the whole gradient of that rank's part of it (a ``model``-sharded
+leaf's shard; a replicated leaf, the same on every ``model`` rank, or
+summed over ``model`` where each rank used its own slice of it), so only
+the dp ranks' gradients are summed (``gather``'s backward) and each rank's
+loss is divided by the dp size: the sum is ``sum_dp g_r / dp = mean_dp
+g_r``, the gradient of the global batch's mean loss, whenever each rank's
+loss is the mean over its rows of per-row (per-group) terms of equal
+weight (the CE over ``lm_batch``'s unmasked targets, the MoE capacity
+form's aux terms). The metrics are all-reduced to their global means;
+clipping takes the norm across ranks (``optimizers.global_norm``, one rank
+of each group of replicas counting a shard); AdamW runs on each rank's
+local shards, so a replicated leaf gets the same gradient on every rank and
+stays bitwise equal across them.
 
 The step writes the new parameters and moments into ``params`` and
 ``opt_state``'s moment tensors, as the reference's launcher donates both
@@ -47,7 +52,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import local
+from repro_torch.distributed.sharding import (activation_sharding, dp_size,
+                                              local)
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import (OptConfig, adamw_leaf,
                                           clip_scale, global_norm, is_matrix)
@@ -67,11 +73,16 @@ def make_train_step(cfg, opt: OptConfig, loss_fn=None, mesh=None):
     ranks_in_mesh = 1 if mesh is None else mesh.size()
 
     def grads_of(module, batch):
+        if mesh is None:
+            return module_grads(module, batch, 1)
+        with activation_sharding(mesh, cfg, "train"):
+            return module_grads(module, batch, dp_size(mesh))
+
+    def module_grads(module, batch, dp):
         named = _trained(module)
         loss, metrics = loss_fn(module, batch)
-        grads = torch.autograd.grad(loss / ranks_in_mesh if mesh is not None
-                                    else loss, [p for _, p in named],
-                                    allow_unused=True)
+        grads = torch.autograd.grad(loss / dp if dp > 1 else loss,
+                                    [p for _, p in named], allow_unused=True)
         # a parameter the loss does not reach gets zeros, as in JAX
         return ({n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(named, grads)},

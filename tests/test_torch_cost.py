@@ -326,3 +326,107 @@ def test_dryrun_skips_long_context_for_full_attention():
     rec = dryrun.run_cell("llama3-8b", long, "single")
     assert rec["applicable"] is False and "long_500k" in rec["skip_reason"]
     assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model``: a (1, 4) cell on a fake group
+# ---------------------------------------------------------------------------
+
+TP_CELL = ShapeConfig("train_small", "train", 32, 8)
+
+
+class Dots(torch.utils._python_dispatch.TorchDispatchMode):
+    """The counter's FLOPs of the matrix products alone."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0.0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.overloadpacket.__name__ in cost._DOTS:
+            self.flops += cost.op_cost(func, args, kwargs, out).flops
+        return out
+
+
+def tp_all_reduce_bytes(cfg, B, S, n_metrics=5):
+    """The all-reduce bytes of one reduced llama3-8b train step on a (1, 4)
+    mesh, reckoned from the shapes: an activation (B, S, d) in the compute
+    dtype for the vocab-parallel lookup, two a layer's attention and two
+    its MLP (the row-parallel output forward, the column-parallel input's
+    gradient backward) and one for the head's input gradient; three fp32
+    (B, S) for the CE (max, sum of exponentials, gold logit); the
+    replicated K/V projections' gradients (KV 2 does not divide 4, each
+    rank reads its heads' share) in the compute dtype; the train step's
+    fp32 global norm and its metrics."""
+    act = B * S * cfg.d_model * 2
+    kv = 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim * 2
+    return (act * (2 + 4 * cfg.n_layers) + 3 * B * S * 4
+            + cfg.n_layers * kv + 4 + 4 * n_metrics)
+
+
+def test_tp_cell_all_reduce_bytes():
+    """The (1, 4) cell's collectives are all-reduces only (the data axis
+    has one rank: no gather moves a byte), as many bytes as reckoned; its
+    attention FLOPs a quarter of the (1, 1) cell's (1 of 4 heads a rank)."""
+    cfg = get_reduced("llama3-8b")
+    assert cfg.compute_dtype == "bfloat16" and cfg.n_kv_heads % 4
+    one = dryrun.run_cell("llama3-8b", TP_CELL, (1, 1), reduced=True)
+    four = dryrun.run_cell("llama3-8b", TP_CELL, (1, 4), reduced=True)
+    assert not dist.is_initialized()
+    assert one["roofline"]["collectives"] == {}
+    assert four["roofline"]["collectives"] == {
+        "all-reduce": tp_all_reduce_bytes(cfg, TP_CELL.global_batch,
+                                          TP_CELL.seq_len)}
+    assert four["roofline"]["flops_per_device"] < \
+        one["roofline"]["flops_per_device"] / 3
+    flash = [cost.flash_work(TP_CELL.global_batch, h, kv, TP_CELL.seq_len,
+                             TP_CELL.seq_len, cfg.head_dim, 2, 2)[0]
+             for h, kv in ((cfg.n_heads, cfg.n_kv_heads), (1, 1))]
+    assert flash[0] == 4 * flash[1]
+
+
+@pytest.mark.parametrize("part", ["mlp", "head", "q-and-o"])
+def test_tp_split_products_are_a_quarter(part):
+    """Per-rank FLOPs of the products the rules split (the MLP, the vocab
+    head, attention's q and o projections: the matrix products the
+    counter sees, forward and backward) on a fake (1, 4) group: exactly a
+    quarter of the (1, 1) count."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import attention
+    from repro_torch.models.common import logits_fwd, trainable
+    from repro_torch.models.mlp import mlp_fwd
+    cfg = get_reduced("llama3-8b")
+    B, S = 8, 32
+
+    def count(n):
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+        try:
+            mesh = init_device_mesh("cpu", (1, n),
+                                    mesh_dim_names=("data", "model"))
+            with torch.device("meta"):
+                params = trainable(lm.LM(cfg))
+            sharding.shard_module(params, mesh, cfg)
+            x = torch.empty(B, S, cfg.d_model, device="meta",
+                            dtype=torch.bfloat16, requires_grad=True)
+            layer = params.layers[0]
+            with sharding.activation_sharding(mesh, cfg, "train"), \
+                    Dots() as c:
+                if part == "mlp":
+                    y = mlp_fwd(layer.mlp, x, cfg)
+                elif part == "head":
+                    y = logits_fwd(params, x, cfg)
+                else:
+                    q = attention._q(layer.attn, x, cfg)
+                    y = attention._proj_out(layer.attn, q, cfg)
+                y.sum().backward()
+            return c.flops
+        finally:
+            dist.destroy_process_group()
+    one, four = count(1), count(4)
+    assert one > 0 and four * 4 == one

@@ -3,14 +3,18 @@
 unsharded, on the CPU.
 
 Four gloo ranks, spawned with a free localhost port, form a 2 x 2
-("data", "model") mesh. Each reduced arch (fp32 compute, so a row's
-products round alike however the batch is split; the full config's
-``fsdp`` and ``moe_parallelism``) trains 2 steps there and 2 steps with
-``mesh=None`` on the same global batches: losses within 1e-5 and weights
-within 1e-4 relative; every copy of a shard (ranks that differ only along
-mesh dims that replicate it) bitwise equal; the mesh checkpoint restores
-on four ranks and on one, and the unsharded run's restores on four. Each
-spawn joins with a time limit of its own, so a hung rank fails its test.
+("data", "model") mesh; the step there is tensor-parallel over ``model``.
+Each reduced arch (fp32 compute, so a row's products round alike however
+the batch is split; the full config's ``fsdp`` and ``moe_parallelism``)
+trains 2 steps there and 2 steps with ``mesh=None`` on the same global
+batches: losses within 1e-5 and weights within 1e-4 relative; every copy
+of a shard (ranks that differ only along mesh dims that replicate it)
+bitwise equal; the mesh checkpoint restores on four ranks and on one, and
+the unsharded run's restores on four. The split products' sums round
+otherwise than the unsharded ones, and AdamW's normalized step carries
+that into the weights: rwkv6-7b's and recurrentgemma-2b's are held to
+``SPLIT_WEIGHT_RTOL``. Each spawn joins with a time limit of its own, so a
+hung rank fails its test.
 """
 
 import multiprocessing
@@ -30,10 +34,16 @@ from repro_torch.launch import train as tr  # noqa: E402
 from repro_torch.launch.mesh import make_sim_mesh  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 
-ARCHS = ("smollm-360m", "rwkv6-7b", "recurrentgemma-2b", "qwen3-moe-30b-a3b")
+ARCHS = ("smollm-360m", "rwkv6-7b", "recurrentgemma-2b", "qwen3-moe-30b-a3b",
+         "llama3-8b", "chatglm3-6b")
 RANKS, MESH = 4, (2, 2)
 B, S, STEPS = 4, 16, 2
 LOSS_RTOL, WEIGHT_RTOL = 1e-5, 1e-4
+# Ten times what one product's sum split in two halves moves the unsharded
+# run's weights in 2 steps (tools/tp_rounding.py: 1.345e-4 of a leaf's max
+# in rwkv6-7b, 1.135e-4 in recurrentgemma-2b); the other archs stay within
+# WEIGHT_RTOL.
+SPLIT_WEIGHT_RTOL = {"rwkv6-7b": 1.3e-3, "recurrentgemma-2b": 1.1e-3}
 JOIN_S = 240
 
 
@@ -117,11 +127,12 @@ def rel(a, b):
     return float((a - b).abs().max()) / scale
 
 
-def assert_weights(got, module, what):
+def assert_weights(got, module, what, arch):
     want = dict(module.named_parameters())
     assert got.keys() == want.keys()
     worst = max(rel(got[n], want[n].detach()) for n in want)
-    assert worst <= WEIGHT_RTOL, f"{what}: weights off by {worst:.2e}"
+    rtol = SPLIT_WEIGHT_RTOL.get(arch, WEIGHT_RTOL)
+    assert worst <= rtol, f"{what}: weights off by {worst:.2e}"
 
 
 def assert_losses(got, want, what):
@@ -144,10 +155,11 @@ def test_mesh_train_agrees_with_unsharded(arch, tmp_path):
                       f"rank {r} resumed")
         assert_losses(res["from_none_losses"], losses[STEPS:],
                       f"rank {r} from the unsharded checkpoint")
-    assert_weights(ranks[0]["whole"], none2, "mesh")
-    assert_weights(ranks[0]["resumed"], none3, "mesh resumed on 4 ranks")
+    assert_weights(ranks[0]["whole"], none2, "mesh", arch)
+    assert_weights(ranks[0]["resumed"], none3, "mesh resumed on 4 ranks",
+                   arch)
     assert_weights(ranks[0]["from_none"], none3,
-                   "unsharded checkpoint resumed on 4 ranks")
+                   "unsharded checkpoint resumed on 4 ranks", arch)
     # every copy of a shard is bitwise equal
     for name in ranks[0]["local"]:
         copies = {}
@@ -169,7 +181,7 @@ def test_mesh_train_agrees_with_unsharded(arch, tmp_path):
     params, _, tail = run(cfg, STEPS + 1, one, restore=True)
     assert_losses(tail, losses[STEPS:], "mesh checkpoint resumed on 1 rank")
     assert_weights({n: p.detach() for n, p in params.named_parameters()},
-                   none3, "mesh checkpoint resumed on 1 rank")
+                   none3, "mesh checkpoint resumed on 1 rank", arch)
 
 
 @pytest.fixture
