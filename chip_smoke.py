@@ -239,8 +239,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    6·N·D), the measured step time and the step's model-FLOP share (mfu)
    at the bf16 peak; then one more step under ``torch.profiler`` (the
    device alone), device time by kind. (d) ``python -m
-   repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` and rwkv6-7b
-   ``decode_32k`` on the single-pod mesh, in two subprocesses on fake
+   repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` and
+   ``decode_32k`` (the head-dim fallback of KV 8 on 16 ranks) and rwkv6-7b
+   ``decode_32k`` on the single-pod mesh, in subprocesses on fake
    256-rank groups started with the phase (they run on the host beside
    (a)-(c)): each roofline line and bottleneck. (e) Flash at
    smollm-360m's train shape (8 x 15/5 x 512, hd 64, bf16), its own
@@ -264,7 +265,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    to ``tp_grad_tol`` of each leaf's max, each step's launches the
    unsharded step's by kernel and form; printed: the weights, each rank's
    step walls, all-reduces a step and their bytes, FLOPs and MFU (one step
-   under ``distributed.cost``'s counter).
+   under ``distributed.cost``'s counter). (c) Serving in the same four
+   ranks: each of ``TP_TRAINS`` prefills 4 x 512 seeded tokens under the
+   train rules on the (1, 4) mesh (the rank's cache shards, its vocab
+   slice of the logits) and decodes ``TP_DECODE`` steps on the serve
+   rules' shards, fed --mesh none's greedy tokens, in fp32 and in its
+   config's dtype; llama3-8b also on a (2, 2) mesh over the same ranks,
+   whose decode multiplies each weight's "data2d" slice where it lies.
+   Held against --mesh none run here: every call's logits
+   (``tp_logit_tol`` of their max), the fp32 greedy tokens, each call's
+   launches by kernel and form, each cache shard's shape as
+   ``cache_spec_tree`` places it, no all-gather in a decode step;
+   printed: a decode step's wall and collectives a rank. Seven more
+   records hold and time the kernels at the serving ranks' local shapes
+   (``tp_serve_records``).
 13. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
@@ -275,7 +289,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2560 records'; phase 11's mesh runs add theirs to the records of the
    kernels and forms they ran, smollm-360m's flash shape its own; phase
    12's bf16 runs are the four local-shape records' launches, rank 0's,
-   recurrentgemma-2b's attention adding to the hd-256 training record),
+   recurrentgemma-2b's attention adding to the hd-256 training record,
+   its serving prefills adding to the same records and its (2, 2)
+   prefill and decode steps the seven serving records' launches),
    the total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -403,7 +419,8 @@ MESH_STEPS = 4
 # mesh against --mesh none from one seed: the finetune's tolerances (5d b)
 MESH_LOSS_RTOL, MESH_WEIGHT_RTOL = 1e-5, 1e-4
 # phase 11d: launch/dryrun.py cells on the single-pod mesh
-DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"))
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"),
+                ("llama3-8b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
 # phase 12: launch/train.py tensor-parallel over "model" on a (1, 4) mesh of
 # four processes sharing the one card over gloo with CUDA tensors (NCCL
@@ -435,6 +452,29 @@ TP_SPLIT_MOVES = {("rwkv6-7b", "float32"): 3.334e-3,
                   ("recurrentgemma-2b", "bfloat16"): 3.356e-3}
 TP_GRAD_RTOL, TP_FLOOR_X = 2e-5, 10
 TP_TIMEOUT_S = 400          # a config's four ranks, from its task to results
+# phase 12, serving: after training, each arch of TP_TRAINS at its depth
+# prefills TP_BATCH x TP_SEQ seeded tokens under the train rules on the
+# (1, 4) mesh and decodes TP_DECODE steps on the serve rules' shards, fed
+# --mesh none's greedy tokens, in fp32 (the check) and its config's dtype
+# (the path); llama3-8b also on TP_SERVE_2D's (2, 2) mesh over the same
+# four ranks, whose decode multiplies each weight's "data2d" slice where it
+# lies. That prefill's copy stores the weights with fsdp off: the train
+# rules' FSDP storage needs an all-gather at use, which gloo never
+# completes for CUDA tensors (tools/gloo_cuda_probe.py); the serve rules
+# shard the would-be-FSDP dims over "data" either way
+TP_DECODE = 8
+TP_SERVE_2D = ("llama3-8b", (2, 2))
+# each rank's logits (gathered over the vocab) against --mesh none's rows,
+# max error over max |logit|; fp32 also the same greedy tokens. Where
+# splitting every feed-forward down-projection's sum in 4, with no mesh,
+# moves --mesh none's own logits so far that the arch cannot meet that
+# (this table, read by tools/tp_rounding.py --serve at phase 12's shapes
+# on an NVIDIA H100 80GB HBM3 at 700 W; the unsplit run repeats bitwise),
+# to TP_FLOOR_X times that move: rwkv6-7b's state carries one step's
+# rounding into the next
+TP_LOGIT_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TP_SERVE_SPLIT_MOVES = {("rwkv6-7b", "float32"): 7.072e-05,
+                        ("rwkv6-7b", "bfloat16"): 2.214e-02}
 
 
 def expect(cond, msg):
@@ -3727,16 +3767,17 @@ def serve_arch(torch, arch, calls, phase="phase 8c"):
 
 
 def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, source):
-    """One ``{"kernels": ...}`` record of the flash kernel at a phase 8 or
-    9 shape: the kernel against the plain version (and the bf16 sequence form
-    also against ``attention_tiled_ref``), then the device ms by CUDA-graph
-    replay of the kernel, the plain version and ``scaled_dot_product_
-    attention`` (given contiguous K/V, ``enable_gqa`` where KV < H), and
-    the bound (``flash_bound``)."""
+    """One ``{"kernels": ...}`` record of the flash kernel at a phase 8, 9,
+    11 or 12 shape: the kernel against the plain version (and the bf16
+    sequence form also against ``attention_tiled_ref``), then the device
+    ms by CUDA-graph replay of the kernel, the plain version and
+    ``scaled_dot_product_attention`` (given contiguous K/V in q's dtype,
+    ``enable_gqa`` where KV < H), and the bound (``flash_bound``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    kc, vc = k.contiguous(), v.contiguous()
+    # sdpa takes one dtype: K/V widened to an fp32 query's
+    kc, vc = (t.contiguous().to(q.dtype) for t in (k, v))
     run_k = lambda: fa.flash_attention_bhsd(q, k, v, **kw)        # noqa: E731
     run_p = lambda: fa.attention_ref(q, k, v, **kw)               # noqa: E731
     run_l = lambda: F.scaled_dot_product_attention(               # noqa: E731
@@ -4071,8 +4112,18 @@ def phase10_functions(torch):
     label = f"RGLRU {B}x{T}x{C} fp32"
     out[label] = function_parity(torch, label, rglru.rglru_grad,
                                  rglru.rglru_ref, ins, ups, fwd, 1)
+    from repro_torch.distributed import cost
+    launch_ms, launch_by = bound_ms(cost.rglru_work(B, T, C)[1],
+                                    cost.rglru_work(B, T, C)[0], "float32")
+    # the backward call: a, h and gh read, da and db written (fp32, B x T x
+    # C each), h0 and gT read, dh0 written (B x C); the reverse scan's 2
+    # operations an element and da's product
+    call_ms, call_by = bound_ms(4 * (5 * B * T * C + 3 * B * C),
+                                3 * B * T * C, "float32")
     print(f"  RGLRU's reverse scan is the forward kernel at the same shape: "
-          f"{fwd:.4f} ms a call (device)", flush=True)
+          f"{fwd:.4f} ms a call (device); bounds: its launch {launch_ms:.4f} "
+          f"ms ({launch_by}), the backward call {call_ms:.4f} ms "
+          f"({call_by})", flush=True)
     del ins, ups
     H, S, hd, W = 10, RG_PROMPT, 256, 2048
     ins = tuple(torch.randn(B, n, S, hd, generator=g, device="cuda")
@@ -4788,12 +4839,129 @@ def tp_rank_run(torch, arch, dtype, ref, mesh):
     return out
 
 
+def tp_serve_ref(torch, cfg):
+    """--mesh none's serving of ``cfg`` on the card: seeded prompts of
+    ``TP_BATCH`` x ``TP_SEQ`` tokens, one prefill and ``TP_DECODE`` greedy
+    decode steps from seed 0's weights. Returns {"inputs", "logits" (the
+    prefill's and each step's), "tokens" (each greedy token fed to the
+    next step), "launches" (the prefill's and each step's, ``ops.tally``),
+    "walls" (ms a decode step)}."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    inputs = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_SEQ),
+                           generator=gen, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    out = {"inputs": inputs, "logits": [], "tokens": [], "launches": [],
+           "walls": []}
+    with torch.no_grad():
+        with ops.tally() as counts:
+            logits, caches, t = lm.prefill(params, {"inputs": inputs}, cfg,
+                                           TP_SEQ + TP_DECODE)
+        for s in range(TP_DECODE + 1):
+            out["logits"].append(logits.float())
+            out["tokens"].append(logits.argmax(-1)[:, None])
+            out["launches"].append(dict(counts))
+            if s == TP_DECODE:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ops.tally() as counts:
+                logits, caches = lm.decode_step(params, caches,
+                                                out["tokens"][-1], t + s, cfg)
+            torch.cuda.synchronize()
+            out["walls"].append(1e3 * (time.perf_counter() - t0))
+    del params, caches
+    return out
+
+
+def tp_rank_serve(torch, arch, dtype, shape, ref, meshes):
+    """One rank's share of a phase 12 serving run: seed 0's weights stored
+    by the train rules, the rank's rows of ``ref``'s prompts prefilled
+    under them (the rank's cache shards, its vocab slice of the logits);
+    then the weights stored by the serve rules and ``TP_DECODE`` steps
+    decoded on their 2-D shards, fed ``ref``'s greedy tokens; the logits
+    gathered over the vocab against ``ref``'s rows. Returns {"errs" (a
+    relative error each: prefill, steps), "same" (same greedy tokens each),
+    "launches" (``ops.tally`` each), "walls" (ms a decode step), "shapes"
+    (each cache shard's against ``cache_spec_tree``'s placement), "coll"
+    (the last step's collectives under ``distributed.cost``'s counter:
+    bytes by kind, calls), "peak_gb"}."""
+    from repro_torch.distributed import cost, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import vocab_lo
+    mesh = meshes[shape]
+    cfg = tp_cfg(arch, dtype)
+    # fsdp off on TP_SERVE_2D's mesh: TP_DECODE's comment
+    train_cfg = cfg if shape == TP_MESH else cfg.replace(fsdp=False)
+    i, n_dp = sharding.dp_index(mesh)
+    rows = slice(i * TP_BATCH // n_dp, (i + 1) * TP_BATCH // n_dp)
+    out = {"errs": [], "same": [], "launches": [], "walls": []}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def hold(params, logits, s):
+        if vocab_lo(params, cfg) is not None:
+            logits = sharding.gather_from_model(logits)
+        want = ref["logits"][s][rows]
+        out["errs"].append(rel_err(logits.float(), want))
+        out["same"].append(bool(torch.equal(logits.argmax(-1),
+                                            want.argmax(-1))))
+    with torch.no_grad():
+        params = lm.init_lm(train_cfg, seed=0, device="cuda")
+        sharding.shard_module(params, mesh, train_cfg, "train")
+        with sharding.activation_sharding(mesh, cfg, "train"):
+            with ops.tally() as counts:
+                logits, caches, t = lm.prefill(
+                    params, {"inputs": ref["inputs"][rows]}, cfg,
+                    TP_SEQ + TP_DECODE)
+            out["launches"].append(dict(counts))
+            hold(params, logits, 0)
+        full = lm.init_caches(cfg, TP_BATCH, TP_SEQ + TP_DECODE,
+                              device="meta")
+        out["shapes"] = [
+            (tuple(a.shape), sharding.shard_shape(w.shape, sp, mesh))
+            for mine, whole_, spec in zip(
+                caches, full, sharding.cache_spec_tree(full, mesh, cfg))
+            for (_, a), (_, w), (_, sp) in zip(
+                sharding._leaves(mine), sharding._leaves(whole_),
+                sharding._leaves(spec))]
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = lm.init_lm(cfg, seed=0, device="cuda")
+        sharding.shard_module(params, mesh, cfg, "serve")
+        with sharding.activation_sharding(mesh, cfg, "serve"):
+            for s in range(TP_DECODE):
+                last = s == TP_DECODE - 1       # counted, its wall not kept
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with ops.tally() as counts, (
+                        cost.counting() if last
+                        else contextlib.nullcontext()) as c:
+                    logits, caches = lm.decode_step(
+                        params, caches, ref["tokens"][s][rows], t + s, cfg)
+                torch.cuda.synchronize()
+                if not last:
+                    out["walls"].append(1e3 * (time.perf_counter() - t0))
+                out["launches"].append(dict(counts))
+                hold(params, logits, s + 1)
+    out["coll"] = {"bytes": dict(c.total.coll), "calls": dict(c.calls)}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
 def tp_worker(rank, port, tasks, results):
     """A phase 12 rank: joins the gloo group on ``port`` with the card as
-    its device, builds the (1, 4) mesh, then runs each task (arch, dtype,
-    --mesh none's whole gradients and weights, shared from the parent's
-    memory on the card) until it gets None. A failure is reported, then
-    raised."""
+    its device, builds the (1, 4) mesh and ``TP_SERVE_2D``'s, then runs
+    each task until it gets None: ("train", arch, dtype, --mesh none's
+    whole gradients and weights) or ("serve", arch, dtype, mesh shape,
+    --mesh none's serving run), the tensors shared from the parent's memory
+    on the card. A failure is reported, then raised."""
     import traceback
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -4805,13 +4973,18 @@ def tp_worker(rank, port, tasks, results):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=TP_RANKS)
     try:
-        mesh = make_sim_mesh(TP_RANKS, TP_MESH, ("data", "model"),
-                             device_type="cuda")
+        meshes = {shape: make_sim_mesh(TP_RANKS, shape, ("data", "model"),
+                                       device_type="cuda")
+                  for shape in (TP_MESH, TP_SERVE_2D[1])}
         _cuda.lib()
         while (task := tasks.get()) is not None:
-            arch, dtype, ref = task
-            results.put((rank, tp_rank_run(torch, arch, dtype, ref, mesh)))
-            del task, ref
+            kind, *args = task
+            del task    # the parent's tensors go with the last reference
+            res = (tp_rank_run(torch, *args, meshes[TP_MESH])
+                   if kind == "train" else tp_rank_serve(torch, *args, meshes))
+            del args
+            results.put((rank, res))
+            del res
     except BaseException:
         results.put((rank, {"error": traceback.format_exc()}))
         raise
@@ -4947,14 +5120,155 @@ def tp_records(torch):
     print("  phase 11's mesh-run shapes:", flush=True)
     time_flash256(torch, g, TP_BATCH, TP_SEQ, "mesh run")
     time_wkv6(torch, g, TP_BATCH, 64, TP_SEQ, 64, "mesh run")
+    return records + tp_serve_records(torch, g, H, C)
+
+
+def tp_serve_records(torch, g, H, C):
+    """The kernels at the local shapes serving on a mesh hands each rank,
+    held and timed as ``tp_records`` does, records of their own: llama3-8b's
+    prefill on the (2, 2) mesh, 2 x 16/4 x 512 (hd 128, causal, bf16);
+    flash's decode form over the 520 slots of a rank's cache (the prompt
+    and ``TP_DECODE`` steps, all filled at the last step): llama3-8b's
+    4 x 8/2 read in place and 2 x 16/4 on the (2, 2) mesh, chatglm3-6b's
+    4 x 8/1 over its one KV head gathered whole from the head-dim shards
+    (a fresh copy), recurrentgemma-2b's fp32 query 4 x 10/1 over hd 256
+    gathered likewise (bf16; sdpa gets it widened); wkv6's decode kernel at
+    rwkv6-7b's 4 x ``H`` x 1 x 64 and rglru at recurrentgemma-2b's 4 x 1 x
+    ``C``."""
+    decode = "src/repro_torch/kernels/csrc/flash_decode.cu"
+    L = TP_SEQ + TP_DECODE
+    bf16, f32 = torch.bfloat16, torch.float32
+    records = []
+    llama = mesh_cfg("llama3-8b", None)
+    rows, h, kv = (TP_BATCH // TP_SERVE_2D[1][0],
+                   llama.n_heads // TP_SERVE_2D[1][1],
+                   llama.n_kv_heads // TP_SERVE_2D[1][1])
+    q, k, v = (torch.randn(rows, n, TP_SEQ, llama.head_dim, generator=g,
+                           device="cuda", dtype=bf16) for n in (h, kv, kv))
+    records.append(flash_record(
+        torch, "flash_attention_bhsd_tp_llama3_2x2",
+        f"llama3-8b (2, 2) rank prefill {rows} x {h}/{kv} x {TP_SEQ}, hd "
+        f"{llama.head_dim}, causal, bf16", q, k, v, {}, {"is_causal": True},
+        "src/repro_torch/kernels/csrc/flash_attention.cu"))
+    cases = (  # name, label, rows, q heads, KV heads, hd, q dtype, seq_k
+        ("flash_attention_bhsd_tp_llama3_decode", "llama3-8b (1, 4)",
+         TP_BATCH, llama.n_heads // TP_MESH[1],
+         llama.n_kv_heads // TP_MESH[1], llama.head_dim, bf16, L),
+        ("flash_attention_bhsd_tp_llama3_2x2_decode", "llama3-8b (2, 2)",
+         rows, h, kv, llama.head_dim, bf16, L),
+        ("flash_attention_bhsd_tp_chatglm3_decode",
+         "chatglm3-6b (1, 4), head-dim shards gathered", TP_BATCH,
+         mesh_cfg("chatglm3-6b", None).n_heads // TP_MESH[1], 1, 128, bf16,
+         None),
+        ("flash_attention_bhsd_tp_rg_decode",
+         "recurrentgemma-2b (1, 4), head-dim shards gathered, fp32 q",
+         TP_BATCH, 10, 1, 256, f32, None))
+    for name, label, B, hq, hk, hd, qdt, seq_k in cases:
+        q = torch.randn(B, hq, 1, hd, generator=g, device="cuda").to(qdt)
+        k, v = (ring_view(torch, g, B, L, hk, L, hd, bf16) for _ in range(2))
+        kw = {"causal": False} if seq_k is None else {"causal": False,
+                                                      "seq_k": seq_k}
+        records.append(flash_record(
+            torch, name, f"{label} rank decode {B} x {hq}/{hk} over {L} "
+            f"slots, hd {hd}", q, k, v, kw, {}, decode))
+    records.append(dict(time_wkv6(torch, g, TP_BATCH, H, 1, 64,
+                                  "TP rank decode"),
+                        name="wkv6_bhtk_tp_decode"))
+    records.append(dict(time_rglru(torch, g, TP_BATCH, 1, C,
+                                   "TP rank decode"),
+                        name="rglru_btc_tp_decode"))
     return records
+
+
+def tp_logit_tol(arch, dtype):
+    """Phase 12's bound on serving's logits: ``TP_FLOOR_X`` times the
+    split's own move where ``TP_SERVE_SPLIT_MOVES`` has one, else
+    ``TP_LOGIT_RTOL``."""
+    move = TP_SERVE_SPLIT_MOVES.get((arch, dtype))
+    return TP_LOGIT_RTOL[dtype] if move is None else TP_FLOOR_X * move
+
+
+def tp_serve_hold(arch, dtype, shape, ref, ranks):
+    """Phase 12's holds of one serving run: every rank's prefill and
+    decode logits against --mesh none's rows (``tp_logit_tol``; fp32
+    also the same greedy tokens), each call's launches exactly --mesh
+    none's by kernel and form, each cache shard the shape
+    ``cache_spec_tree`` places, no all-gather in a decode step; prints
+    each rank's decode step wall, a step's collectives and the peak
+    memory. Returns rank 0's launches: {"prefill": counts, "decode": the
+    steps' summed}."""
+    rtol = tp_logit_tol(arch, dtype)
+    tag = f"{arch} {shape} {dtype}"
+    for r, res in enumerate(ranks):
+        check(f"{tag} rank {r} prefill + {TP_DECODE} decode steps' logits "
+              f"vs --mesh none, max error over max |logit| (worst of "
+              f"{['%.1e' % e for e in res['errs']]})", max(res["errs"]),
+              rtol)
+        expect(dtype != "float32" or all(res["same"]),
+               f"{tag} rank {r}: greedy tokens differ {res['same']}")
+        expect(res["launches"] == ref["launches"],
+               f"{tag} rank {r}: launches {res['launches']}, --mesh none's "
+               f"{ref['launches']}")
+        expect(all(a == b for a, b in res["shapes"]),
+               f"{tag} rank {r}: cache shards {res['shapes']}")
+        expect(not res["coll"]["bytes"].get("all-gather"),
+               f"{tag} rank {r}: a decode step all-gathers "
+               f"{res['coll']}")
+        walls = res["walls"][1:]
+        print(f"  {tag} rank {r}: a decode step {statistics.median(walls):.1f}"
+              f" ms (median of steps 2-{len(walls) + 1}; --mesh none "
+              f"{statistics.median(ref['walls'][1:]):.1f} ms); its "
+              f"collectives {res['coll']['calls']} calls, {{"
+              + ", ".join(f"{k}: {v:.0f} B"
+                          for k, v in res["coll"]["bytes"].items())
+              + f"}}; {len(res['shapes'])} cache shards as placed; peak "
+              f"{res['peak_gb']:.2f} GB", flush=True)
+    total = collections.Counter()
+    for counts in ranks[0]["launches"][1:]:
+        total.update(counts)
+    return {"prefill": ranks[0]["launches"][0], "decode": total}
+
+
+def tp_serve(torch, tasks, results, procs):
+    """Phase 12's serving: for each of ``TP_TRAINS`` on the (1, 4) mesh and
+    ``TP_SERVE_2D``, in fp32 and in the config's dtype, --mesh none's run
+    here (``tp_serve_ref``), then the ranks' (``tp_rank_serve``), held by
+    ``tp_serve_hold``. Returns rank 0's launches of the configs' dtypes by
+    (arch, mesh shape)."""
+    runs = [(arch, TP_MESH) for arch in TP_TRAINS] + [TP_SERVE_2D]
+    print(f"phase 12: serving, the prefill of {TP_BATCH} x {TP_SEQ} tokens "
+          f"under the train rules and {TP_DECODE} decode steps on the serve "
+          f"rules' shards, on {runs}; the decode walls are 4 processes "
+          f"sharing one card and gloo's host-staged all-reduces, not NCCL "
+          f"scaling", flush=True)
+    out = {}
+    for dtype in ("float32", None):
+        for arch, shape in runs:
+            cdt = dtype or mesh_cfg(arch, None).compute_dtype
+            t0 = time.perf_counter()
+            ref = tp_serve_ref(torch, tp_cfg(arch, cdt))
+            t1 = time.perf_counter()
+            for q in tasks:
+                q.put(("serve", arch, cdt, shape, ref))
+            ranks = tp_results(results, procs)
+            print(f"phase 12: serving {arch} {cdt} on {shape}: --mesh none "
+                  f"{t1 - t0:.1f} s, the mesh {time.perf_counter() - t1:.1f} "
+                  f"s", flush=True)
+            held = tp_serve_hold(arch, cdt, shape, ref, ranks)
+            if dtype is None:
+                out[(arch, shape)] = held
+            del ref, ranks
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 def phase_tp(torch):
     """Phase 12: tensor-parallel training over ``model``. Four processes on
     the one card join a gloo group (CUDA tensors) as a (1, 4) ("data",
     "model") mesh while the kernels are held and timed at the ranks' local
-    shapes here (``tp_records``); then each of ``TP_TRAINS`` trains
+    shapes here (``tp_records``, ``tp_serve_records``); then each of
+    ``TP_TRAINS`` trains
     ``TP_STEPS`` steps there, in fp32 and in its config's dtype, held
     against --mesh none run here from the same seed (``tp_hold``).
     Returns (the records, launches by record name)."""
@@ -4997,7 +5311,7 @@ def phase_tp(torch):
                 torch.cuda.empty_cache()
                 t1 = time.perf_counter()
                 for q in tasks:
-                    q.put((arch, cdt, ref))
+                    q.put(("train", arch, cdt, ref))
                 ranks = tp_results(results, procs)
                 print(f"phase 12: {arch} ({cfg.n_layers} of "
                       f"{mesh_cfg(arch, None).n_layers} layers, d "
@@ -5011,6 +5325,7 @@ def phase_tp(torch):
                 del ref, grads, params, ranks
                 gc.collect()
                 torch.cuda.empty_cache()
+        serving = tp_serve(torch, tasks, results, procs)
         for q in tasks:
             q.put(None)
         for p in procs:
@@ -5023,12 +5338,31 @@ def phase_tp(torch):
                 p.terminate()
                 p.join(10)
     fa = ("flash_attention_bhsd", "seq_bf16")
-    out = {"flash_attention_bhsd_tp_llama3": launches["llama3-8b"][fa],
-           "flash_attention_bhsd_tp_chatglm3": launches["chatglm3-6b"][fa],
-           "wkv6_bhtk_tp": launches["rwkv6-7b"]["wkv6_bhtk"],
-           "rglru_btc_tp": launches["recurrentgemma-2b"]["rglru_btc"],
+    fd = ("flash_attention_bhsd", "decode")
+    wkv, rg = ("wkv6_bhtk", "prefill"), "rglru_btc"
+    pre = {k: v["prefill"] for k, v in serving.items()}
+    dec = {k: v["decode"] for k, v in serving.items()}
+    llama, llama_2d = ("llama3-8b", TP_MESH), TP_SERVE_2D
+    glm, rw, rgm = (("chatglm3-6b", TP_MESH), ("rwkv6-7b", TP_MESH),
+                    ("recurrentgemma-2b", TP_MESH))
+    # serving's prefills add to the training records of their shapes, its
+    # (2, 2) prefill and its decode steps are records of their own
+    out = {"flash_attention_bhsd_tp_llama3":
+               launches["llama3-8b"][fa] + pre[llama][fa],
+           "flash_attention_bhsd_tp_chatglm3":
+               launches["chatglm3-6b"][fa] + pre[glm][fa],
+           "wkv6_bhtk_tp": launches["rwkv6-7b"]["wkv6_bhtk"] + pre[rw][wkv],
+           "rglru_btc_tp": launches["recurrentgemma-2b"][rg] + pre[rgm][rg],
            "flash_attention_bhsd_hd256_train":
-               launches["recurrentgemma-2b"]["flash_attention_bhsd"]}
+               launches["recurrentgemma-2b"]["flash_attention_bhsd"]
+               + pre[rgm]["flash_attention_bhsd"],
+           "flash_attention_bhsd_tp_llama3_2x2": pre[llama_2d][fa],
+           "flash_attention_bhsd_tp_llama3_decode": dec[llama][fd],
+           "flash_attention_bhsd_tp_llama3_2x2_decode": dec[llama_2d][fd],
+           "flash_attention_bhsd_tp_chatglm3_decode": dec[glm][fd],
+           "flash_attention_bhsd_tp_rg_decode": dec[rgm][fd],
+           "wkv6_bhtk_tp_decode": dec[rw][("wkv6_bhtk", "decode")],
+           "rglru_btc_tp_decode": dec[rgm][rg]}
     expect(all(n > 0 for n in out.values()), f"phase 12 launches {out}")
     print(f"  launches on the path (rank 0, the configs' dtypes): {out}; "
           f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -28,36 +28,53 @@ tensors; a kernel never sees a DTensor.
 
 Compute (``gather``, ``tp``). In a train step on a mesh
 (``activation_sharding(mesh, cfg, "train")``, which ``optim.train_step``
-enters) the step is tensor-parallel over ``model``, as GSPMD computes the
-reference's jitted step from the same rules. ``gather`` collects a
-parameter over the dp axes only (the reference's FSDP storage on
-``data``, gathered at use) and hands the layer its local ``model`` shard:
-each rank computes the column-parallel products on its heads, ff, lru or
-vocab slice and the row-parallel products (``attn/wo``, ``mlp/wo``,
-``tm/wo``, ``tm/wcv``, ``rec/wout``) on its rows of the weight, as
-Megatron-LM splits them. ``copy_to_model`` goes before each column-parallel
-product (identity forward, all-reduce of the gradient over ``model``) and
-``reduce_from_model`` after each row-parallel one (all-reduce forward,
-identity backward), so the residual stream and every replicated parameter's
-gradient are the same on every ``model`` rank. A replicated parameter that
-each rank slices to its own heads or channels (rwkv's ``u``, the group
-norm, the rglru gates' biases, a KV projection that the rules replicate) is
-gathered with ``use="partial"``: its gradient is summed over ``model``.
-Where a head or channel axis does not divide ``model`` the rules replicate
-the weights and the layer computes whole on every rank (attention with
-whisper's 12, smollm's 15, recurrentgemma's 10 or llava's 56 heads on 16
-ranks); MoE experts are gathered whole (``use="whole"``): expert
-parallelism, sequence and context parallelism (``use_context_parallel``)
-are not ported, so ``constrain`` has nothing to tell and returns its
-input. Serving on a mesh (``mode="serve"``) and a step outside the train
-step's context gather every parameter whole and compute data-parallel.
+enters; a prefill on a mesh too, forward only, as the reference compiles
+its prefill from the train rules) the step is tensor-parallel over
+``model``, as GSPMD computes the reference's jitted step from the same
+rules. ``gather`` collects a parameter over the dp axes only (the
+reference's FSDP storage on ``data``, gathered at use) and hands the layer
+its local ``model`` shard: each rank computes the column-parallel products
+on its heads, ff, lru or vocab slice and the row-parallel products
+(``attn/wo``, ``mlp/wo``, ``tm/wo``, ``tm/wcv``, ``rec/wout``) on its rows
+of the weight, as Megatron-LM splits them. ``copy_to_model`` goes before
+each column-parallel product (identity forward, all-reduce of the gradient
+over ``model``) and ``reduce_from_model`` after each row-parallel one
+(all-reduce forward, identity backward), so the residual stream and every
+replicated parameter's gradient are the same on every ``model`` rank. A
+replicated parameter that each rank slices to its own heads or channels
+(rwkv's ``u``, the group norm, the rglru gates' biases, a KV projection
+that the rules replicate) is gathered with ``use="partial"``: its gradient
+is summed over ``model``. Where a head or channel axis does not divide
+``model`` the rules replicate the weights and the layer computes whole on
+every rank (attention with whisper's 12, smollm's 15, recurrentgemma's 10
+or llava's 56 heads on 16 ranks); MoE experts are gathered whole
+(``use="whole"``): expert parallelism, sequence and context parallelism
+(``use_context_parallel``) are not ported, so ``constrain`` has nothing to
+tell and returns its input.
+
+A decode step on a mesh (``activation_sharding(mesh, cfg, "serve")``, the
+parameters stored by the serve rules) computes along ``model`` as a train
+step does, and along ``data`` on the serve rules' second tensor axis: the
+would-be-FSDP dim of each weight (``"data2d"``) stays on its ``data`` rank
+and the activations move (``dot``: the token rows gathered over ``data``,
+multiplied by the rank's slice, the partial products or the output columns
+summed over ``data``); ``gather`` then gathers nothing but a ``"whole"``
+parameter (the MoE experts). The caches are the rank's shards as
+``cache_spec_tree`` places them (``local_cache``): batch rows over the dp
+axes, KV heads over ``model`` (the head dim where they do not divide),
+rwkv's ``S`` over heads, rglru's ``h`` and ``conv`` over lru channels. A
+step outside any context, on any thread but the one that entered it
+(the contexts are per thread; ``running`` and ``resume`` carry them onto
+autograd's backward thread), computes unsharded, every parameter gathered
+whole.
 
 The collectives of the compute are ``torch.distributed``'s functional ones
 (``_functional_collectives``), which ``distributed/cost.py`` counts by kind
-and the dry run's fake group accepts; they are all-reduces, and the one
-all-gather (``gather_from_model``, the rglru gates' input) is an all-reduce
-of the rank's slice in a zeroed buffer, so the same code runs on NCCL and
-on gloo with CUDA tensors (four processes sharing one card), whose
+and the dry run's fake group accepts; they are all-reduces, and each
+all-gather of an activation (``gather_from_model``: the rglru gates' input,
+a head-dim-split cache; ``rows_over_data``, ``columns_over_data``) is an
+all-reduce of the rank's slice in a zeroed buffer, so the same code runs on
+NCCL and on gloo with CUDA tensors (four processes sharing one card), whose
 all-gather of CUDA tensors does not complete under torch 2.11.
 """
 
@@ -76,22 +93,55 @@ import torch
 # meshes and activation constraints
 # ---------------------------------------------------------------------------
 
-_ACTIVE: list = []  # stack of (mesh, cfg, mode)
+_LOCAL = threading.local()
+
+
+def _stack() -> list:
+    """This thread's stack of (mesh, cfg, mode, split_rows): a step on one
+    thread leaves every other thread's layers as they are."""
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, cfg, mode: str = "train"):
-    """Install mesh + config so ``constrain`` and ``use_context_parallel``
-    see them."""
-    _ACTIVE.append((mesh, cfg, mode))
+def activation_sharding(mesh, cfg, mode: str = "train",
+                        split_rows: bool = True):
+    """Install mesh + config on this thread so ``constrain``,
+    ``use_context_parallel`` and ``tp`` see them. ``split_rows``: whether
+    each dp rank holds its own batch rows (``tokens_sharding``) or all of
+    them; a serve step's ``"data2d"`` products gather the rows over
+    ``data`` only in the first case."""
+    stack = _stack()
+    stack.append((mesh, cfg, mode, split_rows))
     try:
         yield
     finally:
-        _ACTIVE.pop()
+        stack.pop()
+
+
+def running() -> tuple:
+    """This thread's ``activation_sharding`` contexts, for ``resume``."""
+    return tuple(_stack())
+
+
+@contextlib.contextmanager
+def resume(state):
+    """Run the block in the contexts ``running()`` gave on another thread
+    (autograd's backward thread, where remat recomputes a forward), this
+    thread's own set aside meanwhile."""
+    saved = getattr(_LOCAL, "stack", None)
+    _LOCAL.stack = list(state)
+    try:
+        yield
+    finally:
+        _LOCAL.stack = saved
 
 
 def active_mode() -> str:
-    return _ACTIVE[-1][2] if _ACTIVE else "train"
+    stack = _stack()
+    return stack[-1][2] if stack else "train"
 
 
 def axis_names(mesh) -> Tuple[str, ...]:
@@ -159,9 +209,10 @@ def use_context_parallel(n_heads: int) -> bool:
     """Whether the reference shards attention's query sequence over
     ``model`` (the head axis does not divide it: whisper 12, smollm 15, RG
     10, llava 56 vs 16-way TP). Not run by the port yet."""
-    if not _ACTIVE:
+    stack = _stack()
+    if not stack:
         return False
-    m = _axes(_ACTIVE[-1][0]).get("model", 1)
+    m = _axes(stack[-1][0]).get("model", 1)
     return n_heads % m != 0 and m > 1
 
 
@@ -334,17 +385,46 @@ def cache_spec_tree(caches, mesh, cfg):
     ``{"self", "cross"}``): the reference's ``self/`` entry."""
     where = [(s, i, kind, reps) for s, (kinds, reps) in enumerate(cfg.segments)
              for _ in range(reps) for i, kind in enumerate(kinds)]
-    out = []
-    for (s, i, kind, reps), cache in zip(where, caches):
-        specs = {}
-        fresh = kind == "dec_attn" and "self" not in cache
-        for path, leaf in _leaves(cache):
-            shape = (reps,) + tuple(leaf.shape)
-            ref = f"{s}/{i}_{kind}/{'self/' * fresh}{path}"
-            spec = cache_spec(ref, shape, mesh, cfg)
-            _put(specs, path.split("/"),
-                 _drop_repeats(spec, len(shape), True))
-        out.append(specs)
+    return [layer_cache_specs(cache, kind, mesh, cfg, f"{s}/{i}", reps)
+            for (s, i, kind, reps), cache in zip(where, caches)]
+
+
+def layer_cache_specs(cache, kind, mesh, cfg, where="0/0", reps=1):
+    """``cache_spec_tree``'s specs of one layer's cache, the layer at
+    reference path ``{where}_{kind}`` in a segment of ``reps`` repeats (the
+    rules read neither)."""
+    specs = {}
+    fresh = kind == "dec_attn" and "self" not in cache
+    for path, leaf in _leaves(cache):
+        shape = (reps,) + tuple(leaf.shape)
+        ref = f"{where}_{kind}/{'self/' * fresh}{path}"
+        spec = cache_spec(ref, shape, mesh, cfg)
+        _put(specs, path.split("/"), _drop_repeats(spec, len(shape), True))
+    return specs
+
+
+def shard_shape(shape, spec, mesh):
+    """The shape of one rank's shard of a tensor of ``shape`` placed by
+    ``spec``: each dim over the product of the axes that shard it (the
+    rules shard only dims that divide)."""
+    sizes = _axes(mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // int(np.prod([sizes[a] for a in axes or ()]))
+                 for n, axes in zip(shape, spec))
+
+
+def local_cache(cache, kind, mesh, cfg, rows, device=None):
+    """Zeros at this rank's shard of one layer's fresh ``cache`` (its
+    shapes; on ``meta`` it costs nothing) as ``layer_cache_specs`` places
+    it, with ``rows`` batch rows: the leading dim of every cache leaf is
+    the batch, which the caller has split already."""
+    out = {}
+    for (path, leaf), (_, spec) in zip(_leaves(cache),
+                                       _leaves(layer_cache_specs(
+                                           cache, kind, mesh, cfg))):
+        shape = (rows,) + shard_shape(leaf.shape, spec, mesh)[1:]
+        _put(out, path.split("/"), torch.zeros(shape, dtype=leaf.dtype,
+                                               device=device))
     return out
 
 
@@ -474,7 +554,12 @@ def gather(w, dtype, use: str = "local"):
     Outside a tensor-parallel step (``tp``) all of ``w``, its gradient taken
     as a partial sum on every rank (``Partial`` on each mesh dim): the
     backward reduce-scatters it onto the shard (all-reduces it where ``w``
-    is replicated). In one, ``w`` is gathered over the dp axes only (its
+    is replicated). In a serve step, the rank's shard as it is stored:
+    along ``model`` as ``"local"`` and ``"partial"`` take it (the rules
+    shard the one and replicate the other), along ``data`` its
+    ``"data2d"`` slice, which ``dot`` multiplies where it lies; only
+    ``"whole"`` gathers all of it. In a train step, ``w`` is gathered over
+    the dp axes only (its
     gradient a partial sum there) and along ``model`` ``use`` says what the
     layer takes: ``"local"`` the rank's shard of a parameter sharded over
     ``model`` (all of a replicated one), its gradient that shard's whole
@@ -483,9 +568,12 @@ def gather(w, dtype, use: str = "local"):
     its own part (the gradient summed over ``model``)."""
     from torch.distributed.tensor import Partial, Replicate
     mesh = w.device_mesh
-    if tp().mesh is None:
+    t = tp()
+    if t.mesh is None:
         full = w.to(dtype).full_tensor(grad_placements=[Partial()]
                                        * mesh.ndim)
+    elif t.mode == "serve" and use != "whole":
+        full = w.to(dtype).to_local()
     else:
         target, grads = [], []
         for axis, pl in zip(axis_names(mesh), w.placements):
@@ -511,12 +599,13 @@ def gather(w, dtype, use: str = "local"):
 
 class TP(NamedTuple):
     """This rank's place along ``model`` in a tensor-parallel step: its
-    index, the axis' size, the train step's mesh (None off one) and the
-    axis' process group."""
+    index, the axis' size, the step's mesh (None off one), the axis'
+    process group and the step's mode ("train" or "serve")."""
     rank: int
     size: int
     mesh: object
     group: object
+    mode: str = "train"
 
 
 _OFF = TP(0, 1, None, None)
@@ -524,18 +613,20 @@ _OFF = TP(0, 1, None, None)
 
 def tp() -> TP:
     """The tensor-parallel step in force: the innermost
-    ``activation_sharding`` when it is a train-mode ``DeviceMesh`` with a
-    ``model`` axis, else rank 0 of 1 with no mesh."""
-    if not _ACTIVE:
+    ``activation_sharding`` of this thread when it is a train-mode or
+    serve-mode ``DeviceMesh`` with a ``model`` axis, else rank 0 of 1 with
+    no mesh."""
+    stack = _stack()
+    if not stack:
         return _OFF
-    mesh, _, mode = _ACTIVE[-1]
+    mesh, _, mode, _ = stack[-1]
     names = axis_names(mesh)
-    if mode != "train" or "model" not in names or not hasattr(
-            mesh, "get_group"):
+    if mode not in ("train", "serve") or "model" not in names \
+            or not hasattr(mesh, "get_group"):
         return _OFF
     dim = names.index("model")
     return TP(mesh.get_local_rank(dim), mesh.size(dim), mesh,
-              mesh.get_group(dim))
+              mesh.get_group(dim), mode)
 
 
 def split_lo(w, dim: int):
@@ -632,6 +723,138 @@ def gather_from_model(x):
     t = tp()
     return x if t.size == 1 else _GatherFromModel.apply(x, t.group, t.rank,
                                                         t.size)
+
+
+# ---------------------------------------------------------------------------
+# serving on the serve rules' 2-D shards: the "data2d" products
+# ---------------------------------------------------------------------------
+
+
+class Data2d(NamedTuple):
+    """This rank's place along ``data`` in a serve step: its index, the
+    axis' size, its process group, and whether each ``data`` rank holds
+    rows of its own (``activation_sharding``'s ``split_rows``)."""
+    rank: int
+    size: int
+    group: object
+    split_rows: bool
+
+
+def data2d() -> Optional[Data2d]:
+    """The ``data`` axis of the serve step in force, where it has more than
+    one rank; None elsewhere (a train step, no mesh, one ``data`` rank: a
+    ``"data2d"`` shard is then all of the dim, and nothing moves)."""
+    t = tp()
+    if t.mode != "serve" or "data" not in axis_names(t.mesh):
+        return None
+    dim = axis_names(t.mesh).index("data")
+    if t.mesh.size(dim) == 1:
+        return None
+    return Data2d(t.mesh.get_local_rank(dim), t.mesh.size(dim),
+                  t.mesh.get_group(dim), _stack()[-1][3])
+
+
+def rows_over_data(x):
+    """Every ``data`` rank's rows of ``x`` (its leading dim), in rank order:
+    each rank's rows written into a zeroed buffer and the buffers
+    all-reduced over ``data`` (exact: one rank's value and zeros); ``x``
+    as it is where the ranks hold the same rows or there is no serve
+    step."""
+    d = data2d()
+    if d is None or not d.split_rows:
+        return x
+    n = x.shape[0]
+    buf = x.new_zeros((n * d.size,) + tuple(x.shape[1:]))
+    buf[d.rank * n:(d.rank + 1) * n] = x
+    return _all_reduce(buf, d.group)
+
+
+def own_rows(y, n: int):
+    """This ``data`` rank's ``n`` rows of ``y``, ``rows_over_data``'s
+    rows."""
+    d = data2d()
+    if d is None or not d.split_rows:
+        return y
+    return y[d.rank * n:(d.rank + 1) * n]
+
+
+def columns_over_data(y, dim: int = -1):
+    """Every ``data`` rank's columns of ``y`` along ``dim`` (its
+    ``"data2d"`` slice of an output dim), in rank order: written into a
+    zeroed full-width buffer, all-reduced over ``data``."""
+    d = data2d()
+    if d is None:
+        return y
+    k = y.shape[dim]
+    shape = list(y.shape)
+    shape[dim] = k * d.size
+    buf = y.new_zeros(shape)
+    buf.narrow(dim, d.rank * k, k).copy_(y)
+    return _all_reduce(buf, d.group)
+
+
+def _data_dim(w):
+    """The tensor dim of parameter ``w`` that is stored sharded over
+    ``data`` (its ``"data2d"`` dim under the serve rules), else None."""
+    if not is_dtensor(w):
+        return None
+    names = axis_names(w.device_mesh)
+    if "data" not in names:
+        return None
+    pl = w.placements[names.index("data")]
+    return pl.dim if pl.is_shard() else None
+
+
+def _axis(subscripts: str, letter: str) -> int:
+    """The (negative) dim of ``letter`` in one operand's einsum subscripts
+    (an ellipsis only in front)."""
+    tail = subscripts.split("...")[-1]
+    return tail.index(letter) - len(tail)
+
+
+_MATMUL, _MATMUL_T = "...i,io->...o", "...i,oi->...o"
+
+
+def dot(x, w, used, eq: str = _MATMUL):
+    """The product of activation ``x`` and parameter ``w`` as the layer uses
+    it (``used``: ``common.at_use`` / ``cast``'s result): ``x @ used`` by
+    default, ``x @ used.T`` for ``"...i,oi->...o"``, else
+    ``torch.einsum(eq, x, used)``.
+
+    In a serve step (``data2d``) a parameter stored sharded over ``data``
+    stays where it is and the activations move: the token rows are
+    gathered over ``data`` (``rows_over_data``), multiplied by the rank's
+    ``"data2d"`` slice, and then, where that dim is contracted (``wq``,
+    ``w[kvig]``, ``tm/w[rkvg]``, ``rec/win``, ``lm_head/w``, ...), the
+    partial products are summed over ``data``, and where it is an output
+    dim (``attn/wo``, ``mlp/wo``, ``tm/wo``, ``rec/wout``, the mixing
+    LoRAs' ``b_*``), the rank's columns are summed into a zeroed
+    full-width buffer (``columns_over_data``); the rank keeps its own rows
+    (``own_rows``). Two all-reduces a product, no gather of a weight. On
+    one ``data`` rank, in a train step, off a mesh, and for a ``used``
+    that is all of the dim (a weight gathered whole), the product as it
+    is."""
+    def product(a):
+        if eq == _MATMUL:
+            return a @ used
+        if eq == _MATMUL_T:
+            return a @ used.T
+        return torch.einsum(eq, a, used)
+    d = data2d()
+    j = None if d is None else _data_dim(w)
+    if j is None or used.shape[j] == w.shape[j]:
+        return product(x)
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    c = ws.split("...")[-1][j - used.dim()]
+    xa = rows_over_data(x)
+    k = used.shape[j]
+    if c in out:
+        y = columns_over_data(product(xa), _axis(out, c))
+    else:
+        y = _all_reduce(product(xa.narrow(_axis(xs, c), d.rank * k, k)),
+                        d.group)
+    return own_rows(y, x.shape[0])
 
 
 def dp_size(mesh) -> int:

@@ -13,27 +13,36 @@ joins a fake process group of 256 or 512 ranks (``FakeStore``: collectives
 are accepted and move nothing) as rank 0, builds the config's parameters on
 ``meta``, stores them as DTensors by ``param_spec_tree`` (serve mode for
 decode shapes, as the reference's), and runs the train step, prefill or
-decode step once under ``distributed.cost``'s counter: rank 0's local ops,
+decode step once in ``activation_sharding`` of the same mode under ``distributed.cost``'s counter: rank 0's local ops,
 the kernels by their formulas, the collectives its DTensors issue. Nothing
 is allocated and nothing needs a card.
 
-What the counts say: a train cell's step is tensor-parallel over
-``model``, as the reference's GSPMD step is (``distributed.sharding``):
-each rank computes its heads, ff, lru and vocab slice (the kernels at
-their local shapes) and the parameters are gathered over ``data`` only;
-the all-reduces of the row-parallel products and of the column-parallel
-products' gradients are counted by kind. Attention whose heads do not
-divide ``model`` (smollm, whisper, recurrentgemma, llava) and the MoE
-experts still compute whole on every ``model`` rank, and the residual
-stream's norms and elementwise ops are replicated (no sequence
-parallelism), so ``model_flops_ratio`` stays under the reference's there.
-Prefill and decode cells compute data-parallel, every weight gathered
-whole at use (serving on a mesh is ROADMAP Queue 1). The bytes are eager
-PyTorch's (no fusion: every op's operands and result). Decode caches hold
-the rank's batch rows, replicated along ``model``. ``memory_analysis``
-gives the arguments a rank holds (parameters, AdamW moments and its batch
-rows, or its caches); temp bytes are null, since no compiler plans the
-step's buffers.
+What the counts say: every cell computes as the reference shards it,
+tensor-parallel over ``model`` (``distributed.sharding``). A train cell's
+step and a prefill cell (forward only) store the parameters by the train
+rules and gather them over ``data`` only: each rank computes its heads,
+ff, lru and vocab slice (the kernels at their local shapes), with the
+all-reduces of the row-parallel products (and in training of the
+column-parallel products' gradients) counted by kind; a prefill writes
+the rank's shard of each cache and leaves the logits split over the
+vocab. A decode cell (``decode_32k``, ``long_500k``) stores them by the
+serve rules, whose would-be-FSDP dim lies over ``data`` as a second tensor
+axis (``"data2d"``): the weights stay where they are and the token rows
+move (``sharding.dot``: two all-reduces a product over ``data``), so a
+dense decode step gathers no weight; its caches are the rank's shards as
+``cache_spec_tree`` places them (batch over ``data``, KV heads over
+``model``, or the head dim where the heads do not divide, gathered over
+``model`` before flash). Not computed as the reference computes it:
+attention whose heads do not divide ``model`` (smollm, whisper,
+recurrentgemma, llava) runs whole on every rank where the reference
+shards the query sequence (context parallelism), the residual stream's
+norms and elementwise ops are replicated (no sequence parallelism), and
+MoE experts are gathered whole at use (no expert parallelism), so
+``model_flops_ratio`` stays under the reference's there. The bytes are
+eager PyTorch's (no fusion: every op's operands and result).
+``memory_analysis`` gives the arguments a rank holds (parameters, AdamW
+moments and its batch rows, or its cache shards); temp bytes are null,
+since no compiler plans the step's buffers.
 
 ``--attn-impl`` is left out: the port has one attention path, the flash
 kernel (its formula here), where the reference can pick its naive XLA
@@ -83,6 +92,25 @@ def batch_struct(cfg, B, S, kind):
     return batch
 
 
+def decode_caches(cfg, rows, length, mesh):
+    """A decode cell's caches on ``meta``: each layer's as a prefill leaves
+    it (a ``dec_attn`` layer's self cache beside its encoder's cross K/V
+    over ``cfg.frontend_seq`` frames, which the reference allocates with
+    the self cache), the rank's shard as ``cache_spec_tree`` places it."""
+    from repro_torch.models import blocks
+    out = []
+    for kind in cfg.layer_kinds:
+        cache = blocks.init_layer_cache(kind, cfg, rows, length,
+                                        device="meta")
+        if kind == "dec_attn":
+            kv = (rows, cfg.frontend_seq, cfg.n_kv_heads, cfg.head_dim)
+            cache = {"self": cache, "cross": {
+                n: torch.empty(kv, dtype=cache["k"].dtype, device="meta")
+                for n in ("k", "v")}}
+        out.append(shd.local_cache(cache, kind, mesh, cfg, rows, "meta"))
+    return out
+
+
 def step_of(cfg, sc, mesh, params):
     """(the cell's step as a thunk, the arguments a rank holds, tokens)."""
     rows = sc.global_batch
@@ -108,7 +136,7 @@ def step_of(cfg, sc, mesh, params):
                 lm.prefill(params, batch, cfg, cache_len=sc.seq_len)
         return fn, list(batch.values()), sc.global_batch * sc.seq_len
     # decode: one new token against a cache / state of length S
-    caches = lm.init_caches(cfg, rows, sc.seq_len, device="meta")
+    caches = decode_caches(cfg, rows, sc.seq_len, mesh)
     token = torch.empty(rows, 1, dtype=torch.int32, device="meta")
 
     def fn():
@@ -153,8 +181,8 @@ def run_cell(arch, shape, mesh_kind, overrides=None, *, reduced=False):
             params = trainable(params)
         shd.shard_module(params, mesh, cfg, mode)
         fn, held, tokens = step_of(cfg, sc, mesh, params)
-        compute = "train" if sc.kind == "train" else "serve"
-        with shd.activation_sharding(mesh, cfg, compute), \
+        split_rows = bool(shd.tokens_sharding(mesh, (sc.global_batch,)))
+        with shd.activation_sharding(mesh, cfg, mode, split_rows), \
                 cost.counting() as counter:
             fn()
         t_count = time.time() - t0

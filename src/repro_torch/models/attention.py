@@ -13,6 +13,15 @@ cross cache (the reference's ``attn_impl="pallas"`` branch; its prompt
 prefill, encoder, cross-attention and dense decode use a masked softmax,
 the same function) and the paged decode kernel for one token over pages.
 On CPU tensors those run their plain versions.
+
+On a mesh (``distributed.sharding``) a dense cache is the rank's shard as
+``sharding.cache_spec_tree`` places it (``_cache_split``): its KV heads
+where they divide ``model``, else its slice of every KV head's head dim,
+whose new K/V each rank projects whole (the rules replicate ``wk`` /
+``wv`` there) and keeps its slice of; a decode step then gathers the
+cache's head dims over ``model`` (``gather_from_model``) before flash,
+which takes whole heads, and hands flash the KV heads the rank's query
+heads read.
 """
 
 from __future__ import annotations
@@ -46,8 +55,8 @@ def _q(p, x, cfg, w=None, use="local"):
     """Query heads (B,S,H,hd), qk-normed where the config says so: ``w``
     is the projection as used (default ``wq`` at the compute dtype); ``use``
     is the norm scale's (``sharding.gather``)."""
-    q = torch.einsum("bsd,dhk->bshk", x,
-                     at_use(p.wq, x, cfg) if w is None else w)
+    q = sharding.dot(x, p.wq, at_use(p.wq, x, cfg) if w is None else w,
+                     "bsd,dhk->bshk")
     return rms_norm(q, p.q_norm, cfg.norm_eps, use) if cfg.qk_norm else q
 
 
@@ -55,8 +64,10 @@ def _kv(p, x, cfg, heads=None, use="local"):
     """Key and value heads (B,S,KV,hd), the keys qk-normed where the
     config says so; ``heads`` the KV heads to compute (all where None),
     from projections each rank slices (``use="partial"``)."""
-    k = torch.einsum("bsd,dhk->bshk", x, at_use(p.wk, x, cfg, heads, 1))
-    v = torch.einsum("bsd,dhk->bshk", x, at_use(p.wv, x, cfg, heads, 1))
+    k = sharding.dot(x, p.wk, at_use(p.wk, x, cfg, heads, 1),
+                     "bsd,dhk->bshk")
+    v = sharding.dot(x, p.wv, at_use(p.wv, x, cfg, heads, 1),
+                     "bsd,dhk->bshk")
     if cfg.qk_norm:
         k = rms_norm(k, p.k_norm, cfg.norm_eps, use)
     return k, v
@@ -88,30 +99,77 @@ def _kv_heads(p, cfg, n_q):
     return kv if even else reads
 
 
-def _project(p, x, kv_x, cfg):
+def _project(p, x, kv_x, cfg, cached=False):
     """(q (B,S,H,hd), k, v (B,T,KV,hd)) from x and kv_x, before RoPE. In a
     tensor-parallel step with ``wq`` split, this rank's query heads and the
     KV heads they read (``_kv_heads``), each input behind
     ``copy_to_model``; never the local query heads beside all KV heads,
-    which flash's GQA mapping would pair wrongly."""
+    which flash's GQA mapping would pair wrongly (``_reads`` picks a
+    cache's). ``cached``: K/V for a cache, every KV head of the rank's
+    ``wk`` (its own where ``wk`` is split, else all of them)."""
     if not _split(p):
         return (_q(p, x, cfg),) + _kv(p, kv_x, cfg)
     xc = sharding.copy_to_model(x)
     kc = xc if kv_x is x else sharding.copy_to_model(kv_x)
     q = _q(p, xc, cfg, use="partial")
-    return (q,) + _kv(p, kc, cfg, _kv_heads(p, cfg, q.shape[2]), "partial")
+    heads = None if cached else _kv_heads(p, cfg, q.shape[2])
+    return (q,) + _kv(p, kc, cfg, heads, "partial")
 
 
-def _qkv(p, x, positions, cfg):
-    q, k, v = _project(p, x, x, cfg)
+def _qkv(p, x, positions, cfg, cached=False):
+    q, k, v = _project(p, x, x, cfg, cached)
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
 
 
 def _proj_out(p, out, cfg):
     """The output projection; in a tensor-parallel step over this rank's
     heads' rows of ``wo``, summed over ``model``."""
-    y = torch.einsum("bshk,hkd->bsd", out, at_use(p.wo, out, cfg))
+    y = sharding.dot(out, p.wo, at_use(p.wo, out, cfg), "bshk,hkd->bsd")
     return sharding.reduce_from_model(y) if _split(p) else y
+
+
+def _cache_split(cfg):
+    """How a tensor-parallel step's K/V caches split over ``model``, as
+    ``sharding.cache_spec`` places them: "heads" (the rank's KV heads, where
+    they divide ``model``), "head_dim" (its slice of every KV head's head
+    dim), or None (off a split, or neither divides: whole)."""
+    t = sharding.tp()
+    if t.size == 1:
+        return None
+    spec = sharding.cache_spec("0/0_attn/k", (1, 1, 1, cfg.n_kv_heads,
+                                              cfg.head_dim), t.mesh, cfg)
+    if spec[-2] and "model" in spec[-2]:
+        return "heads"
+    if spec[-1] and "model" in spec[-1]:
+        return "head_dim"
+    return None
+
+
+def _own(kv, cfg):
+    """The part of new K or V (..., KV, hd) that this rank's cache holds:
+    its head-dim slice where the cache splits the head dim."""
+    if _cache_split(cfg) != "head_dim":
+        return kv
+    return kv[..., sharding.rank_slice(cfg.head_dim)]
+
+
+def _whole(kv, cfg):
+    """A cache's K or V with whole head dims, as the kernels take them:
+    every rank's head-dim slice gathered over ``model``
+    (``gather_from_model``) where the cache splits the head dim."""
+    if _cache_split(cfg) != "head_dim":
+        return kv
+    return sharding.gather_from_model(kv)
+
+
+def _reads(p, cfg, q, k, v):
+    """K/V (B,T,KV,hd) of every head of the rank's ``wk`` (``cached``) as
+    flash pairs them with this rank's query heads q: the KV heads they read
+    (``_kv_heads``) where ``wq`` is split and ``wk`` is not."""
+    heads = _kv_heads(p, cfg, q.shape[2]) if _split(p) else None
+    if heads is None:
+        return k, v
+    return k[:, :, heads], v[:, :, heads]
 
 
 def make_mask(q_pos, k_pos, causal: bool, window: int):
@@ -158,14 +216,16 @@ def attn_prefill(p, x, positions, cfg, *, cache, window=0):
     ``attn_decode`` reads and overwrites (the reference keeps them in slots
     0..L-1, which decode only agrees with when L divides S). Returns
     (out (B,S,d), cache)."""
-    q, k, v = _qkv(p, x, positions, cfg)
+    q, k, v = _qkv(p, x, positions, cfg, cached=True)
     S = x.shape[1]
     L = cache["k"].shape[1]
     for name, new in (("k", k), ("v", v)):
+        new = _own(new, cfg)
         if L >= S:
             cache[name][:, :S] = new
         else:
             cache[name].copy_(torch.roll(new[:, S - L:], S % L, dims=1))
+    k, v = _reads(p, cfg, q, k, v)
     out = kops.flash_attention(q, k, v, causal=True, window=window,
                                softcap=cfg.attn_logit_softcap)
     return _proj_out(p, out, cfg), cache
@@ -186,17 +246,30 @@ def attn_decode(p, x, t, cfg, *, cache, cross=False):
     write, and Q projected by ``wq`` cast to x's dtype, as the reference
     casts it there. Returns (out (B,1,d), cache)."""
     if cross:
-        q = _q(p, x, cfg, cast(p.wq, x.dtype))
-        out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
+        use = "local"
+        if _split(p):
+            x, use = sharding.copy_to_model(x), "partial"
+        q = _q(p, x, cfg, cast(p.wq, x.dtype), use)
+        k, v = _reads(p, cfg, q, _whole(cache["k"], cfg),
+                      _whole(cache["v"], cfg))
+        out = kops.flash_attention(q, k, v, causal=False,
                                    softcap=cfg.attn_logit_softcap)
         return _proj_out(p, out, cfg), cache
-    q, k, v = _qkv(p, x, torch.full((1,), t, device=x.device), cfg)
+    q, k, v = _qkv(p, x, torch.full((1,), t, device=x.device), cfg,
+                   cached=True)
     L = cache["k"].shape[1]
-    cache["k"][:, t % L] = k[:, 0]
-    cache["v"][:, t % L] = v[:, 0]
+    cache["k"][:, t % L] = _own(k, cfg)[:, 0]
+    cache["v"][:, t % L] = _own(v, cfg)[:, 0]
     n = min(t + 1, L)
-    out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
-                               softcap=cfg.attn_logit_softcap, seq_k=n)
+    if _cache_split(cfg) == "head_dim":
+        k, v = _reads(p, cfg, q, _whole(cache["k"][:, :n], cfg),
+                      _whole(cache["v"][:, :n], cfg))
+        out = kops.flash_attention(q, k, v, causal=False,
+                                   softcap=cfg.attn_logit_softcap)
+    else:
+        k, v = _reads(p, cfg, q, cache["k"], cache["v"])
+        out = kops.flash_attention(q, k, v, causal=False,
+                                   softcap=cfg.attn_logit_softcap, seq_k=n)
     return _proj_out(p, out, cfg), cache
 
 
@@ -209,15 +282,19 @@ def init_cross_cache(p, enc_out, cfg):
     return {"k": k, "v": v}
 
 
-def cross_prefill(p, x, enc_out, cfg):
+def cross_prefill(p, x, enc_out, cfg, cached=False):
     """Cross-attention of x (B,S,d) over the encoder output (B,F,d) through
     the flash kernel, non-causal and without RoPE (the reference's
     ``attn_fwd(kv_x=enc_out, causal=False, rope=False)``), for the full
     forward and the prompt alike; the cross cache it builds is what
-    ``attn_decode(cross=True)`` reads. Returns (out (B,S,d), cache)."""
-    q, k, v = _project(p, x, enc_out, cfg)
-    cache = {"k": k, "v": v}
-    out = kops.flash_attention(q, cache["k"], cache["v"], causal=False,
+    ``attn_decode(cross=True)`` reads (with ``cached``, in a
+    tensor-parallel step, the rank's shard of it, as ``attn_prefill``
+    keeps a self cache's). Returns (out (B,S,d), cache)."""
+    q, k, v = _project(p, x, enc_out, cfg, cached)
+    cache = {"k": _own(k, cfg), "v": _own(v, cfg)} if cached \
+        else {"k": k, "v": v}
+    k, v = _reads(p, cfg, q, k, v) if cached else (k, v)
+    out = kops.flash_attention(q, k, v, causal=False,
                                softcap=cfg.attn_logit_softcap)
     return _proj_out(p, out, cfg), cache
 

@@ -30,6 +30,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import _cuda
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -153,11 +154,19 @@ def _within(*contexts):
         yield
 
 
+def carried_contexts():
+    """The forward thread's state for a recompute on autograd's thread: its
+    kernel launches count as the forward's (``_cuda.resume``) and its
+    layers compute in the forward's tensor-parallel step
+    (``sharding.resume``)."""
+    return _within(_cuda.resume(_cuda.running()),
+                   sharding.resume(sharding.running()))
+
+
 def _remat_contexts(cfg):
-    """(forward, recompute) contexts of one rematerialized layer. The
-    recompute runs on autograd's thread and counts its kernel launches as
-    the forward's thread (``_cuda.resume``)."""
-    carried = _cuda.resume(_cuda.running())
+    """(forward, recompute) contexts of one rematerialized layer; the
+    recompute runs on autograd's thread (``carried_contexts``)."""
+    carried = carried_contexts()
     if cfg.remat == "full":
         return contextlib.nullcontext(), carried
     from torch.utils.checkpoint import create_selective_checkpoint_contexts
@@ -180,7 +189,7 @@ def layer_fwd_remat(kind, p, x, ctx, cfg):
         context_fn=lambda: _remat_contexts(cfg))
 
 
-def init_layer_cache(kind, cfg, batch, length, device=None):
+def init_layer_cache(kind, cfg, batch, length, device=None, mesh=None):
     """The decode cache of one layer: the dense K/V cache of ``length``
     slots of an ``attn`` or ``moe`` layer (an ``attn`` layer's paged cache
     is ``attention.init_paged_cache``), the ring K/V cache of an
@@ -188,8 +197,13 @@ def init_layer_cache(kind, cfg, batch, length, device=None):
     ``rwkv`` or ``rglru`` layer. A ``dec_attn`` layer starts from its
     dense self cache alone: its prefill adds the cross cache it builds
     from the encoder's output (the reference allocates a zeroed one here,
-    which its prefill replaces)."""
+    which its prefill replaces). With ``mesh``, this rank's shard of it as
+    ``sharding.cache_spec_tree`` places it, ``batch`` the rank's rows."""
     check_kind(kind, CACHE_KINDS)
+    if mesh is not None:
+        return sharding.local_cache(
+            init_layer_cache(kind, cfg, batch, length, device="meta"), kind,
+            mesh, cfg, batch, device)
     if kind not in ("rglru", "rwkv"):
         return attn.init_cache(cfg, batch, length,
                                window=_window(kind, cfg), device=device)
@@ -215,7 +229,7 @@ def layer_prefill(kind, p, x, ctx, cfg, cache):
         return _ffn_after(p, x, h, cfg)[0], self_cache
     x = x + h
     h, cross = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
-                                  ctx["enc_out"], cfg)
+                                  ctx["enc_out"], cfg, cached=True)
     return _ffn_after(p, x, h, cfg)[0], {"self": self_cache, "cross": cross}
 
 

@@ -11,9 +11,11 @@ Every read of a parameter goes through ``cast`` (``at_use`` for a weight
 against an activation): a parameter stored sharded as a DTensor
 (``distributed.sharding.shard_module``) is gathered there, its local shard
 cast first, so a layer always computes on plain local tensors: in a
-tensor-parallel train step the rank's ``model`` shard of it
+tensor-parallel step the rank's ``model`` shard of it
 (``sharding.gather``), and the layer computes its heads, channels or
-vocab entries (``sharding.split_lo``).
+vocab entries (``sharding.split_lo``); in a serve step also the weight's
+``"data2d"`` slice, which the product multiplies where it lies
+(``sharding.dot``).
 """
 
 from __future__ import annotations
@@ -172,18 +174,28 @@ def embed_tokens(p, tokens, cfg):
     as unsharded, not in the compute dtype. In a tensor-parallel step the
     table is split over the vocab: each rank looks up the tokens of its
     rows, zeros for the others, and the ranks' lookups are summed
-    (``reduce_from_model``; one rank's value and zeros, so exact)."""
+    (``reduce_from_model``; one rank's value and zeros, so exact). In a
+    serve step whose table is split over ``data`` too (its ``"data2d"``
+    columns), the ``data`` ranks' token ids are gathered, each looks up
+    its columns of them, and the columns are summed into whole rows
+    (``columns_over_data``), of which the rank keeps its own."""
     tok = cast(p.tok, p.tok.dtype) if is_dtensor(p.tok) else p.tok
     lo = sharding.split_lo(p.tok, 0)
     cdt = torch_dtype(cfg.compute_dtype)
+    columns = tok.shape[1] < p.tok.shape[1]    # its "data2d" slice: serving
+    ids = tokens.long()
+    if columns:
+        ids = sharding.rows_over_data(ids)
     if lo is None:
-        x = tok[tokens.long()].to(cdt)
+        x = tok[ids].to(cdt)
     else:
-        ids = tokens.long() - lo
+        ids = ids - lo
         own = ((ids >= 0) & (ids < tok.shape[0]))[..., None]
         rows = tok[ids.clamp(0, tok.shape[0] - 1)]
         x = sharding.reduce_from_model(
             torch.where(own, rows, torch.zeros_like(rows)).to(cdt))
+    if columns:
+        x = sharding.own_rows(sharding.columns_over_data(x), tokens.shape[0])
     if cfg.emb_scale:
         x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
     return x
@@ -198,8 +210,9 @@ def logits_fwd(params, x, cfg):
     if vocab_lo(params, cfg) is not None:
         x = sharding.copy_to_model(x)
     if cfg.tie_embeddings:
-        return x @ at_use(params.embedding.tok, x, cfg).T
-    return x @ at_use(params.lm_head.w, x, cfg)
+        tok = params.embedding.tok
+        return sharding.dot(x, tok, at_use(tok, x, cfg), "...i,oi->...o")
+    return sharding.dot(x, params.lm_head.w, at_use(params.lm_head.w, x, cfg))
 
 
 def vocab_lo(params, cfg):

@@ -20,6 +20,8 @@ Serving:
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -185,7 +187,8 @@ def _chunked_ce(params, x, targets, cfg):
     for i in range(n):
         s, v = torch.utils.checkpoint.checkpoint(
             body, x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
-            use_reentrant=False)
+            use_reentrant=False, context_fn=lambda: (
+                contextlib.nullcontext(), blocks.carried_contexts()))
         total, count = total + s, count + v
     return total / torch.clamp(count, min=1.0)
 
@@ -206,19 +209,25 @@ def lm_loss(params, batch, cfg):
     return loss, {"ce_loss": ce, **aux, "loss": loss}
 
 
-def init_caches(cfg, batch, length, device=None):
+def init_caches(cfg, batch, length, device=None, mesh=None):
     """One decode cache per layer (``blocks.init_layer_cache``); ``length``
-    sizes the K/V caches of ``attn`` and ``attn_local`` layers."""
-    return [blocks.init_layer_cache(kind, cfg, batch, length, device=device)
+    sizes the K/V caches of ``attn`` and ``attn_local`` layers. With
+    ``mesh``, each the rank's shard as ``sharding.cache_spec_tree`` places
+    it (``batch`` the rank's rows)."""
+    return [blocks.init_layer_cache(kind, cfg, batch, length, device=device,
+                                    mesh=mesh)
             for kind in cfg.layer_kinds]
 
 
 def prefill(params, batch, cfg, cache_len: int = 0):
     """Run the prompt from fresh caches (an encoder's frames first, once);
-    returns (last-position logits (B,V), caches, t_next)."""
+    returns (last-position logits (B,V), caches, t_next). In a
+    tensor-parallel step (``sharding.tp``) the caches are the rank's
+    shards and the logits its vocab entries (``common.vocab_lo``)."""
     x, ctx, _ = _context(params, batch, cfg)
     S = x.shape[1]
-    caches = init_caches(cfg, x.shape[0], max(cache_len, S), device=x.device)
+    caches = init_caches(cfg, x.shape[0], max(cache_len, S), device=x.device,
+                         mesh=sharding.tp().mesh)
     new_caches = []
     for layer, kind, cache in zip(params.layers, cfg.layer_kinds, caches):
         x, cache = blocks.layer_prefill(kind, layer, x, ctx, cfg, cache)
@@ -228,7 +237,7 @@ def prefill(params, batch, cfg, cache_len: int = 0):
 
 def decode_step(params, caches, token, t, cfg):
     """token (B,1) int; t the position it takes. Returns (logits (B,V),
-    caches)."""
+    caches); in a tensor-parallel step as ``prefill`` gives them."""
     x = embed_tokens(params.embedding, token, cfg)
     new_caches = []
     for layer, kind, cache in zip(params.layers, cfg.layer_kinds, caches):

@@ -3,7 +3,9 @@ squared-ReLU / GELU, weights cast to the compute dtype at use. The ungated
 forms have no ``wg``, as the reference builds them. In a tensor-parallel
 step (``distributed.sharding``) each rank computes its slice of ``d_ff``:
 ``wi`` / ``wg`` column-parallel, ``wo`` row-parallel and summed over
-``model``."""
+``model``. Serving on the serve rules' shards, each product also
+multiplies its weight's ``"data2d"`` slice where it lies
+(``sharding.dot``)."""
 
 from __future__ import annotations
 
@@ -34,11 +36,11 @@ def mlp_fwd(p, x, cfg):
     split = sharding.split_lo(p.wi, 1) is not None
     if split:
         x = sharding.copy_to_model(x)
-    h = x @ at_use(p.wi, x, cfg)
+    h = sharding.dot(x, p.wi, at_use(p.wi, x, cfg))
     if cfg.mlp_type in GATES:
-        g = x @ at_use(p.wg, x, cfg)
+        g = sharding.dot(x, p.wg, at_use(p.wg, x, cfg))
         h = GATES[cfg.mlp_type](g) * h
     else:
         h = ACTIVATIONS[cfg.mlp_type](h)
-    y = h @ at_use(p.wo, h, cfg)
+    y = sharding.dot(h, p.wo, at_use(p.wo, h, cfg))
     return sharding.reduce_from_model(y) if split else y

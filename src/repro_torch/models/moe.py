@@ -20,8 +20,12 @@ among equal probabilities the lower expert index comes first, as
 ``jax.lax.top_k`` orders them (``torch.topk`` promises no order there).
 The reference's sharding constraints have nothing to constrain here: on a
 mesh the experts are gathered whole at use and every ``model`` rank
-computes all of them on its rows (expert parallelism is not ported); the
-shared expert's MLP is tensor-parallel over ``d_ff`` (``mlp.mlp_fwd``).
+computes all of them on its rows, in training and in serving alike (expert
+parallelism is ROADMAP Queue 1 item 3). In a serve step that gather is the
+one weight gather left: the serve rules store the experts over ``data``
+too, where the dense products multiply their slices in place
+(``sharding.dot``: the router's, the shared expert's MLP, which is
+tensor-parallel over ``d_ff``, ``mlp.mlp_fwd``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.distributed import cost
+from repro_torch.distributed import cost, sharding
 from repro_torch.models.common import (ACTIVATIONS, at_use, cast,
                                        torch_dtype, weight)
 from repro_torch.models.mlp import GATES, Mlp, mlp_fwd
@@ -68,7 +72,7 @@ def capacity(n_group_tokens: int, cfg) -> int:
 def _route(p, x, cfg):
     """fp32 router logits (..., E), their softmax, and the top-k gates
     (renormalized, floor 1e-9) and expert ids (..., k)."""
-    logits = x.float() @ cast(p.router, torch.float32)
+    logits = sharding.dot(x.float(), p.router, cast(p.router, torch.float32))
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = top[..., :cfg.moe_top_k], idx[..., :cfg.moe_top_k]

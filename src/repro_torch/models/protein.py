@@ -418,7 +418,12 @@ def _foldscore_trunk(params, seqs, target, cfg):
     Returns final hidden states (B, L, d) in fp32. Causality means pad
     tokens appended to a row leave its real positions unchanged."""
     x = embed_tokens(params.embedding, seqs, cfg)
-    x = x + (target.float() @ params.heads.tgt)[:, None].to(x.dtype)
+    # the target descriptor's projection as a sum of products a row, not a
+    # (B, 16) x (16, d) GEMM: on the CPU a one-row GEMM rounds otherwise
+    # than the same row among others (~1e-6), and a row's scores must not
+    # depend on which rows share its batch
+    tgt = (target.float()[:, :, None] * params.heads.tgt).sum(1)
+    x = x + tgt[:, None].to(x.dtype)
     ctx = {"positions": torch.arange(seqs.shape[1], device=seqs.device)}
     for layer, kind in zip(params.layers, cfg.layer_kinds):
         x, _ = blocks.layer_fwd(kind, layer, x, ctx, cfg)

@@ -87,8 +87,9 @@ def init_rwkv_state(cfg, batch, device=None, dtype=torch.float32):
 def _ddlerp(p, s, x, dx, xx):
     """Finch data-dependent token-shift interpolation for stream s."""
     cdt = xx.dtype
-    lora = torch.tanh(xx @ cast(getattr(p, f"a_{s}"), cdt)) \
-        @ cast(getattr(p, f"b_{s}"), cdt)
+    a, b = getattr(p, f"a_{s}"), getattr(p, f"b_{s}")
+    lora = sharding.dot(torch.tanh(sharding.dot(xx, a, cast(a, cdt))), b,
+                        cast(b, cdt))
     return x + dx * (cast(getattr(p, f"mu_{s}"), x.dtype) + lora)
 
 
@@ -105,17 +106,20 @@ def rwkv_streams(p, x, shift_prev, cfg, part=None, use="local"):
     def into(s):
         m = _ddlerp(p, s, x, dx, xx)
         return m if part is None else sharding.copy_to_model(m)
-    r = into("r") @ cast(p.wr, cdt, use)
-    k = into("k") @ cast(p.wk, cdt, use)
-    v = into("v") @ cast(p.wv, cdt, use)
-    g = F.silu(into("g") @ cast(p.wg, cdt, use))
-    lora = torch.tanh(_ddlerp(p, "w", x, dx, xx) @ cast(p.aw, cdt))
+    r, k, v, g = (sharding.dot(into(s), w, cast(w, cdt, use))
+                  for s, w in zip("rkvg", (p.wr, p.wk, p.wv, p.wg)))
+    g = F.silu(g)
+    lora = torch.tanh(sharding.dot(_ddlerp(p, "w", x, dx, xx), p.aw,
+                                   cast(p.aw, cdt)))
     if part is not None:
         lora = sharding.copy_to_model(lora)
+    if sharding.data2d() is None:
+        decay = lora @ cast_part(p.bw, cdt, part)
+    else:       # bw's "data2d" dim is the channels: all of them, then part
+        decay = sharding.dot(lora, p.bw, cast(p.bw, cdt, "partial"))
+        decay = decay if part is None else decay[..., part]
     logw = -torch.exp(torch.clamp(
-        cast_part(p.w0, torch.float32, part)
-        + (lora @ cast_part(p.bw, cdt, part)).float(),
-        -12.0, 5.0))
+        cast_part(p.w0, torch.float32, part) + decay.float(), -12.0, 5.0))
     return r, k, v, g, torch.clamp(logw, max=-1e-6)
 
 
@@ -149,7 +153,7 @@ def rwkv_timemix(p, x, state, cfg):
     H = r.shape[-1] // K
     u = cast_part(p.u, torch.float32, part).reshape(H, K).contiguous()
     s0 = state["S"]
-    if part is not None:                  # fresh, aligned: the rank's heads
+    if part is not None and s0.shape[1] != H:     # every head's (fresh)
         s0 = s0[:, sharding.rank_slice(d // K)].contiguous()
     y, S = kops.wkv6(_heads(r, K), _heads(k, K), _heads(v, K),
                      _heads(logw, K), u, s0)
@@ -160,7 +164,7 @@ def rwkv_timemix(p, x, state, cfg):
     yg = ((yg - mu) * torch.rsqrt(var + cfg.norm_eps)).reshape(B, T, H * K)
     y = (yg * cast_part(p.gn_scale, torch.float32, part)
          + cast_part(p.gn_bias, torch.float32, part)).to(x.dtype)
-    y = (y * g) @ cast(p.wo, x.dtype, use)
+    y = sharding.dot(y * g, p.wo, cast(p.wo, x.dtype, use))
     if part is not None:
         y = sharding.reduce_from_model(y)
     new_state = {"S": S, "shift_tm": x[:, -1].float(),
@@ -179,11 +183,11 @@ def rwkv_channelmix(p, x, state, cfg):
     split = sharding.split_lo(p.wck, 1) is not None
     if split:
         xk = sharding.copy_to_model(xk)
-    kk = torch.square(torch.relu(xk @ cast(p.wck, cdt)))
-    kv = kk @ cast(p.wcv, cdt)
+    kk = torch.square(torch.relu(sharding.dot(xk, p.wck, cast(p.wck, cdt))))
+    kv = sharding.dot(kk, p.wcv, cast(p.wcv, cdt))
     if split:
         kv = sharding.reduce_from_model(kv)
-    y = torch.sigmoid(xr @ cast(p.wcr, cdt)) * kv
+    y = torch.sigmoid(sharding.dot(xr, p.wcr, cast(p.wcr, cdt))) * kv
     return y, dict(state, shift_cm=x[:, -1].float())
 
 
@@ -276,13 +280,15 @@ def rglru_block(p, x, state, cfg):
     if sharding.split_lo(p.win, 1) is not None:
         part = sharding.rank_slice(cfg.lru_width)
         x = sharding.copy_to_model(x)
-        h0, prev = h0[:, part].contiguous(), prev[..., part]
-    gate = F.gelu(x @ cast(p.wgate, cdt), approximate="tanh")
-    u = x @ cast(p.win, cdt)
+        if h0.shape[-1] == cfg.lru_width:      # every channel's (fresh)
+            h0, prev = h0[:, part].contiguous(), prev[..., part]
+    gate = F.gelu(sharding.dot(x, p.wgate, cast(p.wgate, cdt)),
+                  approximate="tanh")
+    u = sharding.dot(x, p.win, cast(p.win, cdt))
     u, conv_state = causal_conv1d(u, p.conv_w, p.conv_b, prev, part)
     a, b = _rglru_gates(p, u, part)
     h, h_T = kops.rglru(a, b, h0)
-    y = (gate * h.to(cdt)) @ cast(p.wout, cdt)
+    y = sharding.dot(gate * h.to(cdt), p.wout, cast(p.wout, cdt))
     if part is not None:
         y = sharding.reduce_from_model(y)
     return y, {"h": h_T, "conv": conv_state.float()}

@@ -811,6 +811,43 @@ def _f32_payload():
     return pp
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_fold_row_scores_do_not_depend_on_their_batch(masked):
+    """One row's ``predict_batch`` scores, bitwise, whatever shares its
+    dispatch: alone, among 2-8 rows (fused tasks), split one row a device
+    over a two-device grant, and as a solo ``predict``. The chaos session
+    below fuses, retries solo and re-grants rows as faults and timing fall,
+    and compares its designs' scores with its control's exactly; a
+    one-row product rounding otherwise than the same row among others
+    (the target descriptor's (B, 16) x (16, d) projection, ~1e-6 on the
+    CPU) would make that comparison depend on the timing."""
+    import numpy as np
+
+    from repro_torch.runtime.allocator import SubMesh
+    payload = _f32_payload()
+    rng = np.random.default_rng(0)
+    seqs = rng.integers(1, 20, (8, 16)).astype(np.int32)
+    target = rng.standard_normal((8, 16)).astype(np.float32)
+
+    def scores(rows, devices=CPUS[:1]):
+        p = {"sequences": seqs[:rows], "target": target[:rows],
+             "receptor_len": 12}
+        if masked:
+            p["seq_lens"] = np.full(rows, 16, np.int32)
+        got = payload.predict_batch(SubMesh(devices=devices), p)["rows"]
+        return [(r["plddt"], r["ptm"], r["pae"]) for r in got]
+
+    alone = [scores(1)[0]]
+    for rows in range(2, 9):
+        assert scores(rows)[0] == alone[0], rows
+    assert scores(2, CPUS[:2]) == scores(2)
+    one = {"sequence": seqs[0], "target": target[0], "receptor_len": 12}
+    if masked:
+        one["seq_len"] = 16
+    solo = payload.predict(SubMesh(devices=CPUS[:1]), one)
+    assert (solo["plddt"], solo["ptm"], solo["pae"]) == alone[0]
+
+
 def _chaos_plan():
     """check_resilience.py's schedule, plus a slow dispatch and a
     corrupted checkpoint: one spec of each op."""

@@ -4,6 +4,8 @@
   PYTHONPATH=src python3 tools/tp_rounding.py [--arch A ...] [--steps N]
   PYTHONPATH=src python3 tools/tp_rounding.py --device cuda --layers 2 \\
       --batch 4 --seq 512 --parts 4 --steps 0 --arch llama3-8b
+  PYTHONPATH=src python3 tools/tp_rounding.py --device cuda --layers 2 \\
+      --batch 4 --seq 512 --parts 4 --steps 0 --serve --arch rwkv6-7b
 
 Tensor parallelism over ``model`` splits a row-parallel product's sum into
 one partial product a rank, added by an all-reduce; the result is the
@@ -22,7 +24,12 @@ products added), and prints:
   nondeterminism moves, such as the card's atomic adds);
 - with ``--steps`` > 0, the fp32 losses of that many AdamW steps (the
   tests' optimizer) and the worst leaf's max weight difference over that
-  leaf's max.
+  leaf's max;
+- with ``--serve``, in place of the gradients: serving as phase 12 serves
+  (the seeded prompts of ``--batch`` x ``--seq`` tokens, one prefill and
+  ``--decode`` decode steps, each fed the unsplit run's greedy token), the
+  prefill's and every step's logits, split against unsplit, the worst max
+  difference over that call's max |logit|, and the unsplit run again.
 
 The model is the arch's reduced config, or with ``--layers`` its full
 config with the first segment cut to that many layers and the other
@@ -115,6 +122,30 @@ def first_grads(cfg, args, mode):
     return {n: g.detach() for (n, _), g in zip(named, grads)}
 
 
+def serve_logits(cfg, args, mode, tokens=None):
+    """The prefill's and each decode step's fp32 logits from seed 0's
+    weights over phase 12's seeded prompts, each step fed ``tokens[s]``
+    (None: the run's own greedy tokens). Returns (logits, tokens)."""
+    import torch
+    from repro_torch.models import lm
+    gen = torch.Generator(device=args.device).manual_seed(44)
+    inputs = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                           generator=gen, device=args.device)
+    params = lm.init_lm(cfg, seed=0, device=args.device)
+    out, own = [], []
+    with torch.no_grad(), mode:
+        logits, caches, t = lm.prefill(params, {"inputs": inputs}, cfg,
+                                       args.seq + args.decode)
+        for s in range(args.decode + 1):
+            out.append(logits.float())
+            own.append(logits.argmax(-1)[:, None])
+            if s == args.decode:
+                break
+            feed = own[s] if tokens is None else tokens[s]
+            logits, caches = lm.decode_step(params, caches, feed, t + s, cfg)
+    return out, own
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", nargs="+",
@@ -126,6 +157,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=16)
     ap.add_argument("--parts", type=int, default=2)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--decode", type=int, default=8)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     import contextlib
@@ -142,6 +175,24 @@ def main(argv=None):
                   f"leaf {name} {err:.3e} of its max", flush=True)
         for dtype in args.dtypes:
             cfg = config(arch, dtype, args.layers)
+            if args.serve:
+                base, toks = serve_logits(cfg, args, contextlib.nullcontext())
+                mode = split_mode(cfg, args.parts)
+                got, _ = serve_logits(cfg, args, mode, toks)
+                assert mode.calls, f"{arch}: no d_ff x d_model product split"
+                again, _ = serve_logits(cfg, args, contextlib.nullcontext(),
+                                        toks)
+                moves = [rel(g, b) for g, b in zip(got, base)]
+                print(f"{arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+                      f"{args.batch} x {args.seq}, {mode.calls} products "
+                      f"split in {args.parts}): {dtype} prefill + "
+                      f"{args.decode} decode steps' logits: worst "
+                      f"{max(moves):.3e} of a call's max |logit| "
+                      f"({['%.2e' % m for m in moves]}); the unsplit run "
+                      f"again: worst "
+                      f"{max(rel(a, b) for a, b in zip(again, base)):.3e}",
+                      flush=True)
+                continue
             base = first_grads(cfg, args, contextlib.nullcontext())
             mode = split_mode(cfg, args.parts)
             got = first_grads(cfg, args, mode)
