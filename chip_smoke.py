@@ -225,10 +225,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ("data", "model"), the card being one GPU (multi-rank numerics are the
    CPU tests' ``tests/test_torch_mesh_train.py``). (a) ``launch/train.py``
    with ``--mesh none`` and then ``--mesh sim`` from seed 0
-   (``MESH_TRAINS``: smollm-360m whole, 8 x 512; rwkv6-7b at 2 layers and
-   recurrentgemma-2b at one (rglru, rglru, attn_local) block, 4 x 512;
-   full width, 4 steps): every mesh parameter a DTensor, losses within
-   1e-5 and weights within 1e-4 relative of the unsharded run, each step's
+   (``MESH_TRAINS``: smollm-360m at 16 of 32 layers, 8 x 512; rwkv6-7b at
+   2 layers and recurrentgemma-2b at one (rglru, rglru, attn_local)
+   block, 4 x 512; full width, 4 steps): every mesh parameter a DTensor,
+   losses within 1e-5 and weights within 1e-4 relative of the unsharded
+   run, each step's
    launches (``ops.tally``) the unsharded run's by kernel and form and the
    remat rule's; the gathered uses and gradient reductions a step. (b) A
    mesh checkpoint at step 2 of smollm-360m: the loss of step 3 from the
@@ -239,11 +240,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    6·N·D), the measured step time and the step's model-FLOP share (mfu)
    at the bf16 peak; then one more step under ``torch.profiler`` (the
    device alone), device time by kind. (d) ``python -m
-   repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` and
-   ``decode_32k`` (the head-dim fallback of KV 8 on 16 ranks) and rwkv6-7b
-   ``decode_32k`` on the single-pod mesh, in subprocesses on fake
-   256-rank groups started with the phase (they run on the host beside
-   (a)-(c)): each roofline line and bottleneck. (e) Flash at
+   repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` (sequence
+   parallel) and ``decode_32k`` (the head-dim fallback of KV 8 on 16
+   ranks), rwkv6-7b ``decode_32k`` and smollm-360m ``train_4k`` (sequence
+   and context parallel: 15 heads on 16 ranks) on the single-pod mesh, in
+   subprocesses on fake 256-rank groups started with the phase (they run
+   on the host beside (a)-(c)): each roofline line (t_comp, t_mem, t_coll,
+   mfr), its bottleneck and its collective bytes by kind. (e) Flash at
    smollm-360m's train shape (8 x 15/5 x 512, hd 64, bf16), its own
    record. Since the step is tensor-parallel over "model", a one-rank
    mesh computes the unsharded code path.
@@ -256,16 +259,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    256) and wkv6 4 x 64 x 512 x 64, phase 11's shapes, held and timed. (b)
    Four processes on the card join a gloo group with CUDA tensors (NCCL
    refuses two ranks on one device) as a (1, 4) ("data", "model") mesh;
-   each of ``TP_TRAINS`` (llama3-8b, chatglm3-6b, rwkv6-7b at 2 layers,
-   recurrentgemma-2b at one block) trains ``TP_STEPS`` steps of 4 x 512
-   with ``launch/train.py``, in fp32 and in its config's bf16, against
-   ``--mesh none`` run in this process from the same seed, whose gradients
-   and weights the ranks read by CUDA IPC: every step's loss to 1e-5 (fp32;
-   rwkv6-7b's first step only) or 2e-2 (bf16), the first step's gradients
-   to ``tp_grad_tol`` of each leaf's max, each step's launches the
-   unsharded step's by kernel and form; printed: the weights, each rank's
-   step walls, all-reduces a step and their bytes, FLOPs and MFU (one step
-   under ``distributed.cost``'s counter). (c) Serving in the same four
+   each of ``TP_TRAINS`` (llama3-8b, chatglm3-6b, rwkv6-7b and
+   smollm-360m at 2 layers, recurrentgemma-2b at one block) trains
+   ``TP_STEPS`` steps of 4 x 512 with ``launch/train.py``, in fp32 and in
+   its config's bf16, against ``--mesh none`` run in this process from the
+   same seed, whose gradients and weights the ranks read by CUDA IPC:
+   every step's loss to 1e-5 (fp32; rwkv6-7b's first step only) or 2e-2
+   (bf16), the first step's gradients to ``tp_grad_tol`` of each leaf's
+   max, each step's launches the unsharded step's by kernel and form, and
+   that sequence and context parallelism ran where the configs ask
+   (llama3-8b, chatglm3-6b and smollm-360m split the residual stream, each
+   rank's 128 positions in every layer; smollm-360m's and
+   recurrentgemma-2b's attention computes each rank's 128 queries at its
+   offset: the residual's shape and flash's (Sq, q_offset) a rank);
+   printed: the weights, each rank's step walls, all-reduces a step and
+   their bytes, FLOPs and MFU (one step under ``distributed.cost``'s
+   counter). (c) Serving in the same four
    ranks: each of ``TP_TRAINS`` prefills 4 x 512 seeded tokens under the
    train rules on the (1, 4) mesh (the rank's cache shards, its vocab
    slice of the logits) and decodes ``TP_DECODE`` steps on the serve
@@ -275,8 +284,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Held against --mesh none run here: every call's logits
    (``tp_logit_tol`` of their max), the fp32 greedy tokens, each call's
    launches by kernel and form, each cache shard's shape as
-   ``cache_spec_tree`` places it, no all-gather in a decode step;
-   printed: a decode step's wall and collectives a rank. Seven more
+   ``cache_spec_tree`` places it, no all-gather in a decode step, the
+   prefill's flash at each rank's chunk where context parallelism holds;
+   printed: a decode step's wall and collectives a rank. Eight more
    records hold and time the kernels at the serving ranks' local shapes
    (``tp_serve_records``).
 13. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
@@ -289,9 +299,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2560 records'; phase 11's mesh runs add theirs to the records of the
    kernels and forms they ran, smollm-360m's flash shape its own; phase
    12's bf16 runs are the four local-shape records' launches, rank 0's,
-   recurrentgemma-2b's attention adding to the hd-256 training record,
-   its serving prefills adding to the same records and its (2, 2)
-   prefill and decode steps the seven serving records' launches),
+   the context-parallel chunks' records (2c) those of the ranks at their
+   offsets, its serving prefills adding to the same records and its (2, 2)
+   prefill and decode steps the eight serving records' launches),
    the total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -304,7 +314,13 @@ kernel at head dim 256 (2c) against their plain versions and times them;
 2c also holds the flash kernel's decode form (one query over strided ring
 views, bf16 K/V beside an fp32 q, every head dim, groups of 1 to 20 query
 heads) and its fp32 sequence form (every head dim, ragged lengths, window,
-softcap, no mask), and times both at recurrentgemma-2b's shapes. 2d holds
+softcap, no mask), and times both at recurrentgemma-2b's shapes; then
+both sequence forms (and the decode form for one query) at a query offset
+(``flash_offset_parity``: chunks 0 and 3 of 4 of 512 tokens in bf16 and
+fp32, the last 640 queries of 2560 keys past the 2048 window, one-query
+chunks, rows with no live key, each chunk's rows against the whole
+call's), and times the context-parallel ranks' chunks of phase 12
+beside sdpa on the same masked problem (``cp_records``). 2d holds
 the decode form at the dense sampler's shape (6 rows x 8/4 heads of 32,
 bf16, the whole 89-slot cache as strided views with ``seq_k`` its filled
 slots) and at the binder seqdesign's (12 rows over 89 and 97 slots), at
@@ -402,34 +418,40 @@ MOE_SERVES = {"qwen3-moe-30b-a3b": (8, 512, 32),
               "llama4-maverick-400b-a17b": (8, 512, 32)}
 # phase 10: launch/train.py on the SSM archs at full width: arch -> (rows,
 # tokens a row), rwkv6-7b at phase 6's prompt shape, recurrentgemma-2b past
-# its 2048 window and not a multiple of it; steps a run
+# its 2048 window and not a multiple of it; steps a run (3 since phase 12
+# took smollm-360m, to keep the script near 600 s)
 SSM_TRAINS = {"rwkv6-7b": (8, 512), "recurrentgemma-2b": (4, 2560)}
-SSM_TRAIN_STEPS = 4
+SSM_TRAIN_STEPS = 3
 # phase 10b: card vs CPU, reduced, fp32, remat full: rows x tokens, steps;
 # losses to 1e-5 relative and weights to 1e-4 after them (phase 5d b's)
 SSM_AGREE_SHAPES = {"rwkv6-7b": (4, 40), "recurrentgemma-2b": (4, 24)}
 SSM_AGREE_STEPS = 5
 # phase 11: launch/train.py --mesh sim on a one-rank NCCL mesh, at full
 # width: arch -> (rows, tokens a row, layers kept; None: the whole model).
-# rwkv6-7b keeps 2 layers, recurrentgemma-2b one repeat of its (rglru,
-# rglru, attn_local) block, so its local attention runs
-MESH_TRAINS = {"smollm-360m": (8, 512, None), "rwkv6-7b": (4, 512, 2),
+# smollm-360m keeps 16 of its 32 layers (since phase 12 took it, to keep
+# the script near 600 s), rwkv6-7b 2 layers, recurrentgemma-2b one repeat
+# of its (rglru, rglru, attn_local) block, so its local attention runs
+MESH_TRAINS = {"smollm-360m": (8, 512, 16), "rwkv6-7b": (4, 512, 2),
                "recurrentgemma-2b": (4, 512, 3)}
 MESH_STEPS = 4
 # mesh against --mesh none from one seed: the finetune's tolerances (5d b)
 MESH_LOSS_RTOL, MESH_WEIGHT_RTOL = 1e-5, 1e-4
 # phase 11d: launch/dryrun.py cells on the single-pod mesh
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"),
-                ("llama3-8b", "decode_32k"))
+                ("llama3-8b", "decode_32k"), ("smollm-360m", "train_4k"))
 DRYRUN_TIMEOUT_S = 600
 # phase 12: launch/train.py tensor-parallel over "model" on a (1, 4) mesh of
 # four processes sharing the one card over gloo with CUDA tensors (NCCL
 # refuses two ranks on one device), at full width: arch -> layers kept
-# (recurrentgemma-2b one (rglru, rglru, attn_local) block, its 10 heads
-# replicated); rows x tokens, steps; each arch once in fp32 (the check)
-# and once in its config's compute dtype (the path)
+# (recurrentgemma-2b one (rglru, rglru, attn_local) block); rows x tokens,
+# steps; each arch once in fp32 (the check) and once in its config's
+# compute dtype (the path). llama3-8b, chatglm3-6b and smollm-360m set
+# sequence_parallel: their residual stream is each rank's 128 of the 512
+# positions; smollm-360m's 15 heads (KV 5) and recurrentgemma-2b's 10 do
+# not divide 4: their attention computes each rank's 128 queries at its
+# offset (context parallelism)
 TP_TRAINS = {"llama3-8b": 2, "chatglm3-6b": 2, "rwkv6-7b": 2,
-             "recurrentgemma-2b": 3}
+             "recurrentgemma-2b": 3, "smollm-360m": 2}
 TP_RANKS, TP_MESH = 4, (1, 4)
 TP_BATCH, TP_SEQ, TP_STEPS = 4, 512, 4
 # against --mesh none from one seed: every step's loss, to 1e-5 in fp32 and
@@ -444,12 +466,15 @@ TP_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # by tools/tp_rounding.py at phase 12's shapes on an NVIDIA H100 80GB HBM3
 # at 700 W; the unsplit step repeats bitwise), to TP_FLOOR_X times that
 # move. rwkv6-7b's bf16 `u` gradient is a leaf 133x below the model's
-# largest, whose sum cancels: one split moves it 1.79 of its max
+# largest, whose sum cancels: one split moves it 1.79 of its max.
+# smollm-360m's bf16 move is its first norm's scale (1.391e-2 of its max);
+# its fp32 move, 2.052e-6, is under TP_GRAD_RTOL
 TP_SPLIT_MOVES = {("rwkv6-7b", "float32"): 3.334e-3,
                   ("llama3-8b", "bfloat16"): 1.345e-2,
                   ("chatglm3-6b", "bfloat16"): 1.370e-2,
                   ("rwkv6-7b", "bfloat16"): 1.787,
-                  ("recurrentgemma-2b", "bfloat16"): 3.356e-3}
+                  ("recurrentgemma-2b", "bfloat16"): 3.356e-3,
+                  ("smollm-360m", "bfloat16"): 1.391e-2}
 TP_GRAD_RTOL, TP_FLOOR_X = 2e-5, 10
 TP_TIMEOUT_S = 400          # a config's four ranks, from its task to results
 # phase 12, serving: after training, each arch of TP_TRAINS at its depth
@@ -550,16 +575,17 @@ def bound_ms(n_bytes, n_ops, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_bound(q, k, v, causal=True, window=0, seq_k=None):
+def flash_bound(q, k, v, causal=True, window=0, seq_k=None, q_offset=0):
     """(bound ms, what bounds it) of one flash call on these tensors, its
     bytes and operations from ``distributed.cost.flash_work``: q read and
-    the output written, K and V read once, 4 hd operations a live (q, k)
-    pair, at the peak of q's dtype."""
+    the output written, K and V read once over the keys some query reads,
+    4 hd operations a live (q, k) pair at the queries' offset, at the peak
+    of q's dtype."""
     from repro_torch.distributed import cost
     B, H, Sq, hd = q.shape
     flops, n_bytes = cost.flash_work(
         B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
-        q.element_size(), k.element_size(), causal, window)
+        q.element_size(), k.element_size(), causal, window, q_offset)
     return bound_ms(n_bytes, flops, dtype_name(q.dtype))
 
 
@@ -1247,6 +1273,7 @@ def phase_rglru_flash256(torch):
                   max_err(got, want), TOL[dtype_name(dt)])
             del q, k, v, got, want
     flash_form_parity(torch, g)
+    flash_offset_parity(torch, g)
 
     # timings, in fp32 as the path runs them; inputs rotate past 100 MB as
     # in phase 2b; the record holds the prefill shape
@@ -1256,8 +1283,106 @@ def phase_rglru_flash256(torch):
     records.append(dict(time_flash256(torch, g, B, P, "prefill"),
                         name="flash_attention_bhsd_hd256"))
     records.append(time_flash_decode(torch, g, B, H, W, 256))
+    records += cp_records(torch, g)
     gc.collect()
     torch.cuda.empty_cache()
+    return records
+
+
+def flash_offset_parity(torch, g):
+    """Both sequence forms, and the decode form for one query, at a query
+    offset (``q_offset``: a context-parallel rank's chunk) against the
+    plain version to ``TOL`` of the query's dtype (the bf16 form also
+    against ``attention_tiled_ref``): chunks 0 and 3 of 4 of a 512-token
+    sequence, the last 640 queries of 2560 keys past recurrentgemma-2b's
+    2048 window, one-query chunks, softcap with GQA, and rows with no live
+    key (exactly zero). Then whether each chunk's rows equal the whole
+    call's rows [off, off + Sq) bitwise (printed; held to ``TOL``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # label, dtype, (B, H, KV, Sq, Sk, hd), q_offset, kwargs
+        ("chunk 0 of 4", bf16, (4, 15, 5, 128, 512, 64), 0, {}),
+        ("chunk 3 of 4", bf16, (4, 15, 5, 128, 512, 64), 384, {}),
+        ("chunk 0 of 4", f32, (4, 10, 1, 128, 512, 256), 0, {}),
+        ("chunk 3 of 4", f32, (4, 10, 1, 128, 512, 256), 384, {}),
+        ("last 640 of 2560, window 2048", f32, (1, 10, 1, 640, 2560, 256),
+         1920, {"window": 2048}),
+        ("last 640 of 2560, window 2048", bf16, (1, 10, 1, 640, 2560, 256),
+         1920, {"window": 2048}),
+        ("softcap 10, GQA 4", bf16, (2, 8, 2, 96, 384, 128), 288,
+         {"softcap": 10.0}),
+        ("one-query chunk", f32, (2, 10, 1, 1, 512, 256), 300, {}),
+        ("one-query chunk, window 64", bf16, (2, 8, 2, 1, 512, 64), 300,
+         {"window": 64}),
+        ("no live key: non-causal window past the keys", f32,
+         (1, 4, 2, 64, 128, 64), 400, {"causal": False, "window": 32}),
+        ("no live key: non-causal window past the keys", bf16,
+         (1, 4, 2, 64, 128, 64), 400, {"causal": False, "window": 32}),
+    ]
+    same = []
+    for label, dt, (B, H, KV, Sq, Sk, hd), off, kw in cases:
+        q = torch.randn(B, H, Sq, hd, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B, KV, Sk, hd, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(kw, q_offset=off)
+        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        refs = [("attention_ref", fa.attention_ref)]
+        if dt == bf16 and Sq > 1:
+            refs.append(("attention_tiled_ref", fa.attention_tiled_ref))
+        tag = f"flash {B}x{H}/{KV}x{Sq} over {Sk} keys at offset {off} " \
+              f"hd {hd} {label} {dtype_name(dt)}"
+        for ref_name, ref in refs:
+            check(f"{tag} vs {ref_name}", max_err(got, ref(q, k, v, **kw)),
+                  TOL[dtype_name(dt)])
+        live = fa._mask(Sq, torch.arange(Sk, device="cuda"),
+                        kw.get("causal", True), kw.get("window", 0), Sq, Sk,
+                        off, "cuda").any(-1)
+        expect(bool((got[:, :, ~live] == 0).all()),
+               f"{tag}: rows with no live key are not exactly zero")
+        if Sq > 1 and off + Sq <= Sk:
+            qs = torch.zeros(B, H, off + Sq, hd, device="cuda", dtype=dt)
+            qs[:, :, off:] = q
+            kw_whole = {n: x for n, x in kw.items() if n != "q_offset"}
+            whole = fa.flash_attention_bhsd(qs, k, v, **kw_whole)[:, :, off:]
+            check(f"{tag} vs the whole call's rows", max_err(got, whole),
+                  TOL[dtype_name(dt)])
+            same.append((tag, bool(torch.equal(got, whole))))
+        del q, k, v, got
+    print("  chunk rows against the whole call's rows, bitwise equal: "
+          + "; ".join(f"{t}: {e}" for t, e in same), flush=True)
+
+
+def cp_records(torch, g):
+    """Flash at the context-parallel ranks' chunks of phase 12's training
+    and prefills, records of their own: smollm-360m's 4 x 15/5 x 128
+    queries at offsets 0 (rank 0) and 384 (rank 3) over 512 keys, hd 64,
+    bf16; recurrentgemma-2b's 4 x 10/1 x 128 at offset 384 (rank 3) over
+    512 keys, hd 256, fp32, window 2048. Each held to the plain version,
+    timed beside sdpa on the same masked problem (``attn_mask`` the offset
+    causal mask, ``enable_gqa``) and the bound (``flash_work`` at the
+    offset)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    records = []
+    for name, label, dt, (B, H, KV, Sq, Sk, hd), off, kw in (
+            ("flash_attention_bhsd_cp_smollm", "smollm-360m CP rank 0",
+             torch.bfloat16, (4, 15, 5, 128, 512, 64), 0, {}),
+            ("flash_attention_bhsd_cp_smollm_r3", "smollm-360m CP rank 3",
+             torch.bfloat16, (4, 15, 5, 128, 512, 64), 384, {}),
+            ("flash_attention_bhsd_cp_rg_r3", "recurrentgemma-2b CP rank 3",
+             torch.float32, (4, 10, 1, 128, 512, 256), 384,
+             {"window": 2048})):
+        q = torch.randn(B, H, Sq, hd, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B, KV, Sk, hd, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        mask = fa._mask(Sq, torch.arange(Sk, device="cuda"), True,
+                        kw.get("window", 0), Sq, Sk, off, "cuda")
+        records.append(flash_record(
+            torch, name, f"{label} {B} x {H}/{KV} x {Sq} at offset {off} "
+            f"over {Sk} keys, hd {hd}, causal, {dtype_name(dt)}", q, k, v,
+            dict(kw, q_offset=off), {"attn_mask": mask}, src))
     return records
 
 
@@ -3767,8 +3892,8 @@ def serve_arch(torch, arch, calls, phase="phase 8c"):
 
 
 def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, source):
-    """One ``{"kernels": ...}`` record of the flash kernel at a phase 8, 9,
-    11 or 12 shape: the kernel against the plain version (and the bf16
+    """One ``{"kernels": ...}`` record of the flash kernel at a phase 2c, 8,
+    9, 11 or 12 shape: the kernel against the plain version (and the bf16
     sequence form also against ``attention_tiled_ref``), then the device
     ms by CUDA-graph replay of the kernel, the plain version and
     ``scaled_dot_product_attention`` (given contiguous K/V in q's dtype,
@@ -3785,7 +3910,7 @@ def flash_record(torch, name, label, q, k, v, kw, sdpa_kw, source):
     got = run_k()
     err = max_err(got, run_p())
     check(f"flash {label}", err, TOL[dtype_name(q.dtype)])
-    if q.shape[2] > 1:
+    if q.shape[2] > 1 and q.dtype == torch.bfloat16:
         check(f"flash {label} vs attention_tiled_ref",
               max_err(got, fa.attention_tiled_ref(q, k, v, **kw)),
               TOL[dtype_name(q.dtype)])
@@ -4713,6 +4838,47 @@ def phase_mesh(torch):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def seen_calls():
+    """Each layer's residual shape and each flash call's (Sq, q_offset)
+    made in the block, as sets, by pass-throughs in the functions' places
+    in their modules (where the callers look them up at each call)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import blocks
+    seen = {"layers": set(), "flash": set()}
+    inner_fa, inner_layer = fa.flash_attention_bhsd, blocks.layer_fwd
+
+    def flash(q, k, v, **kw):
+        seen["flash"].add((q.shape[2], kw.get("q_offset", 0)))
+        return inner_fa(q, k, v, **kw)
+
+    def layer(kind, p, x, ctx, cfg):
+        seen["layers"].add(tuple(x.shape))
+        return inner_layer(kind, p, x, ctx, cfg)
+    fa.flash_attention_bhsd, blocks.layer_fwd = flash, layer
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_bhsd, blocks.layer_fwd = inner_fa, inner_layer
+
+
+def tp_expected_seen(cfg, rank):
+    """What ``seen_calls`` must record in a phase 12 train step of ``cfg``
+    on rank ``rank`` of the (1, 4) mesh: the residual's shape in every
+    layer (each rank's 512 / 4 positions where the config sets
+    ``sequence_parallel`` and has no recurrent layer), and flash's (Sq,
+    q_offset) (each rank's 128 queries at its offset where the heads do
+    not divide 4, else the whole sequence; none without attention)."""
+    m = TP_MESH[1]
+    sp = cfg.sequence_parallel and not any(
+        k in ("rwkv", "rglru") for k in cfg.layer_kinds)
+    layers = {(TP_BATCH, TP_SEQ // m if sp else TP_SEQ, cfg.d_model)}
+    n = TP_SEQ // m
+    if not any(k.startswith("attn") for k in cfg.layer_kinds):
+        return layers, set()
+    return layers, ({(n, rank * n)} if cfg.n_heads % m else {(TP_SEQ, 0)})
+
+
 def tp_cfg(arch, dtype):
     """``mesh_cfg`` at phase 12's depth, computing in ``dtype``."""
     return mesh_cfg(arch, TP_TRAINS[arch]).replace(compute_dtype=dtype)
@@ -4827,8 +4993,9 @@ def tp_rank_run(torch, arch, dtype, ref, mesh):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    grads = tp_first_grads(torch, cfg, mesh)
-    out = {"grads": leaf_errors(grads.items(), ref["grads"])}
+    with seen_calls() as seen:
+        grads = tp_first_grads(torch, cfg, mesh)
+    out = {"grads": leaf_errors(grads.items(), ref["grads"]), "seen": seen}
     del grads
     params, state, losses, steps = tp_train(torch, cfg, mesh)
     out.update(losses=losses, steps=steps, weights=leaf_errors(
@@ -4915,11 +5082,12 @@ def tp_rank_serve(torch, arch, dtype, shape, ref, meshes):
         params = lm.init_lm(train_cfg, seed=0, device="cuda")
         sharding.shard_module(params, mesh, train_cfg, "train")
         with sharding.activation_sharding(mesh, cfg, "train"):
-            with ops.tally() as counts:
+            with ops.tally() as counts, seen_calls() as seen:
                 logits, caches, t = lm.prefill(
                     params, {"inputs": ref["inputs"][rows]}, cfg,
                     TP_SEQ + TP_DECODE)
             out["launches"].append(dict(counts))
+            out["prefill_flash"] = seen["flash"]
             hold(params, logits, 0)
         full = lm.init_caches(cfg, TP_BATCH, TP_SEQ + TP_DECODE,
                               device="meta")
@@ -5027,12 +5195,21 @@ def tp_hold(arch, dtype, cfg, none, ranks):
     """Phase 12's holds of one config: every rank's losses against --mesh
     none's (rwkv6-7b's fp32 first step only: ``TP_LOSS_RTOL``), the first
     step's gradients (``tp_grad_tol``), each step's launches exactly the
-    unsharded step's by kernel and form; prints the weights' worst leaf
-    and each rank's step, collectives and MFU. Returns rank 0's launches
-    summed over the steps."""
+    unsharded step's by kernel and form, and that sequence and context
+    parallelism ran where the config and the heads say
+    (``tp_expected_seen``: the residual's shape in every layer, flash's
+    (Sq, q_offset)); prints the weights' worst leaf and each rank's step,
+    collectives and MFU. Returns each rank's launches summed over the
+    steps."""
     rtol = TP_LOSS_RTOL[dtype]
     held = 1 if (arch, dtype) == ("rwkv6-7b", "float32") else TP_STEPS
     for r, res in enumerate(ranks):
+        layers, flash = tp_expected_seen(cfg, r)
+        expect(res["seen"]["layers"] == layers
+               and res["seen"]["flash"] == flash,
+               f"{arch} {dtype} rank {r}: residual shapes "
+               f"{res['seen']['layers']} and flash (Sq, q_offset) "
+               f"{res['seen']['flash']}, expected {layers} and {flash}")
         errs = [abs(a - b) / abs(b)
                 for a, b in zip(res["losses"], none["losses"])]
         expect(len(errs) == TP_STEPS, f"{arch} {dtype} rank {r}: "
@@ -5045,6 +5222,10 @@ def tp_hold(arch, dtype, cfg, none, ranks):
                and len(tallies) == TP_STEPS,
                f"{arch} {dtype} rank {r}: launches a step {tallies}, "
                f"--mesh none's {[c for c, _ in none['steps']]}")
+    print(f"  {arch} {dtype}: the residual in every layer "
+          f"{sorted(ranks[0]['seen']['layers'])} a rank; flash's (Sq, "
+          f"q_offset) by rank "
+          f"{[sorted(res['seen']['flash']) for res in ranks]}", flush=True)
     errs = [abs(a - b) / abs(b)
             for a, b in zip(ranks[0]["losses"], none["losses"])]
     print(f"  {arch} {dtype}: losses "
@@ -5080,10 +5261,12 @@ def tp_hold(arch, dtype, cfg, none, ranks):
               f"{c['bottleneck']}); peak {res['peak_gb']:.2f} GB", flush=True)
     expect(all(res["counted"]["calls"].get("all-reduce", 0) > 0
                for res in ranks), f"{arch} {dtype}: no all-reduce counted")
-    total = collections.Counter()
-    for counts, _ in ranks[0]["steps"]:
-        total.update(counts)
-    return total
+    totals = []
+    for res in ranks:
+        totals.append(collections.Counter())
+        for counts, _ in res["steps"]:
+            totals[-1].update(counts)
+    return totals
 
 
 def tp_records(torch):
@@ -5132,7 +5315,8 @@ def tp_serve_records(torch, g, H, C):
     4 x 8/2 read in place and 2 x 16/4 on the (2, 2) mesh, chatglm3-6b's
     4 x 8/1 over its one KV head gathered whole from the head-dim shards
     (a fresh copy), recurrentgemma-2b's fp32 query 4 x 10/1 over hd 256
-    gathered likewise (bf16; sdpa gets it widened); wkv6's decode kernel at
+    gathered likewise (bf16; sdpa gets it widened), smollm-360m's 4 x
+    15/5 (hd 64, bf16) likewise; wkv6's decode kernel at
     rwkv6-7b's 4 x ``H`` x 1 x 64 and rglru at recurrentgemma-2b's 4 x 1 x
     ``C``."""
     decode = "src/repro_torch/kernels/csrc/flash_decode.cu"
@@ -5162,7 +5346,11 @@ def tp_serve_records(torch, g, H, C):
          None),
         ("flash_attention_bhsd_tp_rg_decode",
          "recurrentgemma-2b (1, 4), head-dim shards gathered, fp32 q",
-         TP_BATCH, 10, 1, 256, f32, None))
+         TP_BATCH, 10, 1, 256, f32, None),
+        ("flash_attention_bhsd_tp_smollm_decode",
+         "smollm-360m (1, 4), head-dim shards gathered", TP_BATCH,
+         mesh_cfg("smollm-360m", None).n_heads,
+         mesh_cfg("smollm-360m", None).n_kv_heads, 64, bf16, None))
     for name, label, B, hq, hk, hd, qdt, seq_k in cases:
         q = torch.randn(B, hq, 1, hd, generator=g, device="cuda").to(qdt)
         k, v = (ring_view(torch, g, B, L, hk, L, hd, bf16) for _ in range(2))
@@ -5193,13 +5381,24 @@ def tp_serve_hold(arch, dtype, shape, ref, ranks):
     decode logits against --mesh none's rows (``tp_logit_tol``; fp32
     also the same greedy tokens), each call's launches exactly --mesh
     none's by kernel and form, each cache shard the shape
-    ``cache_spec_tree`` places, no all-gather in a decode step; prints
-    each rank's decode step wall, a step's collectives and the peak
-    memory. Returns rank 0's launches: {"prefill": counts, "decode": the
-    steps' summed}."""
+    ``cache_spec_tree`` places, no all-gather in a decode step, the
+    prefill's flash calls at each rank's chunk of the queries where the
+    heads do not divide ``model`` (context parallelism) and at the whole
+    prompt elsewhere; prints each rank's decode step wall, a step's
+    collectives and the peak memory. Returns rank 0's launches:
+    {"prefill": counts, "decode": the steps' summed, "prefill_last": the
+    last rank's prefill counts}."""
     rtol = tp_logit_tol(arch, dtype)
     tag = f"{arch} {shape} {dtype}"
+    m, n = shape[1], TP_SEQ // shape[1]
+    cfg = tp_cfg(arch, dtype)
+    attends = any(k.startswith("attn") for k in cfg.layer_kinds)
     for r, res in enumerate(ranks):
+        want = ({(n, r % m * n)} if cfg.n_heads % m else {(TP_SEQ, 0)}) \
+            if attends else set()
+        expect(res["prefill_flash"] == want,
+               f"{tag} rank {r}: prefill flash (Sq, q_offset) "
+               f"{res['prefill_flash']}, expected {want}")
         check(f"{tag} rank {r} prefill + {TP_DECODE} decode steps' logits "
               f"vs --mesh none, max error over max |logit| (worst of "
               f"{['%.1e' % e for e in res['errs']]})", max(res["errs"]),
@@ -5226,7 +5425,8 @@ def tp_serve_hold(arch, dtype, shape, ref, ranks):
     total = collections.Counter()
     for counts in ranks[0]["launches"][1:]:
         total.update(counts)
-    return {"prefill": ranks[0]["launches"][0], "decode": total}
+    return {"prefill": ranks[0]["launches"][0], "decode": total,
+            "prefill_last": ranks[-1]["launches"][0]}
 
 
 def tp_serve(torch, tasks, results, procs):
@@ -5338,24 +5538,33 @@ def phase_tp(torch):
                 p.terminate()
                 p.join(10)
     fa = ("flash_attention_bhsd", "seq_bf16")
+    f32 = ("flash_attention_bhsd", "seq_f32")
     fd = ("flash_attention_bhsd", "decode")
     wkv, rg = ("wkv6_bhtk", "prefill"), "rglru_btc"
     pre = {k: v["prefill"] for k, v in serving.items()}
+    last = {k: v["prefill_last"] for k, v in serving.items()}
     dec = {k: v["decode"] for k, v in serving.items()}
     llama, llama_2d = ("llama3-8b", TP_MESH), TP_SERVE_2D
-    glm, rw, rgm = (("chatglm3-6b", TP_MESH), ("rwkv6-7b", TP_MESH),
-                    ("recurrentgemma-2b", TP_MESH))
-    # serving's prefills add to the training records of their shapes, its
+    glm, rw, rgm, smol = (("chatglm3-6b", TP_MESH), ("rwkv6-7b", TP_MESH),
+                          ("recurrentgemma-2b", TP_MESH),
+                          ("smollm-360m", TP_MESH))
+    # serving's prefills add to the training records of their shapes (rank
+    # 0's; rank 3's for the context-parallel chunks at its offset), its
     # (2, 2) prefill and its decode steps are records of their own
+    first = {arch: totals[0] for arch, totals in launches.items()}
     out = {"flash_attention_bhsd_tp_llama3":
-               launches["llama3-8b"][fa] + pre[llama][fa],
+               first["llama3-8b"][fa] + pre[llama][fa],
            "flash_attention_bhsd_tp_chatglm3":
-               launches["chatglm3-6b"][fa] + pre[glm][fa],
-           "wkv6_bhtk_tp": launches["rwkv6-7b"]["wkv6_bhtk"] + pre[rw][wkv],
-           "rglru_btc_tp": launches["recurrentgemma-2b"][rg] + pre[rgm][rg],
-           "flash_attention_bhsd_hd256_train":
-               launches["recurrentgemma-2b"]["flash_attention_bhsd"]
-               + pre[rgm]["flash_attention_bhsd"],
+               first["chatglm3-6b"][fa] + pre[glm][fa],
+           "wkv6_bhtk_tp": first["rwkv6-7b"]["wkv6_bhtk"] + pre[rw][wkv],
+           "rglru_btc_tp": first["recurrentgemma-2b"][rg] + pre[rgm][rg],
+           "flash_attention_bhsd_cp_rg_r3":
+               launches["recurrentgemma-2b"][-1][f32] + last[rgm][f32],
+           "flash_attention_bhsd_cp_smollm":
+               first["smollm-360m"][fa] + pre[smol][fa],
+           "flash_attention_bhsd_cp_smollm_r3":
+               launches["smollm-360m"][-1][fa] + last[smol][fa],
+           "flash_attention_bhsd_tp_smollm_decode": dec[smol][fd],
            "flash_attention_bhsd_tp_llama3_2x2": pre[llama_2d][fa],
            "flash_attention_bhsd_tp_llama3_decode": dec[llama][fd],
            "flash_attention_bhsd_tp_llama3_2x2_decode": dec[llama_2d][fd],

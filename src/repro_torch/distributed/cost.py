@@ -73,21 +73,41 @@ class Cost:
 # ---------------------------------------------------------------------------
 
 
-def live_pairs(Sq, Sk, causal, window):
-    """(q, k) pairs a mask leaves live, queries and keys indexed from 0."""
-    r = np.arange(Sq, dtype=np.int64)
+def _live_ranges(Sq, Sk, causal, window, q_offset=0):
+    """Each query's live keys [lo, hi] (inclusive; empty where hi < lo),
+    query r at position r + ``q_offset``, keys indexed from 0."""
+    r = np.arange(Sq, dtype=np.int64) + q_offset
     lo = np.maximum(0, r - window + 1) if window > 0 else np.zeros_like(r)
     hi = np.minimum(r, Sk - 1) if causal else np.full_like(r, Sk - 1)
+    return lo, hi
+
+
+def live_pairs(Sq, Sk, causal, window, q_offset=0):
+    """(q, k) pairs a mask leaves live, query r at position r +
+    ``q_offset`` (a context-parallel rank's chunk), keys indexed from 0."""
+    lo, hi = _live_ranges(Sq, Sk, causal, window, q_offset)
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def live_keys(Sq, Sk, causal, window, q_offset=0):
+    """Keys from the first that some query reads to the last: the K/V rows
+    a call must load (a chunk at an offset reads none past its last
+    position)."""
+    lo, hi = _live_ranges(Sq, Sk, causal, window, q_offset)
+    live = hi >= lo
+    return int(hi[live].max() - lo[live].min() + 1) if live.any() else 0
+
+
 def flash_work(B, H, KV, Sq, Sk, hd, q_elem, kv_elem, causal=True,
-               window=0):
-    """(flops, bytes) of attention over ``Sk`` live keys: 2·hd for QKᵀ and
-    2·hd for PV a live pair; q read and the output written in q's dtype, K
-    and V read once."""
-    flops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window)
-    return flops, 2 * B * H * Sq * hd * q_elem + 2 * B * KV * Sk * hd * kv_elem
+               window=0, q_offset=0):
+    """(flops, bytes) of attention over ``Sk`` live keys, query row 0 at
+    position ``q_offset``: 2·hd for QKᵀ and 2·hd for PV a live pair; q
+    read and the output written in q's dtype, K and V read once over the
+    keys some query reads (``live_keys``)."""
+    flops = 4 * hd * B * H * live_pairs(Sq, Sk, causal, window, q_offset)
+    keys = live_keys(Sq, Sk, causal, window, q_offset)
+    return flops, (2 * B * H * Sq * hd * q_elem
+                   + 2 * B * KV * keys * hd * kv_elem)
 
 
 def wkv6_work(B, H, T, K, elem):

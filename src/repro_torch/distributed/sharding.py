@@ -44,13 +44,27 @@ replicated parameter's gradient are the same on every ``model`` rank. A
 replicated parameter that each rank slices to its own heads or channels
 (rwkv's ``u``, the group norm, the rglru gates' biases, a KV projection
 that the rules replicate) is gathered with ``use="partial"``: its gradient
-is summed over ``model``. Where a head or channel axis does not divide
-``model`` the rules replicate the weights and the layer computes whole on
-every rank (attention with whisper's 12, smollm's 15, recurrentgemma's 10
-or llava's 56 heads on 16 ranks); MoE experts are gathered whole
-(``use="whole"``): expert parallelism, sequence and context parallelism
-(``use_context_parallel``) are not ported, so ``constrain`` has nothing to
-tell and returns its input.
+is summed over ``model``. MoE experts are gathered whole (``use="whole"``):
+expert parallelism is not ported.
+
+Sequence parallelism (``seq_split``): where the config sets
+``sequence_parallel`` (the reference's logical ``"seq"`` resolves to
+``model``) and the sequence divides ``model``, a train step's residual
+stream is the rank's ``(B, S / model, d)`` chunk from the embedding to the
+final norm, as the reference constrains it to ``("batch", "seq", None)``:
+the norms and residual adds run on the chunk (their replicated scales
+gathered with ``use="partial"``), ``gather_seq`` stands where
+``copy_to_model`` stood before each column-parallel block and
+``scatter_seq`` where ``reduce_from_model`` stood after it, as Megatron-LM
+splits the sequence. Context parallelism (``context_parallel``): where the
+query heads do not divide ``model`` (``use_context_parallel``: whisper's
+12, smollm's 15, recurrentgemma's 10 or llava's 56 heads on 16 ranks) the
+rules replicate attention's weights, and each rank computes attention for
+its chunk of the query sequence over the keys of every position, flash
+taking the chunk's offset (``models.attention``), as the reference shards
+the query sequence (its ``_cp``). ``constrain`` has nothing to impose on a
+local tensor and returns its input: the layers call these operators
+themselves.
 
 A decode step on a mesh (``activation_sharding(mesh, cfg, "serve")``, the
 parameters stored by the serve rules) computes along ``model`` as a train
@@ -72,10 +86,13 @@ The collectives of the compute are ``torch.distributed``'s functional ones
 (``_functional_collectives``), which ``distributed/cost.py`` counts by kind
 and the dry run's fake group accepts; they are all-reduces, and each
 all-gather of an activation (``gather_from_model``: the rglru gates' input,
-a head-dim-split cache; ``rows_over_data``, ``columns_over_data``) is an
-all-reduce of the rank's slice in a zeroed buffer, so the same code runs on
-NCCL and on gloo with CUDA tensors (four processes sharing one card), whose
-all-gather of CUDA tensors does not complete under torch 2.11.
+a head-dim-split cache, a context-parallel chunk's output; ``gather_seq``;
+``rows_over_data``, ``columns_over_data``) is an all-reduce of the rank's
+slice in a zeroed buffer, each reduce-scatter (``scatter_seq``,
+``gather_seq``'s backward) an all-reduce of which the rank keeps its
+chunk, so the same code runs on NCCL and on gloo with CUDA tensors (four
+processes sharing one card), whose all-gather of CUDA tensors does not
+complete under torch 2.11. Both stand-ins are exact.
 """
 
 from __future__ import annotations
@@ -208,12 +225,39 @@ def constrain(x, logical):
 def use_context_parallel(n_heads: int) -> bool:
     """Whether the reference shards attention's query sequence over
     ``model`` (the head axis does not divide it: whisper 12, smollm 15, RG
-    10, llava 56 vs 16-way TP). Not run by the port yet."""
+    10, llava 56 vs 16-way TP): the rule, on the mesh in force (a test stub
+    too); ``context_parallel`` adds the step's and the sequence's fit."""
     stack = _stack()
     if not stack:
         return False
     m = _axes(stack[-1][0]).get("model", 1)
     return n_heads % m != 0 and m > 1
+
+
+def _fits_model(S: int, t) -> bool:
+    return t.size > 1 and _fit(S, ("model",), t.mesh) is not None
+
+
+def context_parallel(n_heads: int, S: int) -> bool:
+    """Whether attention with ``n_heads`` query heads over ``S`` queries
+    computes this rank's chunk of the query sequence: a tensor-parallel
+    step (``tp``), ``use_context_parallel``, and ``S`` split over
+    ``model`` as the reference's ``_fit`` splits a dim (it divides
+    ``model`` and is at least as long); elsewhere attention computes
+    whole, as the reference's constraint then leaves the axis
+    replicated."""
+    t = tp()
+    return _fits_model(S, t) and use_context_parallel(n_heads)
+
+
+def seq_split(S: int, cfg) -> bool:
+    """Whether this step's residual stream of ``S`` positions is split over
+    ``model`` (sequence parallelism): a train-mode tensor-parallel step,
+    ``cfg.sequence_parallel`` (the reference's ``"seq"`` axis then
+    resolves to ``model``) and ``S`` split by ``_fit``."""
+    t = tp()
+    return (t.mode == "train" and getattr(cfg, "sequence_parallel", False)
+            and _fits_model(S, t))
 
 
 # ---------------------------------------------------------------------------
@@ -679,17 +723,63 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _gathered(x, dim, group, rank, size):
+    """Every ``model`` rank's ``x`` along ``dim``, in rank order: the rank's
+    ``x`` in a zeroed buffer, all-reduced (exact: one rank's value and
+    zeros)."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * size
+    buf = x.new_zeros(shape)
+    buf.narrow(dim, rank * n, n).copy_(x)
+    return _all_reduce(buf, group)
+
+
 class _GatherFromModel(torch.autograd.Function):
+    """Gather along ``dim``; the gradient's chunk kept (no sum)."""
+
     @staticmethod
-    def forward(ctx, x, group, rank, size):
-        ctx.part = (rank * x.shape[-1], (rank + 1) * x.shape[-1])
-        buf = x.new_zeros(x.shape[:-1] + (x.shape[-1] * size,))
-        buf[..., ctx.part[0]:ctx.part[1]] = x
-        return _all_reduce(buf, group)
+    def forward(ctx, x, group, rank, size, dim):
+        ctx.part = (dim, rank * x.shape[dim], x.shape[dim])
+        return _gathered(x, dim, group, rank, size)
 
     @staticmethod
     def backward(ctx, g):
-        return g[..., ctx.part[0]:ctx.part[1]], None, None, None
+        return g.narrow(*ctx.part), None, None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Gather along the sequence (dim 1); the gradient summed over
+    ``model``, the chunk kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.group, ctx.part = group, (1, rank * x.shape[1], x.shape[1])
+        return _gathered(x, 1, group, rank, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, ctx.group).narrow(*ctx.part).contiguous(),
+                None, None, None)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The sum over ``model`` (where ``reduce``) and the rank's chunk of
+    the sequence (dim 1); the gradient's chunks gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size, reduce):
+        ctx.group, ctx.rank, ctx.size = group, rank, size
+        n = x.shape[1] // size
+        if reduce:
+            x = _all_reduce(x, group)
+        return x.narrow(1, rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gathered(g, 1, ctx.group, ctx.rank, ctx.size), None, None,
+                None, None)
 
 
 def copy_to_model(x):
@@ -713,16 +803,40 @@ def max_over_model(x):
     return x if t.size == 1 else _all_reduce(x.detach(), t.group, "max")
 
 
-def gather_from_model(x):
-    """Every ``model`` rank's slice of the last dim, in rank order: each
-    rank's ``x`` written into a zeroed full-width buffer and the buffers
-    all-reduced, which is exact (one rank's value and zeros). Its backward
-    takes the rank's slice of the gradient, so the gradient must be the
-    same on every rank: put ``copy_to_model`` after it where each rank's
-    use differs."""
+def gather_from_model(x, dim: int = -1):
+    """Every ``model`` rank's slice of dim ``dim`` (the last by default), in
+    rank order: each rank's ``x`` written into a zeroed full-width buffer
+    and the buffers all-reduced, which is exact (one rank's value and
+    zeros). Its backward takes the rank's slice of the gradient, so the
+    gradient must be the same on every rank: put ``copy_to_model`` after it
+    where each rank's use differs."""
     t = tp()
-    return x if t.size == 1 else _GatherFromModel.apply(x, t.group, t.rank,
-                                                        t.size)
+    return x if t.size == 1 else _GatherFromModel.apply(
+        x, t.group, t.rank, t.size, dim % x.dim())
+
+
+def gather_seq(x):
+    """Sequence parallelism's gather before a column-parallel block: every
+    ``model`` rank's chunk of the sequence (dim 1 of ``x``), in rank order
+    (an all-gather, made as ``gather_from_model`` makes one). Its backward
+    is a reduce-scatter: each rank's product gives only its columns' share
+    of the gradient, so the gradients are summed over ``model`` (an
+    all-reduce) and the rank keeps its chunk."""
+    t = tp()
+    return x if t.size == 1 else _GatherSeq.apply(x, t.group, t.rank,
+                                                  t.size)
+
+
+def scatter_seq(x, reduce: bool = True):
+    """Sequence parallelism's reduce-scatter after a row-parallel block:
+    the sum of every ``model`` rank's partial ``x`` (an all-reduce), of
+    which the rank keeps its chunk of the sequence (dim 1); with ``reduce``
+    False, the rank's chunk of an ``x`` that every rank holds whole. Its
+    backward gathers the gradient's chunks (``gather_seq``'s forward), so
+    each rank's block sees the gradient of every position."""
+    t = tp()
+    return x if t.size == 1 else _ScatterSeq.apply(x, t.group, t.rank,
+                                                   t.size, reduce)
 
 
 # ---------------------------------------------------------------------------

@@ -174,7 +174,7 @@ def lib() -> ctypes.CDLL:
             handle.repro_paged_decode.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
             handle.repro_paged_decode.restype = i32
             handle.repro_flash_attention.argtypes = (
-                [ptr] * 4 + [i32] * 10 + [ctypes.c_float, i32, i32, ptr])
+                [ptr] * 4 + [i32] * 11 + [ctypes.c_float, i32, i32, ptr])
             handle.repro_flash_attention.restype = i32
             handle.repro_flash_decode.argtypes = (
                 [ptr] * 5 + [i32] * 5 + [ctypes.c_longlong] * 6

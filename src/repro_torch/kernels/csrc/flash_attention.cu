@@ -7,7 +7,13 @@
 // once to q.k; optional tanh softcap; causal and local-window masks; the
 // pre-pad lengths seq_q/seq_k mask rows and columns; a q row with no live
 // key (or past seq_q) writes zeros (l floored at 1e-20); fully masked key
-// blocks are skipped; the output has q's dtype.
+// blocks are skipped; the output has q's dtype. Beyond the TPU kernel,
+// q_off is the global position of query row 0 (a rank's chunk of a
+// context-parallel sequence): the causal and window masks and the live
+// tile range compare key j with position row + q_off, while seq_q still
+// counts local rows. So a chunk computes the whole call's rows [q_off,
+// q_off + Sq) and skips the tiles dead to them: the first of four causal
+// chunks loads a quarter of the last one's tiles.
 //
 // Two kernels, chosen by dtype:
 //
@@ -72,10 +78,12 @@
 namespace {
 
 __device__ __forceinline__ bool is_live(int row, int col, int seq_q,
-                                        int seq_k, int causal, int window) {
+                                        int seq_k, int causal, int window,
+                                        int q_off) {
   bool ok = row < seq_q && col < seq_k;
-  if (causal) ok = ok && col <= row;
-  if (window > 0) ok = ok && col > row - window;
+  const int p = row + q_off;      // the row's global position
+  if (causal) ok = ok && col <= p;
+  if (window > 0) ok = ok && col > p - window;
   return ok;
 }
 
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                      int KV, int Sq, int Sk, int seq_q, int seq_k, int causal,
-                     int window, float softcap, float scale) {
+                     int window, int q_off, float softcap, float scale) {
   using Tl = MmaTile<HD>;
   constexpr int LD = Tl::LD, KS = Tl::KS, NT = Tl::NT, ND = Tl::ND;
   constexpr int BQ = MMA_BQ, BK = MMA_BK, C8 = HD / 8;   // 16-B pieces a row
@@ -164,11 +172,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long qh_off = ((long long)b * H + (long long)kvh * G) * Sq * HD;
 
   // the key tiles that hold a live key of some live row of this block
+  // (local rows row_lo..row_hi at positions + q_off)
   const int row_lo = r0 / G;
   const int row_hi = min((min(r0 + BQ, n_rows) - 1) / G, seq_q - 1);
   int t_lo = 0, t_hi = (seq_k + BK - 1) / BK;
-  if (causal) t_hi = min(t_hi, row_hi / BK + 1);
-  if (window > 0) t_lo = max(0, row_lo - window + 1) / BK;
+  if (causal) t_hi = min(t_hi, (row_hi + q_off) / BK + 1);
+  if (window > 0) t_lo = max(0, row_lo + q_off - window + 1) / BK;
   const int t_end = row_hi < row_lo ? t_lo : max(t_lo, t_hi);
 
   auto load_kv = [&](int t, int stage) {
@@ -240,8 +249,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     const int k0 = t * BK;
-    const bool live = wpos_hi >= wpos_lo && (!causal || k0 <= wpos_hi) &&
-                      (window <= 0 || k0 + BK - 1 > wpos_lo - window);
+    const bool live =
+        wpos_hi >= wpos_lo && (!causal || k0 <= wpos_hi + q_off) &&
+        (window <= 0 || k0 + BK - 1 > wpos_lo + q_off - window);
     if (live) {                     // warp-uniform
       const bf16* ks = kvs + stage * 2 * BK * LD;
       const bf16* vs = ks + BK * LD;
@@ -279,9 +289,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
           float x = s[n][e] * scale;
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          s[n][e] = is_live(pos[e / 2], col, seq_q, seq_k, causal, window)
-                        ? x
-                        : REPRO_NEG_INF;
+          s[n][e] =
+              is_live(pos[e / 2], col, seq_q, seq_k, causal, window, q_off)
+                  ? x
+                  : REPRO_NEG_INF;
           mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
         }
       float alpha[2], m_new[2];
@@ -300,7 +311,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + n * 8 + (lane % 4) * 2 + (e & 1);
           const float p =
-              is_live(pos[e / 2], col, seq_q, seq_k, causal, window)
+              is_live(pos[e / 2], col, seq_q, seq_k, causal, window, q_off)
                   ? expf(s[n][e] - m_new[e / 2])
                   : 0.f;
           s[n][e] = p;
@@ -351,8 +362,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int KV, int Sq, int Sk, int seq_q,
-                       int seq_k, int causal, int window, float softcap,
-                       int device, cudaStream_t stream) {
+                       int seq_k, int causal, int window, int q_off,
+                       float softcap, int device, cudaStream_t stream) {
   constexpr size_t smem = MmaTile<HD>::SMEM;
   static unsigned long long smem_set = 0;
   cudaError_t err =
@@ -363,7 +374,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   flash_fwd_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, Sq, Sk,
-      seq_q, seq_k, causal, window, softcap,
+      seq_q, seq_k, causal, window, q_off, softcap,
       1.f / sqrtf(static_cast<float>(HD)));
   return cudaSuccess;
 }
@@ -371,11 +382,12 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int KV, int Sq, int Sk,
                          int hd, int seq_q, int seq_k, int causal, int window,
-                         float softcap, int device, cudaStream_t s) {
+                         int q_off, float softcap, int device,
+                         cudaStream_t s) {
 #define REPRO_MMA_CASE(HD)                                                \
   case HD:                                                                \
     return launch_mma<HD>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,     \
-                          causal, window, softcap, device, s);
+                          causal, window, q_off, softcap, device, s);
   switch (hd) {
     REPRO_MMA_CASE(16)
     REPRO_MMA_CASE(32)
@@ -428,7 +440,8 @@ __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int H, int KV, int Sq, int Sk, int seq_q, int seq_k,
-                     int causal, int window, float softcap, float scale) {
+                     int causal, int window, int q_off, float softcap,
+                     float scale) {
   using T = F32Tile<HD>;
   constexpr int BQ = F32_BQ, BK = F32_BK, NJ = T::NJ, VW = T::VW;
   constexpr int NV = T::NV, QLD = T::QLD, KLD = T::KLD, PLD = T::PLD;
@@ -447,11 +460,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + ((long long)b * KV + kvh) * Sk * HD;
 
   // the key tiles that hold a live key of some live row of this block
+  // (local rows q0..row_hi at positions + q_off)
   const int row_hi = min(q0 + BQ, seq_q) - 1;
   int t_lo = 0, t_hi = (seq_k + BK - 1) / BK;
-  if (causal) t_hi = min(t_hi, row_hi / BK + 1);
-  if (window > 0) t_lo = max(0, q0 - window + 1) / BK;
-  const int n_t = row_hi < q0 ? 0 : t_hi - t_lo;
+  if (causal) t_hi = min(t_hi, (row_hi + q_off) / BK + 1);
+  if (window > 0) t_lo = max(0, q0 + q_off - window + 1) / BK;
+  const int n_t = row_hi < q0 ? 0 : max(0, t_hi - t_lo);
 
   float acc[4][NV * VW], m[4], l[4];
 #pragma unroll
@@ -531,7 +545,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < NJ; ++j) {
         float x = s[i][j] * scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        s[i][j] = is_live(row, k0 + tx + 16 * j, seq_q, seq_k, causal, window)
+        s[i][j] = is_live(row, k0 + tx + 16 * j, seq_q, seq_k, causal,
+                          window, q_off)
                       ? x
                       : REPRO_NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -544,9 +559,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = k0 + tx + 16 * j;
-        const float p = is_live(row, col, seq_q, seq_k, causal, window)
-                            ? expf(s[i][j] - m_new)
-                            : 0.f;
+        const float p =
+            is_live(row, col, seq_q, seq_k, causal, window, q_off)
+                ? expf(s[i][j] - m_new)
+                : 0.f;
         ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
         sum += p;
       }
@@ -601,8 +617,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int KV, int Sq, int Sk, int seq_q,
-                       int seq_k, int causal, int window, float softcap,
-                       int device, cudaStream_t stream) {
+                       int seq_k, int causal, int window, int q_off,
+                       float softcap, int device, cudaStream_t stream) {
   constexpr size_t smem = F32Tile<HD>::SMEM;
   static unsigned long long smem_set = 0;
   cudaError_t err =
@@ -612,7 +628,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32_kernel<HD><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
-      seq_q, seq_k, causal, window, softcap,
+      seq_q, seq_k, causal, window, q_off, softcap,
       1.f / sqrtf(static_cast<float>(HD)));
   return cudaSuccess;
 }
@@ -620,11 +636,12 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
                          void* o, int B, int H, int KV, int Sq, int Sk,
                          int hd, int seq_q, int seq_k, int causal, int window,
-                         float softcap, int device, cudaStream_t s) {
+                         int q_off, float softcap, int device,
+                         cudaStream_t s) {
 #define REPRO_F32_CASE(HD)                                                \
   case HD:                                                                \
     return launch_f32<HD>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,     \
-                          causal, window, softcap, device, s);
+                          causal, window, q_off, softcap, device, s);
   switch (hd) {
     REPRO_F32_CASE(16)
     REPRO_F32_CASE(32)
@@ -639,23 +656,24 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Sq > 1: the register-tiled kernel for fp32, the mma.sync kernel for bf16.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Sq > 1: the register-tiled kernel for fp32, the mma.sync kernel for bf16;
+// q_off the global position of query row 0. Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
                                      int KV, int Sq, int Sk, int hd,
                                      int seq_q, int seq_k, int causal,
-                                     int window, float softcap, int dtype,
-                                     int device, void* stream) {
+                                     int window, int q_off, float softcap,
+                                     int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32)
     err = dispatch_f32(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q, seq_k,
-                       causal, window, softcap, device, s);
+                       causal, window, q_off, softcap, device, s);
   else if (dtype == REPRO_BF16)
     err = dispatch_mma(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q, seq_k, causal,
-                       window, softcap, device, s);
+                       window, q_off, softcap, device, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;

@@ -9,13 +9,16 @@ and bf16 ones to the ``mma.sync`` tensor-core kernel (both
 ``csrc/flash_attention.cu``; ``attention_tiled_ref`` repeats the latter's
 algebra).
 Contract, shared by all: q (B,H,Sq,hd), k/v (B,KV,Sk,hd) with GQA kv head =
-h // (H // KV); scale 1/sqrt(hd); optional causal mask, local ``window``
-and tanh ``softcap``; ``seq_q``/``seq_k`` (default Sq/Sk) mask rows and
-columns past the real lengths; a q row with no live key writes zeros. K/V
-have q's dtype, or are bf16 beside an fp32 q (the ring cache beside
-recurrentgemma's fp32 queries), promoted exactly as the products promote
-them. Unlike the TPU kernel, no input needs padding to a block multiple: the
-kernels mask their ragged edges themselves.
+h // (H // KV); scale 1/sqrt(hd); optional causal mask, local ``window`` and
+tanh ``softcap``; ``seq_q``/``seq_k`` (default Sq/Sk) mask rows and columns
+past the real lengths; ``q_offset`` (default 0) is the global position of query
+row 0, which the causal and window masks compare with key positions 0..Sk-1 (a
+rank's chunk of a context-parallel sequence: ``models.attention``), while
+``seq_q`` counts local rows; a q row with no live key writes zeros. K/V have
+q's dtype, or are bf16 beside an fp32 q (the ring cache beside recurrentgemma's
+fp32 queries), promoted exactly as the products promote them. Unlike the TPU
+kernel, no input needs padding to a block multiple: the kernels mask their
+ragged edges themselves.
 
 Training (``flash_attention_grad``, the ``FlashAttention`` autograd
 Function): the forward is ``flash_attention_bhsd`` as it is (the kernel on
@@ -61,7 +64,22 @@ MIN_SPLIT_TILES = 4  # tiles a range holds, at least, when a row is cut
 BWD_KEYS = 128       # keys a block of the plain backward's passes
 
 
-def _scores(q, k, causal, window, softcap, seq_q, seq_k):
+def _mask(Sq, cols, causal, window, seq_q, seq_k, q_offset, device):
+    """Live (query, key) pairs (Sq, len(cols)): local row r (live below
+    ``seq_q``) at position r + ``q_offset`` against key index ``cols``
+    (live below ``seq_k``)."""
+    rows = torch.arange(Sq, device=device)[:, None]
+    pos = rows + q_offset
+    cols = cols[None, :]
+    mask = (rows < seq_q) & (cols < seq_k)
+    if causal:
+        mask = mask & (cols <= pos)
+    if window > 0:
+        mask = mask & (cols > pos - window)
+    return mask
+
+
+def _scores(q, k, causal, window, softcap, seq_q, seq_k, q_offset=0):
     """Masked fp32 scores (B,H,Sq,Sk), NEG_INF where masked, and the mask
     (Sq,Sk)."""
     B, H, Sq, hd = q.shape
@@ -72,21 +90,16 @@ def _scores(q, k, causal, window, softcap, seq_q, seq_k):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    rows = torch.arange(Sq, device=q.device)[:, None]
-    cols = torch.arange(Sk, device=q.device)[None, :]
-    mask = (rows < seq_q) & (cols < seq_k)
-    if causal:
-        mask &= cols <= rows
-    if window > 0:
-        mask &= cols > rows - window
+    mask = _mask(Sq, torch.arange(Sk, device=q.device), causal, window,
+                 seq_q, seq_k, q_offset, q.device)
     return s.masked_fill(~mask, NEG_INF), mask
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                  seq_q=None, seq_k=None):
+                  seq_q=None, seq_k=None, q_offset=0):
     """Plain version of ``flash_attention_bhsd``: one masked fp32 softmax
     over the whole score matrix."""
-    s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k)
+    s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k, q_offset)
     vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
@@ -94,14 +107,14 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def attention_split_ref(q, k, v, n_split, *, causal=True, window=0,
-                        softcap=0.0, seq_q=None, seq_k=None):
+                        softcap=0.0, seq_q=None, seq_k=None, q_offset=0):
     """The decode kernel's split-and-combine algebra in plain PyTorch, for
     any Sq: the keys cut into ``n_split`` contiguous ranges of
     ceil(Sk / n_split) (the last ones may be empty), a partial (m, l, acc)
     per range, then the partials rescaled to their common max and summed.
     The same function as ``attention_ref``; the tests hold one to the
     other."""
-    s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k)
+    s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k, q_offset)
     vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     Sk = k.shape[2]
     per = -(-Sk // n_split) if Sk else 0
@@ -135,23 +148,26 @@ def decode_smem_bytes(hd, elem):
         2 * hd + 16 // elem) * elem
 
 
-def live_key_tiles(row_lo, row_hi, seq_q, seq_k, causal, window, bk):
+def live_key_tiles(row_lo, row_hi, seq_q, seq_k, causal, window, bk,
+                   q_offset=0):
     """The key tiles of ``bk`` keys that the sequence kernels load for a
-    block of query positions ``row_lo..row_hi``: every tile that may hold a
-    live key of a live row (``row < seq_q``), from the window's first key
-    to ``seq_k``, or to the last row when causal. The others are skipped."""
+    block of local query rows ``row_lo..row_hi`` (positions + ``q_offset``):
+    every tile that may hold a live key of a live row (``row < seq_q``),
+    from the window's first key to ``seq_k``, or to the last row's position
+    when causal. The others are skipped."""
     row_hi = min(row_hi, seq_q - 1)
     if row_hi < row_lo:
         return range(0)
     t_hi = -(-seq_k // bk)
     if causal:
-        t_hi = min(t_hi, row_hi // bk + 1)
-    t_lo = max(0, row_lo - window + 1) // bk if window > 0 else 0
-    return range(t_lo, t_hi)
+        t_hi = min(t_hi, (row_hi + q_offset) // bk + 1)
+    t_lo = (max(0, row_lo + q_offset - window + 1) // bk if window > 0
+            else 0)
+    return range(t_lo, max(t_lo, t_hi))
 
 
 def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
-                        softcap=0.0, seq_q=None, seq_k=None):
+                        softcap=0.0, seq_q=None, seq_k=None, q_offset=0):
     """The bf16 sequence kernel's algebra in plain PyTorch. Rows are the
     (query, head) pairs of a KV head, row r = query r // G of head r % G,
     in blocks of ``MMA_ROWS``; each block walks ``live_key_tiles`` in tiles of
@@ -173,12 +189,13 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
     out = qr.new_zeros(B, KV, n_rows, hd)
     for r0 in range(0, n_rows, MMA_ROWS):
         rows = torch.arange(r0, min(r0 + MMA_ROWS, n_rows), device=q.device)
-        pos = (rows // G)[:, None]
+        local = (rows // G)[:, None]
+        pos = local + q_offset
         m = qr.new_full((B, KV, len(rows), 1), NEG_INF)
         l = qr.new_zeros(B, KV, len(rows), 1)
         acc = qr.new_zeros(B, KV, len(rows), hd)
         for t in live_key_tiles(r0 // G, int(rows[-1]) // G, seq_q, seq_k,
-                                causal, window, bk):
+                                causal, window, bk, q_offset):
             cols = torch.arange(t * bk, (t + 1) * bk, device=q.device)
             held = cols < seq_k
             kt = kf.new_zeros(B, KV, bk, hd)
@@ -188,7 +205,7 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
             s = torch.einsum("bkrd,bkjd->bkrj", qr[:, :, rows], kt) * scale
             if softcap > 0:
                 s = softcap * torch.tanh(s / softcap)
-            live = (pos < seq_q) & held[None, :]
+            live = (local < seq_q) & held[None, :]
             if causal:
                 live &= cols[None, :] <= pos
             if window > 0:
@@ -227,27 +244,33 @@ def decode_key_splits(blocks: int, capacity: int, n_sms: int) -> int:
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
-                         seq_q=None, seq_k=None):
+                         seq_q=None, seq_k=None, q_offset=0):
     """q (B,H,Sq,hd); k/v (B,KV,Sk,hd). Returns (B,H,Sq,hd) in q's dtype."""
     B, H, Sq, hd = q.shape
+    q_offset = int(q_offset)
     work = lambda: cost.flash_work(                              # noqa: E731
         B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
-        q.element_size(), k.element_size(), causal, window)
+        q.element_size(), k.element_size(), causal, window, q_offset)
     with cost.counted("flashattn", work):
         if q.device.type == "meta":
             return torch.empty_like(q)
         if q.device.type == "cpu":
             return attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, seq_q=seq_q, seq_k=seq_k)
+                                 softcap=softcap, seq_q=seq_q, seq_k=seq_k,
+                                 q_offset=q_offset)
         if q.device.type != "cuda":
             raise ValueError(f"{NAME}: no kernel for {q.device}")
-        seq_q, seq_k = _check(q, k, v, seq_q, seq_k)
+        seq_q, seq_k = _check(q, k, v, seq_q, seq_k, q_offset)
         if q.shape[2] == 1:
+            if q_offset:
+                return _launch_decode_at(q, k, v, causal, window, softcap,
+                                         seq_q, seq_k, q_offset)
             return _launch_decode(q, k, v, causal, softcap, seq_q, seq_k)
-        return _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k)
+        return _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k,
+                           q_offset)
 
 
-def _check(q, k, v, seq_q, seq_k):
+def _check(q, k, v, seq_q, seq_k, q_offset=0):
     """Dtypes and shapes every form takes; returns (seq_q, seq_k)."""
     if q.dtype not in DTYPES or k.dtype != v.dtype or not (
             k.dtype == q.dtype
@@ -261,15 +284,16 @@ def _check(q, k, v, seq_q, seq_k):
     if (hd not in HEAD_DIMS or k.shape != (B, KV, Sk, hd)
             or v.shape != k.shape or KV == 0 or H % KV
             or not 0 <= seq_q <= Sq or not 0 <= seq_k <= Sk
+            or not 0 <= q_offset < 2 ** 30
             or B > 65535 or H > 65535):
         raise ValueError(
             f"{NAME}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)}, seq_q {seq_q}, seq_k {seq_k} (head dim must "
-            f"be one of {HEAD_DIMS})")
+            f"{tuple(v.shape)}, seq_q {seq_q}, seq_k {seq_k}, q_offset "
+            f"{q_offset} (head dim must be one of {HEAD_DIMS})")
     return seq_q, seq_k
 
 
-def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k):
+def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k, q_offset=0):
     """Sq > 1: contiguous q, k, v; bf16 K/V beside an fp32 q are widened
     first (the fp32 kernel reads fp32)."""
     if k.dtype != q.dtype:
@@ -284,7 +308,7 @@ def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k):
     err = _cuda.lib().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, KV, Sq, Sk, hd, seq_q, seq_k, int(bool(causal)), int(window),
-        float(softcap), _cuda.DTYPE_CODES[q.dtype],
+        q_offset, float(softcap), _cuda.DTYPE_CODES[q.dtype],
         *_cuda.device_and_stream(dev))
     _cuda.check_launch(NAME, err, "seq_f32" if q.dtype == torch.float32
                        else "seq_bf16")
@@ -323,20 +347,38 @@ def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k, n_split=None):
     return out
 
 
+def decode_keys(seq_k, causal, window, q_offset):
+    """The live keys [lo, hi) of one query at position ``q_offset``:
+    ``[max(0, p - window + 1), p]`` when causal, from the window's first key
+    to ``seq_k`` when not, within ``[0, seq_k)`` (empty: lo == hi)."""
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    hi = min(seq_k, q_offset + 1) if causal else seq_k
+    lo = min(lo, seq_k)
+    return lo, max(lo, hi)
+
+
+def _launch_decode_at(q, k, v, causal, window, softcap, seq_q, seq_k,
+                      q_offset):
+    """Sq == 1 at position ``q_offset`` > 0 (a context-parallel chunk of
+    one query): the decode form over the key range that
+    ``decode_keys`` leaves live, handed as views of K/V from its first key
+    on, unmasked over their first ``hi - lo`` keys."""
+    lo, hi = decode_keys(seq_k, causal, window, q_offset)
+    if lo == k.shape[2]:            # no live key: any view, none of it live
+        lo = hi = 0
+    return _launch_decode(q, k[:, :, lo:], v[:, :, lo:], False, softcap,
+                          seq_q, hi - lo)
+
+
 # ---------------------------------------------------------------------------
 # training: the gradient
 # ---------------------------------------------------------------------------
 
-def _block_mask(Sq, lo, hi, causal, window, seq_k, device):
-    """Live (query, key) pairs (Sq, hi - lo) of keys lo..hi-1."""
-    rows = torch.arange(Sq, device=device)[:, None]
-    cols = torch.arange(lo, hi, device=device)[None, :]
-    mask = cols < seq_k
-    if causal:
-        mask = mask & (cols <= rows)
-    if window > 0:
-        mask = mask & (cols > rows - window)
-    return mask.expand(Sq, hi - lo)
+def _block_mask(Sq, lo, hi, causal, window, seq_k, device, q_offset=0):
+    """Live (query, key) pairs (Sq, hi - lo) of keys lo..hi-1, query row r
+    at position r + ``q_offset``."""
+    return _mask(Sq, torch.arange(lo, hi, device=device), causal, window,
+                 Sq, seq_k, q_offset, device)
 
 
 def _scaled_groups(q, KV):
@@ -347,7 +389,7 @@ def _scaled_groups(q, KV):
                                                        hd)
 
 
-def attention_lse(q, k, *, causal=True, window=0, seq_k=None):
+def attention_lse(q, k, *, causal=True, window=0, seq_k=None, q_offset=0):
     """Each query row's log-sum-exp of its masked, scaled fp32 scores
     (B,H,Sq), by an online pass over key blocks of ``BWD_KEYS``: the
     reference's forward scan without the values. A row with no live key
@@ -361,7 +403,8 @@ def attention_lse(q, k, *, causal=True, window=0, seq_k=None):
     l = torch.zeros_like(m)
     for lo in range(0, Sk, BWD_KEYS):
         hi = min(Sk, lo + BWD_KEYS)
-        mask = _block_mask(Sq, lo, hi, causal, window, seq_k, q.device)
+        mask = _block_mask(Sq, lo, hi, causal, window, seq_k, q.device,
+                           q_offset)
         s = torch.einsum("bkgqd,bksd->bkgqs", qf, k[:, :, lo:hi].float())
         s = s.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -372,7 +415,7 @@ def attention_lse(q, k, *, causal=True, window=0, seq_k=None):
 
 
 def attention_bwd(q, k, v, o, lse, g, *, causal=True, window=0,
-                  seq_k=None):
+                  seq_k=None, q_offset=0):
     """dq, dk, dv of ``attention_ref`` (no softcap) at the output gradient
     ``g``, by the reference's key-blocked recomputation from (q, k, v, o,
     lse): for each key block, p = exp(s - lse) over the live pairs, dv = p^T
@@ -391,7 +434,8 @@ def attention_bwd(q, k, v, o, lse, g, *, causal=True, window=0,
     for lo in range(0, Sk, BWD_KEYS):
         hi = min(Sk, lo + BWD_KEYS)
         kc, vc = k[:, :, lo:hi].float(), v[:, :, lo:hi].float()
-        mask = _block_mask(Sq, lo, hi, causal, window, seq_k, q.device)
+        mask = _block_mask(Sq, lo, hi, causal, window, seq_k, q.device,
+                           q_offset)
         s = torch.einsum("bkgqd,bksd->bkgqs", qf, kc)
         s = s.masked_fill(~mask, NEG_INF)
         p = torch.exp(s - lse[..., None]) * mask
@@ -411,11 +455,12 @@ class FlashAttention(torch.autograd.Function):
     ``attention_lse`` + ``attention_bwd`` (no launch)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, seq_k):
+    def forward(ctx, q, k, v, causal, window, seq_k, q_offset):
         o = flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                 seq_k=seq_k)
+                                 seq_k=seq_k, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o)
-        ctx.args = dict(causal=causal, window=window, seq_k=seq_k)
+        ctx.args = dict(causal=causal, window=window, seq_k=seq_k,
+                        q_offset=q_offset)
         return o
 
     @staticmethod
@@ -424,11 +469,11 @@ class FlashAttention(torch.autograd.Function):
         with cost.tag("flashattn"):
             lse = attention_lse(q, k, **ctx.args)
             dq, dk, dv = attention_bwd(q, k, v, o, lse, g, **ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_grad(q, k, v, *, causal=True, window=0, softcap=0.0,
-                         seq_k=None):
+                         seq_k=None, q_offset=0):
     """``flash_attention_bhsd``'s contract, differentiable in q, k and v
     (K/V in q's dtype). Raises ``NotImplementedError`` with a softcap."""
     if softcap > 0:
@@ -438,4 +483,5 @@ def flash_attention_grad(q, k, v, *, causal=True, window=0, softcap=0.0,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{NAME}: the gradient takes K/V in q's dtype, not "
                         f"q {q.dtype}, k {k.dtype}, v {v.dtype}")
-    return FlashAttention.apply(q, k, v, bool(causal), int(window), seq_k)
+    return FlashAttention.apply(q, k, v, bool(causal), int(window), seq_k,
+                                int(q_offset))

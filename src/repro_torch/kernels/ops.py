@@ -41,13 +41,15 @@ def _training(*xs):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    seq_k=None):
+                    seq_k=None, q_offset=0):
     """Model layout: q (B,S,H,hd); k/v (B,T,KV,hd). Returns (B,S,H,hd).
     One query (S == 1) hands the decode form k/v as strided (B,KV,T,hd)
     views of their own storage, so a ring cache is read in place and in its
     stored dtype; longer queries hand contiguous copies. ``seq_k``: only the
-    first seq_k keys are live (None: all T). With grad on and an input
-    that requires it, the differentiable form runs (contiguous K/V)."""
+    first seq_k keys are live (None: all T). ``q_offset``: the position of
+    query 0 among the keys (a context-parallel rank's chunk). With grad on
+    and an input that requires it, the differentiable form runs (contiguous
+    K/V)."""
     _local_only("flash_attention", q, k, v)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if q.shape[1] > 1:
@@ -57,7 +59,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
         fn = _fa.flash_attention_grad
         kt, vt = kt.contiguous(), vt.contiguous()
     out = fn(q.transpose(1, 2).contiguous(), kt, vt, causal=causal,
-             window=window, softcap=softcap, seq_k=seq_k)
+             window=window, softcap=softcap, seq_k=seq_k, q_offset=q_offset)
     return out.transpose(1, 2)
 
 

@@ -7,39 +7,45 @@ Usage:
       --shape train_4k --mesh single --out results/dryrun_torch
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all  # a process a cell
 
-The reference lowers and compiles each cell for 256 or 512 placeholder
-devices and walks the compiled HLO. The port has no compiler: this process
-joins a fake process group of 256 or 512 ranks (``FakeStore``: collectives
-are accepted and move nothing) as rank 0, builds the config's parameters on
-``meta``, stores them as DTensors by ``param_spec_tree`` (serve mode for
-decode shapes, as the reference's), and runs the train step, prefill or
-decode step once in ``activation_sharding`` of the same mode under ``distributed.cost``'s counter: rank 0's local ops,
-the kernels by their formulas, the collectives its DTensors issue. Nothing
-is allocated and nothing needs a card.
+The reference lowers and compiles each cell for 256 or 512 placeholder devices
+and walks the compiled HLO. The port has no compiler: this process joins a fake
+process group of 256 or 512 ranks (``FakeStore``: collectives are accepted and
+move nothing) as one rank, builds the config's parameters on ``meta``, stores
+them as DTensors by ``param_spec_tree`` (serve mode for decode shapes, as the
+reference's), and runs the train step, prefill or decode step once in
+``activation_sharding`` of the same mode under ``distributed.cost``'s counter:
+one rank's local ops, the kernels by their formulas, the collectives its
+DTensors and layers issue. The rank is the last along ``model`` (of the first
+``data`` row): every rank does the same work but flash's under context
+parallelism, whose causal chunk is that rank's last and longest, the one a step
+waits for. Nothing is allocated and nothing needs a card.
 
 What the counts say: every cell computes as the reference shards it,
-tensor-parallel over ``model`` (``distributed.sharding``). A train cell's
-step and a prefill cell (forward only) store the parameters by the train
-rules and gather them over ``data`` only: each rank computes its heads,
-ff, lru and vocab slice (the kernels at their local shapes), with the
-all-reduces of the row-parallel products (and in training of the
-column-parallel products' gradients) counted by kind; a prefill writes
-the rank's shard of each cache and leaves the logits split over the
-vocab. A decode cell (``decode_32k``, ``long_500k``) stores them by the
-serve rules, whose would-be-FSDP dim lies over ``data`` as a second tensor
-axis (``"data2d"``): the weights stay where they are and the token rows
-move (``sharding.dot``: two all-reduces a product over ``data``), so a
-dense decode step gathers no weight; its caches are the rank's shards as
-``cache_spec_tree`` places them (batch over ``data``, KV heads over
-``model``, or the head dim where the heads do not divide, gathered over
-``model`` before flash). Not computed as the reference computes it:
-attention whose heads do not divide ``model`` (smollm, whisper,
-recurrentgemma, llava) runs whole on every rank where the reference
-shards the query sequence (context parallelism), the residual stream's
-norms and elementwise ops are replicated (no sequence parallelism), and
-MoE experts are gathered whole at use (no expert parallelism), so
-``model_flops_ratio`` stays under the reference's there. The bytes are
-eager PyTorch's (no fusion: every op's operands and result).
+tensor-parallel over ``model`` (``distributed.sharding``). A train cell's step
+and a prefill cell (forward only) store the parameters by the train rules and
+gather them over ``data`` only: each rank computes its heads, ff, lru and vocab
+slice (the kernels at their local shapes), with the all-reduces of the
+row-parallel products (and in training of the column-parallel products'
+gradients) counted by kind; a prefill writes the rank's shard of each cache and
+leaves the logits split over the vocab. A train cell whose config sets
+``sequence_parallel`` splits the residual stream over ``model`` (the norms and
+residual adds on S / 16 positions a rank; an all-gather before each
+column-parallel block and a reduce-scatter after each row-parallel one, both
+made of all-reduces, so they count as all-reduces, at twice the bytes of the
+NCCL forms); where the heads do not divide ``model`` (smollm 15, whisper 12,
+recurrentgemma 10, llava 56 against 16) attention computes the rank's chunk of
+the query sequence (context parallelism), flash counted at the chunk's length
+and offset, in a train cell and a prefill cell alike. A decode cell
+(``decode_32k``, ``long_500k``) stores them by the serve rules, whose
+would-be-FSDP dim lies over ``data`` as a second tensor axis (``"data2d"``):
+the weights stay where they are and the token rows move (``sharding.dot``: two
+all-reduces a product over ``data``), so a dense decode step gathers no weight;
+its caches are the rank's shards as ``cache_spec_tree`` places them (batch over
+``data``, KV heads over ``model``, or the head dim where the heads do not
+divide, gathered over ``model`` before flash). Not computed as the reference
+computes it: MoE experts are gathered whole at use (no expert parallelism), so
+``model_flops_ratio`` stays under the reference's there. The bytes are eager
+PyTorch's (no fusion: every op's operands and result).
 ``memory_analysis`` gives the arguments a rank holds (parameters, AdamW
 moments and its batch rows, or its cache shards); temp bytes are null,
 since no compiler plans the step's buffers.
@@ -146,11 +152,13 @@ def step_of(cfg, sc, mesh, params):
     return fn, held, sc.global_batch
 
 
-def run_cell(arch, shape, mesh_kind, overrides=None, *, reduced=False):
+def run_cell(arch, shape, mesh_kind, overrides=None, *, reduced=False,
+             rank=None):
     """One cell's record. ``shape``: a name of ``SHAPES_BY_NAME`` or a
     ``ShapeConfig``; ``mesh_kind``: "single", "multi", or a (data, model)
     shape for a small fake mesh; ``reduced`` takes the arch's reduced
-    config (the tests' size)."""
+    config (the tests' size); ``rank`` the fake group's rank counted
+    (default: the last along ``model`` of the first ``data`` row)."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
@@ -164,12 +172,13 @@ def run_cell(arch, shape, mesh_kind, overrides=None, *, reduced=False):
         return rec
     dims, axes = MESHES.get(mesh_kind, (tuple(mesh_kind), ("data", "model")))
     chips = int(np.prod(dims))
+    rank = dims[-1] - 1 if rank is None else rank
     if dist.is_initialized():
         raise RuntimeError("run_cell joins a fake process group of its own; "
                            "one is already up")
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=chips)
     try:
         t0 = time.time()
@@ -199,6 +208,7 @@ def run_cell(arch, shape, mesh_kind, overrides=None, *, reduced=False):
     param_bytes = _nbytes(params.parameters())
     rec.update({
         "chips": chips,
+        "rank": rank,
         "count_s": round(t_count, 2),
         "memory_analysis": {
             "argument_size_bytes": param_bytes + _nbytes(held),

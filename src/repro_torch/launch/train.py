@@ -28,10 +28,13 @@ A port of the JAX package's ``repro.launch.train`` over the port's
   ``model`` (heads, ff, lru and vocab split, ``distributed.sharding``) and
   each data-parallel rank trains on its rows of the one global batch, so
   a mesh run and ``--mesh none`` see the same tokens; only rank 0 logs
-  and writes checkpoints. Expert, sequence and context parallelism are not
-  ported (ROADMAP Queue 1): MoE experts, and attention whose heads do not
-  divide ``model``, compute whole on every ``model`` rank. A checkpoint
-  restores across meshes, ``none`` included.
+  and writes checkpoints. Where the config sets ``sequence_parallel`` the
+  residual stream is split over ``model`` along the sequence, and
+  attention whose heads do not divide ``model`` computes each rank's
+  chunk of the queries (``sharding.seq_split``, ``context_parallel``).
+  Expert parallelism is not ported (ROADMAP Queue 1): MoE experts compute
+  whole on every ``model`` rank. A checkpoint restores across meshes,
+  ``none`` included.
 * Every arch of ``configs.registry.ARCH_IDS`` trains, the ``rwkv`` and
   ``rglru`` layers through their kernels' autograd Functions
   (``kernels.rwkv6.WKV6``, ``kernels.rglru.RGLRU``), each layer

@@ -22,6 +22,22 @@ whose new K/V each rank projects whole (the rules replicate ``wk`` /
 cache's head dims over ``model`` (``gather_from_model``) before flash,
 which takes whole heads, and hands flash the KV heads the rank's query
 heads read.
+
+In a train step whose residual stream is split over ``model``
+(``sharding.seq_split``, ``sp``: x is the rank's chunk of the sequence)
+the head-split projections take the gathered sequence (``gather_seq``) and
+the output projection's partial sums are reduce-scattered back onto the
+chunk (``scatter_seq``). Where the rules replicate the attention weights
+because the query heads do not divide ``model``
+(``sharding.context_parallel``, or any ``sp`` step there), each rank
+computes its chunk of the query sequence (``_cp_qkv``): Q from its chunk's
+rows, K/V of every position (all KV heads), flash told the chunk's first
+position (``q_offset``), the output projection on the chunk; without
+``sp`` the chunks' outputs are gathered back into the replicated residual
+(``_cp_out``). The weights then take ``use="partial"``: each rank's
+gradient covers its queries' share. A prefill under the train rules takes
+this and never ``sp``, as the reference's prefill has no residual
+constraint; its cache writes are unchanged, K/V being whole on every rank.
 """
 
 from __future__ import annotations
@@ -60,13 +76,14 @@ def _q(p, x, cfg, w=None, use="local"):
     return rms_norm(q, p.q_norm, cfg.norm_eps, use) if cfg.qk_norm else q
 
 
-def _kv(p, x, cfg, heads=None, use="local"):
+def _kv(p, x, cfg, heads=None, use="local", wuse="local"):
     """Key and value heads (B,S,KV,hd), the keys qk-normed where the
     config says so; ``heads`` the KV heads to compute (all where None),
-    from projections each rank slices (``use="partial"``)."""
-    k = sharding.dot(x, p.wk, at_use(p.wk, x, cfg, heads, 1),
+    from projections each rank slices (``use="partial"``); ``use`` is the
+    norm scale's, ``wuse`` the projections' where ``heads`` is None."""
+    k = sharding.dot(x, p.wk, at_use(p.wk, x, cfg, heads, 1, wuse),
                      "bsd,dhk->bshk")
-    v = sharding.dot(x, p.wv, at_use(p.wv, x, cfg, heads, 1),
+    v = sharding.dot(x, p.wv, at_use(p.wv, x, cfg, heads, 1, wuse),
                      "bsd,dhk->bshk")
     if cfg.qk_norm:
         k = rms_norm(k, p.k_norm, cfg.norm_eps, use)
@@ -76,7 +93,7 @@ def _kv(p, x, cfg, heads=None, use="local"):
 def _split(p):
     """Whether attention computes this rank's heads: a tensor-parallel
     step whose rules split ``wq``'s heads over ``model`` (they replicate it
-    where the heads do not divide, and attention then runs whole)."""
+    where the heads do not divide: then ``_cp``)."""
     return sharding.split_lo(p.wq, 1) is not None
 
 
@@ -99,33 +116,84 @@ def _kv_heads(p, cfg, n_q):
     return kv if even else reads
 
 
-def _project(p, x, kv_x, cfg, cached=False):
+def _project(p, x, kv_x, cfg, cached=False, sp=False):
     """(q (B,S,H,hd), k, v (B,T,KV,hd)) from x and kv_x, before RoPE. In a
     tensor-parallel step with ``wq`` split, this rank's query heads and the
     KV heads they read (``_kv_heads``), each input behind
-    ``copy_to_model``; never the local query heads beside all KV heads,
+    ``copy_to_model`` (x gathered over the sequence by ``gather_seq``
+    instead with ``sp``); never the local query heads beside all KV heads,
     which flash's GQA mapping would pair wrongly (``_reads`` picks a
     cache's). ``cached``: K/V for a cache, every KV head of the rank's
     ``wk`` (its own where ``wk`` is split, else all of them)."""
     if not _split(p):
         return (_q(p, x, cfg),) + _kv(p, kv_x, cfg)
-    xc = sharding.copy_to_model(x)
+    xc = sharding.gather_seq(x) if sp else sharding.copy_to_model(x)
     kc = xc if kv_x is x else sharding.copy_to_model(kv_x)
     q = _q(p, xc, cfg, use="partial")
     heads = None if cached else _kv_heads(p, cfg, q.shape[2])
     return (q,) + _kv(p, kc, cfg, heads, "partial")
 
 
-def _qkv(p, x, positions, cfg, cached=False):
-    q, k, v = _project(p, x, x, cfg, cached)
+def _qkv(p, x, positions, cfg, cached=False, sp=False):
+    q, k, v = _project(p, x, x, cfg, cached, sp)
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg), v
 
 
-def _proj_out(p, out, cfg):
+def _proj_out(p, out, cfg, sp=False):
     """The output projection; in a tensor-parallel step over this rank's
-    heads' rows of ``wo``, summed over ``model``."""
+    heads' rows of ``wo``, summed over ``model`` (reduce-scattered onto
+    the rank's chunk of the sequence with ``sp``)."""
     y = sharding.dot(out, p.wo, at_use(p.wo, out, cfg), "bshk,hkd->bsd")
-    return sharding.reduce_from_model(y) if _split(p) else y
+    if not _split(p):
+        return y
+    return sharding.scatter_seq(y) if sp else sharding.reduce_from_model(y)
+
+
+def _cp(p, cfg, S, sp):
+    """Whether attention over ``S`` queries (the whole sequence's count)
+    computes this rank's chunk of them: the weights replicated (``wq`` not
+    split) and a sequence-parallel step (its rows are the chunk) or
+    ``sharding.context_parallel``."""
+    return not _split(p) and (sp or sharding.context_parallel(cfg.n_heads,
+                                                               S))
+
+
+def _cp_qkv(p, x, kv_x, positions, cfg, sp, rope=True):
+    """Context parallelism's projections: (q (B,S/m,H,hd) of this rank's
+    chunk of the queries, k, v (B,T,KV,hd) of every position and KV head,
+    the chunk's first position). With ``sp`` ``x`` is the chunk itself and
+    the keys' rows are gathered (``gather_seq``: each rank's K/V gradient
+    is its queries' share, summed); without, ``x`` is whole on every rank
+    and ``copy_to_model`` stands before both uses. ``positions`` (S,):
+    the whole sequence's, for RoPE where ``rope``."""
+    t = sharding.tp()
+    if sp:
+        xq = x
+        kx = sharding.gather_seq(x) if kv_x is x \
+            else sharding.copy_to_model(kv_x)
+    else:
+        xc = sharding.copy_to_model(x)
+        xq = xc[:, sharding.rank_slice(xc.shape[1])]
+        kx = xc if kv_x is x else sharding.copy_to_model(kv_x)
+    n = xq.shape[1]
+    lo = t.rank * n
+    q = _q(p, xq, cfg, at_use(p.wq, xq, cfg, use="partial"), "partial")
+    k, v = _kv(p, kx, cfg, None, "partial", "partial")
+    if rope:
+        q = apply_rope(q, positions[lo:lo + n], cfg)
+        k = apply_rope(k, positions, cfg)
+    return q, k, v, lo
+
+
+def _cp_out(p, out, cfg, sp):
+    """The output projection of a context-parallel chunk (``wo``
+    replicated, its gradient the chunk's share); without ``sp`` the
+    chunks gathered along the sequence into the replicated residual
+    (``gather_from_model``: its gradient is the same on every rank, each
+    keeps its chunk's)."""
+    y = sharding.dot(out, p.wo, at_use(p.wo, out, cfg, use="partial"),
+                     "bshk,hkd->bsd")
+    return y if sp else sharding.gather_from_model(y, 1)
 
 
 def _cache_split(cfg):
@@ -185,15 +253,22 @@ def make_mask(q_pos, k_pos, causal: bool, window: int):
     return m
 
 
-def attn_fwd(p, x, positions, cfg, *, causal=True, window=0):
+def attn_fwd(p, x, positions, cfg, *, causal=True, window=0, sp=False):
     """Full-sequence self-attention through the flash kernel, which masks
-    by index: ``positions`` (arange over the sequence) only feed RoPE
-    (``causal=False``: an encoder's). Cross-attention is ``cross_prefill``.
-    Returns (B,S,d)."""
-    q, k, v = _qkv(p, x, positions, cfg)
+    by index: ``positions`` (arange over the whole sequence) only feed
+    RoPE (``causal=False``: an encoder's). Cross-attention is
+    ``cross_prefill``. With ``sp`` x is the rank's chunk of the sequence
+    (``sharding.seq_split``), and so is the output. Returns (B,S,d)."""
+    if _cp(p, cfg, positions.shape[0], sp):
+        q, k, v, lo = _cp_qkv(p, x, x, positions, cfg, sp)
+        out = kops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=cfg.attn_logit_softcap,
+                                   q_offset=lo)
+        return _cp_out(p, out, cfg, sp)
+    q, k, v = _qkv(p, x, positions, cfg, sp=sp)
     out = kops.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=cfg.attn_logit_softcap)
-    return _proj_out(p, out, cfg)
+    return _proj_out(p, out, cfg, sp)
 
 
 def init_cache(cfg, batch, length, window=0, dtype=None, device=None):
@@ -215,9 +290,14 @@ def attn_prefill(p, x, positions, cfg, *, cache, window=0):
     positions, rotated so that position p sits in slot p % L, the slot
     ``attn_decode`` reads and overwrites (the reference keeps them in slots
     0..L-1, which decode only agrees with when L divides S). Returns
-    (out (B,S,d), cache)."""
-    q, k, v = _qkv(p, x, positions, cfg, cached=True)
+    (out (B,S,d), cache). Under context parallelism (``_cp``) this rank's
+    chunk of the queries attends, K/V whole."""
     S = x.shape[1]
+    cp = _cp(p, cfg, S, False)
+    if cp:
+        q, k, v, lo = _cp_qkv(p, x, x, positions, cfg, False)
+    else:
+        q, k, v = _qkv(p, x, positions, cfg, cached=True)
     L = cache["k"].shape[1]
     for name, new in (("k", k), ("v", v)):
         new = _own(new, cfg)
@@ -225,6 +305,11 @@ def attn_prefill(p, x, positions, cfg, *, cache, window=0):
             cache[name][:, :S] = new
         else:
             cache[name].copy_(torch.roll(new[:, S - L:], S % L, dims=1))
+    if cp:
+        out = kops.flash_attention(q, k, v, causal=True, window=window,
+                                   softcap=cfg.attn_logit_softcap,
+                                   q_offset=lo)
+        return _cp_out(p, out, cfg, False), cache
     k, v = _reads(p, cfg, q, k, v)
     out = kops.flash_attention(q, k, v, causal=True, window=window,
                                softcap=cfg.attn_logit_softcap)
@@ -282,21 +367,33 @@ def init_cross_cache(p, enc_out, cfg):
     return {"k": k, "v": v}
 
 
-def cross_prefill(p, x, enc_out, cfg, cached=False):
+def cross_prefill(p, x, enc_out, cfg, cached=False, sp=False):
     """Cross-attention of x (B,S,d) over the encoder output (B,F,d) through
     the flash kernel, non-causal and without RoPE (the reference's
     ``attn_fwd(kv_x=enc_out, causal=False, rope=False)``), for the full
     forward and the prompt alike; the cross cache it builds is what
     ``attn_decode(cross=True)`` reads (with ``cached``, in a
     tensor-parallel step, the rank's shard of it, as ``attn_prefill``
-    keeps a self cache's). Returns (out (B,S,d), cache)."""
-    q, k, v = _project(p, x, enc_out, cfg, cached)
+    keeps a self cache's). Context parallelism (``_cp``) splits x's
+    queries as ``attn_fwd``'s; ``sp`` as there. Returns (out (B,S,d),
+    cache)."""
+    S = x.shape[1] * (sharding.tp().size if sp else 1)
+    cp = _cp(p, cfg, S, sp)
+    if cp:
+        q, k, v, lo = _cp_qkv(p, x, enc_out, None, cfg, sp, rope=False)
+    else:
+        q, k, v = _project(p, x, enc_out, cfg, cached, sp)
     cache = {"k": _own(k, cfg), "v": _own(v, cfg)} if cached \
         else {"k": k, "v": v}
+    if cp:
+        out = kops.flash_attention(q, k, v, causal=False,
+                                   softcap=cfg.attn_logit_softcap,
+                                   q_offset=lo)
+        return _cp_out(p, out, cfg, sp), cache
     k, v = _reads(p, cfg, q, k, v) if cached else (k, v)
     out = kops.flash_attention(q, k, v, causal=False,
                                softcap=cfg.attn_logit_softcap)
-    return _proj_out(p, out, cfg), cache
+    return _proj_out(p, out, cfg, sp), cache
 
 
 def init_paged_cache(cfg, n_pages, page_size, dtype=None, device=None):

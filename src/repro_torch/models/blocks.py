@@ -17,6 +17,14 @@ mixture-of-experts FFN (``moe.Moe``) in place of the MLP: their
 full-sequence forward hands the router's aux values to the caller, their
 prefill and decode drop them, as the reference's do.
 
+In a train step whose residual stream is split over ``model``
+(``ctx["sp"]``, set by ``lm.lm_hidden`` from ``sharding.seq_split``) a
+layer takes and returns the rank's ``(B, S / model, d)`` chunk: its norms
+and residual adds run on the chunk (the norms' scales gathered with
+``use="partial"``), and its attention, MLP and MoE gather what they need
+(``sp`` of each). The ``rwkv`` and ``rglru`` kinds scan the whole
+sequence: a model with them is never split (``lm._seq_split``).
+
 ``layer_fwd_remat`` is the training forward under the reference's
 ``_remat`` (``cfg.remat``): "full" keeps only the layer's input and runs
 the layer again in the backward pass, "dots" keeps the matrix products'
@@ -95,17 +103,23 @@ def _rwkv(p, x, cfg, state):
     return x + h, state
 
 
-def _ffn_after(p, x, h, cfg):
+def _ffn_after(p, x, h, cfg, sp=False):
     """Residual add of the mixer's output h, then the feed-forward half:
     the MLP, or the MoE FFN where the layer has one. Returns (x, the
     router's aux values, {} without experts); prefill and decode drop
-    the aux values."""
+    the aux values. ``sp``: x and h are the rank's chunk of the
+    sequence."""
     x = x + h
-    h = norm_fwd(p.norm2, x, cfg)
+    h = norm_fwd(p.norm2, x, cfg, _norm_use(sp))
     if hasattr(p, "moe"):
-        y, aux = moe_fwd(p.moe, h, cfg)
+        y, aux = moe_fwd(p.moe, h, cfg, sp=sp)
         return x + y, aux
-    return x + mlp_fwd(p.mlp, h, cfg), {}
+    return x + mlp_fwd(p.mlp, h, cfg, sp), {}
+
+
+def _norm_use(sp):
+    """A norm's scale use: each rank's own rows with ``sp``."""
+    return "partial" if sp else "local"
 
 
 def _rglru(p, x, cfg, state):
@@ -114,9 +128,10 @@ def _rglru(p, x, cfg, state):
 
 
 def layer_fwd(kind, p, x, ctx, cfg):
-    """Full-sequence forward. ctx: positions (S,), and enc_out (B,F,d) for
-    ``dec_attn``. Returns (x, aux): the MoE kinds' router aux values
-    (``moe.moe_fwd``'s), {} for the other kinds."""
+    """Full-sequence forward. ctx: positions (S,) of the whole sequence,
+    enc_out (B,F,d) for ``dec_attn``, and optionally sp (x is the rank's
+    chunk of the sequence). Returns (x, aux): the MoE kinds' router aux
+    values (``moe.moe_fwd``'s), {} for the other kinds."""
     check_kind(kind, KINDS)
     if kind == "rwkv":
         return _rwkv(p, x, cfg, ssm.init_rwkv_state(cfg, x.shape[0],
@@ -124,14 +139,16 @@ def layer_fwd(kind, p, x, ctx, cfg):
     if kind == "rglru":
         return _rglru(p, x, cfg, ssm.init_rglru_state(
             cfg, x.shape[0], device=x.device))[0], {}
-    h = attn.attn_fwd(p.attn, norm_fwd(p.norm1, x, cfg), ctx["positions"],
-                      cfg, causal=kind != "enc_attn",
-                      window=_window(kind, cfg))
+    sp = ctx.get("sp", False)
+    use = _norm_use(sp)
+    h = attn.attn_fwd(p.attn, norm_fwd(p.norm1, x, cfg, use),
+                      ctx["positions"], cfg, causal=kind != "enc_attn",
+                      window=_window(kind, cfg), sp=sp)
     if kind == "dec_attn":
         x = x + h
-        h, _ = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg),
-                                  ctx["enc_out"], cfg)
-    return _ffn_after(p, x, h, cfg)
+        h, _ = attn.cross_prefill(p.xattn, norm_fwd(p.norm_x, x, cfg, use),
+                                  ctx["enc_out"], cfg, sp=sp)
+    return _ffn_after(p, x, h, cfg, sp)
 
 
 REMATS = ("none", "full", "dots")

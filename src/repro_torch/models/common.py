@@ -106,16 +106,19 @@ class Dense(nn.Module):
         self.w = weight(gen, shape, in_axis_size, dtype)
 
 
-def norm_fwd(p, x, cfg):
+def norm_fwd(p, x, cfg, use="local"):
+    """RMS or layer norm over the last dim; ``use``: the scale's and bias's
+    (``sharding.gather``; "partial" on a sequence-parallel chunk, whose
+    rows are the rank's own)."""
     dt = x.dtype
     x = x.float()
     if cfg.norm_type == "layernorm":
         x = x - x.mean(-1, keepdim=True)
     var = x.square().mean(-1, keepdim=True)
     x = x * torch.rsqrt(var + cfg.norm_eps)
-    x = x * cast(p.scale, torch.float32)
+    x = x * cast(p.scale, torch.float32, use)
     if cfg.norm_type == "layernorm":
-        x = x + cast(p.bias, torch.float32)
+        x = x + cast(p.bias, torch.float32, use)
     return x.to(dt)
 
 
@@ -140,30 +143,35 @@ def cast(w, dtype, use="local"):
     return gather(w, dtype, use) if is_dtensor(w) else w.to(dtype)
 
 
-def cast_part(w, dtype, part, dim=-1):
+def cast_part(w, dtype, part, dim=-1, use="local"):
     """The ``part`` (a slice or a list of indices of dim ``dim``) of
     replicated parameter ``w`` that this rank's heads or channels read in a
     tensor-parallel step, in ``dtype``; its gradient is summed over
-    ``model``. All of ``w`` (``cast``) where ``part`` is None."""
+    ``model``. All of ``w`` (``cast`` with ``use``) where ``part`` is
+    None."""
     if part is None:
-        return cast(w, dtype)
+        return cast(w, dtype, use)
     full = cast(w, dtype, "partial")
     return full[(slice(None),) * (dim % full.dim()) + (part,)]
 
 
-def at_use(w, x, cfg, part=None, dim=-1):
+def at_use(w, x, cfg, part=None, dim=-1, use="local"):
     """Weight ``w`` as the reference uses it against activation ``x``: cast
     to ``cfg.compute_dtype``, then promoted with ``x``'s dtype as JAX
     promotes a product. The identity beyond the cast when ``x`` is already
     in the compute dtype; with fp32 ``x`` and bf16 compute (recurrentgemma's
     residual stream, see ``embed_tokens``) the weight is rounded to bf16 and
     the product runs in fp32. ``part``: the entries of dim ``dim`` that
-    this rank reads of a replicated weight (``cast_part``)."""
+    this rank reads of a replicated weight (``cast_part``); ``use`` as
+    ``sharding.gather`` takes it ("partial": a replicated weight that each
+    rank applies to its own rows, a context- or sequence-parallel
+    chunk)."""
     cdt = torch_dtype(cfg.compute_dtype)
-    return cast_part(w, cdt, part, dim).to(torch.promote_types(x.dtype, cdt))
+    return cast_part(w, cdt, part, dim, use).to(
+        torch.promote_types(x.dtype, cdt))
 
 
-def embed_tokens(p, tokens, cfg):
+def embed_tokens(p, tokens, cfg, prefix=None, sp=False):
     """Token embeddings in the compute dtype. With ``emb_scale`` the
     reference multiplies them by ``np.sqrt(d).astype(np.float32)``, a numpy
     scalar, which JAX promotes as an fp32 array: the result is fp32 (the
@@ -178,7 +186,16 @@ def embed_tokens(p, tokens, cfg):
     serve step whose table is split over ``data`` too (its ``"data2d"``
     columns), the ``data`` ranks' token ids are gathered, each looks up
     its columns of them, and the columns are summed into whole rows
-    (``columns_over_data``), of which the rank keeps its own."""
+    (``columns_over_data``), of which the rank keeps its own.
+
+    ``prefix`` (B, P, d): patches put in front of the token embeddings,
+    cast to their dtype (the reference's ``_prefix_embed``). With ``sp``
+    (``sharding.seq_split`` of the P + S positions) the residual stream is
+    split over ``model`` from here on: the ranks' lookups are summed by a
+    reduce-scatter after the prefix is put in front (``scatter_seq``; the
+    prefix is rank 0's, zeros on the others, so the sum stays exact), and
+    the rank keeps its chunk of the positions; ``emb_scale`` then scales
+    each rank's lookup before the sum (exact likewise)."""
     tok = cast(p.tok, p.tok.dtype) if is_dtensor(p.tok) else p.tok
     lo = sharding.split_lo(p.tok, 0)
     cdt = torch_dtype(cfg.compute_dtype)
@@ -192,13 +209,19 @@ def embed_tokens(p, tokens, cfg):
         ids = ids - lo
         own = ((ids >= 0) & (ids < tok.shape[0]))[..., None]
         rows = tok[ids.clamp(0, tok.shape[0] - 1)]
-        x = sharding.reduce_from_model(
-            torch.where(own, rows, torch.zeros_like(rows)).to(cdt))
+        x = torch.where(own, rows, torch.zeros_like(rows)).to(cdt)
+        if not sp:
+            x = sharding.reduce_from_model(x)
     if columns:
         x = sharding.own_rows(sharding.columns_over_data(x), tokens.shape[0])
     if cfg.emb_scale:
         x = x.float() * float(np.float32(np.sqrt(cfg.d_model)))
-    return x
+    if prefix is not None:
+        pre = prefix.to(x.dtype)
+        if sp and lo is not None and sharding.tp().rank:
+            pre = torch.zeros_like(pre)
+        x = torch.cat([pre, x], dim=1)
+    return sharding.scatter_seq(x, reduce=lo is not None) if sp else x
 
 
 def logits_fwd(params, x, cfg):
@@ -206,9 +229,30 @@ def logits_fwd(params, x, cfg):
     tensor-parallel step where the head (or the tied table) is split over
     the vocab, the logits of this rank's vocab entries, from
     ``vocab_lo(params, cfg)`` on."""
-    x = norm_fwd(params.final_norm, x, cfg)
-    if vocab_lo(params, cfg) is not None:
-        x = sharding.copy_to_model(x)
+    return head_fwd(params, head_input(params, x, cfg), cfg)
+
+
+def head_input(params, x, cfg, sp=False):
+    """The final norm of hidden ``x``, then what stands before the LM head
+    in a tensor-parallel step whose head is split over the vocab:
+    ``copy_to_model`` (each rank's product gives its vocab slice's share of
+    the gradient). With ``sp`` ``x`` is the rank's chunk of the sequence:
+    the norm runs on the chunk (its scale's gradient summed over
+    ``model``) and the chunks are gathered, by ``gather_seq`` before a
+    split head (its backward sums the slices' shares and keeps the
+    chunk's), else by ``gather_from_model`` (every rank computes the same
+    head, so it keeps its chunk of one gradient)."""
+    x = norm_fwd(params.final_norm, x, cfg, "partial" if sp else "local")
+    split = vocab_lo(params, cfg) is not None
+    if sp:
+        return (sharding.gather_seq(x) if split
+                else sharding.gather_from_model(x, 1))
+    return sharding.copy_to_model(x) if split else x
+
+
+def head_fwd(params, x, cfg):
+    """The LM head on ``head_input``'s output: the logits (of this rank's
+    vocab entries where the head is split)."""
     if cfg.tie_embeddings:
         tok = params.embedding.tok
         return sharding.dot(x, tok, at_use(tok, x, cfg), "...i,oi->...o")

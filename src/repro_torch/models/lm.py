@@ -31,8 +31,9 @@ from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
-                                       gumbel_noise, logits_fwd, norm_fwd,
-                                       torch_dtype, vocab_lo)
+                                       gumbel_noise, head_fwd, head_input,
+                                       logits_fwd, norm_fwd, torch_dtype,
+                                       vocab_lo)
 from repro_torch.models.moe import AUX_KEYS
 
 # the reference's lm_loss coefficients of the MoE load-balance and z losses
@@ -85,12 +86,25 @@ def _encode(params, frames, cfg):
     return norm_fwd(params.enc_norm, x, cfg)
 
 
-def _context(params, batch, cfg):
+def _seq_split(batch, cfg):
+    """Whether a full-sequence forward of ``batch`` splits the residual
+    stream over ``model`` (``sharding.seq_split`` of its positions, the
+    patch prefix counted, as the reference constrains after the
+    concatenation); never with ``rwkv`` or ``rglru`` layers, whose scans
+    take the whole sequence (no config asks for it there)."""
+    S = prefix_len(batch, cfg) + batch["inputs"].shape[1]
+    return sharding.seq_split(S, cfg) and not any(
+        k in ("rwkv", "rglru") for k in cfg.layer_kinds)
+
+
+def _context(params, batch, cfg, sp=False):
     """Token embeddings (patches prepended where the frontend takes them)
     and the layers' context: positions, and the encoder's output where
-    there is an encoder. Returns (x, ctx, n_prefix)."""
-    x, positions, n_prefix = _prefix_embed(params, batch, cfg)
-    ctx = {"positions": positions}
+    there is an encoder. With ``sp`` (``_seq_split``) x is the rank's
+    chunk of the sequence, positions the whole sequence's, and ctx["sp"]
+    tells the layers. Returns (x, ctx, n_prefix)."""
+    x, positions, n_prefix = _prefix_embed(params, batch, cfg, sp)
+    ctx = {"positions": positions, "sp": sp}
     if cfg.encoder_segments:
         ctx["enc_out"] = _encode(params, batch["frames"], cfg)
     return x, ctx, n_prefix
@@ -104,15 +118,30 @@ def prefix_len(batch, cfg):
     return 0
 
 
-def _prefix_embed(params, batch, cfg):
-    """Token embeddings, with patches prepended when present.
-    Returns (x, positions, n_prefix)."""
-    x = embed_tokens(params.embedding, batch["inputs"], cfg)
+def _prefix_embed(params, batch, cfg, sp=False):
+    """Token embeddings, with patches prepended when present (with ``sp``
+    the rank's chunk of them, ``common.embed_tokens``). Returns (x,
+    positions of the whole sequence, n_prefix)."""
     n_prefix = prefix_len(batch, cfg)
-    if n_prefix:
-        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-    positions = torch.arange(x.shape[1], device=x.device)
+    x = embed_tokens(params.embedding, batch["inputs"], cfg,
+                     batch["patches"] if n_prefix else None, sp)
+    S = n_prefix + batch["inputs"].shape[1]
+    positions = torch.arange(S, device=x.device)
     return x, positions, n_prefix
+
+
+def _trunk(params, batch, cfg):
+    """The embedding and the layers: (x, aux, n_prefix, sp), x the rank's
+    chunk of the sequence where ``sp`` (``_seq_split``), else all of it,
+    patch prefix included."""
+    sp = _seq_split(batch, cfg)
+    x, ctx, n_prefix = _context(params, batch, cfg, sp)
+    auxs = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
+    for layer, kind in zip(params.layers, cfg.layer_kinds):
+        x, aux = blocks.layer_fwd_remat(kind, layer, x, ctx, cfg)
+        for k, v in aux.items():
+            auxs[k] = auxs[k] + v
+    return x, auxs, n_prefix, sp
 
 
 def lm_hidden(params, batch, cfg):
@@ -121,13 +150,14 @@ def lm_hidden(params, batch, cfg):
     (``blocks.layer_fwd_remat``):
     ``moe.AUX_KEYS``' values summed over the layers, fp32 zeros where a
     layer has no experts (so a dense config reports zeros, as the
-    reference's segment scan pads them)."""
-    x, ctx, n_prefix = _context(params, batch, cfg)
-    auxs = {k: torch.zeros((), device=x.device) for k in AUX_KEYS}
-    for layer, kind in zip(params.layers, cfg.layer_kinds):
-        x, aux = blocks.layer_fwd_remat(kind, layer, x, ctx, cfg)
-        for k, v in aux.items():
-            auxs[k] = auxs[k] + v
+    reference's segment scan pads them). In a train step that splits the
+    residual stream over ``model`` (``_seq_split``) the layers compute on
+    the rank's chunk of the sequence and the chunks are gathered here
+    (``gather_from_model``: the layers after it compute alike on every
+    rank); ``lm_loss`` gathers after the final norm instead."""
+    x, auxs, n_prefix, sp = _trunk(params, batch, cfg)
+    if sp:
+        x = sharding.gather_from_model(x, 1)
     return x[:, n_prefix:], auxs
 
 
@@ -168,11 +198,12 @@ def cross_entropy(logits, targets, lo=None):
     return total / count.clamp_min(1.0)
 
 
-def _chunked_ce(params, x, targets, cfg):
+def _chunked_ce(params, x, targets, cfg, logits=logits_fwd):
     """Sequence-chunked logits + CE: peak memory is one chunk of
     (tokens / chunks, padded_vocab) fp32 logits instead of the whole
     sequence's (of this rank's vocab entries in a tensor-parallel step).
-    Each chunk's logits are recomputed in the backward pass."""
+    Each chunk's logits (``logits(params, chunk, cfg)``; the final norm and
+    the head by default) are recomputed in the backward pass."""
     n = cfg.ce_chunks
     S = x.shape[1]
     if S % n:
@@ -181,7 +212,7 @@ def _chunked_ce(params, x, targets, cfg):
     lo = vocab_lo(params, cfg)
 
     def body(xi, ti):
-        return _ce_sums(logits_fwd(params, xi, cfg).float(), ti, lo)
+        return _ce_sums(logits(params, xi, cfg).float(), ti, lo)
 
     total = count = 0.0
     for i in range(n):
@@ -198,12 +229,20 @@ def lm_loss(params, batch, cfg):
     forward of ``batch["inputs"]``, plus ``LB_COEF`` x the MoE load-balance
     loss and ``Z_COEF`` x the router z-loss (summed over the layers; zeros
     without experts); returns (loss, metrics): ``ce_loss``, the three aux
-    values (``moe.AUX_KEYS``) and ``loss``."""
-    x, aux = lm_hidden(params, batch, cfg)
+    values (``moe.AUX_KEYS``) and ``loss``. Where the residual stream is
+    split over ``model`` (``_seq_split``) the final norm runs on the
+    rank's chunk and the chunks are gathered before the head
+    (``common.head_input``); the CE's chunks and vocab split are as
+    without."""
+    x, aux, n_prefix, sp = _trunk(params, batch, cfg)
+    logits = logits_fwd
+    if sp:
+        x, logits = head_input(params, x, cfg, sp=True), head_fwd
+    x = x[:, n_prefix:]
     if cfg.ce_chunks > 1:
-        ce = _chunked_ce(params, x, batch["targets"], cfg)
+        ce = _chunked_ce(params, x, batch["targets"], cfg, logits)
     else:
-        ce = cross_entropy(logits_fwd(params, x, cfg), batch["targets"],
+        ce = cross_entropy(logits(params, x, cfg), batch["targets"],
                            vocab_lo(params, cfg))
     loss = ce + LB_COEF * aux["moe_lb_loss"] + Z_COEF * aux["moe_z_loss"]
     return loss, {"ce_loss": ce, **aux, "loss": loss}

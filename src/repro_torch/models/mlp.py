@@ -3,8 +3,13 @@ squared-ReLU / GELU, weights cast to the compute dtype at use. The ungated
 forms have no ``wg``, as the reference builds them. In a tensor-parallel
 step (``distributed.sharding``) each rank computes its slice of ``d_ff``:
 ``wi`` / ``wg`` column-parallel, ``wo`` row-parallel and summed over
-``model``. Serving on the serve rules' shards, each product also
-multiplies its weight's ``"data2d"`` slice where it lies
+``model``. With the residual stream split over ``model`` (``sp``,
+``sharding.seq_split``) the rank's chunk of the sequence is gathered before
+``wi`` / ``wg`` (``gather_seq``) and ``wo``'s partial sums are
+reduce-scattered back onto it (``scatter_seq``); where ``d_ff`` does not
+split, the replicated weights compute on the chunk itself, their gradients
+summed over ``model``. Serving on the serve rules' shards, each product
+also multiplies its weight's ``"data2d"`` slice where it lies
 (``sharding.dot``)."""
 
 from __future__ import annotations
@@ -32,15 +37,20 @@ class Mlp(nn.Module):
         self.wo = weight(gen, (f, d), f, dt)
 
 
-def mlp_fwd(p, x, cfg):
+def mlp_fwd(p, x, cfg, sp=False):
+    """x (B,S,d) -> (B,S,d); with ``sp`` x is the rank's chunk of the
+    sequence, and so is the output."""
     split = sharding.split_lo(p.wi, 1) is not None
+    use = "partial" if sp and not split else "local"
     if split:
-        x = sharding.copy_to_model(x)
-    h = sharding.dot(x, p.wi, at_use(p.wi, x, cfg))
+        x = sharding.gather_seq(x) if sp else sharding.copy_to_model(x)
+    h = sharding.dot(x, p.wi, at_use(p.wi, x, cfg, use=use))
     if cfg.mlp_type in GATES:
-        g = sharding.dot(x, p.wg, at_use(p.wg, x, cfg))
+        g = sharding.dot(x, p.wg, at_use(p.wg, x, cfg, use=use))
         h = GATES[cfg.mlp_type](g) * h
     else:
         h = ACTIVATIONS[cfg.mlp_type](h)
-    y = sharding.dot(h, p.wo, at_use(p.wo, h, cfg))
-    return sharding.reduce_from_model(y) if split else y
+    y = sharding.dot(h, p.wo, at_use(p.wo, h, cfg, use=use))
+    if not split:
+        return y
+    return sharding.scatter_seq(y) if sp else sharding.reduce_from_model(y)

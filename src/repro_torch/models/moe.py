@@ -21,7 +21,12 @@ among equal probabilities the lower expert index comes first, as
 The reference's sharding constraints have nothing to constrain here: on a
 mesh the experts are gathered whole at use and every ``model`` rank
 computes all of them on its rows, in training and in serving alike (expert
-parallelism is ROADMAP Queue 1 item 3). In a serve step that gather is the
+parallelism is ROADMAP Queue 1 item 3). Under sequence parallelism
+(``sp``) the rank's chunk of the sequence is gathered first
+(``gather_from_model``), so routing, capacity and the aux values see every
+token as without it, and the rank keeps its chunk of the output
+(``scatter_seq`` without a sum: every rank computes the same FFN, and the
+gradient's chunks are gathered for it). In a serve step that gather is the
 one weight gather left: the serve rules store the experts over ``data``
 too, where the dense products multiply their slices in place
 (``sharding.dot``: the router's, the shared expert's MLP, which is
@@ -117,12 +122,15 @@ def moe_fwd_dense(p, x, cfg):
                "moe_drop_frac": torch.zeros((), device=x.device)}
 
 
-def moe_fwd(p, x, cfg, n_groups: int = 0):
+def moe_fwd(p, x, cfg, n_groups: int = 0, sp=False):
     """x (B, S, d) -> (y (B, S, d), {"moe_lb_loss", "moe_z_loss",
     "moe_drop_frac"}): the dense form with ``cfg.moe_impl == "dense"``,
     else the capacity form over ``n_groups`` groups (default B, one a
     sequence), tagged ``moeffn`` for the cost counter as the reference's
-    is."""
+    is. With ``sp`` x is the rank's chunk of the sequence, and so is y."""
+    if sp:
+        y, aux = moe_fwd(p, sharding.gather_from_model(x, 1), cfg, n_groups)
+        return sharding.scatter_seq(y, reduce=False), aux
     if cfg.moe_impl == "dense":
         return moe_fwd_dense(p, x, cfg)
     with cost.tag("moeffn"):

@@ -24,7 +24,8 @@ from repro.distributed.hlo_analysis import Roofline as RefRoofline  # noqa: E402
 from repro.distributed.hlo_cost import analyze as hlo_analyze  # noqa: E402
 from repro.models import lm as ref_lm  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.configs import (SHAPES, SHAPES_BY_NAME,  # noqa: E402
+                                 ShapeConfig)
 from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: E402
                                           get_reduced)
 from repro_torch.distributed import cost, roofline  # noqa: E402
@@ -430,3 +431,80 @@ def test_tp_split_products_are_a_quarter(part):
             dist.destroy_process_group()
     one, four = count(1), count(4)
     assert one > 0 and four * 4 == one
+
+
+# ---------------------------------------------------------------------------
+# sequence and context parallelism: train_4k cells at full width, 2 layers,
+# on the single-pod fake group
+# ---------------------------------------------------------------------------
+
+TWO_LAYERS = {"n_layers": 2, "segments": ((("attn",), 2),)}
+SP_S, SP_M = 4096, 16
+
+
+def seen_cell(arch, rank=None):
+    """``dryrun.run_cell`` of ``arch``'s train_4k cell cut to 2 layers, at
+    ``rank``, with each flash call's (Sq, q_offset) and each layer's
+    residual shape, recorded by pass-throughs in the functions' places."""
+    from repro_torch.models import blocks
+    calls, shapes = [], []
+    inner_fa, inner_layer = fa.flash_attention_bhsd, blocks.layer_fwd
+
+    def flash(q, k, v, **kw):
+        calls.append((q.shape[2], kw.get("q_offset", 0)))
+        return inner_fa(q, k, v, **kw)
+
+    def layer(kind, p, x, ctx, cfg):
+        shapes.append(tuple(x.shape))
+        return inner_layer(kind, p, x, ctx, cfg)
+    fa.flash_attention_bhsd, blocks.layer_fwd = flash, layer
+    try:
+        rec = dryrun.run_cell(arch, "train_4k", "single", TWO_LAYERS,
+                              rank=rank)
+    finally:
+        fa.flash_attention_bhsd, blocks.layer_fwd = inner_fa, inner_layer
+    return rec, calls, shapes
+
+
+def test_cp_cell_counts_flash_at_each_ranks_chunk():
+    """smollm-360m ``train_4k`` (15 heads on 16 ranks: SP and CP): every
+    flash call takes the rank's 4096 / 16 queries at its offset, the
+    residual is the rank's (rows, 256, 960) chunk in every layer, and the
+    last rank's flash FLOPs exceed rank 0's by the live pairs its chunk
+    adds (the default rank is that last one); the collectives are the
+    all-reduces the layers issue, nothing else."""
+    cfg = get_config("smollm-360m")
+    rows = SHAPES_BY_NAME["train_4k"].global_batch // SP_M
+    n = SP_S // SP_M
+    recs = {}
+    for rank in (0, SP_M - 1):
+        rec, calls, shapes = seen_cell("smollm-360m", rank)
+        assert rec["rank"] == rank
+        assert calls and set(calls) == {(n, rank * n)}, set(calls)
+        assert set(shapes) == {(rows, n, cfg.d_model)}
+        assert set(rec["roofline"]["collectives"]) == {"all-reduce"}
+        recs[rank] = rec, len(calls)
+    assert seen_cell("smollm-360m")[0]["rank"] == SP_M - 1
+    (first, n_calls), (last, _) = recs[0], recs[SP_M - 1]
+    work = [cost.flash_work(rows, cfg.n_heads, cfg.n_kv_heads, n, SP_S,
+                            cfg.head_dim, 2, 2, True, 0, off)[0]
+            for off in (0, (SP_M - 1) * n)]
+    assert last["attn_tagged"]["flops"] - first["attn_tagged"]["flops"] \
+        == n_calls * (work[1] - work[0])
+
+
+def test_sp_cell_norms_run_on_the_ranks_positions():
+    """llama3-8b ``train_4k`` (32 heads divide 16: SP, no CP): the layers
+    take the rank's (rows, 4096 / 16, 4096) chunk, so its norms and
+    residual adds count S / 16 positions; flash takes the whole sequence
+    on the rank's 2 heads; the layers' collectives are all-reduces, beside
+    the FSDP storage's all-gathers of the weights over ``data`` and
+    reduce-scatters of their gradients (DTensor's)."""
+    cfg = get_config("llama3-8b")
+    assert cfg.fsdp
+    rows = SHAPES_BY_NAME["train_4k"].global_batch // SP_M
+    rec, calls, shapes = seen_cell("llama3-8b")
+    assert set(shapes) == {(rows, SP_S // SP_M, cfg.d_model)}
+    assert calls and set(calls) == {(SP_S, 0)}
+    assert set(rec["roofline"]["collectives"]) == {
+        "all-reduce", "all-gather", "reduce-scatter"}

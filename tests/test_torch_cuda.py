@@ -190,6 +190,58 @@ def test_flash_bf16_sequence_form(cuda, B, H, KV, S, hd, kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,off,kw", [
+    (2, 4, 2, 128, 512, 64, 0, {}),            # chunk 0 of 4
+    (2, 4, 2, 128, 512, 64, 384, {}),          # chunk 3 of 4
+    (2, 15, 5, 128, 512, 64, 256, {}),         # smollm-360m's CP rank 2
+    (1, 10, 1, 160, 640, 256, 480, dict(window=300)),  # window past off
+    (1, 4, 2, 1, 96, 32, 70, {}),              # a one-query chunk
+    (1, 3, 1, 1, 96, 128, 70, dict(window=9)),
+    (1, 2, 1, 40, 64, 32, 100, dict(causal=False, window=8)),  # no key
+    (2, 4, 4, 64, 256, 16, 64, dict(softcap=5.0))])
+def test_flash_sequence_forms_at_an_offset(cuda, dtype, B, H, KV, Sq, Sk, hd,
+                                           off, kw):
+    """Both sequence forms (and the decode form for one query) at a query
+    offset, a context-parallel rank's chunk: against the plain version
+    (the bf16 form also against its tiled algebra), the chunk's rows
+    against the whole call's rows [off, off + Sq) where the chunk lies
+    inside the keys, rows with no live key exactly zero. One launch a
+    call."""
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(Sq + off + hd)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda).to(dt)  # noqa
+    q, k, v = mk(B, H, Sq, hd), mk(B, KV, Sk, hd), mk(B, KV, Sk, hd)
+    kw = dict(causal=True, **kw) if "causal" not in kw else kw
+    before = _cuda.launches["flash_attention_bhsd"]
+    got = fa.flash_attention_bhsd(q, k, v, q_offset=off, **kw)
+    assert _cuda.launches["flash_attention_bhsd"] == before + 1
+    t = 2e-5 if dtype == "float32" else 2e-2
+    refs = [fa.attention_ref]
+    if dtype == "bfloat16" and Sq > 1:
+        refs.append(fa.attention_tiled_ref)
+    for ref in refs:
+        want = ref(q, k, v, q_offset=off, **kw)
+        assert_allclose(got.float().cpu().numpy(),
+                        want.float().cpu().numpy(), atol=t, rtol=t)
+    if off + Sq <= Sk and Sq > 1:
+        qs = torch.zeros(B, H, off + Sq, hd, device=cuda, dtype=dt)
+        qs[:, :, off:] = q
+        whole = fa.flash_attention_bhsd(qs, k, v, **kw)
+        assert_allclose(got.float().cpu().numpy(),
+                        whole[:, :, off:].float().cpu().numpy(), atol=t,
+                        rtol=t)
+    live = cost_live_rows(Sq, Sk, off, kw)
+    assert bool((got[:, :, ~live] == 0).all())
+
+
+def cost_live_rows(Sq, Sk, off, kw):
+    """Which of a chunk's rows have a live key (the plain mask's)."""
+    mask = fa._mask(Sq, torch.arange(Sk), kw.get("causal", True),
+                    kw.get("window", 0), Sq, Sk, off, "cpu")
+    return mask.any(-1).to("cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", [
     (2, 32, 2, 40, 40, 128, True),             # chatglm3-6b, G = 16
     (1, 56, 8, 37, 37, 128, True),             # llava-next-34b, G = 7

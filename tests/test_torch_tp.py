@@ -16,7 +16,10 @@ full config's ``fsdp`` and ``moe_parallelism``. On each mesh every rank:
   Reduced llama3-8b
   and chatglm3-6b have KV 2, which divides ``model`` at (2, 2) and is
   replicated at (1, 4); smollm-360m's 3 heads and recurrentgemma-2b's 2
-  (at (1, 4)) do not divide, so attention runs whole; qwen3's qk-norm,
+  (at (1, 4)) do not divide, so attention computes each rank's chunk of
+  the 16 queries at its offset (context parallelism; the reduced configs
+  set no sequence parallelism, tests/test_torch_sp.py turns it on);
+  qwen3's qk-norm,
   llama4's experts (gathered whole) and shared expert, rwkv6's time mix
   (also at heads of 32, whose 2 heads do not divide 4 ranks: it computes
   whole) and channel mix, the Griffin block with its gather, and the
