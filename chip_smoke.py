@@ -242,8 +242,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    device alone), device time by kind. (d) ``python -m
    repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` (sequence
    parallel) and ``decode_32k`` (the head-dim fallback of KV 8 on 16
-   ranks), rwkv6-7b ``decode_32k`` and smollm-360m ``train_4k`` (sequence
-   and context parallel: 15 heads on 16 ranks) on the single-pod mesh, in
+   ranks), rwkv6-7b ``decode_32k``, smollm-360m ``train_4k`` (sequence
+   and context parallel: 15 heads on 16 ranks) and
+   llama4-maverick-400b-a17b ``decode_32k`` (its experts on their model
+   and data ranks, no weight gathered) on the single-pod mesh, in
    subprocesses on fake 256-rank groups started with the phase (they run
    on the host beside (a)-(c)): each roofline line (t_comp, t_mem, t_coll,
    mfr), its bottleneck and its collective bytes by kind. (e) Flash at
@@ -260,7 +262,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Four processes on the card join a gloo group with CUDA tensors (NCCL
    refuses two ranks on one device) as a (1, 4) ("data", "model") mesh;
    each of ``TP_TRAINS`` (llama3-8b, chatglm3-6b, rwkv6-7b and
-   smollm-360m at 2 layers, recurrentgemma-2b at one block) trains
+   smollm-360m at 2 layers, recurrentgemma-2b at one block,
+   qwen3-moe-30b-a3b at 1 layer, its 4 groups one a rank) trains
    ``TP_STEPS`` steps of 4 x 512 with ``launch/train.py``, in fp32 and in
    its config's bf16, against ``--mesh none`` run in this process from the
    same seed, whose gradients and weights the ranks read by CUDA IPC:
@@ -271,24 +274,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (llama3-8b, chatglm3-6b and smollm-360m split the residual stream, each
    rank's 128 positions in every layer; smollm-360m's and
    recurrentgemma-2b's attention computes each rank's 128 queries at its
-   offset: the residual's shape and flash's (Sq, q_offset) a rank);
+   offset: the residual's shape and flash's (Sq, q_offset) a rank;
+   qwen3's expert products one group of every expert a rank, no parameter
+   gathered over model);
    printed: the weights, each rank's step walls, all-reduces a step and
    their bytes, FLOPs and MFU (one step under ``distributed.cost``'s
    counter). (c) Serving in the same four
-   ranks: each of ``TP_TRAINS`` prefills 4 x 512 seeded tokens under the
+   ranks: each of ``TP_TRAINS`` and llama4-maverick-400b-a17b (1 of its
+   24 pairs at full width, each rank drawing and holding its 32 of the 128
+   experts) prefills 4 x 512 seeded tokens under the
    train rules on the (1, 4) mesh (the rank's cache shards, its vocab
    slice of the logits) and decodes ``TP_DECODE`` steps on the serve
    rules' shards, fed --mesh none's greedy tokens, in fp32 and in its
    config's dtype; llama3-8b also on a (2, 2) mesh over the same ranks,
    whose decode multiplies each weight's "data2d" slice where it lies.
    Held against --mesh none run here: every call's logits
-   (``tp_logit_tol`` of their max), the fp32 greedy tokens, each call's
+   (``tp_logit_tol`` of their max; a MoE arch's bf16 row whose last token
+   was routed otherwise left out and counted), the fp32 greedy tokens,
+   the MoE archs' expert products over each rank's experts and no
+   parameter gathered over model, each call's
    launches by kernel and form, each cache shard's shape as
    ``cache_spec_tree`` places it, no all-gather in a decode step, the
    prefill's flash at each rank's chunk where context parallelism holds;
    printed: a decode step's wall and collectives a rank. Eight more
    records hold and time the kernels at the serving ranks' local shapes
-   (``tp_serve_records``).
+   (``tp_serve_records``), two flash at llama4's (``ep_records``). (d)
+   llama4's MoE block at full width, forward and backward on bf16 leaves
+   over 4 x 512 tokens: unsharded here first, then every rank on its
+   sequence chunk with its 32 experts; the output, the input's and the
+   router's gradients, the aux values and each rank's expert gradients
+   (read by CUDA IPC, against the whole gradient held in host memory)
+   within 2e-2 of their max; each rank's peak memory printed.
 13. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
@@ -298,7 +314,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    6's record, its shape, and its rglru and flash launches are the 4 x
    2560 records'; phase 11's mesh runs add theirs to the records of the
    kernels and forms they ran, smollm-360m's flash shape its own; phase
-   12's bf16 runs are the four local-shape records' launches, rank 0's,
+   12's bf16 runs are the four local-shape records' launches, rank 0's
+   (llama4's serving the two ``ep_records``'),
    the context-parallel chunks' records (2c) those of the ranks at their
    offsets, its serving prefills adding to the same records and its (2, 2)
    prefill and decode steps the eight serving records' launches),
@@ -419,9 +436,10 @@ MOE_SERVES = {"qwen3-moe-30b-a3b": (8, 512, 32),
 # phase 10: launch/train.py on the SSM archs at full width: arch -> (rows,
 # tokens a row), rwkv6-7b at phase 6's prompt shape, recurrentgemma-2b past
 # its 2048 window and not a multiple of it; steps a run (3 since phase 12
-# took smollm-360m, to keep the script near 600 s)
+# took smollm-360m, 2 since it took the MoE archs, to keep the script near
+# 600 s)
 SSM_TRAINS = {"rwkv6-7b": (8, 512), "recurrentgemma-2b": (4, 2560)}
-SSM_TRAIN_STEPS = 3
+SSM_TRAIN_STEPS = 2
 # phase 10b: card vs CPU, reduced, fp32, remat full: rows x tokens, steps;
 # losses to 1e-5 relative and weights to 1e-4 after them (phase 5d b's)
 SSM_AGREE_SHAPES = {"rwkv6-7b": (4, 40), "recurrentgemma-2b": (4, 24)}
@@ -438,7 +456,8 @@ MESH_STEPS = 4
 MESH_LOSS_RTOL, MESH_WEIGHT_RTOL = 1e-5, 1e-4
 # phase 11d: launch/dryrun.py cells on the single-pod mesh
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"),
-                ("llama3-8b", "decode_32k"), ("smollm-360m", "train_4k"))
+                ("llama3-8b", "decode_32k"), ("smollm-360m", "train_4k"),
+                ("llama4-maverick-400b-a17b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 600
 # phase 12: launch/train.py tensor-parallel over "model" on a (1, 4) mesh of
 # four processes sharing the one card over gloo with CUDA tensors (NCCL
@@ -451,9 +470,27 @@ DRYRUN_TIMEOUT_S = 600
 # not divide 4: their attention computes each rank's 128 queries at its
 # offset (context parallelism)
 TP_TRAINS = {"llama3-8b": 2, "chatglm3-6b": 2, "rwkv6-7b": 2,
-             "recurrentgemma-2b": 3, "smollm-360m": 2}
+             "recurrentgemma-2b": 3, "smollm-360m": 2, "qwen3-moe-30b-a3b": 1}
+# phase 12, expert parallelism (PR 28): qwen3-moe-30b-a3b trains and serves
+# with TP_TRAINS at 1 of its 48 layers (the train rules replicate its
+# experts over model: ~9.7 GB a rank a layer with AdamW), its 4 groups one
+# a rank (an all-to-all over model under sequence parallelism), its experts
+# on model at serve time. llama4-maverick-400b-a17b serves (no training: its
+# fp32 experts alone would take 16.1 GB a rank, ~64 GB with gradients and
+# AdamW moments) at 1 of its 24 (attn, moe) pairs, each rank drawing and
+# holding its 32 of the 128 experts (8.05 GB in bf16, lm.init_lm with the
+# mesh); its MoE block at full width runs forward and backward on bf16
+# leaves (EP_BLOCK_SEED's input), the unsharded block first (32.2 + 32.2
+# GB), each rank's experts' gradients held against it piece by piece from
+# host memory
+TP_SERVES = {"llama4-maverick-400b-a17b": 2}
+EP_ARCH, EP_BLOCK_SEED = "llama4-maverick-400b-a17b", 47
+EP_PIECE = 4            # experts a piece of the gradients' comparison
 TP_RANKS, TP_MESH = 4, (1, 4)
-TP_BATCH, TP_SEQ, TP_STEPS = 4, 512, 4
+# 2 steps a run since phase 12 took the MoE archs (4 before), to keep the
+# script near 600 s: qwen3's replicated experts' gradient is a 2.4 GB fp32
+# all-reduce over model a step, staged through the host by gloo
+TP_BATCH, TP_SEQ, TP_STEPS = 4, 512, 2
 # against --mesh none from one seed: every step's loss, to 1e-5 in fp32 and
 # 2e-2 in bf16; rwkv6-7b's fp32 losses after the first step are printed,
 # since AdamW's normalized step carries the split's rounding into its
@@ -468,8 +505,13 @@ TP_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # move. rwkv6-7b's bf16 `u` gradient is a leaf 133x below the model's
 # largest, whose sum cancels: one split moves it 1.79 of its max.
 # smollm-360m's bf16 move is its first norm's scale (1.391e-2 of its max);
-# its fp32 move, 2.052e-6, is under TP_GRAD_RTOL
+# its fp32 move, 2.052e-6, is under TP_GRAD_RTOL. qwen3-moe-30b-a3b has no
+# MLP: its move is that of splitting attention's output projection over
+# its heads (tools/tp_rounding.py --attn), which in bf16 flips a few
+# tokens' top-8 choices, moving an expert's gradient 0.556 of the leaf's
+# max (fp32: 2.973e-6)
 TP_SPLIT_MOVES = {("rwkv6-7b", "float32"): 3.334e-3,
+                  ("qwen3-moe-30b-a3b", "bfloat16"): 5.556e-1,
                   ("llama3-8b", "bfloat16"): 1.345e-2,
                   ("chatglm3-6b", "bfloat16"): 1.370e-2,
                   ("rwkv6-7b", "bfloat16"): 1.787,
@@ -4845,11 +4887,12 @@ def seen_calls():
     in their modules (where the callers look them up at each call)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import blocks
-    seen = {"layers": set(), "flash": set()}
+    seen = {"layers": set(), "flash": set(), "heads": set()}
     inner_fa, inner_layer = fa.flash_attention_bhsd, blocks.layer_fwd
 
     def flash(q, k, v, **kw):
         seen["flash"].add((q.shape[2], kw.get("q_offset", 0)))
+        seen["heads"].add((q.shape[1], k.shape[1]))
         return inner_fa(q, k, v, **kw)
 
     def layer(kind, p, x, ctx, cfg):
@@ -4860,6 +4903,75 @@ def seen_calls():
         yield seen
     finally:
         fa.flash_attention_bhsd, blocks.layer_fwd = inner_fa, inner_layer
+
+
+@contextlib.contextmanager
+def moe_calls():
+    """Each capacity-form MoE call made in the block: {"products": the set
+    of (dispatch shape (G, experts, C, d), the shape of the ``wi`` it
+    multiplies), "routing": [(the last token's expert ids, whether each
+    was kept), (groups, top-k) each, a call]}, by pass-throughs in
+    ``moe._experts``'s and ``moe.dispatch_slots``'s places."""
+    from repro_torch.models import moe
+    seen = {"products": set(), "routing": []}
+    inner, inner_w, inner_d = moe._experts, moe._expert_w, moe.dispatch_slots
+
+    def experts(p, h, cfg, eq_in, eq_out, use="whole"):
+        used = []
+
+        def expert_w(w, x, cfg, use):
+            out = inner_w(w, x, cfg, use)
+            if w is p.wi:
+                used.append(tuple(out.shape))
+            return out
+        moe._expert_w = expert_w
+        try:
+            out = inner(p, h, cfg, eq_in, eq_out, use)
+        finally:
+            moe._expert_w = inner_w
+        seen["products"].add((tuple(h.shape), used[0]))
+        return out
+
+    def dispatch(idx, E, C):
+        out = inner_d(idx, E, C)
+        k = idx.shape[-1]
+        seen["routing"].append((out[0][:, -k:].clone(), out[1][:, -k:]
+                                .clone()))
+        return out
+    moe._experts, moe.dispatch_slots = experts, dispatch
+    try:
+        yield seen
+    finally:
+        moe._experts, moe.dispatch_slots = inner, inner_d
+
+
+def ep_expected_products(cfg, S, mode):
+    """The one (dispatch, wi) shape pair ``moe_calls`` must record on a
+    rank of the (1, 4) mesh for ``TP_BATCH`` rows of ``S`` tokens in
+    ``mode``: llama4 (``"ep"``) and every serve step its E / 4 experts on
+    all the rows' groups, qwen3's train rules one group of the 4 with every
+    expert."""
+    from repro_torch.models.moe import capacity
+    m, E = TP_MESH[1], cfg.moe_experts
+    d, f, C = cfg.d_model, cfg.moe_d_ff, capacity(S, cfg)
+    if cfg.moe_parallelism == "ep" or mode == "serve":
+        return {((TP_BATCH, E // m, C, d), (E // m, d, f))}
+    return {((TP_BATCH // m, E, C, d), (E, d, f))}
+
+
+def free_card(torch):
+    """Give the card back: Python's garbage, the tensors shared with
+    another process that it has released (``ipc_collect``: until then a
+    shared block stays allocated here), the allocator's cache."""
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+
+def over_model():
+    """The uses so far that gathered a parameter over ``model``."""
+    from repro_torch.distributed import sharding
+    return sharding.gathers["over_model"]
 
 
 def tp_expected_seen(cfg, rank):
@@ -4874,14 +4986,15 @@ def tp_expected_seen(cfg, rank):
         k in ("rwkv", "rglru") for k in cfg.layer_kinds)
     layers = {(TP_BATCH, TP_SEQ // m if sp else TP_SEQ, cfg.d_model)}
     n = TP_SEQ // m
-    if not any(k.startswith("attn") for k in cfg.layer_kinds):
+    if all(k in ("rwkv", "rglru") for k in cfg.layer_kinds):
         return layers, set()
     return layers, ({(n, rank * n)} if cfg.n_heads % m else {(TP_SEQ, 0)})
 
 
 def tp_cfg(arch, dtype):
     """``mesh_cfg`` at phase 12's depth, computing in ``dtype``."""
-    return mesh_cfg(arch, TP_TRAINS[arch]).replace(compute_dtype=dtype)
+    return mesh_cfg(arch, {**TP_TRAINS, **TP_SERVES}[arch]).replace(
+        compute_dtype=dtype)
 
 
 def tp_opt():
@@ -4993,11 +5106,14 @@ def tp_rank_run(torch, arch, dtype, ref, mesh):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with seen_calls() as seen:
+    n_over = over_model()
+    with seen_calls() as seen, moe_calls() as calls:
         grads = tp_first_grads(torch, cfg, mesh)
-    out = {"grads": leaf_errors(grads.items(), ref["grads"]), "seen": seen}
+    out = {"grads": leaf_errors(grads.items(), ref["grads"]), "seen": seen,
+           "products": calls["products"]}
     del grads
     params, state, losses, steps = tp_train(torch, cfg, mesh)
+    out["over_model"] = over_model() - n_over
     out.update(losses=losses, steps=steps, weights=leaf_errors(
         params.named_parameters(), ref["weights"]))
     out["counted"] = tp_counted_step(torch, cfg, params, state, mesh,
@@ -5012,35 +5128,37 @@ def tp_serve_ref(torch, cfg):
     decode steps from seed 0's weights. Returns {"inputs", "logits" (the
     prefill's and each step's), "tokens" (each greedy token fed to the
     next step), "launches" (the prefill's and each step's, ``ops.tally``),
-    "walls" (ms a decode step)}."""
+    "walls" (ms a decode step), "routing" (``moe_calls``' of each call)}."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     gen = torch.Generator(device="cuda").manual_seed(44)
     inputs = torch.randint(0, cfg.vocab_size, (TP_BATCH, TP_SEQ),
                            generator=gen, device="cuda")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card(torch)
     params = lm.init_lm(cfg, seed=0, device="cuda")
     out = {"inputs": inputs, "logits": [], "tokens": [], "launches": [],
            "walls": []}
     with torch.no_grad():
-        with ops.tally() as counts:
+        with ops.tally() as counts, moe_calls() as calls:
             logits, caches, t = lm.prefill(params, {"inputs": inputs}, cfg,
                                            TP_SEQ + TP_DECODE)
+        out["routing"] = []
         for s in range(TP_DECODE + 1):
             out["logits"].append(logits.float())
             out["tokens"].append(logits.argmax(-1)[:, None])
             out["launches"].append(dict(counts))
+            out["routing"].append(calls["routing"])
             if s == TP_DECODE:
                 break
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with ops.tally() as counts:
+            with ops.tally() as counts, moe_calls() as calls:
                 logits, caches = lm.decode_step(params, caches,
                                                 out["tokens"][-1], t + s, cfg)
             torch.cuda.synchronize()
             out["walls"].append(1e3 * (time.perf_counter() - t0))
     del params, caches
+    free_card(torch)
     return out
 
 
@@ -5050,8 +5168,13 @@ def tp_rank_serve(torch, arch, dtype, shape, ref, meshes):
     under them (the rank's cache shards, its vocab slice of the logits);
     then the weights stored by the serve rules and ``TP_DECODE`` steps
     decoded on their 2-D shards, fed ``ref``'s greedy tokens; the logits
-    gathered over the vocab against ``ref``'s rows. Returns {"errs" (a
-    relative error each: prefill, steps), "same" (same greedy tokens each),
+    gathered over the vocab against ``ref``'s rows. Each copy is
+    ``lm.init_lm`` on the mesh, which draws only the rank's rows of the
+    MoE experts. Returns {"errs" (a relative error each: prefill, steps),
+    "row_errs" (each row's), "routing" and "products" (``moe_calls``' of
+    each call), "over_model" (parameters gathered over ``model``), "heads"
+    (the prefill flash calls' (q heads, KV heads)), "same" (same greedy
+    tokens each),
     "launches" (``ops.tally`` each), "walls" (ms a decode step), "shapes"
     (each cache shard's against ``cache_spec_tree``'s placement), "coll"
     (the last step's collectives under ``distributed.cost``'s counter:
@@ -5066,29 +5189,40 @@ def tp_rank_serve(torch, arch, dtype, shape, ref, meshes):
     train_cfg = cfg if shape == TP_MESH else cfg.replace(fsdp=False)
     i, n_dp = sharding.dp_index(mesh)
     rows = slice(i * TP_BATCH // n_dp, (i + 1) * TP_BATCH // n_dp)
-    out = {"errs": [], "same": [], "launches": [], "walls": []}
+    out = {"errs": [], "row_errs": [], "same": [], "launches": [],
+           "walls": [], "routing": [], "products": []}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    n_over = over_model()
 
-    def hold(params, logits, s):
+    def hold(params, logits, s, calls):
         if vocab_lo(params, cfg) is not None:
             logits = sharding.gather_from_model(logits)
         want = ref["logits"][s][rows]
+        diff = (logits.float() - want).abs().amax(-1)
+        out["row_errs"].append((diff / (float(want.abs().max()) or 1.0))
+                               .tolist())
         out["errs"].append(rel_err(logits.float(), want))
         out["same"].append(bool(torch.equal(logits.argmax(-1),
                                             want.argmax(-1))))
+        out["routing"].append(calls["routing"])
+        out["products"].append(calls["products"])
     with torch.no_grad():
-        params = lm.init_lm(train_cfg, seed=0, device="cuda")
-        sharding.shard_module(params, mesh, train_cfg, "train")
+        # each rank draws seed 0's weights keeping its shards (the experts'
+        # rows only: lm.init_lm with the mesh)
+        params = lm.init_lm(train_cfg, seed=0, device="cuda", mesh=mesh,
+                            mode="train")
         with sharding.activation_sharding(mesh, cfg, "train"):
-            with ops.tally() as counts, seen_calls() as seen:
+            with ops.tally() as counts, seen_calls() as seen, \
+                    moe_calls() as calls:
                 logits, caches, t = lm.prefill(
                     params, {"inputs": ref["inputs"][rows]}, cfg,
                     TP_SEQ + TP_DECODE)
             out["launches"].append(dict(counts))
             out["prefill_flash"] = seen["flash"]
-            hold(params, logits, 0)
+            out["heads"] = seen["heads"]
+            hold(params, logits, 0, calls)
         full = lm.init_caches(cfg, TP_BATCH, TP_SEQ + TP_DECODE,
                               device="meta")
         out["shapes"] = [
@@ -5101,14 +5235,14 @@ def tp_rank_serve(torch, arch, dtype, shape, ref, meshes):
         del params, logits
         gc.collect()
         torch.cuda.empty_cache()
-        params = lm.init_lm(cfg, seed=0, device="cuda")
-        sharding.shard_module(params, mesh, cfg, "serve")
+        params = lm.init_lm(cfg, seed=0, device="cuda", mesh=mesh,
+                            mode="serve")
         with sharding.activation_sharding(mesh, cfg, "serve"):
             for s in range(TP_DECODE):
                 last = s == TP_DECODE - 1       # counted, its wall not kept
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with ops.tally() as counts, (
+                with ops.tally() as counts, moe_calls() as calls, (
                         cost.counting() if last
                         else contextlib.nullcontext()) as c:
                     logits, caches = lm.decode_step(
@@ -5117,7 +5251,8 @@ def tp_rank_serve(torch, arch, dtype, shape, ref, meshes):
                 if not last:
                     out["walls"].append(1e3 * (time.perf_counter() - t0))
                 out["launches"].append(dict(counts))
-                hold(params, logits, s + 1)
+                hold(params, logits, s + 1, calls)
+    out["over_model"] = over_model() - n_over
     out["coll"] = {"bytes": dict(c.total.coll), "calls": dict(c.calls)}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
@@ -5127,9 +5262,11 @@ def tp_worker(rank, port, tasks, results):
     """A phase 12 rank: joins the gloo group on ``port`` with the card as
     its device, builds the (1, 4) mesh and ``TP_SERVE_2D``'s, then runs
     each task until it gets None: ("train", arch, dtype, --mesh none's
-    whole gradients and weights) or ("serve", arch, dtype, mesh shape,
-    --mesh none's serving run), the tensors shared from the parent's memory
-    on the card. A failure is reported, then raised."""
+    whole gradients and weights), ("serve", arch, dtype, mesh shape,
+    --mesh none's serving run) or ("block", the unsharded MoE block's
+    run), the tensors shared from the parent's memory on the card; a
+    block's expert gradients go back the same way, held until the next
+    task. A failure is reported, then raised."""
     import traceback
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -5145,14 +5282,22 @@ def tp_worker(rank, port, tasks, results):
                                        device_type="cuda")
                   for shape in (TP_MESH, TP_SERVE_2D[1])}
         _cuda.lib()
+        held = []       # a block's gradients, read by the parent in place
         while (task := tasks.get()) is not None:
+            held.clear()
+            free_card(torch)
             kind, *args = task
             del task    # the parent's tensors go with the last reference
-            res = (tp_rank_run(torch, *args, meshes[TP_MESH])
-                   if kind == "train" else tp_rank_serve(torch, *args, meshes))
+            if kind == "block":
+                res = ep_rank_block(torch, *args, meshes[TP_MESH], held)
+            elif kind == "train":
+                res = tp_rank_run(torch, *args, meshes[TP_MESH])
+            else:
+                res = tp_rank_serve(torch, *args, meshes)
             del args
             results.put((rank, res))
             del res
+            free_card(torch)
     except BaseException:
         results.put((rank, {"error": traceback.format_exc()}))
         raise
@@ -5203,8 +5348,15 @@ def tp_hold(arch, dtype, cfg, none, ranks):
     steps."""
     rtol = TP_LOSS_RTOL[dtype]
     held = 1 if (arch, dtype) == ("rwkv6-7b", "float32") else TP_STEPS
+    moe_kinds = any("moe" in k for k in cfg.layer_kinds)
     for r, res in enumerate(ranks):
         layers, flash = tp_expected_seen(cfg, r)
+        if moe_kinds:
+            want = ep_expected_products(cfg, TP_SEQ, "train")
+            expect(res["products"] == want and res["over_model"] == 0,
+                   f"{arch} {dtype} rank {r}: expert products "
+                   f"{res['products']} (expected {want}), "
+                   f"{res['over_model']} parameters gathered over model")
         expect(res["seen"]["layers"] == layers
                and res["seen"]["flash"] == flash,
                f"{arch} {dtype} rank {r}: residual shapes "
@@ -5226,6 +5378,10 @@ def tp_hold(arch, dtype, cfg, none, ranks):
           f"{sorted(ranks[0]['seen']['layers'])} a rank; flash's (Sq, "
           f"q_offset) by rank "
           f"{[sorted(res['seen']['flash']) for res in ranks]}", flush=True)
+    if moe_kinds:
+        print(f"  {arch} {dtype}: each rank's expert products (dispatch, wi) "
+              f"{sorted(ranks[0]['products'])}, no parameter gathered over "
+              f"model", flush=True)
     errs = [abs(a - b) / abs(b)
             for a, b in zip(ranks[0]["losses"], none["losses"])]
     print(f"  {arch} {dtype}: losses "
@@ -5392,17 +5548,20 @@ def tp_serve_hold(arch, dtype, shape, ref, ranks):
     tag = f"{arch} {shape} {dtype}"
     m, n = shape[1], TP_SEQ // shape[1]
     cfg = tp_cfg(arch, dtype)
-    attends = any(k.startswith("attn") for k in cfg.layer_kinds)
+    attends = not all(k in ("rwkv", "rglru") for k in cfg.layer_kinds)
+    experts = any("moe" in k for k in cfg.layer_kinds)
     for r, res in enumerate(ranks):
         want = ({(n, r % m * n)} if cfg.n_heads % m else {(TP_SEQ, 0)}) \
             if attends else set()
         expect(res["prefill_flash"] == want,
                f"{tag} rank {r}: prefill flash (Sq, q_offset) "
                f"{res['prefill_flash']}, expected {want}")
+        errs = res["errs"]
+        if experts:
+            errs = ep_serve_hold(arch, dtype, cfg, ref, ranks, r, tag)
         check(f"{tag} rank {r} prefill + {TP_DECODE} decode steps' logits "
               f"vs --mesh none, max error over max |logit| (worst of "
-              f"{['%.1e' % e for e in res['errs']]})", max(res["errs"]),
-              rtol)
+              f"{['%.1e' % e for e in errs]})", max(errs), rtol)
         expect(dtype != "float32" or all(res["same"]),
                f"{tag} rank {r}: greedy tokens differ {res['same']}")
         expect(res["launches"] == ref["launches"],
@@ -5429,13 +5588,65 @@ def tp_serve_hold(arch, dtype, shape, ref, ranks):
             "prefill_last": ranks[-1]["launches"][0]}
 
 
+def ep_serve_hold(arch, dtype, cfg, ref, ranks, r, tag):
+    """The MoE archs' serving holds of rank ``r``: every expert product
+    over the rank's experts (``ep_expected_products``; qwen3's prefill,
+    under the train rules, one group of every expert), no parameter
+    gathered over ``model``, llama4's flash at its 10 / 2 heads a rank.
+    Returns the logits' errors to hold: each call's worst row, where a
+    bf16 run leaves out a row whose last token's expert choices or keeps
+    differ from --mesh none's (a top-k choice near a tie flips under bf16
+    rounding, and then that row's logits are another computation's);
+    such rows are counted and printed. A call whose groups the ranks
+    split (qwen3's prefill) takes each row's routing from the rank that
+    routed it."""
+    import torch
+    from repro_torch.models.moe import capacity
+    res = ranks[r]
+    prods = res["products"]
+    want = [ep_expected_products(cfg, TP_SEQ, "train")] + [
+        ep_expected_products(cfg, 1, "serve")] * TP_DECODE
+    expect(prods == want and res["over_model"] == 0,
+           f"{tag} rank {r}: expert products {prods} (expected {want}), "
+           f"{res['over_model']} parameters gathered over model")
+    if arch == EP_ARCH:
+        heads = {(cfg.n_heads // TP_MESH[1], cfg.n_kv_heads // TP_MESH[1])}
+        expect(res["heads"] == heads, f"{tag} rank {r}: flash heads "
+               f"{res['heads']}, expected {heads}")
+    if dtype != "bfloat16":
+        return res["errs"]
+    errs, flipped = [], 0
+    for s, theirs in enumerate(ref["routing"]):
+        rows = len(res["row_errs"][s])
+        mine = []
+        for layer, (e, k) in enumerate(res["routing"][s]):
+            if e.shape[0] < rows:           # each rank routed its groups
+                e, k = (torch.cat([x["routing"][s][layer][i] for x in ranks])
+                        for i in (0, 1))
+            mine.append((e, k))
+        agree = [all(torch.equal(a[row], b[row])
+                     for (ea, ka), (eb, kb) in zip(mine, theirs)
+                     for a, b in ((ea, eb), (ka, kb)))
+                 for row in range(rows)]
+        flipped += agree.count(False)
+        errs.append(max([e for e, ok in zip(res["row_errs"][s], agree)
+                         if ok] or [0.0]))
+    print(f"  {tag} rank {r}: {flipped} of {len(errs) * len(agree)} "
+          f"(call, row) logits left out of the hold, their last token "
+          f"routed otherwise than --mesh none's; all: "
+          f"{['%.1e' % e for e in res['errs']]} (capacity "
+          f"{capacity(TP_SEQ, cfg)} a prompt's expert)", flush=True)
+    return errs
+
+
 def tp_serve(torch, tasks, results, procs):
     """Phase 12's serving: for each of ``TP_TRAINS`` on the (1, 4) mesh and
     ``TP_SERVE_2D``, in fp32 and in the config's dtype, --mesh none's run
     here (``tp_serve_ref``), then the ranks' (``tp_rank_serve``), held by
     ``tp_serve_hold``. Returns rank 0's launches of the configs' dtypes by
     (arch, mesh shape)."""
-    runs = [(arch, TP_MESH) for arch in TP_TRAINS] + [TP_SERVE_2D]
+    runs = [(arch, TP_MESH) for arch in {**TP_TRAINS, **TP_SERVES}] \
+        + [TP_SERVE_2D]
     print(f"phase 12: serving, the prefill of {TP_BATCH} x {TP_SEQ} tokens "
           f"under the train rules and {TP_DECODE} decode steps on the serve "
           f"rules' shards, on {runs}; the decode walls are 4 processes "
@@ -5458,8 +5669,192 @@ def tp_serve(torch, tasks, results, procs):
             if dtype is None:
                 out[(arch, shape)] = held
             del ref, ranks
-            gc.collect()
-            torch.cuda.empty_cache()
+            free_card(torch)
+    return out
+
+
+# -- phase 12, expert parallelism: the llama4 MoE block at full width ------
+
+
+EP_GRADS = ("router", "wi", "wg", "wo")
+
+
+def ep_block_run(torch, moe_p, x, gy, cfg, sp):
+    """The MoE block forward and backward on bf16 leaves: ``moe_fwd`` of
+    ``x`` (under ``sp`` the rank's chunk of the sequence), the loss the
+    output times ``gy`` summed, plus the load-balance and z aux values (as
+    ``lm_loss`` adds them). Returns (y, aux, the input's gradient,
+    {router, wi, wg, wo: gradient})."""
+    from repro_torch.models import moe
+    leaves = [getattr(moe_p, n).requires_grad_(True) for n in EP_GRADS]
+    xl = x.detach().clone().requires_grad_(True)
+    y, aux = moe.moe_fwd(moe_p, xl, cfg, sp=sp)
+    loss = (y.float() * gy.float()).sum() + aux["moe_lb_loss"] \
+        + aux["moe_z_loss"]
+    grads = torch.autograd.grad(loss, [xl] + leaves)
+    return (y.detach(), {k: float(v) for k, v in aux.items()}, grads[0],
+            dict(zip(EP_GRADS, grads[1:])))
+
+
+def ep_block_ref(torch):
+    """The unsharded llama4 MoE block (seed 0's weights of the served pair,
+    its ``moe`` layer alone kept) on ``EP_BLOCK_SEED``'s bf16 input of
+    ``TP_BATCH`` x ``TP_SEQ`` tokens, forward and backward, alone on the
+    card: {"x", "gy", "y", "aux", "dx", "router" (on the card), "experts"
+    (each expert weight's gradient, in host memory), "top" (each
+    gradient's max |value|), "peak_gb"}."""
+    from repro_torch.models import lm
+    cfg = tp_cfg(EP_ARCH, "bfloat16")
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    moe_p = params.layers[cfg.layer_kinds.index("moe")].moe
+    del params
+    g = torch.Generator(device="cuda").manual_seed(EP_BLOCK_SEED)
+    x, gy = (torch.randn(TP_BATCH, TP_SEQ, cfg.d_model, generator=g,
+                         device="cuda").to(torch.bfloat16) for _ in range(2))
+    y, aux, dx, grads = ep_block_run(torch, moe_p, x, gy, cfg, False)
+    del moe_p
+    out = {"x": x, "gy": gy, "y": y, "aux": aux, "dx": dx,
+           "router": grads.pop("router"),
+           "top": {n: float(t.float().abs().max()) for n, t in grads.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["experts"] = {n: grads.pop(n).cpu() for n in list(grads)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank_block(torch, ref, mesh, held):
+    """One rank's llama4 MoE block: seed 0's pair drawn on the mesh by the
+    train rules (the rank's 32 experts only), its ``moe`` layer forward
+    and backward on the rank's chunk of ``ref``'s input (sequence
+    parallel, as the config sets it). Returns the output's, the input's
+    and the router's gradient's errors against ``ref``, the aux values,
+    the rank's expert rows and their gradients (read by the parent in
+    place: ``held`` keeps them until the next task), the expert products,
+    the parameters gathered over ``model``, the collectives and the peak
+    memory."""
+    from repro_torch.distributed import cost, sharding
+    from repro_torch.models import lm
+    cfg = tp_cfg(EP_ARCH, "bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(cfg, seed=0, device="cuda", mesh=mesh, mode="train")
+    moe_p = params.layers[cfg.layer_kinds.index("moe")].moe
+    del params
+    # the draw's whole embedding and head went back to this rank's cache,
+    # in blocks the block's gradients cannot reuse: give them to the card
+    free_card(torch)
+    n_over = over_model()
+    with sharding.activation_sharding(mesh, cfg, "train"), \
+            moe_calls() as calls, cost.counting() as c:
+        sp = sharding.seq_split(TP_SEQ, cfg)
+        part = sharding.rank_slice(TP_SEQ) if sp else slice(None)
+        y, aux, dx, grads = ep_block_run(torch, moe_p, ref["x"][:, part],
+                                         ref["gy"][:, part], cfg, sp)
+    router = grads.pop("router")
+    experts = {n: g.to_local() for n, g in grads.items()}
+    held.append((moe_p, experts))
+    return {"sp": sp, "y": rel_err(y, ref["y"][:, part]),
+            "dx": rel_err(dx, ref["dx"][:, part]),
+            "router": rel_err(router.to_local(), shard_of(ref["router"],
+                                                          router)),
+            "aux": aux, "experts": experts,
+            "rows": sharding.expert_rows(mesh, cfg, "train"),
+            "products": calls["products"],
+            "over_model": over_model() - n_over,
+            "coll": dict(c.total.coll),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def ep_block(torch, tasks, results, procs):
+    """Phase 12's llama4 MoE block at full width: the unsharded block here
+    first (``ep_block_ref``), then every rank's (``ep_rank_block``),
+    held: the output, the input's gradient and the router's gradient
+    relative to their max, each rank's experts' gradients (its rows of the
+    whole gradient, compared ``EP_PIECE`` experts at a time from host
+    memory) relative to the whole leaf's max, all within
+    ``TP_LOSS_RTOL["bfloat16"]``; the aux values within it too; each
+    rank's products over its 32 experts, no parameter gathered over
+    ``model`` and no all-gather; each rank's peak memory printed."""
+    cfg = tp_cfg(EP_ARCH, "bfloat16")
+    rtol = TP_LOSS_RTOL["bfloat16"]
+    t0 = time.perf_counter()
+    ref = ep_block_ref(torch)
+    held_gb = torch.cuda.memory_reserved() / 1e9
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    t1 = time.perf_counter()
+    for q in tasks:
+        q.put(("block", {k: v for k, v in ref.items() if k != "experts"}))
+    ranks = tp_results(results, procs)
+    print(f"phase 12: llama4-maverick-400b-a17b MoE block (d {cfg.d_model}, "
+          f"{cfg.moe_experts} experts of f {cfg.moe_d_ff}, top-"
+          f"{cfg.moe_top_k}, shared expert), {TP_BATCH} x {TP_SEQ} bf16 "
+          f"tokens, forward and backward on bf16 leaves: unsharded "
+          f"{t1 - t0:.1f} s (peak {ref['peak_gb']:.2f} GB; then this "
+          f"process held {held_gb:.2f} GB, {free_gb:.2f} GB free on the "
+          f"card), the mesh {time.perf_counter() - t1:.1f} s", flush=True)
+    want = ep_expected_products(cfg, TP_SEQ, "train")
+    for r, res in enumerate(ranks):
+        tag = f"llama4 MoE block rank {r}"
+        expect(res["sp"] and res["products"] == want
+               and res["over_model"] == 0
+               and not res["coll"].get("all-gather"),
+               f"{tag}: sp {res['sp']}, products {res['products']} "
+               f"(expected {want}), {res['over_model']} gathered over "
+               f"model, collectives {res['coll']}")
+        for what in ("y", "dx", "router"):
+            check(f"{tag} {what} vs the unsharded block, max error over "
+                  f"max", res[what], rtol)
+        aux = max(abs(res["aux"][k] - v) / (abs(v) or 1.0)
+                  for k, v in ref["aux"].items())
+        check(f"{tag} aux values vs the unsharded block, relative", aux,
+              rtol)
+        rows = res["rows"]
+        for n, got in res["experts"].items():
+            whole = ref["experts"][n]
+            err = max(max_err(got[i:i + EP_PIECE],
+                              whole[rows.start + i:rows.start + i
+                                    + EP_PIECE].cuda())
+                      for i in range(0, got.shape[0], EP_PIECE))
+            check(f"{tag} {n} gradient, experts {rows.start}-"
+                  f"{rows.stop - 1}, vs the unsharded block's, max error "
+                  f"over the leaf's max", err / (ref["top"][n] or 1.0), rtol)
+        print(f"  {tag}: products (dispatch, wi) {sorted(res['products'])}; "
+              f"collectives {res['coll']}; peak {res['peak_gb']:.2f} GB",
+              flush=True)
+    del ranks, ref
+    free_card(torch)
+
+
+def ep_records(torch, g):
+    """Flash at llama4-maverick-400b-a17b's rank-local shapes on the (1, 4)
+    mesh, held and timed as ``tp_records`` does: the serving prefill's
+    bf16 sequence form, 4 x 40/4 q heads over 8/4 KV heads x 512, hd 128,
+    causal (qk-normed q and k are plain tensors to the kernel); its decode
+    form over the 520 slots of a rank's cache in place."""
+    cfg = mesh_cfg(EP_ARCH, None)
+    m = TP_MESH[1]
+    h, kv, hd = cfg.n_heads // m, cfg.n_kv_heads // m, cfg.head_dim
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn(TP_BATCH, n, TP_SEQ, hd, generator=g,
+                           device="cuda", dtype=bf16) for n in (h, kv, kv))
+    out = [flash_record(
+        torch, "flash_attention_bhsd_ep_llama4",
+        f"llama4 (1, 4) rank prefill {TP_BATCH} x {h}/{kv} x {TP_SEQ}, hd "
+        f"{hd}, causal, bf16", q, k, v, {}, {"is_causal": True},
+        "src/repro_torch/kernels/csrc/flash_attention.cu")]
+    L = TP_SEQ + TP_DECODE
+    q = torch.randn(TP_BATCH, h, 1, hd, generator=g, device="cuda").to(bf16)
+    k, v = (ring_view(torch, g, TP_BATCH, L, kv, L, hd, bf16)
+            for _ in range(2))
+    out.append(flash_record(
+        torch, "flash_attention_bhsd_ep_llama4_decode",
+        f"llama4 (1, 4) rank decode {TP_BATCH} x {h}/{kv} over {L} slots, "
+        f"hd {hd}", q, k, v, {"causal": False, "seq_k": L}, {},
+        "src/repro_torch/kernels/csrc/flash_decode.cu"))
     return out
 
 
@@ -5482,8 +5877,7 @@ def phase_tp(torch):
           f"{TP_STEPS} steps; the step walls are 4 processes sharing one "
           f"card and gloo's host-staged all-reduces, not NCCL scaling",
           flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card(torch)
     ctx = multiprocessing.get_context("spawn")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -5497,6 +5891,8 @@ def phase_tp(torch):
     launches = {}
     try:
         records = tp_records(torch)
+        records += ep_records(torch, torch.Generator(device="cuda")
+                              .manual_seed(48))
         for dtype in ("float32", None):
             for arch in TP_TRAINS:
                 cdt = dtype or mesh_cfg(arch, None).compute_dtype
@@ -5507,8 +5903,8 @@ def phase_tp(torch):
                 del state
                 ref = {"grads": grads, "weights": {
                     n: p.detach() for n, p in params.named_parameters()}}
-                gc.collect()
-                torch.cuda.empty_cache()
+                free_card(torch)
+                held_gb = torch.cuda.memory_reserved() / 1e9
                 t1 = time.perf_counter()
                 for q in tasks:
                     q.put(("train", arch, cdt, ref))
@@ -5516,16 +5912,18 @@ def phase_tp(torch):
                 print(f"phase 12: {arch} ({cfg.n_layers} of "
                       f"{mesh_cfg(arch, None).n_layers} layers, d "
                       f"{cfg.d_model}) {cdt}: --mesh none {t1 - t0:.1f} s, "
-                      f"the mesh {time.perf_counter() - t1:.1f} s",
-                      flush=True)
+                      f"the mesh {time.perf_counter() - t1:.1f} s; this "
+                      f"process held {held_gb:.2f} GB meanwhile, each rank "
+                      f"peaked at {[round(r['peak_gb'], 2) for r in ranks]}"
+                      f" GB", flush=True)
                 total = tp_hold(arch, cdt, cfg, {"losses": losses,
                                                  "steps": steps}, ranks)
                 if dtype is None:
                     launches[arch] = total
                 del ref, grads, params, ranks
-                gc.collect()
-                torch.cuda.empty_cache()
+                free_card(torch)
         serving = tp_serve(torch, tasks, results, procs)
+        ep_block(torch, tasks, results, procs)
         for q in tasks:
             q.put(None)
         for p in procs:
@@ -5545,6 +5943,7 @@ def phase_tp(torch):
     last = {k: v["prefill_last"] for k, v in serving.items()}
     dec = {k: v["decode"] for k, v in serving.items()}
     llama, llama_2d = ("llama3-8b", TP_MESH), TP_SERVE_2D
+    ep = (EP_ARCH, TP_MESH)
     glm, rw, rgm, smol = (("chatglm3-6b", TP_MESH), ("rwkv6-7b", TP_MESH),
                           ("recurrentgemma-2b", TP_MESH),
                           ("smollm-360m", TP_MESH))
@@ -5571,11 +5970,22 @@ def phase_tp(torch):
            "flash_attention_bhsd_tp_chatglm3_decode": dec[glm][fd],
            "flash_attention_bhsd_tp_rg_decode": dec[rgm][fd],
            "wkv6_bhtk_tp_decode": dec[rw][("wkv6_bhtk", "decode")],
-           "rglru_btc_tp_decode": dec[rgm][rg]}
+           "rglru_btc_tp_decode": dec[rgm][rg],
+           "flash_attention_bhsd_ep_llama4": pre[ep][fa],
+           "flash_attention_bhsd_ep_llama4_decode": dec[ep][fd]}
     expect(all(n > 0 for n in out.values()), f"phase 12 launches {out}")
     print(f"  launches on the path (rank 0, the configs' dtypes): {out}; "
           f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records, out
+
+
+# this process's CUDA allocator: a cached block larger than
+# max_split_size_mb is never split for a smaller tensor, so a small tensor
+# kept past a full-width run (logits, a record's inputs) cannot pin the
+# tens of GB of that run's freed weights and casts, which phase 12's four
+# ranks need beside this process. The ranks keep the default: there it
+# would only keep oversize blocks of one size from serving the next
+ALLOC_CONF = "max_split_size_mb:256"
 
 
 def main():
@@ -5583,6 +5993,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(ALLOC_CONF)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.payload import ProteinPayload
     from repro_torch.kernels import _cuda

@@ -44,8 +44,19 @@ replicated parameter's gradient are the same on every ``model`` rank. A
 replicated parameter that each rank slices to its own heads or channels
 (rwkv's ``u``, the group norm, the rglru gates' biases, a KV projection
 that the rules replicate) is gathered with ``use="partial"``: its gradient
-is summed over ``model``. MoE experts are gathered whole (``use="whole"``):
-expert parallelism is not ported.
+is summed over ``model``.
+
+Expert parallelism (``moe_split``): the MoE's capacity form splits where
+the reference's constraints split it. With ``moe_parallelism="ep"``
+(llama4) each ``model`` rank takes its shard of the experts along E
+(``use="local"``; the train rules store them over ``"experts"``), so no
+expert weight moves over ``model`` and each rank's gradient stays on its
+shard; the partial outputs are summed over ``model``. With ``"fsdp"``
+(qwen3) the groups split over dp and ``model`` where they divide both
+(``"expert_group_all"``), the experts gathered whole over ``data``
+(``use="partial"``: each rank's gradient is its groups' share), and an
+all-to-all over ``model`` (``all_to_all_model``) hands each rank the rows of
+its groups under sequence parallelism.
 
 Sequence parallelism (``seq_split``): where the config sets
 ``sequence_parallel`` (the reference's logical ``"seq"`` resolves to
@@ -72,8 +83,12 @@ step does, and along ``data`` on the serve rules' second tensor axis: the
 would-be-FSDP dim of each weight (``"data2d"``) stays on its ``data`` rank
 and the activations move (``dot``: the token rows gathered over ``data``,
 multiplied by the rank's slice, the partial products or the output columns
-summed over ``data``); ``gather`` then gathers nothing but a ``"whole"``
-parameter (the MoE experts). The caches are the rank's shards as
+summed over ``data``); ``gather`` then gathers no parameter (a
+``"whole"`` use would), and the MoE experts stay where the serve rules
+store them: on ``model`` along E, llama4's also on ``data`` along ``f``
+(``moe_split``; the dispatch rows move over ``data`` and ``wo``'s
+products are summed over it, ``sum_over_data``). The caches are the
+rank's shards as
 ``cache_spec_tree`` places them (``local_cache``): batch rows over the dp
 axes, KV heads over ``model`` (the head dim where they do not divide),
 rwkv's ``S`` over heads, rglru's ``h`` and ``conv`` over lru channels. A
@@ -92,7 +107,9 @@ slice in a zeroed buffer, each reduce-scatter (``scatter_seq``,
 ``gather_seq``'s backward) an all-reduce of which the rank keeps its
 chunk, so the same code runs on NCCL and on gloo with CUDA tensors (four
 processes sharing one card), whose all-gather of CUDA tensors does not
-complete under torch 2.11. Both stand-ins are exact.
+complete under torch 2.11. Both stand-ins are exact. The MoE's all-to-all
+is ``all_to_all_single`` itself, which gloo completes for CUDA tensors
+(``tools/gloo_cuda_probe.py``).
 """
 
 from __future__ import annotations
@@ -354,7 +371,8 @@ def param_paths(module):
     tree = ref_tree(module, leaf=lambda ts, stacked: (tuple(ts), stacked))
     out = {}
     for path, (tensors, stacked) in _leaves(tree):
-        shape = tuple(tensors[0].shape)
+        # a leaf drawn as the rank's rows only keeps its whole shape
+        shape = tuple(getattr(tensors[0], "whole_shape", tensors[0].shape))
         if stacked:
             shape = (len(tensors),) + shape
         for t in tensors:
@@ -548,12 +566,21 @@ def distribute_params(module, where):
     """Replace each parameter named in ``where`` ({name: (mesh,
     placements)}) by a DTensor parameter of that layout, in place. Every
     rank holds the same full weights (drawn from one seed or read from one
-    checkpoint), so each keeps its own chunk and nothing is sent."""
+    checkpoint), so each keeps its own chunk and nothing is sent; a
+    parameter drawn as the rank's rows of its leading axis only
+    (``whole_shape``, ``moe.local_experts``) holds that dim's chunk
+    already, and keeps its chunk of the other dims."""
     from torch import nn
     from torch.distributed.tensor import DTensor, distribute_tensor
     for name, (mesh, pl) in where.items():
         owner, leaf = _owner(module, name)
         p = getattr(owner, leaf)
+        whole = getattr(p, "whole_shape", None)
+        if whole is not None:
+            setattr(owner, leaf, nn.Parameter(
+                _from_rows(p.detach(), whole, mesh, pl),
+                requires_grad=p.requires_grad))
+            continue
         d = distribute_tensor(p.detach(), mesh, pl, src_data_rank=None)
         chunk = d.to_local()
         if chunk.untyped_storage().nbytes() > chunk.numel() \
@@ -564,11 +591,54 @@ def distribute_params(module, where):
         setattr(owner, leaf, nn.Parameter(d, requires_grad=p.requires_grad))
 
 
+def _from_rows(rows, whole, mesh, pl):
+    """The DTensor of shape ``whole`` and placements ``pl`` whose leading
+    dim this rank holds ``rows`` of (its chunk along that dim); the other
+    sharded dims are cut to the rank's chunk here."""
+    from torch.distributed.tensor import DTensor
+    coord = mesh.get_coordinate()
+    n0 = 1
+    for i, p in enumerate(pl):
+        if p.is_shard(0):
+            n0 *= mesh.size(i)
+        elif p.is_shard():
+            rows = rows.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+    if rows.shape[0] * n0 != whole[0]:
+        raise ValueError(f"{rows.shape[0]} rows of {whole[0]} do not make "
+                         f"the chunk of {pl}")
+    stride = tuple(int(np.prod(whole[i + 1:])) for i in range(len(whole)))
+    return DTensor.from_local(rows.contiguous().clone(), mesh, pl,
+                              shape=torch.Size(whole), stride=stride)
+
+
+def expert_rows(mesh, cfg, mode: str = "train"):
+    """This rank's rows of the expert axis as ``mode``'s rules store the
+    MoE experts on ``mesh`` (a slice), or None where the rules do not
+    shard that axis (or the config has no experts): what
+    ``moe.local_experts`` draws."""
+    E = getattr(cfg, "moe_experts", 0)
+    if not E:
+        return None
+    spec = param_spec("moe/wi", (E, cfg.d_model, cfg.moe_d_ff), mesh, cfg,
+                      mode)
+    axes = spec[0] if spec else None
+    if not axes:
+        return None
+    sizes = _axes(mesh)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + coord[a]
+    n = E // int(np.prod([sizes[a] for a in axes]))
+    return slice(index * n, (index + 1) * n)
+
+
 # one count a gathered use of a DTensor parameter (an all-gather over the
 # mesh dims that shard it) and one a use's gradient reduction (a
 # reduce-scatter over those dims, an all-reduce over the others); a mesh dim
-# of one rank sends nothing
-gathers = {"uses": 0, "reductions": 0}
+# of one rank sends nothing. "over_model": the uses that gather a parameter
+# sharded over a ``model`` axis of more than one rank across it
+gathers = {"uses": 0, "reductions": 0, "over_model": 0}
 _gather_lock = threading.Lock()
 
 
@@ -613,6 +683,8 @@ def gather(w, dtype, use: str = "local"):
     from torch.distributed.tensor import Partial, Replicate
     mesh = w.device_mesh
     t = tp()
+    if _over_model(w, t, use):
+        _count("over_model")
     if t.mesh is None:
         full = w.to(dtype).full_tensor(grad_placements=[Partial()]
                                        * mesh.ndim)
@@ -634,6 +706,20 @@ def gather(w, dtype, use: str = "local"):
             grad_placements=grads)
     _count("uses")
     return _Counted.apply(full) if full.requires_grad else full
+
+
+def _over_model(w, t, use) -> bool:
+    """Whether ``gather(w, ..., use)`` in the step ``t`` gathers ``w``
+    across a ``model`` axis of more than one rank that shards it."""
+    names = axis_names(w.device_mesh)
+    if "model" not in names:
+        return False
+    i = names.index("model")
+    if w.device_mesh.size(i) == 1 or not w.placements[i].is_shard():
+        return False
+    if t.mesh is None:
+        return True
+    return use == "whole" or (t.mode == "train" and use != "local")
 
 
 # ---------------------------------------------------------------------------
@@ -969,6 +1055,124 @@ def dot(x, w, used, eq: str = _MATMUL):
         y = _all_reduce(product(xa.narrow(_axis(xs, c), d.rank * k, k)),
                         d.group)
     return own_rows(y, x.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# the MoE region: expert parallelism
+# ---------------------------------------------------------------------------
+
+
+class MoeSplit(NamedTuple):
+    """How the MoE region of the step in force splits (``moe_split``):
+    whether each ``model`` rank routes and computes only its share of the
+    groups (``groups``: the groups over the dp axes and ``model``), only
+    its ``E / model`` experts (``experts``), and, in a serve step, only its
+    ``f / data`` slice of their hidden width (``f_data``)."""
+    groups: bool = False
+    experts: bool = False
+    f_data: bool = False
+
+
+def moe_split(cfg, n_groups: int, n_experts: int, d_ff: int) -> MoeSplit:
+    """The split of a capacity-form MoE over ``n_groups`` groups (this
+    rank's: the dp ranks' rows are split already where ``split_rows``)
+    with ``n_experts`` experts of hidden width ``d_ff``, by the
+    reference's constraints (``repro.models.moe._moe_fwd_capacity``)
+    resolved through ``resolve_logical``: the groups over
+    ``"expert_group"`` (the dp axes) with ``moe_parallelism="ep"``, over
+    ``"expert_group_all"`` (dp and ``model``, falling back to dp where
+    the groups do not divide both) otherwise, and not at all in an
+    ``"ep"`` serve step (its dispatch is gathered over ``data``); the
+    experts over ``"experts"`` (``model``) with ``"ep"`` and in every
+    serve step; ``f`` over ``"data2d"`` in an ``"ep"`` serve step.
+
+    Where the reference would name ``model`` twice (a serve step of a
+    non-``"ep"`` config whose groups divide dp x ``model``: its spec
+    ``P(("data", "model"), "model", None, None)`` raises
+    ``DuplicateSpecError`` in JAX), the experts stay on ``model``, where
+    the serve rules store them, and the groups take the dp axes only, as
+    the reference resolves them where it runs (qwen3-moe-30b-a3b at
+    ``decode_32k``, whose 128 groups do not divide 256 devices). Off a
+    tensor-parallel step, or on a ``model`` axis of one rank, nothing
+    splits over ``model``; ``f_data`` needs more than one ``data`` rank
+    (``data2d``)."""
+    t = tp()
+    if t.mesh is None:
+        return MoeSplit()
+    ep = getattr(cfg, "moe_parallelism", "ep") == "ep"
+    serve = t.mode == "serve"
+    gax = "expert_group" if ep else "expert_group_all"
+    logical = (None if serve and ep else gax,
+               "experts" if ep or serve else None,
+               "data2d" if serve and ep else None)
+    rows = dp_size(t.mesh) if _stack()[-1][3] else 1
+    g, e, f = resolve_logical(logical, (n_groups * rows, n_experts, d_ff),
+                              t.mesh, cfg)
+    if g and e and "model" in g and "model" in e:
+        g = _fit(n_groups * rows, dp_axes(t.mesh), t.mesh)
+    return MoeSplit(groups=t.size > 1 and "model" in (g or ()),
+                    experts=t.size > 1 and e is not None,
+                    f_data=f is not None and data2d() is not None)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block j of dim 0 to ``model`` rank j; the gradient sent back the
+    same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    from torch.distributed import _functional_collectives as funcol
+    out = funcol.all_to_all_single(x.contiguous(), None, None, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def all_to_all_model(x):
+    """An all-to-all over ``model``: ``x``'s dim 0 is ``model`` blocks, of
+    which block j goes to rank j; the result's block i is what rank i
+    sent this rank. Its backward is the same exchange of the gradient.
+    gloo completes it for CUDA tensors (``tools/gloo_cuda_probe.py``), so
+    it is the collective itself, not a stand-in."""
+    t = tp()
+    return x if t.size == 1 else _AllToAll.apply(x, t.group)
+
+
+class _GradOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep):
+        ctx.keep = keep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
+
+
+def grad_once(x):
+    """``x`` as it is, its gradient passed on by ``model`` rank 0 only:
+    for a value every rank computes alike from inputs whose gradients are
+    summed over ``model`` (``copy_to_model``, ``gather_seq``, a
+    ``use="partial"`` weight), so that it enters them once, not once a
+    rank (the MoE's aux values under expert parallelism)."""
+    t = tp()
+    return x if t.size == 1 else _GradOnce.apply(x, t.rank == 0)
+
+
+def sum_over_data(x):
+    """The sum of every ``data`` rank's partial ``x`` in a serve step
+    (``data2d``): a product over a ``"data2d"`` slice of a contracted dim;
+    ``x`` as it is elsewhere."""
+    d = data2d()
+    return x if d is None else _all_reduce(x, d.group)
 
 
 def dp_size(mesh) -> int:

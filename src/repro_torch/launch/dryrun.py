@@ -42,10 +42,16 @@ the weights stay where they are and the token rows move (``sharding.dot``: two
 all-reduces a product over ``data``), so a dense decode step gathers no weight;
 its caches are the rank's shards as ``cache_spec_tree`` places them (batch over
 ``data``, KV heads over ``model``, or the head dim where the heads do not
-divide, gathered over ``model`` before flash). Not computed as the reference
-computes it: MoE experts are gathered whole at use (no expert parallelism), so
-``model_flops_ratio`` stays under the reference's there. The bytes are eager
-PyTorch's (no fusion: every op's operands and result).
+divide, gathered over ``model`` before flash). The MoE cells compute as the
+reference splits them (``sharding.moe_split``): llama4's experts stay on their
+``model`` rank (each rank its 8 of 128, in training gathered over ``data``
+only; in a decode cell also on their ``f`` slice over ``data``, the dispatch
+rows gathered over ``data`` and ``wo``'s products summed over it), the partial
+outputs summed over ``model``; qwen3's groups split over every rank in a train
+and a prefill cell (under sequence parallelism an all-to-all hands each rank
+its rows and hands them back), its experts on ``model`` in a decode cell,
+whose 128 groups stay on ``data``. The bytes are eager PyTorch's (no fusion:
+every op's operands and result).
 ``memory_analysis`` gives the arguments a rank holds (parameters, AdamW
 moments and its batch rows, or its cache shards); temp bytes are null,
 since no compiler plans the step's buffers.

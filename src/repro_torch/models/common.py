@@ -39,7 +39,7 @@ def torch_dtype(name: str) -> torch.dtype:
 DRAW_SLICE = 1 << 27     # elements of one fp32 draw of a non-fp32 weight
 
 
-def dense_init(gen, shape, in_axis_size, dtype=torch.float32):
+def dense_init(gen, shape, in_axis_size, dtype=torch.float32, rows=None):
     """Fan-in scaled normal init drawn from ``gen`` on the generator's own
     device: a CPU generator gives the same weights wherever they are copied
     to, a CUDA one draws them on the card without a host copy. The draw is
@@ -47,26 +47,42 @@ def dense_init(gen, shape, in_axis_size, dtype=torch.float32):
     of at most ``DRAW_SLICE`` elements, each cast into the weight's own
     storage, so the fp32 temporary is one slice (llama4's (128, 5120,
     8192) bf16 experts would need 21.5 GB of fp32 beside their 10.7 GB
-    otherwise)."""
+    otherwise). ``rows``: the slice of the leading axis to keep; every
+    slice is drawn as without it and the rest dropped, so the kept rows
+    are bitwise the whole draw's (a rank's experts,
+    ``moe.local_experts``)."""
     scale = float(1.0 / np.sqrt(max(in_axis_size, 1)))
     if dtype == torch.float32 or not shape:
         w = torch.randn(shape, generator=gen, device=gen.device)
-        return w.mul_(scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    rows = max(1, DRAW_SLICE // max(1, out[0].numel()))
-    for part in out.split(rows):
-        part.copy_(torch.randn(part.shape, generator=gen,
-                               device=gen.device).mul_(scale))
+        w = w.mul_(scale).to(dtype)
+        return w if rows is None else w[rows].clone()
+    lo, hi = (0, shape[0]) if rows is None else (rows.start, rows.stop)
+    out = torch.empty((hi - lo,) + tuple(shape[1:]), dtype=dtype,
+                      device=gen.device)
+    step = max(1, DRAW_SLICE // max(1, out[0].numel()))
+    for a in range(0, shape[0], step):
+        b = min(a + step, shape[0])
+        part = torch.randn((b - a,) + tuple(shape[1:]), generator=gen,
+                           device=gen.device)
+        if a < hi and b > lo:
+            out[max(a, lo) - lo:min(b, hi) - lo].copy_(
+                part[max(a, lo) - a:min(b, hi) - a].mul_(scale))
     return out
 
 
-def weight(gen, shape, in_axis_size, dtype) -> nn.Parameter:
+def weight(gen, shape, in_axis_size, dtype, rows=None) -> nn.Parameter:
     """A parameter from ``dense_init``, or zeros to be filled by a copy (the
     bridge) when ``gen`` is None. Served weights take no gradients; a
-    finetune trains a ``trainable`` copy."""
-    data = (dense_init(gen, shape, in_axis_size, dtype) if gen is not None
-            else torch.zeros(shape, dtype=dtype))
-    return nn.Parameter(data, requires_grad=False)
+    finetune trains a ``trainable`` copy. With ``rows`` it holds only those
+    rows of the leading axis, and ``whole_shape`` says the whole weight's
+    shape (``sharding.shard_module`` makes it the rank's shard)."""
+    data = (dense_init(gen, shape, in_axis_size, dtype, rows)
+            if gen is not None else torch.zeros(shape, dtype=dtype)[
+                slice(None) if rows is None else rows])
+    out = nn.Parameter(data, requires_grad=False)
+    if rows is not None:
+        out.whole_shape = tuple(shape)
+    return out
 
 
 def trainable(module, device=None):

@@ -34,7 +34,7 @@ from repro_torch.models.common import (Dense, Embedding, Norm, embed_tokens,
                                        gumbel_noise, head_fwd, head_input,
                                        logits_fwd, norm_fwd, torch_dtype,
                                        vocab_lo)
-from repro_torch.models.moe import AUX_KEYS
+from repro_torch.models.moe import AUX_KEYS, local_experts
 
 # the reference's lm_loss coefficients of the MoE load-balance and z losses
 LB_COEF, Z_COEF = 0.01, 1e-4
@@ -63,15 +63,24 @@ class LM(nn.Module):
             self.enc_norm = Norm(cfg)
 
 
-def init_lm(cfg, seed=0, device="cuda") -> LM:
+def init_lm(cfg, seed=0, device="cuda", mesh=None, mode="train") -> LM:
     """Seeded LM: fan-in scaled normal weights in the reference's shapes,
     drawn by a generator on ``device`` itself (the CUDA Philox stream on
     the card), so a full-width model is never built in host memory. The
-    same seed gives other weights on the CPU than on the card."""
+    same seed gives other weights on the CPU than on the card. With
+    ``mesh``, stored by ``mode``'s rules (``sharding.shard_module``), each
+    rank drawing the same weights and keeping its shard; the MoE experts
+    are drawn keeping only the rank's rows of the expert axis
+    (``moe.local_experts``, ``sharding.expert_rows``), so no rank holds
+    every expert."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    with dev:
-        return LM(cfg, gen)
+    rows = None if mesh is None else sharding.expert_rows(mesh, cfg, mode)
+    with dev, local_experts(rows):
+        params = LM(cfg, gen)
+    if mesh is not None:
+        sharding.shard_module(params, mesh, cfg, mode)
+    return params
 
 
 def _encode(params, frames, cfg):

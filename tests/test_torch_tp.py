@@ -20,7 +20,8 @@ full config's ``fsdp`` and ``moe_parallelism``. On each mesh every rank:
   the 16 queries at its offset (context parallelism; the reduced configs
   set no sequence parallelism, tests/test_torch_sp.py turns it on);
   qwen3's qk-norm,
-  llama4's experts (gathered whole) and shared expert, rwkv6's time mix
+  llama4's experts (each rank its own, tests/test_torch_ep.py) and shared
+  expert, rwkv6's time mix
   (also at heads of 32, whose 2 heads do not divide 4 ranks: it computes
   whole) and channel mix, the Griffin block with its gather, and the
   vocab-parallel embedding and chunked CE (recurrentgemma's tied table);

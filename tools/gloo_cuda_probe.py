@@ -11,10 +11,14 @@ card as its device and runs, in order, printing each result as it comes:
 ``all_reduce`` (sum, max) in ``torch.distributed`` and in its functional
 form, a DTensor gathered over a one-rank "data" axis of a (1, N) mesh and
 a gradient summed over "model" (the tensor-parallel step's two
-redistributions), the time of a 32 MB functional all-reduce, then the
-all-gathers and the reduce-scatter. A rank that does not finish in
-``--timeout`` seconds is reported with the last operation it completed and
-stopped. ``--cpu`` runs the same on CPU tensors.
+redistributions), the time of a 32 MB functional all-reduce, the
+all-to-alls (functional and c10d ``all_to_all_single``, each checked for
+the blocks it should deliver) and the time of a 32 MB one, then the
+all-gathers, the reduce-scatter and the broadcast (after the all-to-alls:
+a collective that never completes stops every step after it). A rank that
+does not finish in ``--timeout`` seconds is reported with the last
+operation it completed and stopped. ``--cpu`` runs the same on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import time
 STEPS = ("all_reduce sum", "all_reduce max", "functional all_reduce sum",
          "functional all_reduce max", "dtensor gather over data",
          "dtensor gradient summed over model", "32 MB all_reduce ms",
+         "functional all_to_all_single", "all_to_all_single",
+         "32 MB all_to_all_single ms",
          "functional all_gather", "all_gather_into_tensor", "all_gather",
          "functional reduce_scatter", "broadcast")
 
@@ -59,13 +65,20 @@ def run_step(name, torch, dist, funcol, dev, ranks):
         out = w.redistribute(mesh, target).to_local(grad_placements=grads)
         out.sum().backward()
         return float(w.grad.to_local()[0, 0])
-    if name == "32 MB all_reduce ms":
+    if name.startswith("32 MB"):
         big = torch.ones(8 << 20, device=dev)
-        wait(funcol.all_reduce(big, "sum", dist.group.WORLD))
+        if "all_reduce" in name:
+            def op():
+                return wait(funcol.all_reduce(big, "sum", dist.group.WORLD))
+        else:
+            def op():
+                return wait(funcol.all_to_all_single(big, None, None,
+                                                     dist.group.WORLD))
+        op()
         dist.barrier()
         t = time.perf_counter()
         for _ in range(5):
-            wait(funcol.all_reduce(big, "sum", dist.group.WORLD))
+            op()
         if dev == "cuda":
             torch.cuda.synchronize()
         return round((time.perf_counter() - t) / 5 * 1e3, 1)
@@ -84,6 +97,20 @@ def run_step(name, torch, dist, funcol, dev, ranks):
         return tuple(wait(funcol.reduce_scatter_tensor(
             torch.ones(8 * ranks, device=dev), "sum", 0,
             dist.group.WORLD)).shape)
+    if name.endswith("all_to_all_single"):
+        # block j of each rank's (ranks, 2) input goes to rank j: rank r
+        # receives (i + 1) * 100 + r from each rank i
+        src = (torch.arange(ranks, device=dev, dtype=torch.float32)[:, None]
+               + 100.0 * (dist.get_rank() + 1)).expand(ranks, 2).contiguous()
+        if name.startswith("functional"):
+            out = wait(funcol.all_to_all_single(src, None, None,
+                                                dist.group.WORLD))
+        else:
+            out = torch.empty_like(src)
+            dist.all_to_all_single(out, src)
+        want = (100.0 * torch.arange(1, ranks + 1, device=dev)
+                + dist.get_rank())[:, None].expand(ranks, 2)
+        return f"exact {bool(torch.equal(out, want))}"
     t = x.clone()
     dist.broadcast(t, 0)
     return float(t[0])

@@ -16,7 +16,9 @@ group: it runs the unsharded model as ``launch/train.py`` builds it, then
 again with every feed-forward down-projection (the MLP's ``wo``, the rwkv
 channel mix's ``wcv``: the products whose weight is d_ff x d_model) split
 as ``--parts`` ranks split it (the rows in ``--parts`` blocks, the blocks'
-products added), and prints:
+products added), with ``--attn`` each attention output projection too
+(its heads in ``--parts`` blocks: the only row-parallel product of an
+all-MoE model such as qwen3-moe-30b-a3b), and prints:
 
 - the first step's ``lm_loss`` gradients in each of ``--dtypes``: the
   worst leaf's max difference over that leaf's max, split against
@@ -45,10 +47,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def split_mode(cfg, parts):
+ATTN_OUT = "bshk,hkd->bsd"      # attention's output projection
+
+
+def split_mode(cfg, parts, attn=False):
     """A ``TorchFunctionMode`` that computes each ``x @ w`` with w of shape
-    (d_ff, d_model) as ``parts`` row blocks' products added; ``.calls``
-    counts the products it split."""
+    (d_ff, d_model) as ``parts`` row blocks' products added, and with
+    ``attn`` each attention output projection (``ATTN_OUT``) as ``parts``
+    blocks of heads' products added; ``.calls`` counts the products it
+    split."""
     import torch
     from torch.overrides import TorchFunctionMode
 
@@ -66,6 +73,14 @@ def split_mode(cfg, parts):
                 f = shape[0] // parts
                 Split.calls += 1
                 return sum(x[..., i * f:(i + 1) * f] @ w[i * f:(i + 1) * f]
+                           for i in range(parts))
+            if (attn and func is torch.einsum and len(args) == 3
+                    and args[0] == ATTN_OUT and not kwargs):
+                _, x, w = args
+                h = w.shape[0] // parts
+                Split.calls += 1
+                return sum(torch.einsum(ATTN_OUT, x[:, :, i * h:(i + 1) * h],
+                                        w[i * h:(i + 1) * h])
                            for i in range(parts))
             return func(*args, **kwargs)
     return Split()
@@ -159,6 +174,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--decode", type=int, default=8)
+    ap.add_argument("--attn", action="store_true",
+                    help="also split attention's output projections")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     import contextlib
@@ -166,9 +183,9 @@ def main(argv=None):
         if args.steps:
             cfg = config(arch, "float32", args.layers)
             base_losses, base = train(cfg, args, contextlib.nullcontext())
-            mode = split_mode(cfg, args.parts)
+            mode = split_mode(cfg, args.parts, args.attn)
             losses, weights = train(cfg, args, mode)
-            assert mode.calls, f"{arch}: no d_ff x d_model product split"
+            assert mode.calls, f"{arch}: no product split"
             name, err = worst(weights, base)
             print(f"{arch}: fp32 losses {base_losses} unsplit, {losses} "
                   f"split; weights after {args.steps} AdamW steps: worst "
@@ -177,9 +194,9 @@ def main(argv=None):
             cfg = config(arch, dtype, args.layers)
             if args.serve:
                 base, toks = serve_logits(cfg, args, contextlib.nullcontext())
-                mode = split_mode(cfg, args.parts)
+                mode = split_mode(cfg, args.parts, args.attn)
                 got, _ = serve_logits(cfg, args, mode, toks)
-                assert mode.calls, f"{arch}: no d_ff x d_model product split"
+                assert mode.calls, f"{arch}: no product split"
                 again, _ = serve_logits(cfg, args, contextlib.nullcontext(),
                                         toks)
                 moves = [rel(g, b) for g, b in zip(got, base)]
@@ -194,9 +211,9 @@ def main(argv=None):
                       flush=True)
                 continue
             base = first_grads(cfg, args, contextlib.nullcontext())
-            mode = split_mode(cfg, args.parts)
+            mode = split_mode(cfg, args.parts, args.attn)
             got = first_grads(cfg, args, mode)
-            assert mode.calls, f"{arch}: no d_ff x d_model product split"
+            assert mode.calls, f"{arch}: no product split"
             again = worst(first_grads(cfg, args, contextlib.nullcontext()),
                           base)
             name, err = worst(got, base)
