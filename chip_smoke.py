@@ -195,32 +195,40 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    One qwen3 decode step under ``torch.profiler``, its device time by
    kind (casts, routing: sort, scatter and gather, GEMMs, flash).
 10. Training the SSM archs. (a) The autograd Functions of the path on the
-   card: ``WKV6`` at 8 x 64 x 512 x 64 in fp32 and bf16, ``RGLRU`` at 8 x
-   2560 x 2560 and ``FlashAttention`` at recurrentgemma-2b's 8 x 10/1 x
+   card: ``WKV6`` at 8 x 64 x 512 x 64 in fp32 and bf16 and, in fp32, with
+   logw at its two ends (-e^5 and -1e-6), at a tensor-parallel rank's 4 x
+   16 x 512 x 64 and at the reduced K = 16 (4 x 4 x 40 x 16), ``RGLRU`` at
+   8 x 2560 x 2560 and ``FlashAttention`` at recurrentgemma-2b's 8 x 10/1 x
    2560, hd 256, window 2048, fp32; each gradient at a seeded upstream
    against autograd through the plain version, relative to its max, to
-   ``TOL``; one launch a forward, and a backward's (RGLRU's reverse scan:
-   one), which autograd runs on its own thread, counted in the forward's
-   ``ops.tally``; each backward's time a call beside its forward
-   kernel's. (b) Both archs reduced in fp32 with remat "full": 5
-   ``make_train_step`` steps on the card and on the CPU from one set of
-   weights and batches, losses to 1e-5 relative and weights to 1e-4 (5d
-   b's tolerances), each card step's launches held. (c) ``launch/train.py``
-   at full width, bf16 compute, the configs' remat "full" and CE chunks,
-   ``SSM_TRAIN_STEPS`` steps, no checkpoint: rwkv6-7b at 8 x 512 and
-   recurrentgemma-2b at 4 x 2560, each at the deepest depth (of its first
-   segment's repeats) whose 16 bytes a parameter, kept layer inputs and a
-   step's transient memory, measured on a one-repeat model, fit with
-   ``SERVE_HEADROOM`` to spare, the reckoning printed; losses finite,
-   every weight leaf moved; ms a step, tokens/s, peak memory. (d) Each
-   step's launches (``ops.tally``) and the counters (zeroed before, read
-   after): wkv6's prefill form twice a ``rwkv`` layer (forward and
-   remat's recompute), rglru three times an ``rglru`` layer (forward,
-   recompute, the backward's reverse scan), flash's fp32 sequence form
-   twice an ``attn_local`` layer, nothing else. (e) One more step of each
-   under ``torch.profiler`` (the device alone), device time by kind
-   (``TRAIN_KINDS``). (f) rglru and flash's fp32 form timed at
-   recurrentgemma-2b's 4 x 2560, records of their own.
+   ``TOL``; one launch a forward, and a backward's (WKV6's gradient kernel:
+   one; RGLRU's reverse scan: one; flash's plain backward: none), which
+   autograd runs on its own thread, counted in the forward's ``ops.tally``;
+   each backward's time a call beside its forward kernel's. WKV6's gradient
+   kernel also against its own order of operations
+   (``wkv6_bwd_serial_ref``) at 2 x 8 x 45 x 64 with dS absent. (b) Both
+   archs reduced in fp32 with remat "full": 5 ``make_train_step`` steps on
+   the card and on the CPU from one set of weights and batches, losses to
+   1e-5 relative and weights to 1e-4 (5d b's tolerances), each card step's
+   launches held. (c) ``launch/train.py`` at full width, bf16 compute, the
+   configs' remat "full" and CE chunks, ``SSM_TRAIN_STEPS`` steps, no
+   checkpoint: rwkv6-7b at 8 x 512 and recurrentgemma-2b at 4 x 2560, each
+   at the deepest depth (of its first segment's repeats) whose 16 bytes a
+   parameter, kept layer inputs and a step's transient memory, measured on
+   a one-repeat model, fit with ``SERVE_HEADROOM`` to spare, the reckoning
+   printed; losses finite, every weight leaf moved; ms a step, tokens/s,
+   peak memory. (d) Each step's launches (``ops.tally``) and the counters
+   (zeroed before, read after): wkv6's prefill form twice a ``rwkv`` layer
+   (forward and remat's recompute) and its backward form once, rglru three
+   times an ``rglru`` layer (forward, recompute, the backward's reverse
+   scan), flash's fp32 sequence form twice an ``attn_local`` layer, nothing
+   else. (e) One more step of each under ``torch.profiler`` (the device
+   alone), device time by kind (``TRAIN_KINDS``). (f) rglru and flash's
+   fp32 form timed at recurrentgemma-2b's 4 x 2560, records of their own.
+   (g) WKV6's gradient kernel at rwkv6-7b's 8 x 64 x 512 x 64 in fp32 and
+   bf16: held to autograd through the plain version, two calls bitwise
+   equal, timed beside the plain backward (``_bwd_plain`` on the card) and
+   its bound; the bf16 one is the ``wkv6_bhtk_bwd`` record.
 11. Sharding and cost accounting on a one-rank NCCL mesh (1, 1) over
    ("data", "model"), the card being one GPU (multi-rank numerics are the
    CPU tests' ``tests/test_torch_mesh_train.py``). (a) ``launch/train.py``
@@ -256,9 +264,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    shapes the split hands each rank, held to their plain versions and timed
    beside their bounds (flash beside sdpa), records of their own: flash at
    llama3-8b's 4 x 8/2 x 512 and chatglm3-6b's 4 x 8/1 x 512 (hd 128,
-   bf16), wkv6 at rwkv6-7b's 4 x 16 x 512 x 64, rglru at
-   recurrentgemma-2b's 4 x 512 x 640; then flash 4 x 10/1 x 512 (fp32, hd
-   256) and wkv6 4 x 64 x 512 x 64, phase 11's shapes, held and timed. (b)
+   bf16), wkv6's forward and gradient kernels at rwkv6-7b's 4 x 16 x 512
+   x 64, rglru at recurrentgemma-2b's 4 x 512 x 640; then flash 4 x 10/1 x
+   512 (fp32, hd 256) and wkv6 4 x 64 x 512 x 64, phase 11's shapes, held
+   and timed. (b)
    Four processes on the card join a gloo group with CUDA tensors (NCCL
    refuses two ranks on one device) as a (1, 4) ("data", "model") mesh;
    each of ``TP_TRAINS`` (llama3-8b, chatglm3-6b, rwkv6-7b and
@@ -310,12 +319,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at the train launcher's shape too, its launches phase 5f's; phase 5e's
    launches are added to the records of the forms it ran; phase 8's five
    shapes are records of their own, their launches phase 8's serves';
-   phase 9's two likewise; phase 10's wkv6 launches are added to phase
-   6's record, its shape, and its rglru and flash launches are the 4 x
-   2560 records'; phase 11's mesh runs add theirs to the records of the
+   phase 9's two likewise; phase 10's wkv6 prefill launches are added to
+   phase 6's record, its shape, its wkv6 backward launches are the
+   ``wkv6_bhtk_bwd`` record's, and its rglru and flash launches are the 4
+   x 2560 records'; phase 11's mesh runs add theirs to the records of the
    kernels and forms they ran, smollm-360m's flash shape its own; phase
-   12's bf16 runs are the four local-shape records' launches, rank 0's
-   (llama4's serving the two ``ep_records``'),
+   12's bf16 runs are the five local-shape records' launches (the wkv6
+   backward's ``wkv6_bhtk_bwd_tp``), rank 0's (llama4's serving the two
+   ``ep_records``'),
    the context-parallel chunks' records (2c) those of the ranks at their
    offsets, its serving prefills adding to the same records and its (2, 2)
    prefill and decode steps the eight serving records' launches),
@@ -628,6 +639,18 @@ def flash_bound(q, k, v, causal=True, window=0, seq_k=None, q_offset=0):
     flops, n_bytes = cost.flash_work(
         B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
         q.element_size(), k.element_size(), causal, window, q_offset)
+    return bound_ms(n_bytes, flops, dtype_name(q.dtype))
+
+
+def flash_bwd_bound(q, k, v, causal=True, window=0):
+    """(bound ms, what bounds it) of attention's gradient on these tensors,
+    its work from ``distributed.cost.flash_bwd_work``, at the peak of q's
+    dtype."""
+    from repro_torch.distributed import cost
+    B, H, Sq, hd = q.shape
+    flops, n_bytes = cost.flash_bwd_work(
+        B, H, k.shape[1], Sq, k.shape[2], hd, q.element_size(),
+        k.element_size(), causal, window)
     return bound_ms(n_bytes, flops, dtype_name(q.dtype))
 
 
@@ -2447,11 +2470,13 @@ def finetune_flash(torch):
     ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
                       graph_ms(torch, run_l))
     bwd = wall_ms(torch, run_b, iters=50, warmup=5)
+    bb_ms, bb_by = flash_bwd_bound(q, k, v)
     print(f"  flash at the finetune shape {B} x {H}/{KV} x {S} bf16, device "
           f"ms per call: kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, "
           f"bound {b_ms:.6f} ({b_by}); wall per back-to-back call: kernel "
           f"{wall_ms(torch, run_k):.4f}, plain backward (lse pass + "
-          f"key-blocked recomputation) {bwd:.4f}; err {err:.3e}", flush=True)
+          f"key-blocked recomputation) {bwd:.4f}, its bound {bb_ms:.6f} "
+          f"({bb_by}); err {err:.3e}", flush=True)
     return {"name": "flash_attention_bhsd_finetune", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:82",
@@ -3557,7 +3582,8 @@ def phase_serving(torch):
     expect(counts == want, f"launches {counts}, expected {want}")
     forms = dict(ops.forms["wkv6_bhtk"])
     print(f"  wkv6 launches by form {forms}", flush=True)
-    want = {"prefill": cfg.n_layers, "decode": cfg.n_layers * (G - 1)}
+    want = {"prefill": cfg.n_layers, "decode": cfg.n_layers * (G - 1),
+            "backward": 0}
     expect(forms == want, f"wkv6 forms {forms}, expected {want}")
     counts.update(wkv6_bhtk_prefill=forms["prefill"],
                   wkv6_bhtk_decode=forms["decode"])
@@ -4204,14 +4230,17 @@ def phase_moe(torch):
 # phase 10: training the SSM archs
 # ---------------------------------------------------------------------------
 
-# phase 10e: a train step's device time by kind; the rest is the plain
-# backwards' elementwise ops and reductions, the norms, gates and AdamW
-TRAIN_KINDS = (("wkv6 kernel", ("wkv6_",)),
+# phase 10e: a train step's device time by kind; the rest is flash's plain
+# backward's elementwise ops and reductions, the norms, gates and AdamW
+TRAIN_KINDS = (("wkv6 gradient kernel", ("wkv6_bwd",)),
+               ("wkv6 kernel", ("wkv6_",)),
                ("rglru kernel", ("rglru_kernel",)),
                ("flash kernel", ("flash_fwd_",)),
                ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
                ("casts and copies", ("copy", "cast")))
-TRAIN_OTHER = "elementwise and reductions (plain backwards, norms, AdamW)"
+TRAIN_OTHER = ("elementwise and reductions (flash's plain backward, norms, "
+               "AdamW)")
+GRAD_NAMES = ("r", "k", "v", "logw", "u", "s0")
 
 
 def function_parity(torch, label, fn, plain, ins, ups, fwd_ms, n_bwd):
@@ -4260,17 +4289,33 @@ def phase10_functions(torch):
 
     g = torch.Generator(device="cuda").manual_seed(31)
     out = {}
-    B, H, T, K = SERVE_BATCH, 64, SERVE_PROMPT, 64
-    for dt in (torch.float32, torch.bfloat16):
-        ins = wkv_inputs(torch, g, B, H, T, K, dt)
+    train = (SERVE_BATCH, 64, SERVE_PROMPT, 64)
+    rank = (TP_BATCH, mesh_cfg("rwkv6-7b", None).d_model // 64 // TP_MESH[1],
+            TP_SEQ, 64)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape, dt, ends in ((train, f32, False), (train, bf16, False),
+                            (train, f32, True), (rank, f32, False),
+                            (rank, bf16, False), ((4, 4, 40, 16), f32, False)):
+        B, H, T, K = shape
+        ins = wkv_inputs(torch, g, B, H, T, K, dt, logw_ends=ends)
         ups = (torch.randn(B, H, T, K, generator=g, device="cuda").to(dt),
                torch.randn(B, H, K, K, generator=g, device="cuda"))
         fwd = graph_ms(torch, lambda: rwkv6.wkv6_bhtk(*ins), iters=4,
                        replays=3)
-        label = f"WKV6 {B}x{H}x{T}x{K} {dtype_name(dt)}"
+        label = (f"WKV6 {B}x{H}x{T}x{K} {dtype_name(dt)}"
+                 + (", logw at -e^5 and -1e-6" if ends else ""))
         out[label] = function_parity(torch, label, rwkv6.wkv6_grad,
-                                     rwkv6.wkv6_ref, ins, ups, fwd, 0)
+                                     rwkv6.wkv6_ref, ins, ups, fwd, 1)
         del ins, ups
+    ins = wkv_inputs(torch, g, 2, 8, 45, 64, f32)
+    dy = torch.randn(2, 8, 45, 64, generator=g, device="cuda")
+    got = rwkv6.wkv6_bwd_bhtk(*ins, dy, None)
+    want = rwkv6.wkv6_bwd_serial_ref(*ins, dy, None)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        check(f"WKV6's gradient kernel 2x8x45x64 fp32, dS absent, d{name} "
+              f"vs wkv6_bwd_serial_ref / max |d|",
+              max_err(a, b) / (float(b.abs().max()) or 1.0), TOL["float32"])
+    del ins, dy, got, want
     B, T, C = RG_BATCH, RG_PROMPT, 2560
     ins = rglru_inputs(torch, g, B, T, C)
     ups = tuple(torch.randn(*x.shape, generator=g, device="cuda")
@@ -4303,6 +4348,9 @@ def phase10_functions(torch):
     out[label] = function_parity(
         torch, label, lambda q, k, v: fa.flash_attention_grad(q, k, v, **kw),
         lambda q, k, v: fa.attention_ref(q, k, v, **kw), ins, ups, fwd, 0)
+    bb_ms, bb_by = flash_bwd_bound(*ins, window=W)
+    print(f"  FlashAttention's plain backward's bound there: {bb_ms:.4f} ms "
+          f"({bb_by})", flush=True)
     del ins, ups
     gc.collect()
     torch.cuda.empty_cache()
@@ -4311,22 +4359,82 @@ def phase10_functions(torch):
 
 def ssm_step_launches(cfg):
     """One train step's launches with remat "full": wkv6's prefill form
-    twice a ``rwkv`` layer (forward, recompute), rglru three times an
-    ``rglru`` layer (forward, recompute, the backward's reverse scan),
-    flash's fp32 sequence form twice an ``attn_local`` layer (the residual
-    stream is fp32: ``emb_scale``); the plain backwards launch none."""
+    twice a ``rwkv`` layer (forward, recompute) and its backward form once,
+    rglru three times an ``rglru`` layer (forward, recompute, the
+    backward's reverse scan), flash's fp32 sequence form twice an
+    ``attn_local`` layer (the residual stream is fp32: ``emb_scale``);
+    flash's plain backward launches none."""
     kinds = cfg.layer_kinds
-    n_wkv, n_rg = 2 * kinds.count("rwkv"), 3 * kinds.count("rglru")
+    n_wkv, n_rg = kinds.count("rwkv"), 3 * kinds.count("rglru")
     n_fa = 2 * kinds.count("attn_local")
     want = {}
     if n_wkv:
-        want.update({"wkv6_bhtk": n_wkv, ("wkv6_bhtk", "prefill"): n_wkv})
+        want.update({"wkv6_bhtk": 3 * n_wkv,
+                     ("wkv6_bhtk", "prefill"): 2 * n_wkv,
+                     ("wkv6_bhtk", "backward"): n_wkv})
     if n_rg:
         want["rglru_btc"] = n_rg
     if n_fa:
         want.update({"flash_attention_bhsd": n_fa,
                      ("flash_attention_bhsd", "seq_f32"): n_fa})
     return want
+
+
+def wkv6_split(counts, forms):
+    """``counts`` (launches by kernel) with wkv6's split into its forward
+    forms (``wkv6_bhtk``) and its backward (``wkv6_bhtk_bwd``), from
+    ``forms`` (``ops.forms``)."""
+    n = forms["wkv6_bhtk"]["backward"]
+    return dict(counts, wkv6_bhtk=counts["wkv6_bhtk"] - n, wkv6_bhtk_bwd=n)
+
+
+def time_wkv6_bwd(torch, g, B, H, T, K, dt, label):
+    """The gradient kernel at (B, H, T, K) in ``dt``: its six gradients at a
+    seeded upstream held to autograd through ``wkv6_ref`` (``TOL``,
+    relative to each gradient's max), two calls bitwise equal; then its
+    device time a call (CUDA graph replays, calls rotating over enough
+    input sets to fill twice the 50 MB L2), the plain backward's
+    (``_bwd_plain`` on the card, between events) and the bound, its work
+    from ``distributed.cost.wkv6_bwd_work`` at the fp32 rate. Returns the
+    kernel's record without its name."""
+    from repro_torch.distributed import cost
+    from repro_torch.kernels import rwkv6
+
+    n_ops, n_bytes = cost.wkv6_bwd_work(B, H, T, K, torch.finfo(dt).bits // 8)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+    sets = [(*wkv_inputs(torch, g, B, H, T, K, dt),
+             torch.randn(B, H, T, K, generator=g, device="cuda").to(dt),
+             torch.randn(B, H, K, K, generator=g, device="cuda"))
+            for _ in range(-(-100_000_000 // n_bytes))]
+    got = rwkv6.wkv6_bwd_bhtk(*sets[0])
+    again = rwkv6.wkv6_bwd_bhtk(*sets[0])
+    expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"{label}: two calls of the gradient kernel differ")
+    xs = [x.detach().requires_grad_() for x in sets[0][:6]]
+    want = torch.autograd.grad(rwkv6.wkv6_ref(*xs), xs, sets[0][6:])
+    err, name = 0.0, dtype_name(dt)
+    for n, a, b in zip(GRAD_NAMES, got, want):
+        e = max_err(a, b)
+        check(f"{label} {B}x{H}x{T}x{K} {name} d{n} vs autograd / max |d|",
+              e / (float(b.float().abs().max()) or 1.0), TOL[name])
+        err = max(err, e)
+    del got, again, xs, want
+    turn = itertools.cycle(sets)
+    ms = graph_ms(torch, lambda: rwkv6.wkv6_bwd_bhtk(*next(turn)), iters=5,
+                  replays=4)
+    plain = wall_ms(torch, lambda: rwkv6._bwd_plain(*next(turn)), iters=3,
+                    warmup=1)
+    print(f"  WKV6's gradient kernel, {label} {B}x{H}x{T}x{K} {name}, device "
+          f"ms per call: kernel {ms:.4f}, plain backward {plain:.2f}, bound "
+          f"{b_ms:.4f} ({b_by}; {n_ops / 1e9:.2f} GFLOP, "
+          f"{n_bytes / 1e6:.0f} MB); {rwkv6.bwd_groups(B * H, K, 132)} row "
+          f"group(s) a (b, h) on 132 SMs; two calls bitwise equal; err "
+          f"{err:.3e}", flush=True)
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+            "replaces": "src/repro/kernels/rwkv6.py:69", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def ssm_train_agreement(torch):
@@ -4500,7 +4608,8 @@ def ssm_train(torch, arch):
     ms = statistics.median(walls[1:])
     print(f"  {arch}: losses {[round(x, 4) for x in losses]}; step wall "
           f"{[round(w, 1) for w in walls]} ms, median of the last "
-          f"{len(walls) - 1} {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s; "
+          f"{len(walls) - 1} {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s, "
+          f"{ms / cfg.n_layers:.1f} ms a layer at {cfg.n_layers} layers; "
           f"peak {peak / 1e9:.2f} GB; {want} a step (ops.tally), counters "
           f"{counts}, forms {forms['wkv6_bhtk']} {forms['flash_attention_bhsd']}"
           f"; all {len(sums)} weight leaves moved", flush=True)
@@ -4517,7 +4626,7 @@ def ssm_train(torch, arch):
     del params, opt_state, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return wkv6_split(counts, forms)
 
 
 def phase_ssm_train(torch):
@@ -4544,12 +4653,20 @@ def phase_ssm_train(torch):
                     name="rglru_btc_train"),
                dict(time_flash256(torch, g, B, S, "train"),
                     name="flash_attention_bhsd_hd256_train")]
-    print("  plain backwards, ms a call: " + "; ".join(
+    print("phase 10g: WKV6's gradient kernel at rwkv6-7b's training shape",
+          flush=True)
+    B, S = SSM_TRAINS["rwkv6-7b"]
+    time_wkv6_bwd(torch, g, B, 64, S, 64, torch.float32, "train")
+    records.append(dict(time_wkv6_bwd(torch, g, B, 64, S, 64,
+                                      torch.bfloat16, "train"),
+                        name="wkv6_bhtk_bwd"))
+    print("  backwards, ms a call (between events): " + "; ".join(
         f"{k} {v:.2f}" for k, v in bwd.items()), flush=True)
     print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return records, {
         "wkv6_bhtk": counts["rwkv6-7b"]["wkv6_bhtk"],
+        "wkv6_bhtk_bwd": counts["rwkv6-7b"]["wkv6_bhtk_bwd"],
         "rglru_btc_train": rg["rglru_btc"],
         "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
 
@@ -4623,7 +4740,8 @@ def mesh_train(torch, arch, mesh):
                 mesh=mesh if kind == "sim" else None, device="cuda")
         torch.cuda.synchronize()
         runs[kind] = {"params": params, "state": state, "losses": losses,
-                      "steps": steps, "counts": dict(ops.launches),
+                      "steps": steps,
+                      "counts": wkv6_split(dict(ops.launches), ops.forms),
                       "gathers": {k: (sharding.gathers[k] - uses[k])
                                   / MESH_STEPS for k in uses}}
         if kind == "none":
@@ -4871,7 +4989,8 @@ def phase_mesh(torch):
     return [record], {
         "flash_attention_bhsd_smollm_train":
             launches["smollm-360m"]["flash_attention_bhsd"],
-        "wkv6_bhtk": rw["wkv6_bhtk"], "rglru_btc_train": rg["rglru_btc"],
+        "wkv6_bhtk": rw["wkv6_bhtk"], "wkv6_bhtk_bwd": rw["wkv6_bhtk_bwd"],
+        "rglru_btc_train": rg["rglru_btc"],
         "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
 
 
@@ -5429,11 +5548,12 @@ def tp_records(torch):
     """The kernels at the local shapes tensor parallelism hands them, each
     held to its plain version, timed beside its bound (flash beside sdpa):
     flash at llama3-8b's 4 x 8/2 x 512 and chatglm3-6b's 4 x 8/1 x 512 (hd
-    128, causal, bf16), wkv6 at rwkv6-7b's 4 x 16 x 512 x 64, rglru at
-    recurrentgemma-2b's 4 x 512 x 640; then, held and timed too, the two
-    shapes of phase 11's mesh runs, flash 4 x 10/1 x 512 (fp32, hd 256,
-    window 2048) and wkv6 4 x 64 x 512 x 64 (PERF.md's rows of them).
-    Returns the four records."""
+    128, causal, bf16), wkv6's forward and gradient kernels at rwkv6-7b's
+    4 x 16 x 512 x 64, rglru at recurrentgemma-2b's 4 x 512 x 640; then,
+    held and timed too, the two shapes of phase 11's mesh runs, flash 4 x
+    10/1 x 512 (fp32, hd 256, window 2048) and wkv6 4 x 64 x 512 x 64
+    (PERF.md's rows of them). Returns the five records and the serving
+    ranks' (``tp_serve_records``)."""
     g = torch.Generator(device="cuda").manual_seed(43)
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     records = []
@@ -5453,6 +5573,9 @@ def tp_records(torch):
     H = mesh_cfg("rwkv6-7b", None).d_model // 64 // TP_MESH[1]
     records.append(dict(time_wkv6(torch, g, TP_BATCH, H, TP_SEQ, 64,
                                   "TP rank"), name="wkv6_bhtk_tp"))
+    records.append(dict(time_wkv6_bwd(torch, g, TP_BATCH, H, TP_SEQ, 64,
+                                      torch.bfloat16, "TP rank"),
+                        name="wkv6_bhtk_bwd_tp"))
     C = mesh_cfg("recurrentgemma-2b", None).lru_width // TP_MESH[1]
     records.append(dict(time_rglru(torch, g, TP_BATCH, TP_SEQ, C, "TP rank"),
                         name="rglru_btc_tp"))
@@ -5955,7 +6078,8 @@ def phase_tp(torch):
                first["llama3-8b"][fa] + pre[llama][fa],
            "flash_attention_bhsd_tp_chatglm3":
                first["chatglm3-6b"][fa] + pre[glm][fa],
-           "wkv6_bhtk_tp": first["rwkv6-7b"]["wkv6_bhtk"] + pre[rw][wkv],
+           "wkv6_bhtk_tp": first["rwkv6-7b"][wkv] + pre[rw][wkv],
+           "wkv6_bhtk_bwd_tp": first["rwkv6-7b"][("wkv6_bhtk", "backward")],
            "rglru_btc_tp": first["recurrentgemma-2b"][rg] + pre[rgm][rg],
            "flash_attention_bhsd_cp_rg_r3":
                launches["recurrentgemma-2b"][-1][f32] + last[rgm][f32],

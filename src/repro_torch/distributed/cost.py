@@ -19,11 +19,12 @@ conventions:
 
 Each kernel counts by a formula over its shapes, whatever implements it:
 the wrappers in ``kernels/`` report ``flash_work``, ``wkv6_work``,
-``rglru_work`` or ``paged_work`` through ``counted`` and the counter
-ignores the aten ops inside, so the CUDA kernel and its plain version count
-the same work. ``chip_smoke.py``'s bounds read the same formulas. On the
-``meta`` device the wrappers return correctly shaped outputs and report
-their formula: the dry-run path (``launch/dryrun.py``).
+``wkv6_bwd_work`` (``WKV6``'s backward), ``rglru_work`` or ``paged_work``
+through ``counted`` and the counter ignores the aten ops inside, so the
+CUDA kernel and its plain version count the same work. ``chip_smoke.py``'s
+bounds read the same formulas. On the ``meta`` device the wrappers return
+correctly shaped outputs and report their formula: the dry-run path
+(``launch/dryrun.py``).
 
 Regions are tagged by ``tag`` (``flashattn`` around attention's kernel,
 ``wkvscan`` / ``rgscan`` around the scans, ``moeffn`` around the MoE
@@ -110,6 +111,19 @@ def flash_work(B, H, KV, Sq, Sk, hd, q_elem, kv_elem, causal=True,
                    + 2 * B * KV * keys * hd * kv_elem)
 
 
+def flash_bwd_work(B, H, KV, Sq, Sk, hd, q_elem, kv_elem, causal=True,
+                   window=0, q_offset=0):
+    """(flops, bytes) of attention's gradient over the live pairs: 10·hd a
+    live pair (the scores recomputed, then dV, dP, dQ and dK, 2·hd each);
+    q, the output and its gradient read and dq written in q's dtype, K and
+    V read and dK and dV written once over the keys some query reads.
+    ``chip_smoke.py``'s bound of the plain backward."""
+    flops = 10 * hd * B * H * live_pairs(Sq, Sk, causal, window, q_offset)
+    keys = live_keys(Sq, Sk, causal, window, q_offset)
+    return flops, (4 * B * H * Sq * hd * q_elem
+                   + 4 * B * KV * keys * hd * kv_elem)
+
+
 def wkv6_work(B, H, T, K, elem):
     """(flops, bytes) of one wkv6 call: two fp32 multiply-adds a state
     element a token (the output and the state update); r/k/v read and y
@@ -118,6 +132,18 @@ def wkv6_work(B, H, T, K, elem):
     n = B * H * T * K
     return (4 * B * H * T * K * K,
             4 * n * elem + 4 * n + 4 * H * K + 2 * 4 * B * H * K * K)
+
+
+def wkv6_bwd_work(B, H, T, K, elem):
+    """(flops, bytes) of one wkv6 gradient call: six fp32 multiply-adds a
+    state element a token (the state rebuilt, G's update, and the dr, dk,
+    dv and dlogw sums); r/k/v/dy read and dr/dk/dv written in the compute
+    dtype, logw read and dlogw written in fp32, u read and du written, s0
+    and dS read and ds0 written in fp32. The kernel's checkpoints and
+    partial sums are its own traffic and not counted."""
+    n = B * H * T * K
+    return (12 * B * H * T * K * K,
+            7 * n * elem + 2 * 4 * n + 2 * 4 * H * K + 3 * 4 * B * H * K * K)
 
 
 def rglru_work(B, T, C):

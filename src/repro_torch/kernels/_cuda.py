@@ -12,15 +12,16 @@ Nothing here runs at import time: the CPU tests import every module.
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
 form it took (flash: the decode form or the fp32 / bf16 sequence form;
-wkv6: the decode (T = 1) or the prefill kernel). ``by_namespace`` splits
-the counts by the param-set namespace whose weights the launching thread is
-running (``namespace``; the payload's task functions enter it), so a run can
-show which model ran. ``tally`` counts the launches one thread makes inside
-a block, so a run can read one task's launches while others run. All are
-updated under a lock: the executor's worker threads launch kernels at the
-same time. Autograd runs a CUDA backward on a thread of its own; a
-backward that launches (``RGLRU``'s, or a rematerialized layer's forward
-run again) counts in the namespace and tallies that were current when its
+wkv6: the decode (T = 1) or the prefill kernel, or the gradient kernel,
+``backward``). ``by_namespace`` splits the counts by the param-set
+namespace whose weights the launching thread is running (``namespace``;
+the payload's task functions enter it), so a run can show which model
+ran. ``tally`` counts the launches one thread makes inside a block, so a
+run can read one task's launches while others run. All are updated under
+a lock: the executor's worker threads launch kernels at the same time.
+Autograd runs a CUDA backward on a thread of its own; a backward that
+launches (``RGLRU``'s, ``WKV6``'s, or a rematerialized layer's forward run
+again) counts in the namespace and tallies that were current when its
 forward ran (``running``, captured then, and ``resume``).
 ``build_log`` holds the wall seconds of each build that ran ``nvcc`` in this
 process (``obs.torchwatch`` counts them).
@@ -50,7 +51,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
 forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0},
-         "wkv6_bhtk": {"decode": 0, "prefill": 0}}
+         "wkv6_bhtk": {"decode": 0, "prefill": 0, "backward": 0}}
 
 by_namespace: dict[str, dict[str, int]] = {}
 
@@ -182,6 +183,8 @@ def lib() -> ctypes.CDLL:
             handle.repro_flash_decode.restype = i32
             handle.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             handle.repro_wkv6.restype = i32
+            handle.repro_wkv6_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
+            handle.repro_wkv6_bwd.restype = i32
             handle.repro_rglru.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
             handle.repro_rglru.restype = i32
             handle.repro_error_string.argtypes = [i32]

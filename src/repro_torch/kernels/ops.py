@@ -8,8 +8,9 @@ kernel's autograd Function (``flash_attention_grad``, ``wkv6_grad``,
 ``rglru_grad``) only when grad mode is on and an input requires grad, as
 in a finetune or train step; every serving call takes the wrapper
 directly. ``launches`` holds one plain-integer launch count per kernel,
-``forms`` the flash and wkv6 kernels' counts split by form,
-``by_namespace`` the counts split by param-set namespace.
+``forms`` the flash and wkv6 kernels' counts split by form (wkv6's
+gradient kernel is its ``backward`` form), ``by_namespace`` the counts
+split by param-set namespace.
 
 The kernels read raw pointers, so each dispatcher raises on a DTensor
 (``distributed.sharding``): a sharded parameter is gathered by the layer

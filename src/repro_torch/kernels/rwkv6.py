@@ -13,15 +13,19 @@ Returns y (B, H, T, K) in r's dtype and s_T (B, H, K, K) in fp32.
 ``wkv6_bhtk`` takes the plain version for CPU tensors and launches a CUDA
 kernel (``csrc/wkv6.cu``, token-serial) for CUDA tensors: the decode kernel
 at T = 1, the prefill kernel at T > 1 (``wkv6_serial_ref`` repeats its
-order of operations). ``_cuda.forms`` counts the two apart. ``wkv6_grad``
-is the same function with a gradient (``WKV6``): the kernel's forward and
-a plain backward.
+order of operations). ``wkv6_grad`` is the same function with a gradient
+(``WKV6``): the kernel's forward, and a backward (``wkv6_bwd_bhtk``) that
+launches the gradient kernel (``csrc/wkv6_bwd.cu``: checkpoints, each
+chunk rebuilt, a token-serial reverse walk; ``wkv6_bwd_serial_ref``
+repeats its order of operations) on CUDA tensors and recomputes
+``wkv6_ref``'s chunks under autograd on CPU tensors. ``_cuda.forms``
+counts the three forms apart: decode, prefill and backward.
 
-Cost accounting (``distributed.cost``): each call reports
-``cost.wkv6_work`` under the ``wkvscan`` tag (the backward re-enters the
-tag) to an active counter, whatever implements it, and on the ``meta``
-device returns empty outputs of the right shapes and dtypes (the dry
-run's path).
+Cost accounting (``distributed.cost``): each forward call reports
+``cost.wkv6_work`` and each backward ``cost.wkv6_bwd_work`` under the
+``wkvscan`` tag to an active counter, whatever implements them, and on the
+``meta`` device both return empty outputs of the right shapes and dtypes
+(the dry run's path).
 """
 
 from __future__ import annotations
@@ -180,59 +184,265 @@ def _launch(r, k, v, logw, u, s0):
 # ---------------------------------------------------------------------------
 
 GRAD_CHUNK = 32     # tokens the plain backward recomputes at a time
+BWD_CHUNK = 16      # tokens between the gradient kernel's checkpoints
+# the gradient kernel's tile: a thread's rows and columns of S and G, and
+# the warps of a (b, h); its row groups (blocks a (b, h)) it may take
+BWD_TILE = {64: (4, 4, 8), 16: (2, 4, 1)}
+BWD_GROUPS = {64: (1, 2, 4, 8), 16: (1,)}
+
+
+def _chain(x, dim):
+    """Sum over ``dim`` in order: ((x0 + x1) + x2) + ..."""
+    out = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        out = out + x.select(dim, i)
+    return out
+
+
+def _halves(x, dim):
+    """Sum over ``dim`` (a power of two long) by halves: element i with
+    i + n/2 first, as a warp's halving exchanges add its lanes."""
+    while x.shape[dim] > 1:
+        half = x.shape[dim] // 2
+        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
+    return x.squeeze(dim)
+
+
+def _adjacent(x, dim):
+    """Sum over ``dim`` (a power of two long) in adjacent pairs:
+    ((x0 + x1) + (x2 + x3)) + ..."""
+    while x.shape[dim] > 1:
+        x = x.unflatten(dim, (x.shape[dim] // 2, 2))
+        x = x.select(dim + 1, 0) + x.select(dim + 1, 1)
+    return x.squeeze(dim)
+
+
+def wkv6_bwd_serial_ref(r, k, v, logw, u, s0, dy, dS, *, groups=1):
+    """The gradient kernel's order of operations in plain PyTorch, token by
+    token in fp32: the six gradients of ``wkv6_bhtk`` at the upstream
+    (dy, dS), either None for zero, as ``wkv6_bwd_bhtk`` returns them.
+
+    A forward pass keeps the state before every chunk of ``BWD_CHUNK``
+    tokens; then, last chunk first, the chunk's states S_{t-1} are rebuilt
+    from its checkpoint and its tokens taken backwards from G = dL/dS_t:
+    dr_t = S_{t-1} dy_t + (u k_t)(v_t . dy_t), dk_t = G v_t + (u r_t)(v_t .
+    dy_t) and dlogw_t = w_t rowsum(G S_{t-1}), each row's sum over its
+    columns taken as the kernel's lanes take it (each lane's columns in
+    turn, the lanes of a row by halves); dv_t's sum over the rows of G k_t
+    likewise (each thread's rows in turn, a warp's row lanes by halves),
+    then the warps of each of ``groups`` row groups in adjacent pairs and
+    the groups in adjacent pairs, plus beta_t dy_t; then G = (G - d_t G) +
+    r_t dy_t^T. A decay step of S or G takes d_t = 1 - w_t as
+    -expm1(logw_t), dlogw's factor w_t as exp(logw_t). du adds r_t k_t
+    (v_t . dy_t) over the tokens backwards, then over b in order; ds0 is
+    the last G. The adjacent pairs make the result the same at every
+    ``groups``; the tests hold it to ``wkv6_ref``'s autograd."""
+    B, H, T, K = r.shape
+    RT, CT, NW = BWD_TILE[K]
+    CL = K // CT
+    RL = 32 // CL
+    C = BWD_CHUNK
+    rf, kf, vf = r.float(), k.float(), v.float()
+    w = logw.float().exp()
+    d = -torch.expm1(logw.float())                  # 1 - w_t
+    yf = torch.zeros_like(rf) if dy is None else dy.float()
+    uf = u.float()[None, :, None, :]
+    beta = (rf * uf * kf).sum(-1)                                   # (B,H,T)
+    vdy = (vf * yf).sum(-1)
+
+    def step(S, t):
+        return (S - d[:, :, t, :, None] * S) \
+            + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+
+    def rows(x):    # (B,H,K,K) -> (B,H,K): a row's sum, the kernel's order
+        return _halves(_chain(x.unflatten(-1, (CL, CT)), -1), -1)
+
+    starts = range(0, T, C)
+    ck = [s0.float()]
+    for t0 in starts[:-1]:
+        S = ck[-1]
+        for t in range(t0, t0 + C):
+            S = step(S, t)
+        ck.append(S)
+    G = torch.zeros_like(ck[0]) if dS is None else dS.float().clone()
+    dr, dk, dlw, dvs = (torch.empty(B, H, T, K, dtype=torch.float32,
+                                    device=r.device) for _ in range(4))
+    du = torch.zeros(B, H, K, dtype=torch.float32, device=r.device)
+    for t0, S in zip(reversed(starts), reversed(ck)):
+        prev = []
+        for t in range(t0, min(t0 + C, T)):
+            prev.append(S)
+            S = step(S, t)
+        for t in reversed(range(t0, min(t0 + C, T))):
+            Sp = prev[t - t0]
+            dr[:, :, t] = rows(Sp * yf[:, :, t, None, :]) \
+                + uf[:, :, 0] * kf[:, :, t] * vdy[:, :, t, None]
+            dk[:, :, t] = rows(G * vf[:, :, t, None, :]) \
+                + uf[:, :, 0] * rf[:, :, t] * vdy[:, :, t, None]
+            dlw[:, :, t] = w[:, :, t] * rows(G * Sp)
+            part = _chain((G * kf[:, :, t, :, None]).unflatten(
+                2, (NW, RL, RT)), 4)                          # (B,H,NW,RL,K)
+            part = _halves(part, 3).unflatten(2, (groups, NW // groups))
+            dvs[:, :, t] = _adjacent(_adjacent(part, 3), 2)
+            du = du + rf[:, :, t] * kf[:, :, t] * vdy[:, :, t, None]
+            G = (G - d[:, :, t, :, None] * G) \
+                + rf[:, :, t, :, None] * yf[:, :, t, None, :]
+    dv = dvs + beta[..., None] * yf
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw,
+            _chain(du, 0), G)
+
+
+def wkv6_bwd_bhtk(r, k, v, logw, u, s0, dy, dS):
+    """The six gradients (dr, dk, dv, dlogw, du, ds0) of ``wkv6_bhtk`` at
+    the upstream dy (B,H,T,K) and dS (B,H,K,K), either None for zero; each
+    in its input's dtype. CPU tensors: ``wkv6_ref``'s chunks recomputed
+    under autograd (``_bwd_plain``); CUDA tensors: the gradient kernel, one
+    launch counted under the ``backward`` form (two kernels: the reverse
+    walk, then the sums over row groups and over b)."""
+    B, H, T, K = r.shape
+    with cost.counted("wkvscan",
+                      lambda: cost.wkv6_bwd_work(B, H, T, K,
+                                                 r.element_size())):
+        if r.device.type == "meta":
+            return (torch.empty_like(r), torch.empty_like(k),
+                    torch.empty_like(v), torch.empty_like(logw),
+                    torch.empty_like(u), torch.empty_like(s0))
+        if r.device.type == "cpu":
+            return _bwd_plain(r, k, v, logw, u, s0, dy, dS)
+        if r.device.type != "cuda":
+            raise ValueError(f"wkv6_bwd_bhtk: no kernel for {r.device}")
+        return _launch_bwd(r, k, v, logw, u, s0, dy, dS)
+
+
+def _bwd_plain(r, k, v, logw, u, s0, dy, dS):
+    """The CPU backward: the state at each chunk's start from one no-grad
+    pass of ``_chunk_state``, then ``wkv6_ref``'s chunks recomputed under
+    autograd one at a time, last to first, each given dy and the gradient
+    of the state it hands on: the (B,H,C,C,K) pieces of one chunk are
+    alive at a time, not those of the whole sequence."""
+    starts = range(0, r.shape[2], GRAD_CHUNK)
+    S = [s0.float()]
+    with torch.no_grad():
+        for t0 in starts[:-1]:
+            _, kk, vv, lw = _chunk(r, k, v, logw, t0, GRAD_CHUNK)
+            S.append(_chunk_state(kk, vv, lw, S[-1]))
+    dS = torch.zeros_like(S[0]) if dS is None else dS.float()
+    du = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    parts = []
+    for t0, S0 in zip(reversed(starts), reversed(S)):
+        leaves = [x.detach().requires_grad_() for x in
+                  _chunk(r, k, v, logw, t0, GRAD_CHUNK)]
+        ul = u.detach().float().requires_grad_()
+        S0 = S0.detach().requires_grad_()
+        with torch.enable_grad():
+            y, S1 = _chunk_fwd(*leaves, ul[None, :, None, :], S0)
+            outs, grads = [S1], [dS]
+            if dy is not None:
+                outs.append(y)
+                grads.append(dy[:, :, t0:t0 + GRAD_CHUNK].float())
+            *g, gu, dS = torch.autograd.grad(
+                outs, leaves + [ul, S0], grads, allow_unused=True)
+        parts.append([torch.zeros_like(x) if gx is None else gx
+                      for x, gx in zip(leaves, g)])
+        if gu is not None:          # u reaches only y: None without dy
+            du = du + gu
+    dr, dk, dv, dlogw = (torch.cat(p[::-1], dim=2).to(x.dtype)
+                         for p, x in zip(zip(*parts), (r, k, v, logw)))
+    return dr, dk, dv, dlogw, du.to(u.dtype), dS.to(s0.dtype)
+
+
+def bwd_groups(BH, K, sms):
+    """Row groups (blocks a (b, h)) the gradient kernel takes for ``BH``
+    (b, h) pairs on ``sms`` SMs: the fewest of ``BWD_GROUPS[K]`` that give
+    two blocks an SM, else the most. The gradients are bitwise the same at
+    every choice."""
+    choices = BWD_GROUPS[K]
+    return next((g for g in choices if BH * g >= 2 * sms), choices[-1])
+
+
+def _launch_bwd(r, k, v, logw, u, s0, dy, dS):
+    name = "wkv6_bhtk"
+    f32 = (torch.float32,)
+    dt = (r.dtype,)
+    tensors = [r, k, v, logw, u, s0]
+    dtypes = [(torch.float32, torch.bfloat16), dt, dt, f32, f32, f32]
+    for x, d in ((dy, dt), (dS, f32)):
+        if x is not None:
+            tensors.append(x)
+            dtypes.append(d)
+    dev = _cuda.check_cuda_tensors(name, tensors, dtypes)
+    B, H, T, K = r.shape
+    if k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape \
+            or u.shape != (H, K) or s0.shape != (B, H, K, K) \
+            or (dy is not None and dy.shape != r.shape) \
+            or (dS is not None and dS.shape != s0.shape):
+        raise ValueError(
+            f"{name} backward: shapes r {tuple(r.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, logw "
+            f"{tuple(logw.shape)}, u {tuple(u.shape)}, s0 "
+            f"{tuple(s0.shape)}, dy {None if dy is None else tuple(dy.shape)}"
+            f", dS {None if dS is None else tuple(dS.shape)}")
+    if K not in HEAD_DIMS or T < 1:
+        raise ValueError(f"{name} backward: head dim {K} not in {HEAD_DIMS} "
+                         f"or T={T}")
+    if any(x.data_ptr() % 16 for x in (s0, dS) if x is not None):
+        raise ValueError(f"{name} backward: the kernel reads the states in "
+                         f"16-byte pieces: s0 and dS must start 16-byte "
+                         f"aligned")
+    f = dict(dtype=torch.float32, device=dev)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlogw, ds0 = torch.empty_like(logw), torch.empty_like(s0)
+    if B * H == 0:
+        return dr, dk, dv, dlogw, torch.zeros(H, K, **f), ds0
+    du = torch.empty(H, K, **f)
+    groups = bwd_groups(B * H, K, _cuda.sm_count(dev))
+    n_ck = (T - 1) // BWD_CHUNK
+    ckpt = torch.empty(n_ck, B, H, K, K, **f)
+    dvp = torch.empty(groups, B, H, T, K, **f)
+    beta = torch.empty(B, H, T, **f)
+    du_part = torch.empty(B, H, K, **f)
+    err = _cuda.lib().repro_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), None if dy is None else dy.data_ptr(),
+        None if dS is None else dS.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+        ckpt.data_ptr(), dvp.data_ptr(), beta.data_ptr(), du_part.data_ptr(),
+        B, H, T, K, groups, _cuda.DTYPE_CODES[r.dtype],
+        *_cuda.device_and_stream(dev))
+    _cuda.check_launch(name, err, "backward")
+    return dr, dk, dv, dlogw, du, ds0
+
+
+def _fresh(x):
+    """``x`` contiguous and 16-byte aligned, as the gradient kernel takes
+    it: itself where it is, else a copy (autograd's dy may be a view)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 class WKV6(torch.autograd.Function):
     """``wkv6_bhtk`` with a gradient: the forward is the wrapper as it is
-    (one kernel launch on CUDA tensors), the backward plain (no launch).
-    It takes the state at each chunk's start from one no-grad pass of
-    ``_chunk_state``, then recomputes ``wkv6_ref``'s chunks under autograd
-    one at a time, last to first, each given dy and the gradient of the
-    state it hands on: the (B,H,C,C,K) pieces of one chunk are alive at a
-    time, not those of the whole sequence."""
+    (one kernel launch on CUDA tensors), the backward ``wkv6_bwd_bhtk`` (on
+    CUDA tensors one launch of the gradient kernel, on CPU tensors the
+    plain chunked recompute). Autograd runs a CUDA backward on a thread of
+    its own; its launch counts where the forward's did (``_cuda.resume``)."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, s0):
         y, s_T = wkv6_bhtk(r, k, v, logw, u, s0)
         ctx.save_for_backward(r, k, v, logw, u, s0)
+        ctx.running = _cuda.running()
         return y, s_T
 
     @staticmethod
     def backward(ctx, dy, dS):
-        with cost.tag("wkvscan"):
-            return WKV6._backward(ctx, dy, dS)
-
-    @staticmethod
-    def _backward(ctx, dy, dS):
-        r, k, v, logw, u, s0 = ctx.saved_tensors
-        starts = range(0, r.shape[2], GRAD_CHUNK)
-        S = [s0.float()]
-        with torch.no_grad():
-            for t0 in starts[:-1]:
-                _, kk, vv, lw = _chunk(r, k, v, logw, t0, GRAD_CHUNK)
-                S.append(_chunk_state(kk, vv, lw, S[-1]))
-        dS = torch.zeros_like(S[0]) if dS is None else dS.float()
-        du = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
-        parts = []
-        for t0, S0 in zip(reversed(starts), reversed(S)):
-            leaves = [x.detach().requires_grad_() for x in
-                      _chunk(r, k, v, logw, t0, GRAD_CHUNK)]
-            ul = u.detach().float().requires_grad_()
-            S0 = S0.detach().requires_grad_()
-            with torch.enable_grad():
-                y, S1 = _chunk_fwd(*leaves, ul[None, :, None, :], S0)
-                outs, grads = [S1], [dS]
-                if dy is not None:
-                    outs.append(y)
-                    grads.append(dy[:, :, t0:t0 + GRAD_CHUNK].float())
-                *g, gu, dS = torch.autograd.grad(
-                    outs, leaves + [ul, S0], grads, allow_unused=True)
-            parts.append([torch.zeros_like(x) if gx is None else gx
-                          for x, gx in zip(leaves, g)])
-            du = du + gu
-        dr, dk, dv, dlogw = (torch.cat(p[::-1], dim=2).to(x.dtype)
-                             for p, x in zip(zip(*parts), (r, k, v, logw)))
-        return dr, dk, dv, dlogw, du.to(u.dtype), dS.to(s0.dtype)
+        saved = ctx.saved_tensors
+        if saved[0].device.type == "cuda":
+            saved = [_fresh(x) for x in saved]
+            dy = None if dy is None else _fresh(dy.to(saved[0].dtype))
+            dS = None if dS is None else _fresh(dS.float())
+        with _cuda.resume(ctx.running):
+            return wkv6_bwd_bhtk(*saved, dy, dS)
 
 
 def wkv6_grad(r, k, v, logw, u, s0):

@@ -37,9 +37,10 @@ A port of the JAX package's ``repro.launch.train`` over the port's
   ``none`` included.
 * Every arch of ``configs.registry.ARCH_IDS`` trains, the ``rwkv`` and
   ``rglru`` layers through their kernels' autograd Functions
-  (``kernels.rwkv6.WKV6``, ``kernels.rglru.RGLRU``), each layer
-  rematerialized as the config's ``remat`` says. Attention with a logit
-  softcap raises before any weight is built:
+  (``kernels.rwkv6.WKV6``: the scan kernel forward, its gradient kernel
+  backward; ``kernels.rglru.RGLRU``: the scan kernel both ways), each
+  layer rematerialized as the config's ``remat`` says. Attention with a
+  logit softcap raises before any weight is built:
   ``kernels.flash_attention.FlashAttention`` refuses it.
 * The weights are drawn from seed 0 on the device, as the reference draws
   ``PRNGKey(0)``, so a card and the CPU start from other weights.

@@ -177,6 +177,20 @@ def test_flash_formula(case):
         == int(mask.sum())
 
 
+@pytest.mark.parametrize("case", range(len(FLASH)))
+def test_flash_bwd_formula(case):
+    """The gradient's bound: 10·hd a live pair (the forward's 4·hd, 2.5
+    times), q, o and do read and dq written, K and V read and dK and dV
+    written over the live keys."""
+    (B, H, KV, Sq, Sk, hd), kw = FLASH[case]
+    n = kw.get("seq_k") or Sk
+    args = (B, H, KV, Sq, n, hd, 2, 2, kw.get("causal"), kw.get("window", 0))
+    flops, nbytes = cost.flash_bwd_work(*args)
+    assert 4 * flops == 10 * cost.flash_work(*args)[0]
+    keys = cost.live_keys(Sq, n, kw.get("causal"), kw.get("window", 0))
+    assert nbytes == (4 * B * H * Sq * hd + 4 * B * KV * keys * hd) * 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_formula(dtype):
     B, H, T, K = 2, 3, 37, 16

@@ -7,8 +7,9 @@ machine without JAX:
 
 Tolerances: paged decode and rglru 1e-5 in fp32, flash and wkv6 y 2e-5 in
 fp32, all 2e-2 in bf16, the wkv6 state atol 1e-4 / rtol 1e-3 (the CPU
-tests' own); log-likelihoods 1e-3 (sums of 24 fp32 log-probs computed in
-two orders)."""
+tests' own); gradients 2e-5 (fp32) / 2e-2 (bf16) of each gradient's max;
+log-likelihoods 1e-3 (sums of 24 fp32 log-probs computed in two
+orders)."""
 
 import numpy as np
 import pytest
@@ -453,6 +454,136 @@ def test_wkv6_rejects_bad_inputs(cuda):
         rwkv6.wkv6_bhtk(x, x, x, x, x[0, :, 0], torch.zeros(1, 2, 24, 24,
                                                              device=cuda))
     assert _cuda.launches["wkv6_bhtk"] == before
+
+
+def wkv_grad_case(g, device, B, H, T, K, dtype, ends):
+    """wkv6 inputs (``wkv_inputs``; logw at -e^5 and -1e-6 where ``ends``)
+    and the upstream dy (in ``dtype``) and dS (fp32)."""
+    args = wkv_inputs(g, device, B, H, T, K, dtype)
+    if ends:
+        args[3][..., ::2] = -float(np.exp(5.0))
+        args[3][..., 1::2] = -1e-6
+    dy = torch.randn(B, H, T, K, generator=g, device=device).to(dtype)
+    return args, dy, torch.randn(B, H, K, K, generator=g, device=device)
+
+
+def hold_grads(got, want, dtype):
+    """Each gradient within 2e-5 (fp32) / 2e-2 (bf16) of ``want``'s max, in
+    its input's dtype."""
+    t = 2e-5 if dtype == "float32" else 2e-2
+    for name, a, b in zip(("r", "k", "v", "logw", "u", "s0"), got, want):
+        assert a.dtype == b.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= t * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,K,ends,absent", [
+    (8, 64, 512, 64, False, None), (4, 16, 512, 64, True, None),
+    (2, 8, 45, 64, False, "dS"), (2, 8, 33, 64, True, "dy"),
+    (2, 4, 70, 16, False, None), (2, 4, 33, 16, True, "dS"),
+    (3, 5, 1, 64, False, None), (2, 3, 16, 64, False, None)])
+def test_wkv6_grad_kernel_matches_plain(cuda, dtype, B, H, T, K, ends,
+                                        absent):
+    """The gradient kernel at rwkv6-7b's training shape and a rank's local
+    shape, at short and ragged T, with logw at its two ends, dy or dS
+    absent: against autograd through ``wkv6_ref`` and against its own order
+    of operations (``wkv6_bwd_serial_ref``, where T is short), one launch
+    in the ``backward`` form, two calls bitwise equal."""
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(B * T + K)
+    args, dy, dS = wkv_grad_case(g, cuda, B, H, T, K, dt, ends)
+    dy, dS = (None if absent == n else x for n, x in (("dy", dy), ("dS", dS)))
+    before = dict(_cuda.forms["wkv6_bhtk"])
+    got = rwkv6.wkv6_bwd_bhtk(*args, dy, dS)
+    assert _cuda.forms["wkv6_bhtk"] == dict(before,
+                                            backward=before["backward"] + 1)
+    again = rwkv6.wkv6_bwd_bhtk(*args, dy, dS)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xs = [x.detach().requires_grad_() for x in args]
+    y, s = rwkv6.wkv6_ref(*xs)
+    outs, ups = zip(*[(o, d) for o, d in ((y, dy), (s, dS)) if d is not None])
+    want = torch.autograd.grad(outs, xs, ups, allow_unused=True)
+    hold_grads(got, [torch.zeros_like(x) if w is None else w
+                     for x, w in zip(xs, want)], dtype)
+    if T <= 70:
+        hold_grads(got, rwkv6.wkv6_bwd_serial_ref(*args, dy, dS), dtype)
+
+
+@pytest.mark.parametrize("logw", [-20.0, -30.0])
+def test_wkv6_grad_kernel_keeps_small_decays(cuda, logw):
+    """w = exp(logw) of 2e-9 and 9e-14 on every channel: dlogw, that small
+    and real, within 2e-5 of its max of autograd through ``wkv6_ref``, as
+    every other gradient."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    args, dy, dS = wkv_grad_case(g, cuda, 2, 4, 37, 64, torch.float32,
+                                 False)
+    args[3].fill_(logw)
+    got = rwkv6.wkv6_bwd_bhtk(*args, dy, dS)
+    assert float(got[3].abs().max()) > 0
+    xs = [x.detach().requires_grad_() for x in args]
+    hold_grads(got, torch.autograd.grad(rwkv6.wkv6_ref(*xs), xs, (dy, dS)),
+               "float32")
+
+
+@pytest.mark.parametrize("B,H,T,K", [(2, 2, 40, 64), (8, 64, 100, 64)])
+def test_wkv6_grad_kernel_is_the_same_at_every_row_split(cuda, B, H, T, K,
+                                                         monkeypatch):
+    """The kernel's gradients are bitwise the same whatever number of row
+    groups a (b, h) splits into."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    args, dy, dS = wkv_grad_case(g, cuda, B, H, T, K, torch.float32, False)
+    outs = []
+    for n in rwkv6.BWD_GROUPS[K]:
+        monkeypatch.setattr(rwkv6, "bwd_groups", lambda *a, n=n: n)
+        outs.append(rwkv6.wkv6_bwd_bhtk(*args, dy, dS))
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_function_launches_the_gradient_kernel(cuda, dtype):
+    """``WKV6`` on the card: one prefill launch forward and one backward
+    launch, which autograd's thread counts in the forward's tally, and the
+    gradients of autograd through ``wkv6_ref``."""
+    from repro_torch.kernels import ops
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    args, dy, dS = wkv_grad_case(g, cuda, 2, 8, 77, 64, dt, False)
+    xs = [x.detach().requires_grad_() for x in args]
+    with ops.tally() as counts:
+        outs = rwkv6.wkv6_grad(*xs)
+    got = torch.autograd.grad(outs, xs, (dy, dS))
+    torch.cuda.synchronize()
+    assert counts == {"wkv6_bhtk": 2, ("wkv6_bhtk", "prefill"): 1,
+                      ("wkv6_bhtk", "backward"): 1}
+    hold_grads(got, torch.autograd.grad(rwkv6.wkv6_ref(*xs), xs, (dy, dS)),
+               dtype)
+
+
+def test_wkv6_grad_kernel_rejects_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    (r, k, v, logw, u, s0), dy, dS = wkv_grad_case(g, cuda, 1, 2, 5, 16,
+                                                   torch.float32, False)
+    before = dict(_cuda.forms["wkv6_bhtk"])
+    bwd = rwkv6.wkv6_bwd_bhtk
+    with pytest.raises(TypeError):                     # bf16 dy, fp32 r
+        bwd(r, k, v, logw, u, s0, dy.bfloat16(), dS)
+    with pytest.raises(TypeError):                     # bf16 dS
+        bwd(r, k, v, logw, u, s0, dy, dS.bfloat16())
+    with pytest.raises(ValueError):                    # dy not contiguous
+        bwd(r, k, v, logw, u, s0,
+            dy.transpose(2, 3).contiguous().transpose(2, 3), dS)
+    with pytest.raises(ValueError):                    # s0 not 16-byte
+        x = torch.zeros(s0.numel() + 1, device=cuda)[1:].view(s0.shape)
+        bwd(r, k, v, logw, u, x, dy, dS)
+    with pytest.raises(ValueError):                    # dS of another shape
+        bwd(r, k, v, logw, u, s0, dy, dS[:, :1])
+    with pytest.raises(ValueError):                    # head dim 24
+        x = torch.zeros(1, 2, 5, 24, device=cuda)
+        bwd(x, x, x, x, x[0, :, 0], torch.zeros(1, 2, 24, 24, device=cuda),
+            None, None)
+    assert _cuda.forms["wkv6_bhtk"] == before
 
 
 @pytest.mark.parametrize("B,T,C", [(8, 2560, 2560), (8, 1, 2560),

@@ -3,10 +3,12 @@ rwkv6-7b (``rwkv`` layers: the wkv6 scan) and recurrentgemma-2b (``rglru``
 and ``attn_local`` layers: the RG-LRU scan and windowed MQA), reduced.
 
 The three kernels on the path have autograd Functions: ``WKV6`` (the
-kernel's forward, a plain backward recomputed chunk by chunk), ``RGLRU``
-(the kernel's forward, a backward that runs the kernel again on the
-reversed recurrence) and ``FlashAttention``. On CPU tensors each forward is
-the plain version, as the wrapper takes it. Each gradient is held against
+kernel's forward; on the card its gradient kernel, on the CPU a plain
+backward recomputed chunk by chunk), ``RGLRU`` (the kernel's forward, a
+backward that runs the kernel again on the reversed recurrence) and
+``FlashAttention``. On CPU tensors each forward is the plain version, as
+the wrapper takes it; the gradient kernel's order of operations is
+``tests/test_torch_wkv6_bwd.py``'s. Each gradient is held against
 autograd straight through the plain version and against ``jax.vjp`` of the
 reference's XLA form (``wkv6_chunked`` on logw away from the floor, where
 the reference's prefix sums drift, else its token-serial oracle;
