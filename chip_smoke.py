@@ -72,13 +72,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the binder generator's weights, not the default one's.
 5d. Model evolution at full width (progen-s). (a) The flash kernel's
    autograd Function (``flash_attention_grad``: the kernel's forward, the
-   plain backward) at the finetune batch's shape, 8 rows x 8/4 heads of
-   32 over 30 backbone rows + 24 design tokens, causal, at a ragged length
-   and at a GQA group of 1: its forward against the plain version and its
-   dq/dk/dv against autograd through ``attention_ref``, each relative to
-   that gradient's max, to ``TOL``; one launch a forward, none a
-   backward; then the forward kernel's, the plain version's and sdpa's
-   device time at that shape and the plain backward's wall time. (b) A
+   gradient kernel's backward, ``csrc/flash_bwd.cu``) at the finetune
+   batch's shape, 8 rows x 8/4 heads of 32 over 30 backbone rows + 24
+   design tokens, causal, at a ragged length and at a GQA group of 1: its
+   forward against the plain version and its dq/dk/dv against autograd
+   through ``attention_ref``, each relative to that gradient's max, to
+   ``TOL``; one launch a forward and one a backward (the ``backward``
+   form), both in the forward's ``ops.tally``; then the forward kernel's,
+   the plain version's and sdpa's device time at that shape, and the
+   gradient kernel there in bf16 held to autograd, two calls bitwise
+   equal, timed beside the plain backward (once), sdpa's backward and
+   its bound (``flash_bwd_record``). (b) A
    reduced finetune of 5 steps in fp32 on one set of weights and one batch,
    card against CPU: the same losses and parameters (``EVO_LOSS_RTOL``,
    ``EVO_PARAM_ATOL``). (c) im-rp through ``ImpressSession`` (4
@@ -86,9 +90,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    failed, at least one finetune completed and lowered its loss, the store
    is at version 1 or more, the counters equal what the completed tasks
    imply, and each finetune task's own launches (``ops.tally``) are 6
-   bf16 flash launches a step it ran (preempted runs included); the flash
-   kernel is then held to its plain version at every distinct call both
-   runs made. (d) A fixed-noise ``generate_batch`` after it gives the
+   bf16 flash launches and 6 gradient kernel launches a step it ran
+   (preempted runs included); the flash
+   kernel is then held to its plain version, and its gradient kernel to
+   autograd through ``attention_ref``, at every distinct call both runs
+   made. (d) A fixed-noise ``generate_batch`` after it gives the
    tokens of ``progen_sample`` on the evolved weights, not on version
    0's. (e) ``ParamStore.save`` of version 0 and of the evolved version
    through a ``CheckpointManager``; the evolved one restores into a fresh
@@ -131,8 +137,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    patches + 128 tokens) with a checkpoint every 3, a restore that runs 3
    more from step 6, and an uninterrupted 9-step run with the same losses
    (``TRAIN_LOSS_RTOL``); each step's own launches (``ops.tally``) one
-   bf16 flash launch a layer; flash at that shape held and timed beside
-   sdpa; ms a step, tokens/s, one profiled step.
+   bf16 flash launch and one gradient kernel launch a layer; flash at that
+   shape held and timed beside sdpa, and the gradient kernel there
+   (``flash_bwd_record``, the ``flash_attention_bhsd_bwd_train`` record);
+   flash and its gradient kernel held at every distinct call the steps
+   made (``hold_flash_calls``); ms a step, tokens/s, one profiled step.
 6. The LM serving path at full width: ``serve_batch`` on rwkv6-7b (32
    layers, d 4096, bf16 compute, seeded weights drawn on the card), one
    prefill of 8 x 512 tokens and 31 greedy decode steps through the
@@ -202,11 +211,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2560, hd 256, window 2048, fp32; each gradient at a seeded upstream
    against autograd through the plain version, relative to its max, to
    ``TOL``; one launch a forward, and a backward's (WKV6's gradient kernel:
-   one; RGLRU's reverse scan: one; flash's plain backward: none), which
+   one; RGLRU's reverse scan: one; flash's gradient kernel: one), which
    autograd runs on its own thread, counted in the forward's ``ops.tally``;
    each backward's time a call beside its forward kernel's. WKV6's gradient
    kernel also against its own order of operations
-   (``wkv6_bwd_serial_ref``) at 2 x 8 x 45 x 64 with dS absent. (b) Both
+   (``wkv6_bwd_serial_ref``) at 2 x 8 x 45 x 64 with dS absent. Flash's
+   gradient kernel at 8 x 10/1 x 2560 (the ``flash_attention_bhsd_bwd``
+   record) and at phase 12's context-parallel chunks of rank 3, 4 x 10/1
+   x 128 over 512 keys at offset 384 (hd 256, window 2048, fp32) and 4 x
+   15/5 x 128 likewise (hd 64, bf16), records of their own: held to
+   autograd, two calls bitwise equal, timed beside the plain backward
+   (once), sdpa's backward and the bound (``flash_bwd_record``). (b) Both
    archs reduced in fp32 with remat "full": 5 ``make_train_step`` steps on
    the card and on the CPU from one set of weights and batches, losses to
    1e-5 relative and weights to 1e-4 (5d b's tolerances), each card step's
@@ -221,9 +236,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (zeroed before, read after): wkv6's prefill form twice a ``rwkv`` layer
    (forward and remat's recompute) and its backward form once, rglru three
    times an ``rglru`` layer (forward, recompute, the backward's reverse
-   scan), flash's fp32 sequence form twice an ``attn_local`` layer, nothing
-   else. (e) One more step of each under ``torch.profiler`` (the device
-   alone), device time by kind (``TRAIN_KINDS``). (f) rglru and flash's
+   scan), flash's fp32 sequence form twice an ``attn_local`` layer and its
+   gradient kernel once, nothing else. (e) One more step of each under
+   ``torch.profiler`` (the device alone), device time by kind
+   (``TRAIN_KINDS``) and by each of flash's three gradient kernels
+   (``kernel_split``); flash and its gradient kernel held at every
+   distinct call of (c) (``hold_flash_calls``). (f) rglru and flash's
    fp32 form timed at recurrentgemma-2b's 4 x 2560, records of their own.
    (g) WKV6's gradient kernel at rwkv6-7b's 8 x 64 x 512 x 64 in fp32 and
    bf16: held to autograd through the plain version, two calls bitwise
@@ -239,7 +257,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    losses within 1e-5 and weights within 1e-4 relative of the unsharded
    run, each step's
    launches (``ops.tally``) the unsharded run's by kernel and form and the
-   remat rule's; the gathered uses and gradient reductions a step. (b) A
+   remat rule's; the gathered uses and gradient reductions a step; flash
+   and its gradient kernel held at every distinct call of both runs
+   (``hold_flash_calls``). (b) A
    mesh checkpoint at step 2 of smollm-360m: the loss of step 3 from the
    saved weights, the restored mesh run's and a ``--mesh none`` launcher's
    restored from the same file all bitwise equal. (c) One smollm-360m mesh
@@ -247,7 +267,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (FLOPs, bytes and collective bytes a device, attention and mixer tags,
    6·N·D), the measured step time and the step's model-FLOP share (mfu)
    at the bf16 peak; then one more step under ``torch.profiler`` (the
-   device alone), device time by kind. (d) ``python -m
+   device alone), device time by kind and by each of flash's three
+   gradient kernels. (d) ``python -m
    repro_torch.launch.dryrun`` for llama3-8b ``train_4k`` (sequence
    parallel) and ``decode_32k`` (the head-dim fallback of KV 8 on 16
    ranks), rwkv6-7b ``decode_32k``, smollm-360m ``train_4k`` (sequence
@@ -256,9 +277,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and data ranks, no weight gathered) on the single-pod mesh, in
    subprocesses on fake 256-rank groups started with the phase (they run
    on the host beside (a)-(c)): each roofline line (t_comp, t_mem, t_coll,
-   mfr), its bottleneck and its collective bytes by kind. (e) Flash at
-   smollm-360m's train shape (8 x 15/5 x 512, hd 64, bf16), its own
-   record. Since the step is tensor-parallel over "model", a one-rank
+   mfr), its bottleneck and its collective bytes by kind. (e) Flash and
+   its gradient kernel at smollm-360m's train shape (8 x 15/5 x 512, hd
+   64, bf16), records of their own (``flash_bwd_record`` for the
+   gradient). Since the step is tensor-parallel over "model", a one-rank
    mesh computes the unsharded code path.
 12. Tensor-parallel training over "model". (a) The kernels at the local
    shapes the split hands each rank, held to their plain versions and timed
@@ -316,20 +338,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    within 2e-2 of their max; each rank's peak memory printed.
 13. One ``{"kernels": [...]}`` JSON line (flash at the finetune shape is
    its own record, its launches those of phase 5d's finetune tasks; flash
-   at the train launcher's shape too, its launches phase 5f's; phase 5e's
-   launches are added to the records of the forms it ran; phase 8's five
-   shapes are records of their own, their launches phase 8's serves';
-   phase 9's two likewise; phase 10's wkv6 prefill launches are added to
-   phase 6's record, its shape, its wkv6 backward launches are the
-   ``wkv6_bhtk_bwd`` record's, and its rglru and flash launches are the 4
-   x 2560 records'; phase 11's mesh runs add theirs to the records of the
-   kernels and forms they ran, smollm-360m's flash shape its own; phase
-   12's bf16 runs are the five local-shape records' launches (the wkv6
-   backward's ``wkv6_bhtk_bwd_tp``), rank 0's (llama4's serving the two
-   ``ep_records``'),
-   the context-parallel chunks' records (2c) those of the ranks at their
-   offsets, its serving prefills adding to the same records and its (2, 2)
-   prefill and decode steps the eight serving records' launches),
+   at the train launcher's shape too, its launches phase 5f's; flash's
+   gradient kernel in bf16 is the ``flash_attention_bhsd_bwd_finetune``
+   record, its launches those of phase 5d's finetune tasks, and at 5f's
+   shape the ``flash_attention_bhsd_bwd_train`` record, its launches 5f's
+   steps'; phase 5e's launches are added to the records of the forms it
+   ran; phase 8's five shapes are records of their own, their launches
+   phase 8's serves'; phase 9's two likewise; phase 10's wkv6 prefill
+   launches are added to phase 6's record, its shape, its wkv6 backward
+   launches are the ``wkv6_bhtk_bwd`` record's, its rglru and flash
+   launches are the 4 x 2560 records', and its flash gradient launches
+   the ``flash_attention_bhsd_bwd`` record's (fp32, recurrentgemma-2b);
+   phase 11's mesh runs add theirs to the records of the kernels and
+   forms they ran (recurrentgemma-2b's gradient launches to
+   ``flash_attention_bhsd_bwd``), smollm-360m's flash shape its own, for
+   the forward and the gradient kernel;
+   phase 12's bf16 runs are the five local-shape records' launches (the
+   wkv6 backward's ``wkv6_bhtk_bwd_tp``), rank 0's (llama4's serving the
+   two ``ep_records``'), the context-parallel chunks' records (2c, and
+   10a's gradient records) those of the ranks at their offsets, its
+   serving prefills adding to the same records and its (2, 2) prefill and
+   decode steps the eight serving records' launches),
    the total time, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -390,7 +419,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
 RG_BATCH, RG_PROMPT, RG_GEN = 8, 2560, 32
 RGLRU_TOL = 1e-5                                 # test_kernels.py's own
 # the port's kernels, as the profiler names them
-PORT_KERNELS = ("decode_attention_", "flash_fwd_", "wkv6_",
+PORT_KERNELS = ("decode_attention_", "flash_fwd_", "flash_bwd_", "wkv6_",
                 "rglru_kernel")
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
@@ -642,16 +671,94 @@ def flash_bound(q, k, v, causal=True, window=0, seq_k=None, q_offset=0):
     return bound_ms(n_bytes, flops, dtype_name(q.dtype))
 
 
-def flash_bwd_bound(q, k, v, causal=True, window=0):
+def flash_bwd_bound(q, k, v, causal=True, window=0, seq_k=None,
+                    q_offset=0):
     """(bound ms, what bounds it) of attention's gradient on these tensors,
-    its work from ``distributed.cost.flash_bwd_work``, at the peak of q's
-    dtype."""
+    its work from ``distributed.cost.flash_bwd_work`` at the queries'
+    offset, at the peak of q's dtype."""
     from repro_torch.distributed import cost
     B, H, Sq, hd = q.shape
     flops, n_bytes = cost.flash_bwd_work(
-        B, H, k.shape[1], Sq, k.shape[2], hd, q.element_size(),
-        k.element_size(), causal, window)
+        B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
+        q.element_size(), k.element_size(), causal, window, q_offset)
     return bound_ms(n_bytes, flops, dtype_name(q.dtype))
+
+
+def flash_forms(**n):
+    """The flash kernel's launches by form (``ops.forms``): zero but for
+    ``n``."""
+    return dict({"decode": 0, "seq_f32": 0, "seq_bf16": 0, "backward": 0},
+                **n)
+
+
+def sdpa_bwd_ms(torch, fn, xs, do, reps):
+    """Device ms of one backward of ``fn(*xs)`` (sdpa): its forward and
+    ``torch.autograd.grad`` captured in one CUDA graph, less the forward
+    alone, each by ``graph_ms`` (``reps``: its iters and replays)."""
+    return (graph_ms(torch, lambda: torch.autograd.grad(fn(*xs), xs, do),
+                     **reps) - graph_ms(torch, lambda: fn(*xs), **reps))
+
+
+def flash_bwd_errors(torch, q, k, v, kw, do, got):
+    """[(max abs error, its gradient's max |d|)] of the gradient kernel's
+    dq, dk, dv ``got`` against autograd through ``attention_ref`` on the
+    same inputs and upstream ``do``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(fa.attention_ref(*xs, **kw), xs, do)
+    return [(max_err(a, b), float(b.float().abs().max()) or 1.0)
+            for a, b in zip(got, want)]
+
+
+def flash_bwd_record(torch, name, label, q, k, v, kw, sdpa_kw):
+    """One ``{"kernels": ...}`` record of flash's gradient kernel at a main
+    path's shape: at a seeded upstream, its dq, dk, dv against autograd
+    through ``attention_ref`` (``TOL``, relative to each gradient's max)
+    and two calls bitwise equal; then the device ms by CUDA-graph replay
+    of the kernel and of sdpa's backward (``sdpa_bwd_ms``, the same masked
+    problem, ``enable_gqa``), the plain backward's wall time once
+    (``attention_lse`` + ``attention_bwd``, between events) and the bound
+    (``flash_bwd_bound``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(q.shape[2] + q.shape[1])
+    do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    o = fa.flash_attention_bhsd(q, k, v, **kw)
+    run_k = lambda: fa.flash_attention_bwd_bhsd(           # noqa: E731
+        q, k, v, o, do, **kw)
+    got, again = run_k(), run_k()
+    expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"flash's gradient kernel {label}: two calls differ")
+    errs = flash_bwd_errors(torch, q, k, v, kw, do, got)
+    for n, (e, scale) in zip("qkv", errs):
+        check(f"flash's gradient kernel {label} d{n} vs autograd / max |d|",
+              e / scale, TOL[dtype_name(q.dtype)])
+    err = max(e for e, _ in errs)
+    del got, again
+    big = q.shape[2] > 1000            # tens of ms a call
+    ms = graph_ms(torch, run_k, **(dict(iters=2, replays=3) if big else {}))
+    plain = wall_ms(torch, lambda: fa.attention_bwd(
+        q, k, v, o, fa.attention_lse(q, k, **kw), do, **kw), iters=1,
+        warmup=1)
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa: E731
+        q_, k_, v_, enable_gqa=k.shape[1] < q.shape[1], **sdpa_kw)
+    lib = sdpa_bwd_ms(torch, sdpa, [x.detach().requires_grad_()
+                                    for x in (q, k, v)], do,
+                      dict(iters=2, replays=3) if big else {})
+    b_ms, b_by = flash_bwd_bound(q, k, v, **kw)
+    print(f"  flash's gradient kernel {label}, device ms per call: kernel "
+          f"{ms:.4f}, plain backward {plain:.4f} (wall, once), sdpa's "
+          f"backward {lib:.4f} (its forward and backward in one graph less "
+          f"its forward), bound {b_ms:.6f} ({b_by}, "
+          f"{100 * b_ms / ms:.1f}% of it); two calls bitwise equal; err "
+          f"{err:.3e}", flush=True)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
 def max_err(got, want):
@@ -1800,8 +1907,7 @@ def phase_main_path(torch, pp):
     expect(counts == want, f"launches {counts}, expected {want}")
     forms = dict(ops.forms["flash_attention_bhsd"])
     print(f"  flash launches by form {forms}", flush=True)
-    expect(forms == {"decode": 0, "seq_f32": 0,
-                     "seq_bf16": want["flash_attention_bhsd"]},
+    expect(forms == flash_forms(seq_bf16=want["flash_attention_bhsd"]),
            f"flash forms {forms}: the protein path runs bf16 sequences")
     return counts
 
@@ -1927,7 +2033,7 @@ def implied_launches(form, done, g, f):
                 f"predict_batch tasks in {disp['predict_batch']} dispatches")
     return ({"paged_decode_bkgh": paged, "flash_attention_bhsd": seq + dec,
              "wkv6_bhtk": 0, "rglru_btc": 0},
-            {"decode": dec, "seq_f32": 0, "seq_bf16": seq}, info)
+            flash_forms(decode=dec, seq_bf16=seq), info)
 
 
 def phase_campaign(torch, pp):
@@ -2029,9 +2135,9 @@ def implied_session_launches(done, pp):
     task or a ``predict_batch`` dispatch is one flash sequence launch a
     layer of its namespace's scorer: 8 for foldscore-s ("default"), 12 for
     foldscore-m ("multimer"). A ``finetune`` task is one flash sequence
-    launch a generator layer a train step it ran. ``backbone_batch`` runs
-    no kernel."""
-    seq = dec = 0
+    launch and one gradient kernel launch a generator layer a train step
+    it ran. ``backbone_batch`` runs no kernel."""
+    seq = dec = bwd = 0
     by_ns = collections.Counter()
     for t in done:
         if t.kind in ("generate_batch", "predict_batch") \
@@ -2051,15 +2157,17 @@ def implied_session_launches(done, pp):
             seq += n_layers
             by_ns[ns] += n_layers
         elif t.kind == "finetune":
-            # one bf16 sequence launch a layer a train step (its forward;
-            # the plain backward launches none), preempted runs included
+            # one bf16 sequence launch a layer a train step (its forward)
+            # and one of the gradient kernel (its backward, counted in the
+            # forward's namespace), preempted runs included
             n = pp.gen_cfgs[ns].n_layers * int(t.result["steps_run"])
             seq += n
-            by_ns[ns] += n
+            bwd += n
+            by_ns[ns] += 2 * n
     zero = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
-    return (dict(zero, flash_attention_bhsd=seq + dec),
-            {"decode": dec, "seq_f32": 0, "seq_bf16": seq},
+    return (dict(zero, flash_attention_bhsd=seq + dec + bwd),
+            flash_forms(decode=dec, seq_bf16=seq, backward=bwd),
             {ns: dict(zero, flash_attention_bhsd=n)
              for ns, n in by_ns.items()})
 
@@ -2068,38 +2176,58 @@ def implied_session_launches(done, pp):
 def flash_calls(seen):
     """Count in the ``collections.Counter`` ``seen`` each distinct call the
     block makes to the flash wrapper, as (q shape, k shape, q dtype, K/V
-    dtype, whether K/V are contiguous, keyword arguments), by a
-    pass-through in the wrapper's place in its module, where ``ops`` looks
-    it up at each call; the wrapper itself runs and counts its launches as
-    ever."""
+    dtype, whether K/V are contiguous, keyword arguments), and to its
+    gradient wrapper (``flash_attention_bwd_bhsd``, which
+    ``FlashAttention.backward`` runs on autograd's thread), as ("backward",
+    q shape, k shape, dtype, keyword arguments), by pass-throughs in the
+    wrappers' places in their module, where ``ops`` and the backward look
+    them up at each call; the wrappers themselves run and count their
+    launches as ever."""
+    import threading
+
     from repro_torch.kernels import flash_attention as fa
 
-    inner = fa.flash_attention_bhsd
+    inner, inner_bwd = fa.flash_attention_bhsd, fa.flash_attention_bwd_bhsd
+    lock = threading.Lock()
 
     def recording(q, k, v, **kw):
         key = (tuple(q.shape), tuple(k.shape), q.dtype, k.dtype,
                k.is_contiguous(), tuple(sorted(kw.items())))
-        seen[key] += 1
+        with lock:
+            seen[key] += 1
         return inner(q, k, v, **kw)
+
+    def recording_bwd(q, k, v, o, g, **kw):
+        key = ("backward", tuple(q.shape), tuple(k.shape), q.dtype,
+               tuple(sorted(kw.items())))
+        with lock:
+            seen[key] += 1
+        return inner_bwd(q, k, v, o, g, **kw)
     fa.flash_attention_bhsd = recording
+    fa.flash_attention_bwd_bhsd = recording_bwd
     try:
         yield seen
     finally:
         fa.flash_attention_bhsd = inner
+        fa.flash_attention_bwd_bhsd = inner_bwd
 
 
 def hold_flash_calls(torch, seen, phase="phase 5c"):
-    """The flash kernel at every call ``flash_calls`` recorded, on fresh
-    N(0, 1) inputs of the same shapes, dtypes, layout (non-contiguous K/V:
-    strided views of a (B, L, KV, hd) cache, as ``attn_decode`` hands
-    them) and arguments, against the plain version (and the bf16 sequence
-    form also against ``attention_tiled_ref``), to ``TOL`` of the query's
-    dtype. Prints the calls and the worst error by form."""
+    """The flash kernel at every forward call ``flash_calls`` recorded, on
+    fresh N(0, 1) inputs of the same shapes, dtypes, layout
+    (non-contiguous K/V: strided views of a (B, L, KV, hd) cache, as
+    ``attn_decode`` hands them) and arguments, against the plain version
+    (and the bf16 sequence form also against ``attention_tiled_ref``), to
+    ``TOL`` of the query's dtype. Prints the calls and the worst error by
+    form. Then the gradient kernel at every backward call it recorded
+    (``hold_flash_bwd_calls``)."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(5)
     worst = collections.defaultdict(lambda: [0, 0.0, 0.0])
-    for qs, ks, qdt, kdt, contiguous, kw in sorted(seen, key=str):
+    bwd = {key: n for key, n in seen.items() if key[0] == "backward"}
+    for qs, ks, qdt, kdt, contiguous, kw in sorted(
+            (key for key in seen if key[0] != "backward"), key=str):
         kw = dict(kw)
         B, KV, T, hd = ks
         q = torch.randn(*qs, generator=g, device="cuda").to(qdt)
@@ -2124,13 +2252,56 @@ def hold_flash_calls(torch, seen, phase="phase 5c"):
                    f"{dtype_name(qdt)} {kw}: max_abs_err {err} > {tol}"
                    + (" (attention_tiled_ref)" if i else ""))
             w[1 + i] = max(w[1 + i], err)
-    print(f"  flash at every distinct call {phase} made, held to the plain "
-          "version (bf16 sequence form also to attention_tiled_ref): "
-          + "; ".join(f"{form} {n} calls, max_abs_err {e:.3e}"
-                      + (f" ({t:.3e} tiled)" if form == "seq_bfloat16"
-                         else "")
-                      for form, (n, e, t) in sorted(worst.items()))
-          + f" (tol {TOL})", flush=True)
+    if worst:
+        print(f"  flash at every distinct call {phase} made, held to the "
+              "plain version (bf16 sequence form also to "
+              "attention_tiled_ref): "
+              + "; ".join(f"{form} {n} calls, max_abs_err {e:.3e}"
+                          + (f" ({t:.3e} tiled)" if form == "seq_bfloat16"
+                             else "")
+                          for form, (n, e, t) in sorted(worst.items()))
+              + f" (tol {TOL})", flush=True)
+    hold_flash_bwd_calls(torch, bwd, phase)
+
+
+def hold_flash_bwd_calls(torch, seen, phase):
+    """Flash's gradient kernel at every backward call ``flash_calls``
+    recorded (``seen``: key -> calls), on fresh N(0, 1) q, k, v and upstream
+    of the same shapes, dtype and arguments, ``o`` the forward kernel's:
+    its dq, dk, dv against autograd through ``attention_ref``, each
+    relative to that gradient's max, to ``TOL`` of the dtype; then its
+    device ms a call (CUDA-graph replay) beside its bound
+    (``flash_bwd_bound``). Prints each call with its launches."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for key in sorted(seen, key=str):
+        _, qs, ks, dt, kw = key
+        kw = dict(kw)
+        q, do = (torch.randn(*qs, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(*ks, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        o = fa.flash_attention_bhsd(q, k, v, **kw)
+        run_k = lambda: fa.flash_attention_bwd_bhsd(       # noqa: E731
+            q, k, v, o, do, **kw)
+        rel = [e / scale for e, scale in
+               flash_bwd_errors(torch, q, k, v, kw, do, run_k())]
+        tol = TOL[dtype_name(dt)]
+        label = (f"flash's gradient kernel at a {phase} call {qs} over {ks} "
+                 f"{dtype_name(dt)} {kw}")
+        expect(max(rel) <= tol, f"{label}: dq, dk, dv errors relative to "
+               f"the gradient's max {rel} > {tol}")
+        big = qs[0] * qs[1] * qs[2] * ks[2] > 1 << 26
+        ms = graph_ms(torch, run_k,
+                      **(dict(iters=2, replays=2) if big else {}))
+        b_ms, b_by = flash_bwd_bound(q, k, v, **kw)
+        print(f"  {label}: {seen[key]} calls; dq, dk, dv max error "
+              f"relative to the gradient's max "
+              + ", ".join(f"{e:.3e}" for e in rel) + f" (tol {tol:.0e}); "
+              f"device ms a call {ms:.4f}, bound {b_ms:.6f} ({b_by}, "
+              f"{100 * b_ms / ms:.1f}% of it)", flush=True)
+        del q, k, v, o, do
 
 
 def run_session(torch, pp, spec, devices, label, *, keep=False, calls=None):
@@ -2411,10 +2582,12 @@ def finetune_flash(torch):
     backbone rows + 24 design tokens), at a ragged length and at a GQA
     group of 1: its forward against the plain version (``TOL``) and its
     dq/dk/dv against ``torch.autograd`` through ``attention_ref``, each
-    relative to that gradient's max (``TOL``); one launch a forward, none
-    a backward. Then, at the finetune shape in bf16, the forward kernel's,
-    the plain version's and sdpa's device times and the plain backward's
-    wall time. Returns the kernel record of the finetune shape."""
+    relative to that gradient's max (``TOL``); one launch a forward and
+    one of the gradient kernel a backward, both in the forward's
+    ``ops.tally``. Then, at the finetune shape in bf16, the forward
+    kernel's, the plain version's and sdpa's device times, and the
+    gradient kernel's record (``flash_bwd_record``). Returns the kernel
+    records of the finetune shape: the forward's and the gradient's."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -2433,7 +2606,8 @@ def finetune_flash(torch):
             q, k, v = (t.requires_grad_() for t in (q, k, v))
             torch.cuda.synchronize()
             ops.reset_launches()
-            out = fa.flash_attention_grad(q, k, v)
+            with ops.tally() as counts:
+                out = fa.flash_attention_grad(q, k, v)
             grads = torch.autograd.grad(out, (q, k, v), do)
             torch.cuda.synchronize()
             n, f = ops.launches["flash_attention_bhsd"], \
@@ -2452,36 +2626,38 @@ def finetune_flash(torch):
             expect(max(rel) <= tol, f"flash Function {label} "
                    f"{dtype_name(dt)}: gradient errors {rel} > {tol}")
             form = "seq_f32" if dt == torch.float32 else "seq_bf16"
-            expect(n == 1 and f[form] == 1,
-                   f"flash Function: {n} launches {f} for one forward and "
-                   f"backward, not 1 of {form}")
+            tallied = {"flash_attention_bhsd": 2,
+                       ("flash_attention_bhsd", form): 1,
+                       ("flash_attention_bhsd", "backward"): 1}
+            expect(n == 2 and f == flash_forms(**{form: 1}, backward=1)
+                   and counts == tallied,
+                   f"flash Function: {n} launches {f} (the forward's tally "
+                   f"{dict(counts)}) for one forward and backward, not 1 of "
+                   f"{form} and 1 backward")
     B, H, KV = EVO_BATCH, 8, 4
-    q, k, v, do = (torch.randn(B, h, S, 32, generator=g, device="cuda",
-                               dtype=torch.bfloat16)
-                   for h in (H, KV, KV, H))
+    q, k, v = (torch.randn(B, h, S, 32, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for h in (H, KV, KV))
     run_k = lambda: fa.flash_attention_bhsd(q, k, v)
     run_p = lambda: fa.attention_ref(q, k, v)
     run_l = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                    enable_gqa=True)
-    o = run_k()
-    run_b = lambda: fa.attention_bwd(q, k, v, o, fa.attention_lse(q, k), do)
-    err = max_err(o, run_p())
+    err = max_err(run_k(), run_p())
     b_ms, b_by = flash_bound(q, k, v)
     ms, plain, lib = (graph_ms(torch, run_k), graph_ms(torch, run_p),
                       graph_ms(torch, run_l))
-    bwd = wall_ms(torch, run_b, iters=50, warmup=5)
-    bb_ms, bb_by = flash_bwd_bound(q, k, v)
     print(f"  flash at the finetune shape {B} x {H}/{KV} x {S} bf16, device "
           f"ms per call: kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, "
           f"bound {b_ms:.6f} ({b_by}); wall per back-to-back call: kernel "
-          f"{wall_ms(torch, run_k):.4f}, plain backward (lse pass + "
-          f"key-blocked recomputation) {bwd:.4f}, its bound {bb_ms:.6f} "
-          f"({bb_by}); err {err:.3e}", flush=True)
-    return {"name": "flash_attention_bhsd_finetune", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:82",
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+          f"{wall_ms(torch, run_k):.4f}; err {err:.3e}", flush=True)
+    bwd = flash_bwd_record(
+        torch, "flash_attention_bhsd_bwd_finetune",
+        f"at the finetune shape {B} x {H}/{KV} x {S}, hd 32, causal, bf16",
+        q, k, v, {}, {"is_causal": True})
+    return [{"name": "flash_attention_bhsd_finetune", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:82",
+             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}, bwd]
 
 
 def finetune_batch(rng, rows, P, L):
@@ -2520,9 +2696,12 @@ def finetune_agreement(torch):
         if dev == "cuda":
             torch.cuda.synchronize()
             n = ops.forms["flash_attention_bhsd"]["seq_f32"]
-            expect(n == gcfg.n_layers * 5 == ops.launches[
-                "flash_attention_bhsd"], f"reduced finetune on the card: {n} "
-                   f"flash launches, not {gcfg.n_layers} x 5")
+            n_bwd = ops.forms["flash_attention_bhsd"]["backward"]
+            expect(n == n_bwd == gcfg.n_layers * 5
+                   and ops.launches["flash_attention_bhsd"] == 2 * n,
+                   f"reduced finetune on the card: {n} flash launches and "
+                   f"{n_bwd} of the gradient kernel, not {gcfg.n_layers} x 5 "
+                   f"each")
         out[dev] = (res, dict(pp.param_store.current()[1]
                               .named_parameters()))
     (gres, gp), (cres, cp) = out["cuda"], out["cpu"]
@@ -2719,11 +2898,13 @@ def phase_evolution(torch, pp):
     Function at the finetune shape; (b) a reduced finetune card vs CPU;
     (c) im-rp through ``ImpressSession`` without and with
     ``evolution=True``, the counters held to what the completed tasks imply
-    and each finetune task's own launches to 6 bf16 flash launches a step,
-    then the flash kernel at every distinct call of both runs; (d) the evolved weights shown to
+    and each finetune task's own launches to 6 bf16 flash launches and 6
+    of the gradient kernel a step, then the flash kernel at every distinct
+    call of both runs; (d) the evolved weights shown to
     run; (e) a checkpoint round trip with a garbled copy; (f) a train
     step's wall time and profile. Returns the finetune shape's kernel
-    record, its launches those the finetune tasks of (c) counted."""
+    records, the forward's and the gradient kernel's, their launches those
+    the finetune tasks of (c) counted."""
     import copy
 
     from repro_torch.core import pipeline
@@ -2732,7 +2913,7 @@ def phase_evolution(torch, pp):
     t_phase = time.perf_counter()
     print("phase 5d: model evolution at full width (progen-s finetune)",
           flush=True)
-    record = finetune_flash(torch)
+    records = finetune_flash(torch)
     finetune_agreement(torch)
     base, spec = evolution_specs()
     cuda0 = torch.device("cuda", 0)
@@ -2769,19 +2950,25 @@ def phase_evolution(torch, pp):
     done = [r for r in fts if not r["preempted"]]
     steps = sum(r["steps_run"] for r in fts)
     n_layers = pp.gen_cfg.n_layers
-    measured = sum(c.get("flash_attention_bhsd", 0) for c, _ in tallies)
+    measured = sum(c.get(("flash_attention_bhsd", "seq_bf16"), 0)
+                   for c, _ in tallies)
+    measured_bwd = sum(c.get(("flash_attention_bhsd", "backward"), 0)
+                       for c, _ in tallies)
     print(f"  evolution: {evo['submitted']} finetunes submitted, "
           f"{evo['completed']} completed, {evo['preempted']} preempted, "
           f"{steps} steps; the finetune tasks' own launches (ops.tally) "
-          f"{[c for c, _ in tallies]}, {measured} flash against "
-          f"{n_layers} x {steps} steps; store at version "
+          f"{[c for c, _ in tallies]}, {measured} flash forwards and "
+          f"{measured_bwd} gradient kernel launches against {n_layers} x "
+          f"{steps} steps each; store at version "
           f"{pp.param_store.version}; buffer {evo['buffer']['size']} "
           f"designs", flush=True)
     expect(len(tallies) == len(fts) and all(
-        c == {"flash_attention_bhsd": n_layers * r["steps_run"],
-              ("flash_attention_bhsd", "seq_bf16"): n_layers * r["steps_run"]}
+        c == {"flash_attention_bhsd": 2 * n_layers * r["steps_run"],
+              ("flash_attention_bhsd", "seq_bf16"): n_layers * r["steps_run"],
+              ("flash_attention_bhsd", "backward"): n_layers * r["steps_run"]}
         for c, r in tallies), f"finetune tasks' own launches {tallies}, "
-        f"not {n_layers} bf16 flash launches a step for {len(fts)} tasks")
+        f"not {n_layers} bf16 flash launches and {n_layers} gradient kernel "
+        f"launches a step for {len(fts)} tasks")
     for r in fts:
         print(f"    finetune from version {r['base_version']}: "
               f"{r['steps_run']} steps to step {r['steps_done']} on "
@@ -2811,10 +2998,10 @@ def phase_evolution(torch, pp):
     evolved_weights_ran(torch, pp, v0)
     checkpoint_round_trip(torch, pp, v0)
     finetune_step_timing(torch, pp)
-    record["launches"] = measured
+    records[0]["launches"], records[1]["launches"] = measured, measured_bwd
     print(f"  phase 5d took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return record
+    return records
 
 
 # -- phase 5e: the gateway ---------------------------------------------------
@@ -3391,8 +3578,9 @@ def train_step_tallies(out, first=None):
 def time_train_flash(torch):
     """The flash kernel at the train launcher's shape (8 rows x 8/4 heads
     of 32 over 64 patch + 128 token positions, causal, bf16): device ms
-    of the kernel, the plain version and sdpa, and the bound. Returns the
-    kernel record."""
+    of the kernel, the plain version and sdpa, and the bound; then the
+    gradient kernel there (``flash_bwd_record``). Returns the two kernel
+    records."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
@@ -3416,11 +3604,15 @@ def time_train_flash(torch):
     print(f"  flash at the train shape {B} x {H}/{KV} x {S} bf16, device ms "
           f"per call: kernel {ms:.4f}, plain {plain:.4f}, sdpa {lib:.4f}, "
           f"bound {b_ms:.6f} ({b_by}); err {err:.3e}", flush=True)
-    return {"name": "flash_attention_bhsd_train", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:82",
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    bwd = flash_bwd_record(
+        torch, "flash_attention_bhsd_bwd_train",
+        f"at the train shape {B} x {H}/{KV} x {S}, hd 32, causal, bf16",
+        q, k, v, {}, {"is_causal": True})
+    return [{"name": "flash_attention_bhsd_train", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:82",
+             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}, bwd]
 
 
 def phase_train(torch):
@@ -3428,10 +3620,12 @@ def phase_train(torch):
     ``train`` for 6 steps with a checkpoint every 3, then ``restore=True``
     to 9 (3 more steps from step 6), against an uninterrupted 9-step run
     (losses within ``TRAIN_LOSS_RTOL``); each step's launches (``ops.tally``)
-    held to one bf16 flash launch a layer, and the counters, zeroed before
-    and read after, to that over every step; flash held at every distinct
-    call; ms a step, tokens/s, one profiled step. Returns the kernel
-    record of the train shape, its launches those of the steps run."""
+    held to one bf16 flash launch and one gradient kernel launch a layer,
+    and the counters, zeroed before and read after, to that over every
+    step; flash and its gradient kernel held at every distinct call; ms a
+    step, tokens/s, one profiled step. Returns the kernel records of the
+    train shape, the forward's (its launches the forwards of the steps
+    run) and the gradient kernel's (its launches the steps')."""
     import tempfile
 
     from repro_torch.configs.registry import get_config
@@ -3450,7 +3644,7 @@ def phase_train(torch):
           f"({cfg.frontend_seq} patches + {TRAIN_SEQ} tokens), AdamW lr "
           f"{opt.lr}: 6 steps with a checkpoint every 3, restore to 9, "
           f"against 9 uninterrupted", flush=True)
-    record = time_train_flash(torch)
+    records = time_train_flash(torch)
     steps, calls = [], collections.Counter()
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -3476,21 +3670,24 @@ def phase_train(torch):
            and len(whole) == 9, "the restore did not resume at step 6")
     expect(rel <= TRAIN_LOSS_RTOL, f"resumed losses differ by {rel}")
     expect(whole[-1] < whole[0], "the train launcher did not lower the loss")
-    per_step = {"flash_attention_bhsd": n,
-                ("flash_attention_bhsd", "seq_bf16"): n}
+    per_step = {"flash_attention_bhsd": 2 * n,
+                ("flash_attention_bhsd", "seq_bf16"): n,
+                ("flash_attention_bhsd", "backward"): n}
     expect(len(steps) == 18 and all(c == per_step for c, _ in steps),
            f"train steps' own launches {[c for c, _ in steps]}, not {n} "
-           f"bf16 flash launches a step")
+           f"bf16 flash launches and {n} gradient kernel launches a step")
     expect(counts == dict(dict.fromkeys(counts, 0),
-                          flash_attention_bhsd=18 * n)
-           and forms == {"decode": 0, "seq_f32": 0, "seq_bf16": 18 * n},
-           f"train launcher: launches {counts} {forms}, not {18 * n} bf16")
+                          flash_attention_bhsd=36 * n)
+           and forms == flash_forms(seq_bf16=18 * n, backward=18 * n),
+           f"train launcher: launches {counts} {forms}, not {18 * n} bf16 "
+           f"and {18 * n} backward")
     walls = [w for _, w in steps[9:]]           # the uninterrupted run
     ms = statistics.median(walls[1:])
     print(f"  train step: wall median {ms:.2f} ms ({min(walls[1:]):.2f}-"
           f"{max(walls[1:]):.2f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} "
-          f"tokens/s; each of the 18 steps {n} bf16 flash launches "
-          f"(ops.tally), the counters {counts['flash_attention_bhsd']}",
+          f"tokens/s; each of the 18 steps {n} bf16 flash launches and {n} "
+          f"of the gradient kernel (ops.tally), the counters "
+          f"{counts['flash_attention_bhsd']}",
           flush=True)
     hold_flash_calls(torch, calls, "phase 5f")
     params, opt_state, step_fn = tr.build(cfg, opt, device="cuda")
@@ -3500,10 +3697,11 @@ def phase_train(torch):
         params, opt_state, _ = step_fn(params, opt_state, batch)
     profile_step(torch, lambda: step_fn(params, opt_state, batch),
                  "launch/train.py train step", top=10)
-    record["launches"] = counts["flash_attention_bhsd"]
+    records[0]["launches"] = forms["seq_bf16"]
+    records[1]["launches"] = forms["backward"]
     print(f"  phase 5f took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return record
+    return records
 
 
 def profile_step(torch, fn, label, top=12, cpu=True):
@@ -3681,8 +3879,8 @@ def phase_rg_serving(torch):
             "flash_attention_bhsd": kinds.count("attn_local") * G,
             "wkv6_bhtk": 0, "rglru_btc": kinds.count("rglru") * G}
     expect(counts == want, f"launches {counts}, expected {want}")
-    want = {"decode": kinds.count("attn_local") * (G - 1),
-            "seq_f32": kinds.count("attn_local"), "seq_bf16": 0}
+    want = flash_forms(decode=kinds.count("attn_local") * (G - 1),
+                       seq_f32=kinds.count("attn_local"))
     expect(forms == want, f"flash forms {forms}, expected {want}")
     counts.update(flash_attention_bhsd_hd256=forms["seq_f32"],
                   flash_attention_bhsd_hd256_decode=forms["decode"])
@@ -3877,9 +4075,7 @@ def implied_flash(cfg, gen):
     seq = n_self + n_cross + n_enc
     dec = (n_self + n_cross) * (gen - 1)
     form = "seq_bf16" if cfg.compute_dtype == "bfloat16" else "seq_f32"
-    want = {"decode": dec, "seq_f32": 0, "seq_bf16": 0}
-    want[form] = seq
-    return want
+    return flash_forms(decode=dec, **{form: seq})
 
 
 def serve_arch(torch, arch, calls, phase="phase 8c"):
@@ -4155,6 +4351,19 @@ def device_time_by_kind(kernels, kinds=KERNEL_KINDS, other="other"):
     return dict(ms)
 
 
+def kernel_split(kernels, prefix):
+    """Prints the device ms of each profiled kernel whose name holds
+    ``prefix`` (the kernels of one launch: flash's gradient's lse, dK/dV
+    and dq), its calls and its ms a call."""
+    split = [(re.search(prefix + r"\w*", e.key).group(0), e.count,
+              e.self_device_time_total / 1e3)
+             for e in kernels if prefix in e.key]
+    if split:
+        print(f"  {prefix} kernels, device ms (calls, ms a call): " + "; ".join(
+            f"{n} {ms:.3f} ({c}, {ms / c:.4f})" for n, c, ms in split),
+            flush=True)
+
+
 def phase9_records(torch):
     """(f) Flash at qwen3-moe-30b-a3b's prefill and its decode over the
     544-slot cache. Returns the records."""
@@ -4230,16 +4439,16 @@ def phase_moe(torch):
 # phase 10: training the SSM archs
 # ---------------------------------------------------------------------------
 
-# phase 10e: a train step's device time by kind; the rest is flash's plain
-# backward's elementwise ops and reductions, the norms, gates and AdamW
+# phase 10e: a train step's device time by kind; the rest is the
+# elementwise ops and reductions of the norms, gates and AdamW
 TRAIN_KINDS = (("wkv6 gradient kernel", ("wkv6_bwd",)),
                ("wkv6 kernel", ("wkv6_",)),
                ("rglru kernel", ("rglru_kernel",)),
+               ("flash gradient kernel", ("flash_bwd_",)),
                ("flash kernel", ("flash_fwd_",)),
                ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
                ("casts and copies", ("copy", "cast")))
-TRAIN_OTHER = ("elementwise and reductions (flash's plain backward, norms, "
-               "AdamW)")
+TRAIN_OTHER = "elementwise and reductions (norms, gates, AdamW)"
 GRAD_NAMES = ("r", "k", "v", "logw", "u", "s0")
 
 
@@ -4282,8 +4491,11 @@ def function_parity(torch, label, fn, plain, ins, ups, fwd_ms, n_bwd):
 
 def phase10_functions(torch):
     """(a) ``WKV6``, ``RGLRU`` and ``FlashAttention`` at the training
-    shapes against autograd through their plain versions. Returns the
-    backwards' ms by label."""
+    shapes against autograd through their plain versions; flash's gradient
+    kernel at recurrentgemma-2b's training shape and at phase 12's
+    context-parallel chunks (rank 3's), records of their own
+    (``flash_bwd_record``). Returns the backwards' ms by label and the
+    records."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru, rwkv6
 
@@ -4347,14 +4559,34 @@ def phase10_functions(torch):
     label = f"FlashAttention {B}x{H}/1x{S} hd {hd} window {W} fp32"
     out[label] = function_parity(
         torch, label, lambda q, k, v: fa.flash_attention_grad(q, k, v, **kw),
-        lambda q, k, v: fa.attention_ref(q, k, v, **kw), ins, ups, fwd, 0)
-    bb_ms, bb_by = flash_bwd_bound(*ins, window=W)
-    print(f"  FlashAttention's plain backward's bound there: {bb_ms:.4f} ms "
-          f"({bb_by})", flush=True)
-    del ins, ups
+        lambda q, k, v: fa.attention_ref(q, k, v, **kw), ins, ups, fwd, 1)
+    del ups
+    mask = fa._mask(S, torch.arange(S, device="cuda"), True, W, S, S, 0,
+                    "cuda")
+    records = [flash_bwd_record(
+        torch, "flash_attention_bhsd_bwd", f"recurrentgemma-2b {B} x {H}/1 "
+        f"x {S}, hd {hd}, causal, window {W}, fp32", *ins, kw,
+        {"attn_mask": mask})]
+    del ins, mask
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    # phase 12's context-parallel chunks at rank 3's offset
+    for name, label, dt, (B, H, KV, Sq, Sk, hd), off, kw in (
+            ("flash_attention_bhsd_bwd_cp_rg_r3",
+             "recurrentgemma-2b CP rank 3", torch.float32,
+             (4, 10, 1, 128, 512, 256), 384, {"window": W}),
+            ("flash_attention_bhsd_bwd_cp_smollm_r3", "smollm-360m CP rank 3",
+             torch.bfloat16, (4, 15, 5, 128, 512, 64), 384, {})):
+        q = torch.randn(B, H, Sq, hd, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B, KV, Sk, hd, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        mask = fa._mask(Sq, torch.arange(Sk, device="cuda"), True,
+                        kw.get("window", 0), Sq, Sk, off, "cuda")
+        records.append(flash_bwd_record(
+            torch, name, f"{label} {B} x {H}/{KV} x {Sq} at offset {off} "
+            f"over {Sk} keys, hd {hd}, causal, {dtype_name(dt)}", q, k, v,
+            dict(kw, q_offset=off), {"attn_mask": mask}))
+    return out, records
 
 
 def ssm_step_launches(cfg):
@@ -4362,11 +4594,11 @@ def ssm_step_launches(cfg):
     twice a ``rwkv`` layer (forward, recompute) and its backward form once,
     rglru three times an ``rglru`` layer (forward, recompute, the
     backward's reverse scan), flash's fp32 sequence form twice an
-    ``attn_local`` layer (the residual stream is fp32: ``emb_scale``);
-    flash's plain backward launches none."""
+    ``attn_local`` layer (the residual stream is fp32: ``emb_scale``) and
+    its gradient kernel once."""
     kinds = cfg.layer_kinds
     n_wkv, n_rg = kinds.count("rwkv"), 3 * kinds.count("rglru")
-    n_fa = 2 * kinds.count("attn_local")
+    n_fa = kinds.count("attn_local")
     want = {}
     if n_wkv:
         want.update({"wkv6_bhtk": 3 * n_wkv,
@@ -4375,17 +4607,22 @@ def ssm_step_launches(cfg):
     if n_rg:
         want["rglru_btc"] = n_rg
     if n_fa:
-        want.update({"flash_attention_bhsd": n_fa,
-                     ("flash_attention_bhsd", "seq_f32"): n_fa})
+        want.update({"flash_attention_bhsd": 3 * n_fa,
+                     ("flash_attention_bhsd", "seq_f32"): 2 * n_fa,
+                     ("flash_attention_bhsd", "backward"): n_fa})
     return want
 
 
-def wkv6_split(counts, forms):
-    """``counts`` (launches by kernel) with wkv6's split into its forward
-    forms (``wkv6_bhtk``) and its backward (``wkv6_bhtk_bwd``), from
-    ``forms`` (``ops.forms``)."""
+def backward_split(counts, forms):
+    """``counts`` (launches by kernel) with wkv6's and flash's split into
+    their forward forms (``wkv6_bhtk``, ``flash_attention_bhsd``) and their
+    gradient kernels (``wkv6_bhtk_bwd``, ``flash_attention_bhsd_bwd``),
+    from ``forms`` (``ops.forms``)."""
     n = forms["wkv6_bhtk"]["backward"]
-    return dict(counts, wkv6_bhtk=counts["wkv6_bhtk"] - n, wkv6_bhtk_bwd=n)
+    m = forms["flash_attention_bhsd"]["backward"]
+    return dict(counts, wkv6_bhtk=counts["wkv6_bhtk"] - n, wkv6_bhtk_bwd=n,
+                flash_attention_bhsd=counts["flash_attention_bhsd"] - m,
+                flash_attention_bhsd_bwd=m)
 
 
 def time_wkv6_bwd(torch, g, B, H, T, K, dt, label):
@@ -4555,8 +4792,9 @@ def ssm_train(torch, arch):
     tokens, bf16 compute, the config's remat and CE chunks, no checkpoint;
     each step's launches (``ops.tally``) and the counters (zeroed before,
     read after) held to ``ssm_step_launches``; every loss finite, every
-    weight leaf moved; ms a step, tokens/s, peak memory; then one more
-    step under ``torch.profiler``. Returns the counters."""
+    weight leaf moved; ms a step, tokens/s, peak memory; flash and its
+    gradient kernel held at every distinct call the steps made; then one
+    more step under ``torch.profiler``. Returns the counters."""
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as tr
@@ -4574,7 +4812,7 @@ def ssm_train(torch, arch):
           f"{cfg.ce_chunks} CE chunks), {B} x {S} tokens, "
           f"{SSM_TRAIN_STEPS} steps; depth {note}", flush=True)
     opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=SSM_TRAIN_STEPS)
-    steps, sums = [], {}
+    steps, sums, calls = [], {}, collections.Counter()
 
     def first(params):
         for n, p in params.named_parameters():
@@ -4583,7 +4821,7 @@ def ssm_train(torch, arch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    with train_step_tallies(steps, first):
+    with train_step_tallies(steps, first), flash_calls(calls):
         params, opt_state, losses = tr.train(
             cfg, opt, steps=SSM_TRAIN_STEPS, batch=B, seq=S, log_every=100,
             device="cuda")
@@ -4621,12 +4859,14 @@ def ssm_train(torch, arch):
                            f"phase 10e: one {arch} train step", top=10,
                            cpu=False)
     device_time_by_kind(kernels, TRAIN_KINDS, TRAIN_OTHER)
+    kernel_split(kernels, "flash_bwd_")
     print(f"  the profiled step and its summary took "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     del params, opt_state, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return wkv6_split(counts, forms)
+    hold_flash_calls(torch, calls, "phase 10c")
+    return backward_split(counts, forms)
 
 
 def phase_ssm_train(torch):
@@ -4635,7 +4875,7 @@ def phase_ssm_train(torch):
     t_phase = time.perf_counter()
     print("phase 10a: the SSM path's autograd Functions on the card vs "
           "autograd through their plain versions", flush=True)
-    bwd = phase10_functions(torch)
+    bwd, bwd_records = phase10_functions(torch)
     print(f"  phase 10a took {time.perf_counter() - t_phase:.1f} s; phase "
           f"10b: reduced SSM training, card vs CPU", flush=True)
     ssm_train_agreement(torch)
@@ -4652,7 +4892,7 @@ def phase_ssm_train(torch):
     records = [dict(time_rglru(torch, g, B, S, 2560, "train"),
                     name="rglru_btc_train"),
                dict(time_flash256(torch, g, B, S, "train"),
-                    name="flash_attention_bhsd_hd256_train")]
+                    name="flash_attention_bhsd_hd256_train")] + bwd_records
     print("phase 10g: WKV6's gradient kernel at rwkv6-7b's training shape",
           flush=True)
     B, S = SSM_TRAINS["rwkv6-7b"]
@@ -4668,7 +4908,8 @@ def phase_ssm_train(torch):
         "wkv6_bhtk": counts["rwkv6-7b"]["wkv6_bhtk"],
         "wkv6_bhtk_bwd": counts["rwkv6-7b"]["wkv6_bhtk_bwd"],
         "rglru_btc_train": rg["rglru_btc"],
-        "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
+        "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"],
+        "flash_attention_bhsd_bwd": rg["flash_attention_bhsd_bwd"]}
 
 # ---------------------------------------------------------------------------
 # phase 11: sharding and cost accounting
@@ -4692,12 +4933,13 @@ def mesh_cfg(arch, layers):
 def mesh_step_launches(cfg):
     """One train step's launches with remat "full": the SSM archs' rule
     (``ssm_step_launches``) and flash's bf16 sequence form twice an
-    ``attn`` layer (forward, recompute)."""
+    ``attn`` layer (forward, recompute) and its gradient kernel once."""
     want = ssm_step_launches(cfg)
-    n = 2 * cfg.layer_kinds.count("attn")
+    n = cfg.layer_kinds.count("attn")
     if n:
-        want.update({"flash_attention_bhsd": n,
-                     ("flash_attention_bhsd", "seq_bf16"): n})
+        want.update({"flash_attention_bhsd": 3 * n,
+                     ("flash_attention_bhsd", "seq_bf16"): 2 * n,
+                     ("flash_attention_bhsd", "backward"): n})
     return want
 
 
@@ -4712,7 +4954,8 @@ def mesh_train(torch, arch, mesh):
     seed: losses to ``MESH_LOSS_RTOL`` and weights to ``MESH_WEIGHT_RTOL``
     relative (each leaf's max error over its max), each step's launches
     (``ops.tally``) the unsharded run's and ``mesh_step_launches``'; the
-    gathered uses and gradient reductions a step. Returns the mesh run:
+    gathered uses and gradient reductions a step; flash and its gradient
+    kernel held at every distinct call of both runs. Returns the mesh run:
     (cfg, params, AdamW state, its counters, step walls in ms)."""
     from repro_torch.distributed import sharding
     from repro_torch.kernels import ops
@@ -4727,21 +4970,22 @@ def mesh_train(torch, arch, mesh):
           f"{cfg.n_layers} of {mesh_cfg(arch, None).n_layers} layers, "
           f"{cfg.compute_dtype} compute, remat {cfg.remat}, {cfg.ce_chunks} "
           f"CE chunks), {B} x {S} tokens, {MESH_STEPS} steps", flush=True)
-    runs = {}
+    runs, calls = {}, collections.Counter()
     for kind in ("none", "sim"):
         steps, uses = [], dict(sharding.gathers)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         ops.reset_launches()
-        with train_step_tallies(steps):
+        with train_step_tallies(steps), flash_calls(calls):
             params, state, losses = tr.train(
                 cfg, opt, steps=MESH_STEPS, batch=B, seq=S, log_every=100,
                 mesh=mesh if kind == "sim" else None, device="cuda")
         torch.cuda.synchronize()
         runs[kind] = {"params": params, "state": state, "losses": losses,
                       "steps": steps,
-                      "counts": wkv6_split(dict(ops.launches), ops.forms),
+                      "counts": backward_split(dict(ops.launches),
+                                               ops.forms),
                       "gathers": {k: (sharding.gathers[k] - uses[k])
                                   / MESH_STEPS for k in uses}}
         if kind == "none":
@@ -4779,6 +5023,9 @@ def mesh_train(torch, arch, mesh):
     expect(g["uses"] >= g["reductions"] > 0 and g["uses"] == int(g["uses"]),
            f"{arch}: gathers a step {g}")
     del runs["none"], none, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    hold_flash_calls(torch, calls, f"phase 11a {arch}")
     return (cfg, sim["params"], sim["state"], sim["counts"],
             [w for _, w in sim["steps"]])
 
@@ -4880,6 +5127,7 @@ def mesh_roofline(torch, cfg, params, state, mesh, walls):
                            f"phase 11c: one {cfg.name} mesh train step",
                            top=8, cpu=False)
     device_time_by_kind(kernels, TRAIN_KINDS, TRAIN_OTHER)
+    kernel_split(kernels, "flash_bwd_")
     return rec
 
 
@@ -4934,7 +5182,7 @@ def mesh_dryrun(d, procs, t):
 
 def phase_mesh(torch):
     """Phase 11: sharding and cost accounting on a one-rank NCCL mesh.
-    Returns (the new record, launches by record name)."""
+    Returns (the new records, launches by record name)."""
     import tempfile
 
     import torch.distributed as dist
@@ -4978,20 +5226,25 @@ def phase_mesh(torch):
     q, k, v = (torch.randn(B, h, S, cfg.head_dim, generator=g, device="cuda",
                            dtype=torch.bfloat16)
                for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-    record = flash_record(
-        torch, "flash_attention_bhsd_smollm_train",
-        f"smollm-360m train {B} x {cfg.n_heads}/{cfg.n_kv_heads} x {S}, hd "
-        f"{cfg.head_dim}, causal, bf16", q, k, v, {}, {"is_causal": True},
-        "src/repro_torch/kernels/csrc/flash_attention.cu")
+    label = (f"smollm-360m train {B} x {cfg.n_heads}/{cfg.n_kv_heads} x "
+             f"{S}, hd {cfg.head_dim}, causal, bf16")
+    records = [flash_record(
+        torch, "flash_attention_bhsd_smollm_train", label, q, k, v, {},
+        {"is_causal": True}, "src/repro_torch/kernels/csrc/flash_attention.cu"),
+        flash_bwd_record(torch, "flash_attention_bhsd_bwd_smollm_train",
+                         label, q, k, v, {}, {"is_causal": True})]
     print(f"  smollm-360m step: mfu {smollm['mfu']:.4f}; phase 11 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     rw, rg = launches["rwkv6-7b"], launches["recurrentgemma-2b"]
-    return [record], {
+    return records, {
         "flash_attention_bhsd_smollm_train":
             launches["smollm-360m"]["flash_attention_bhsd"],
+        "flash_attention_bhsd_bwd_smollm_train":
+            launches["smollm-360m"]["flash_attention_bhsd_bwd"],
         "wkv6_bhtk": rw["wkv6_bhtk"], "wkv6_bhtk_bwd": rw["wkv6_bhtk_bwd"],
         "rglru_btc_train": rg["rglru_btc"],
-        "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"]}
+        "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"],
+        "flash_attention_bhsd_bwd": rg["flash_attention_bhsd_bwd"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6061,6 +6314,7 @@ def phase_tp(torch):
     fa = ("flash_attention_bhsd", "seq_bf16")
     f32 = ("flash_attention_bhsd", "seq_f32")
     fd = ("flash_attention_bhsd", "decode")
+    fb = ("flash_attention_bhsd", "backward")
     wkv, rg = ("wkv6_bhtk", "prefill"), "rglru_btc"
     pre = {k: v["prefill"] for k, v in serving.items()}
     last = {k: v["prefill_last"] for k, v in serving.items()}
@@ -6087,6 +6341,10 @@ def phase_tp(torch):
                first["smollm-360m"][fa] + pre[smol][fa],
            "flash_attention_bhsd_cp_smollm_r3":
                launches["smollm-360m"][-1][fa] + last[smol][fa],
+           "flash_attention_bhsd_bwd_cp_rg_r3":
+               launches["recurrentgemma-2b"][-1][fb],
+           "flash_attention_bhsd_bwd_cp_smollm_r3":
+               launches["smollm-360m"][-1][fb],
            "flash_attention_bhsd_tp_smollm_decode": dec[smol][fd],
            "flash_attention_bhsd_tp_llama3_2x2": pre[llama_2d][fa],
            "flash_attention_bhsd_tp_llama3_decode": dec[llama][fd],
@@ -6168,8 +6426,9 @@ def main():
     campaign = phase_campaign(torch, pp)
     phase_session(torch, pp)
     finetune = phase_evolution(torch, pp)
-    counts["flash_attention_bhsd_finetune"] = finetune["launches"]
-    records.append(finetune)
+    for rec in finetune:
+        counts[rec["name"]] = rec["launches"]
+    records += finetune
     counts["flash_attention_bhsd_decode"] = campaign["default"]["decode"]
     # the gateway's paths add their launches to the records of the forms
     # they ran: paged decode, flash's bf16 sequence form and its decode form
@@ -6179,8 +6438,9 @@ def main():
     counts["flash_attention_bhsd_decode"] += gateway_forms["decode"]
     del pp
     train = phase_train(torch)
-    counts["flash_attention_bhsd_train"] = train["launches"]
-    records.append(train)
+    for rec in train:
+        counts[rec["name"]] = rec["launches"]
+    records += train
     wkv = phase_serving(torch)
     counts.update(wkv6_bhtk=wkv["wkv6_bhtk_prefill"],
                   wkv6_bhtk_decode=wkv["wkv6_bhtk_decode"])

@@ -11,18 +11,20 @@ Nothing here runs at import time: the CPU tests import every module.
 ``launches`` counts kernel launches per kernel. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
-form it took (flash: the decode form or the fp32 / bf16 sequence form;
-wkv6: the decode (T = 1) or the prefill kernel, or the gradient kernel,
-``backward``). ``by_namespace`` splits the counts by the param-set
-namespace whose weights the launching thread is running (``namespace``;
-the payload's task functions enter it), so a run can show which model
-ran. ``tally`` counts the launches one thread makes inside a block, so a
-run can read one task's launches while others run. All are updated under
-a lock: the executor's worker threads launch kernels at the same time.
+form it took (flash: the decode form, the fp32 / bf16 sequence form or
+the gradient kernel, ``backward``; wkv6: the decode (T = 1) or the
+prefill kernel, or the gradient kernel, ``backward``). ``by_namespace``
+splits the counts by the param-set namespace whose weights the launching
+thread is running (``namespace``; the payload's task functions enter it),
+so a run can show which model ran. ``tally`` counts the launches one
+thread makes inside a block, so a run can read one task's launches while
+others run. All are updated under a lock: the executor's worker threads
+launch kernels at the same time.
 Autograd runs a CUDA backward on a thread of its own; a backward that
-launches (``RGLRU``'s, ``WKV6``'s, or a rematerialized layer's forward run
-again) counts in the namespace and tallies that were current when its
-forward ran (``running``, captured then, and ``resume``).
+launches (``RGLRU``'s, ``WKV6``'s, ``FlashAttention``'s, or a
+rematerialized layer's forward run again) counts in the namespace and
+tallies that were current when its forward ran (``running``, captured
+then, and ``resume``).
 ``build_log`` holds the wall seconds of each build that ran ``nvcc`` in this
 process (``obs.torchwatch`` counts them).
 """
@@ -50,7 +52,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
-forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0},
+forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0,
+                                  "backward": 0},
          "wkv6_bhtk": {"decode": 0, "prefill": 0, "backward": 0}}
 
 by_namespace: dict[str, dict[str, int]] = {}
@@ -181,6 +184,8 @@ def lib() -> ctypes.CDLL:
                 [ptr] * 5 + [i32] * 5 + [ctypes.c_longlong] * 6
                 + [i32, ctypes.c_float, i32, i32, i32, ptr])
             handle.repro_flash_decode.restype = i32
+            handle.repro_flash_bwd.argtypes = [ptr] * 10 + [i32] * 12 + [ptr]
+            handle.repro_flash_bwd.restype = i32
             handle.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             handle.repro_wkv6.restype = i32
             handle.repro_wkv6_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
@@ -224,6 +229,14 @@ def check_cuda_tensors(name, tensors, dtypes):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return dev
+
+
+def fresh(x):
+    """``x`` contiguous and 16-byte aligned, as a kernel that reads raw
+    rows takes it: itself where it is, else a copy (autograd's upstream
+    gradient may be a view)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def check_cuda_views(name, tensors, dtypes, device):

@@ -22,23 +22,25 @@ ragged edges themselves.
 
 Training (``flash_attention_grad``, the ``FlashAttention`` autograd
 Function): the forward is ``flash_attention_bhsd`` as it is (the kernel on
-CUDA tensors, the plain version on CPU tensors); the backward is a
-plain-PyTorch port of the reference's own backward, ``_flash_xla_bwd_inner``
-(``repro/models/attention.py``): from (q, k, v, o) it takes each row's
-log-sum-exp in a blockwise pass over the keys (``attention_lse``; the
-forward kernel does not write it), then recomputes the probabilities key
-block by key block with ``delta = (dO . O).sum(-1)``, in fp32, and casts
-dq, dk, dv back to the inputs' dtypes (``attention_bwd``). The reference
-computes this backward in XLA, outside any Pallas kernel, and the JAX
-package has no backward Pallas kernel: the plain backward follows the
-reference and is not a fallback. It launches no kernel. With ``softcap >
-0`` it raises, as the reference's chunked XLA path asserts.
+CUDA tensors, the plain version on CPU tensors); the backward is
+``flash_attention_bwd_bhsd``, the reference's own backward
+(``_flash_xla_bwd_inner``, ``repro/models/attention.py``): from (q, k, v, o)
+each row's log-sum-exp over its live keys and ``delta = (dO . O).sum(-1)``,
+then the probabilities recomputed key block by key block, in fp32, dq, dk,
+dv cast back to the inputs' dtypes. On CPU tensors it is the plain version
+(``attention_lse``, a blockwise pass over the keys, then ``attention_bwd``);
+on CUDA tensors the gradient kernel (``csrc/flash_bwd.cu``: lse and delta,
+then dK/dV a key tile a block, then dq a row tile a block; one launch
+counted under the ``backward`` form), whose tiles and order of sums
+``attention_bwd_tiled_ref`` repeats. The reference computes this backward
+in XLA, outside any Pallas kernel; the kernel is the port's. With
+``softcap > 0`` it raises, as the reference's chunked XLA path asserts.
 
 Cost accounting (``distributed.cost``): each call reports
-``cost.flash_work`` over its live keys under the ``flashattn`` tag (the
-backward re-enters the tag) to an active counter, whatever implements it,
-and on the ``meta`` device returns an empty output of the right shape and
-dtype (the dry run's path).
+``cost.flash_work`` over its live keys (the backward
+``cost.flash_bwd_work``) under the ``flashattn`` tag to an active counter,
+whatever implements it, and on the ``meta`` device returns an empty output
+of the right shape and dtype (the dry run's path).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ MMA_KEYS = 32        # keys a tile of the bf16 sequence kernel
 MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
 MIN_SPLIT_TILES = 4  # tiles a range holds, at least, when a row is cut
 BWD_KEYS = 128       # keys a block of the plain backward's passes
+BWD_BQ = 64          # (query, head) rows a tile of the gradient kernel
+BWD_BK = 32          # keys a tile of the gradient kernel's dK/dV and dq
+BWD_LSE_BK = 64      # keys a tile of its lse pass
 
 
 def _mask(Sq, cols, causal, window, seq_q, seq_k, q_offset, device):
@@ -166,6 +171,27 @@ def live_key_tiles(row_lo, row_hi, seq_q, seq_k, causal, window, bk,
     return range(t_lo, max(t_lo, t_hi))
 
 
+def live_query_tiles(key_lo, key_hi, seq_q, seq_k, causal, window, bq,
+                     q_offset=0, group=1):
+    """``live_key_tiles`` transposed: the tiles of ``bq`` rows that the
+    gradient kernel's dK/dV block for keys ``key_lo..key_hi`` walks, rows r
+    = query r // ``group`` (the (query, head) rows of a KV head): every
+    tile that may hold a live query row (position + ``q_offset``) for a
+    key below ``seq_k``, from the first query the causal mask lets read
+    ``key_lo`` to the last whose window reaches ``key_hi``. The others are
+    skipped."""
+    key_hi = min(key_hi, seq_k - 1)
+    if key_hi < key_lo:
+        return range(0)
+    lo = max(0, key_lo - q_offset) if causal else 0
+    hi = seq_q
+    if window > 0:
+        hi = min(hi, key_hi - q_offset + window)
+    if hi <= lo:
+        return range(0)
+    return range(lo * group // bq, -(-hi * group // bq))
+
+
 def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
                         softcap=0.0, seq_q=None, seq_k=None, q_offset=0):
     """The bf16 sequence kernel's algebra in plain PyTorch. Rows are the
@@ -221,6 +247,106 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
         out[:, :, r0:r0 + len(rows)] = acc / l.clamp_min(1e-20)
     return out.reshape(B, KV, Sq, G, hd).transpose(2, 3) \
         .reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def attention_bwd_tiled_ref(q, k, v, o, g, *, causal=True, window=0,
+                            seq_k=None, q_offset=0):
+    """The gradient kernel's algebra in plain PyTorch: dq, dk, dv of
+    ``attention_ref`` (no softcap) at the output gradient ``g``, in the
+    kernel's tiles and order. Rows are the (query, head) pairs of a KV
+    head, row r = query r // G of head r % G, in tiles of ``BWD_BQ``; keys
+    in tiles of ``BWD_BK`` (keys past Sk read as zeros); the scale folded
+    into q. (a) Each row tile's lse by an online pass over its
+    ``live_key_tiles`` of ``BWD_LSE_BK`` keys, and delta = (g .
+    o).sum(-1). (b) Each key tile's dK and dV summed over the row tiles of
+    ``live_query_tiles`` in order, all G heads' rows inside the tile. (c)
+    Each row tile's dq summed over its live key tiles in order, times the
+    scale. p = exp(s - lse) and ds = p (dp - delta) on live pairs, exact
+    zeros elsewhere; all in fp32, each gradient cast to its input's
+    dtype. The same function as
+    ``attention_lse`` + ``attention_bwd``; the tests hold one to the
+    other."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    seq_k = Sk if seq_k is None else seq_k
+    scale = 1.0 / math.sqrt(hd)
+    n_rows = G * Sq
+
+    def rows_of(x):
+        return x.float().reshape(B, KV, G, Sq, hd).transpose(2, 3) \
+            .reshape(B, KV, n_rows, hd)
+    qs, gr = rows_of(q) * scale, rows_of(g)
+    delta = (gr * rows_of(o)).sum(-1)
+    n_kt = -(-Sk // BWD_BK)
+    kp = q.new_zeros(B, KV, -(-Sk // BWD_LSE_BK) * BWD_LSE_BK, hd,
+                     dtype=torch.float32)
+    vp = torch.zeros_like(kp)
+    kp[:, :, :Sk], vp[:, :, :Sk] = k.float(), v.float()
+    row_tiles = [torch.arange(r0, min(r0 + BWD_BQ, n_rows), device=q.device)
+                 for r0 in range(0, n_rows, BWD_BQ)]
+
+    def keys(t, bk=BWD_BK):
+        cols = torch.arange(t * bk, (t + 1) * bk, device=q.device)
+        return cols, kp[:, :, cols], vp[:, :, cols]
+
+    def live(rows, cols):
+        pos = (rows // G)[:, None] + q_offset
+        ok = (cols < seq_k)[None, :].expand(len(rows), -1)
+        if causal:
+            ok = ok & (cols[None, :] <= pos)
+        if window > 0:
+            ok = ok & (cols[None, :] > pos - window)
+        return ok
+
+    def key_tiles(rows, bk=BWD_BK):
+        return live_key_tiles(int(rows[0]) // G, int(rows[-1]) // G, Sq,
+                              seq_k, causal, window, bk, q_offset)
+
+    lse = qs.new_empty(B, KV, n_rows)
+    for rows in row_tiles:                                        # (a)
+        m = qs.new_full((B, KV, len(rows)), NEG_INF)
+        l = torch.zeros_like(m)
+        for t in key_tiles(rows, BWD_LSE_BK):
+            cols, kt, _ = keys(t, BWD_LSE_BK)
+            lv = live(rows, cols)
+            s = torch.einsum("bkrd,bkjd->bkrj", qs[:, :, rows], kt)
+            s = s.masked_fill(~lv, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            l = l * torch.exp(m - m_new) + torch.where(
+                lv, torch.exp(s - m_new[..., None]), 0.0).sum(-1)
+            m = m_new
+        lse[:, :, rows] = m + torch.log(l.clamp_min(1e-20))
+
+    def pair_grads(rows, cols, kt, vt):
+        lv = live(rows, cols)
+        s = torch.einsum("bkrd,bkjd->bkrj", qs[:, :, rows], kt)
+        p = torch.where(lv, torch.exp(s - lse[:, :, rows, None]), 0.0)
+        dp = torch.einsum("bkrd,bkjd->bkrj", gr[:, :, rows], vt)
+        return p, torch.where(lv, p * (dp - delta[:, :, rows, None]), 0.0)
+
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
+    for t in range(n_kt):                                         # (b)
+        cols, kt, vt = keys(t)
+        for u in live_query_tiles(t * BWD_BK, (t + 1) * BWD_BK - 1, Sq,
+                                  seq_k, causal, window, BWD_BQ, q_offset,
+                                  G):
+            rows = row_tiles[u]
+            p, ds = pair_grads(rows, cols, kt, vt)
+            dv[:, :, cols] += torch.einsum("bkrj,bkrd->bkjd", p,
+                                           gr[:, :, rows])
+            dk[:, :, cols] += torch.einsum("bkrj,bkrd->bkjd", ds,
+                                           qs[:, :, rows])
+    dq = torch.zeros_like(qs)
+    for rows in row_tiles:                                        # (c)
+        for t in key_tiles(rows):
+            cols, kt, vt = keys(t)
+            _, ds = pair_grads(rows, cols, kt, vt)
+            dq[:, :, rows] += torch.einsum("bkrj,bkjd->bkrd", ds, kt)
+    dq = (dq * scale).reshape(B, KV, Sq, G, hd).transpose(2, 3) \
+        .reshape(B, H, Sq, hd)
+    return (dq.to(q.dtype), dk[:, :, :Sk].to(k.dtype),
+            dv[:, :, :Sk].to(v.dtype))
 
 
 def decode_splits(blocks: int, n_sms: int) -> int:
@@ -449,10 +575,72 @@ def attention_bwd(q, k, v, o, lse, g, *, causal=True, window=0,
             torch.cat(dvs, dim=2).to(v.dtype))
 
 
+def flash_attention_bwd_bhsd(q, k, v, o, g, *, causal=True, window=0,
+                             seq_k=None, q_offset=0):
+    """dq, dk, dv of ``flash_attention_bhsd`` (no softcap) at the output
+    ``o`` and its gradient ``g`` (B,H,Sq,hd), K/V in q's dtype; each in its
+    input's dtype. CPU tensors: the plain ``attention_lse`` +
+    ``attention_bwd``; CUDA tensors: the gradient kernel, one launch counted
+    under the ``backward`` form (three kernels: lse and delta, dK/dV, dq).
+    Reports ``cost.flash_bwd_work`` under ``flashattn``."""
+    B, H, Sq, hd = q.shape
+    q_offset = int(q_offset)
+    work = lambda: cost.flash_bwd_work(                          # noqa: E731
+        B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
+        q.element_size(), k.element_size(), causal, window, q_offset)
+    with cost.counted("flashattn", work):
+        if q.device.type == "meta":
+            return torch.empty_like(q), torch.empty_like(k), \
+                torch.empty_like(v)
+        if q.device.type == "cpu":
+            lse = attention_lse(q, k, causal=causal, window=window,
+                                seq_k=seq_k, q_offset=q_offset)
+            return attention_bwd(q, k, v, o, lse, g, causal=causal,
+                                 window=window, seq_k=seq_k,
+                                 q_offset=q_offset)
+        if q.device.type != "cuda":
+            raise ValueError(f"{NAME}: no gradient kernel for {q.device}")
+        return _launch_bwd(q, k, v, o, g, causal, window, seq_k, q_offset)
+
+
+def _launch_bwd(q, k, v, o, g, causal, window, seq_k, q_offset):
+    """Contiguous, 16-byte aligned q, k, v, o, g of one dtype."""
+    _, seq_k = _check(q, k, v, None, seq_k, q_offset)
+    dt = (q.dtype,)
+    dev = _cuda.check_cuda_tensors(NAME, (q, k, v, o, g),
+                                   (DTYPES, dt, dt, dt, dt))
+    if o.shape != q.shape or g.shape != q.shape or window < 0:
+        raise ValueError(f"{NAME} backward: q {tuple(q.shape)}, o "
+                         f"{tuple(o.shape)}, g {tuple(g.shape)}, window "
+                         f"{window}")
+    if any(x.data_ptr() % 16 for x in (q, k, v, o, g)):
+        raise ValueError(f"{NAME} backward: the kernel reads rows in 16-byte "
+                         f"pieces: every input must start 16-byte aligned")
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B == 0:
+        return dq, dk, dv
+    lse, delta = (torch.empty(B * H * Sq, dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    err = _cuda.lib().repro_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), B, H, KV, Sq, Sk, hd, seq_k, int(bool(causal)),
+        int(window), q_offset, _cuda.DTYPE_CODES[q.dtype],
+        *_cuda.device_and_stream(dev))
+    _cuda.check_launch(NAME, err, "backward")
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """``flash_attention_bhsd`` with a gradient: the forward is the wrapper
-    as it is (one kernel launch on CUDA tensors), the backward the plain
-    ``attention_lse`` + ``attention_bwd`` (no launch)."""
+    as it is (one kernel launch on CUDA tensors), the backward
+    ``flash_attention_bwd_bhsd`` (on CUDA tensors one launch of the
+    gradient kernel, handed fresh contiguous tensors: autograd's g is a
+    transposed view; on CPU tensors the plain backward). Autograd runs a
+    CUDA backward on a thread of its own; its launch counts where the
+    forward's did (``_cuda.resume``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, seq_k, q_offset):
@@ -461,14 +649,17 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, o)
         ctx.args = dict(causal=causal, window=window, seq_k=seq_k,
                         q_offset=q_offset)
+        ctx.running = _cuda.running()
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o = ctx.saved_tensors
-        with cost.tag("flashattn"):
-            lse = attention_lse(q, k, **ctx.args)
-            dq, dk, dv = attention_bwd(q, k, v, o, lse, g, **ctx.args)
+        saved = ctx.saved_tensors
+        if saved[0].device.type == "cuda":
+            saved = [_cuda.fresh(x) for x in saved]
+            g = _cuda.fresh(g.to(saved[0].dtype))
+        with _cuda.resume(ctx.running):
+            dq, dk, dv = flash_attention_bwd_bhsd(*saved, g, **ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

@@ -8,7 +8,7 @@ kernel's autograd Function (``flash_attention_grad``, ``wkv6_grad``,
 ``rglru_grad``) only when grad mode is on and an input requires grad, as
 in a finetune or train step; every serving call takes the wrapper
 directly. ``launches`` holds one plain-integer launch count per kernel,
-``forms`` the flash and wkv6 kernels' counts split by form (wkv6's
+``forms`` the flash and wkv6 kernels' counts split by form (each one's
 gradient kernel is its ``backward`` form), ``by_namespace`` the counts
 split by param-set namespace.
 

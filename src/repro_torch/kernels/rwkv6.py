@@ -413,13 +413,6 @@ def _launch_bwd(r, k, v, logw, u, s0, dy, dS):
     return dr, dk, dv, dlogw, du, ds0
 
 
-def _fresh(x):
-    """``x`` contiguous and 16-byte aligned, as the gradient kernel takes
-    it: itself where it is, else a copy (autograd's dy may be a view)."""
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 class WKV6(torch.autograd.Function):
     """``wkv6_bhtk`` with a gradient: the forward is the wrapper as it is
     (one kernel launch on CUDA tensors), the backward ``wkv6_bwd_bhtk`` (on
@@ -438,9 +431,9 @@ class WKV6(torch.autograd.Function):
     def backward(ctx, dy, dS):
         saved = ctx.saved_tensors
         if saved[0].device.type == "cuda":
-            saved = [_fresh(x) for x in saved]
-            dy = None if dy is None else _fresh(dy.to(saved[0].dtype))
-            dS = None if dS is None else _fresh(dS.float())
+            saved = [_cuda.fresh(x) for x in saved]
+            dy = None if dy is None else _cuda.fresh(dy.to(saved[0].dtype))
+            dS = None if dS is None else _cuda.fresh(dS.float())
         with _cuda.resume(ctx.running):
             return wkv6_bwd_bhtk(*saved, dy, dS)
 

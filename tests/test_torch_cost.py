@@ -456,55 +456,69 @@ TWO_LAYERS = {"n_layers": 2, "segments": ((("attn",), 2),)}
 SP_S, SP_M = 4096, 16
 
 
-def seen_cell(arch, rank=None):
+def seen_cell(arch, rank=None, bwd=None):
     """``dryrun.run_cell`` of ``arch``'s train_4k cell cut to 2 layers, at
     ``rank``, with each flash call's (Sq, q_offset) and each layer's
-    residual shape, recorded by pass-throughs in the functions' places."""
+    residual shape, recorded by pass-throughs in the functions' places;
+    each gradient call's (Sq, q_offset) too, in the list ``bwd``."""
     from repro_torch.models import blocks
     calls, shapes = [], []
     inner_fa, inner_layer = fa.flash_attention_bhsd, blocks.layer_fwd
+    inner_bwd = fa.flash_attention_bwd_bhsd
 
     def flash(q, k, v, **kw):
         calls.append((q.shape[2], kw.get("q_offset", 0)))
         return inner_fa(q, k, v, **kw)
 
+    def flash_bwd(q, *a, **kw):
+        if bwd is not None:
+            bwd.append((q.shape[2], kw.get("q_offset", 0)))
+        return inner_bwd(q, *a, **kw)
+
     def layer(kind, p, x, ctx, cfg):
         shapes.append(tuple(x.shape))
         return inner_layer(kind, p, x, ctx, cfg)
     fa.flash_attention_bhsd, blocks.layer_fwd = flash, layer
+    fa.flash_attention_bwd_bhsd = flash_bwd
     try:
         rec = dryrun.run_cell(arch, "train_4k", "single", TWO_LAYERS,
                               rank=rank)
     finally:
         fa.flash_attention_bhsd, blocks.layer_fwd = inner_fa, inner_layer
+        fa.flash_attention_bwd_bhsd = inner_bwd
     return rec, calls, shapes
 
 
 def test_cp_cell_counts_flash_at_each_ranks_chunk():
     """smollm-360m ``train_4k`` (15 heads on 16 ranks: SP and CP): every
-    flash call takes the rank's 4096 / 16 queries at its offset, the
-    residual is the rank's (rows, 256, 960) chunk in every layer, and the
-    last rank's flash FLOPs exceed rank 0's by the live pairs its chunk
-    adds (the default rank is that last one); the collectives are the
+    flash call and every gradient call takes the rank's 4096 / 16 queries
+    at its offset, the residual is the rank's (rows, 256, 960) chunk in
+    every layer, and the last rank's flash FLOPs exceed rank 0's by the
+    live pairs its chunk adds, in the forward's formula and the gradient's
+    (the default rank is that last one); the collectives are the
     all-reduces the layers issue, nothing else."""
     cfg = get_config("smollm-360m")
     rows = SHAPES_BY_NAME["train_4k"].global_batch // SP_M
     n = SP_S // SP_M
     recs = {}
     for rank in (0, SP_M - 1):
-        rec, calls, shapes = seen_cell("smollm-360m", rank)
+        bwd = []
+        rec, calls, shapes = seen_cell("smollm-360m", rank, bwd)
         assert rec["rank"] == rank
         assert calls and set(calls) == {(n, rank * n)}, set(calls)
+        assert bwd and set(bwd) == {(n, rank * n)}, set(bwd)
         assert set(shapes) == {(rows, n, cfg.d_model)}
         assert set(rec["roofline"]["collectives"]) == {"all-reduce"}
-        recs[rank] = rec, len(calls)
+        recs[rank] = rec, len(calls), len(bwd)
     assert seen_cell("smollm-360m")[0]["rank"] == SP_M - 1
-    (first, n_calls), (last, _) = recs[0], recs[SP_M - 1]
-    work = [cost.flash_work(rows, cfg.n_heads, cfg.n_kv_heads, n, SP_S,
-                            cfg.head_dim, 2, 2, True, 0, off)[0]
+    (first, n_calls, n_bwd), (last, _, _) = recs[0], recs[SP_M - 1]
+    args = (rows, cfg.n_heads, cfg.n_kv_heads, n, SP_S, cfg.head_dim, 2, 2,
+            True, 0)
+    work = [cost.flash_work(*args, off)[0] for off in (0, (SP_M - 1) * n)]
+    grad = [cost.flash_bwd_work(*args, off)[0]
             for off in (0, (SP_M - 1) * n)]
     assert last["attn_tagged"]["flops"] - first["attn_tagged"]["flops"] \
-        == n_calls * (work[1] - work[0])
+        == n_calls * (work[1] - work[0]) + n_bwd * (grad[1] - grad[0])
 
 
 def test_sp_cell_norms_run_on_the_ranks_positions():

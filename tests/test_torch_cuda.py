@@ -687,8 +687,10 @@ def test_recurrentgemma_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("shape", [(8, 8, 4, 54), (8, 8, 8, 37)])
 def test_flash_gradient_on_card_matches_autograd(cuda, dtype, shape):
     """The flash kernel's autograd Function on the card: one forward
-    launch, none in the backward, and dq/dk/dv within the tolerance of
-    autograd through ``attention_ref``, relative to each gradient's max."""
+    launch of its sequence form and one gradient kernel launch (the
+    ``backward`` form), both counted in the forward's tally, and dq/dk/dv
+    within the tolerance of autograd through ``attention_ref``, relative
+    to each gradient's max."""
     from repro_torch.kernels import ops
     dt = TORCH_DT[dtype]
     B, H, KV, S = shape
@@ -699,16 +701,133 @@ def test_flash_gradient_on_card_matches_autograd(cuda, dtype, shape):
     do = torch.randn(B, H, S, 32, generator=g, device=cuda).to(dt)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     ops.reset_launches()
-    got = torch.autograd.grad(fa.flash_attention_grad(q, k, v), (q, k, v),
-                              do)
+    with ops.tally() as counts:
+        out = fa.flash_attention_grad(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert ops.launches["flash_attention_bhsd"] == 1
+    form = "seq_f32" if dtype == "float32" else "seq_bf16"
+    assert ops.launches["flash_attention_bhsd"] == 2
+    want_forms = dict(decode=0, seq_f32=0, seq_bf16=0, backward=1)
+    want_forms[form] = 1
+    assert ops.forms["flash_attention_bhsd"] == want_forms
+    assert counts == {"flash_attention_bhsd": 2,
+                      ("flash_attention_bhsd", form): 1,
+                      ("flash_attention_bhsd", "backward"): 1}
     want = torch.autograd.grad(fa.attention_ref(q, k, v), (q, k, v), do)
     t = 2e-5 if dtype == "float32" else 2e-2
     for a, b in zip(got, want):
         assert a.dtype == dt
         err = float((a.float() - b.float()).abs().max())
         assert err <= t * float(b.float().abs().max())
+
+
+# (B, H, KV, Sq, Sk, hd, q_offset, kwargs): head dims 16-256, groups of 1,
+# 3, 5 and 10, causal and not, windows, ragged seq_k, context-parallel
+# chunks, rows with no live key, recurrentgemma-2b's hd 256 and window 2048
+FLASH_GRAD_CASES = [
+    (2, 2, 2, 40, 40, 16, 0, dict(causal=True)),
+    (1, 6, 2, 37, 37, 32, 0, dict(causal=True, seq_k=30)),
+    (1, 5, 1, 33, 45, 64, 0, dict(causal=False)),
+    (1, 10, 1, 96, 96, 256, 0, dict(causal=True, window=40)),
+    (1, 10, 1, 32, 128, 256, 96, dict(causal=True, window=48)),
+    (2, 6, 2, 16, 64, 32, 16, dict(causal=True)),
+    (1, 4, 4, 24, 40, 16, 0, dict(causal=False, window=6)),
+    (1, 3, 1, 16, 24, 16, 20, dict(causal=False, window=6, seq_k=20)),
+    (2, 10, 2, 20, 50, 64, 0, dict(causal=False, seq_k=41)),
+    (1, 1, 1, 70, 70, 256, 0, dict(causal=True)),
+    (2, 8, 2, 100, 100, 128, 0, dict(causal=True)),
+    (4, 15, 5, 128, 512, 64, 384, dict(causal=True)),
+]
+
+
+def flash_grad_case(cuda, dt, seed, B, H, KV, Sq, Sk, hd, off, kw):
+    """q, k, v, the forward kernel's o and an upstream g on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(B, H, Sq, hd, generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, KV, Sk, hd, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    o = fa.flash_attention_bhsd(q, k, v, q_offset=off, **kw)
+    return q, k, v, o, do
+
+
+def hold_flash_grads(got, want, dtype):
+    t = 2e-5 if dtype == "float32" else 2e-2
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max()) or 1.0
+        assert err <= t * scale, f"d{name}: {err / scale:.3e} of its max"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", range(len(FLASH_GRAD_CASES)))
+def test_flash_grad_kernel_matches_tiled_ref_and_autograd(cuda, dtype,
+                                                          case):
+    """The gradient kernel against its own tiles and order
+    (``attention_bwd_tiled_ref`` on the same card tensors) and against
+    autograd through ``attention_ref``, each gradient relative to its max;
+    one launch in the ``backward`` form, two calls bitwise equal."""
+    dt = TORCH_DT[dtype]
+    B, H, KV, Sq, Sk, hd, off, kw = FLASH_GRAD_CASES[case]
+    q, k, v, o, do = flash_grad_case(cuda, dt, case, B, H, KV, Sq, Sk, hd,
+                                     off, kw)
+    before = dict(_cuda.forms["flash_attention_bhsd"])
+    got = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    assert _cuda.forms["flash_attention_bhsd"] == dict(
+        before, backward=before["backward"] + 1)
+    again = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    hold_flash_grads(got, fa.attention_bwd_tiled_ref(
+        q, k, v, o, do, q_offset=off, **kw), dtype)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    hold_flash_grads(got, torch.autograd.grad(
+        fa.attention_ref(*xs, q_offset=off, **kw), xs, do), dtype)
+    if kw.get("seq_k") is not None:
+        n = kw["seq_k"]
+        assert all(bool((d[:, :, n:] == 0).all()) for d in got[1:])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,off", [(2, 640, 640, 0),
+                                         (4, 128, 512, 384)])
+def test_flash_grad_kernel_at_recurrentgemmas_attention(cuda, B, Sq, Sk,
+                                                        off):
+    """fp32, hd 256, 10 query heads over one KV head, window 2048 (a
+    sequence of 640, and phase 12's context-parallel chunk of 128 queries
+    at 384 over 512 keys): against autograd through ``attention_ref``,
+    two calls bitwise equal."""
+    kw = dict(causal=True, window=2048)
+    q, k, v, o, do = flash_grad_case(cuda, torch.float32, Sq, B, 10, 1, Sq,
+                                     Sk, 256, off, kw)
+    got = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    again = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    hold_flash_grads(got, torch.autograd.grad(
+        fa.attention_ref(*xs, q_offset=off, **kw), xs, do), "float32")
+
+
+def test_flash_grad_kernel_rejects_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, o, do = flash_grad_case(cuda, torch.float32, 0, 1, 4, 2, 8, 8,
+                                     32, 0, {})
+    before = dict(_cuda.forms["flash_attention_bhsd"])
+    bwd = fa.flash_attention_bwd_bhsd
+    with pytest.raises(TypeError):                     # bf16 K/V, fp32 q
+        bwd(q, k.bfloat16(), v.bfloat16(), o, do)
+    with pytest.raises(TypeError):                     # bf16 upstream
+        bwd(q, k, v, o, do.bfloat16())
+    with pytest.raises(ValueError):                    # g not contiguous
+        bwd(q, k, v, o, do.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError):                    # o of another shape
+        bwd(q, k, v, o[:, :1], do)
+    with pytest.raises(ValueError):                    # q not 16-byte
+        x = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+        bwd(x, k, v, o, do)
+    with pytest.raises(ValueError):                    # head dim 24
+        x = torch.randn(1, 4, 8, 24, generator=g, device=cuda)
+        bwd(x, x[:, :2], x[:, :2], x, x)
+    assert _cuda.forms["flash_attention_bhsd"] == before
 
 
 def test_finetune_on_card_matches_cpu(cuda):
