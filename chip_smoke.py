@@ -71,8 +71,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``generate_batch`` on the "binder" namespace must give the tokens of
    the binder generator's weights, not the default one's.
 5d. Model evolution at full width (progen-s). (a) The flash kernel's
-   autograd Function (``flash_attention_grad``: the kernel's forward, the
-   gradient kernel's backward, ``csrc/flash_bwd.cu``) at the finetune
+   autograd Function (``flash_attention_grad``: the kernel's forward,
+   which also writes each row's lse, the gradient kernel's backward,
+   ``csrc/flash_bwd.cu``, which reads it) at the finetune
    batch's shape, 8 rows x 8/4 heads of 32 over 30 backbone rows + 24
    design tokens, causal, at a ragged length and at a GQA group of 1: its
    forward against the plain version and its dq/dk/dv against autograd
@@ -647,13 +648,13 @@ def graph_ms(torch, fn, iters=20, replays=10):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound_ms(n_bytes, n_ops, dtype):
+def bound_ms(n_bytes, n_ops, dtype, peak=None):
     """The least time for the work: bytes over the memory rate or operations
-    over the peak rate for their type, whichever is larger (the card's
-    rates: ``distributed.roofline``)."""
+    over the peak rate for their type (or ``peak``), whichever is larger
+    (the card's rates: ``distributed.roofline``)."""
     from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS_BY_DTYPE
     t_bytes = n_bytes / HBM_BW * 1e3
-    t_ops = n_ops / PEAK_FLOPS_BY_DTYPE[dtype] * 1e3
+    t_ops = n_ops / (peak or PEAK_FLOPS_BY_DTYPE[dtype]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -675,13 +676,18 @@ def flash_bwd_bound(q, k, v, causal=True, window=0, seq_k=None,
                     q_offset=0):
     """(bound ms, what bounds it) of attention's gradient on these tensors,
     its work from ``distributed.cost.flash_bwd_work`` at the queries'
-    offset, at the peak of q's dtype."""
+    offset, at the peak the gradient kernel's products can reach: bf16's on
+    the tensor cores, or for fp32 a third of TF32's (each product three
+    TF32 ones, ``roofline.PEAK_FLOPS_SPLIT_TF32``)."""
     from repro_torch.distributed import cost
+    from repro_torch.distributed.roofline import PEAK_FLOPS_SPLIT_TF32
     B, H, Sq, hd = q.shape
     flops, n_bytes = cost.flash_bwd_work(
         B, H, k.shape[1], Sq, k.shape[2] if seq_k is None else seq_k, hd,
         q.element_size(), k.element_size(), causal, window, q_offset)
-    return bound_ms(n_bytes, flops, dtype_name(q.dtype))
+    dt = dtype_name(q.dtype)
+    return bound_ms(n_bytes, flops, dt,
+                    PEAK_FLOPS_SPLIT_TF32 if dt == "float32" else None)
 
 
 def flash_forms(**n):
@@ -713,21 +719,21 @@ def flash_bwd_errors(torch, q, k, v, kw, do, got):
 
 def flash_bwd_record(torch, name, label, q, k, v, kw, sdpa_kw):
     """One ``{"kernels": ...}`` record of flash's gradient kernel at a main
-    path's shape: at a seeded upstream, its dq, dk, dv against autograd
-    through ``attention_ref`` (``TOL``, relative to each gradient's max)
-    and two calls bitwise equal; then the device ms by CUDA-graph replay
-    of the kernel and of sdpa's backward (``sdpa_bwd_ms``, the same masked
-    problem, ``enable_gqa``), the plain backward's wall time once
-    (``attention_lse`` + ``attention_bwd``, between events) and the bound
-    (``flash_bwd_bound``)."""
+    path's shape: at a seeded upstream and the forward kernel's o and lse,
+    its dq, dk, dv against autograd through ``attention_ref`` (``TOL``,
+    relative to each gradient's max) and two calls bitwise equal; then the
+    device ms by CUDA-graph replay of the kernel and of sdpa's backward
+    (``sdpa_bwd_ms``, the same masked problem, ``enable_gqa``), the plain
+    backward's wall time once (``attention_lse`` + ``attention_bwd``,
+    between events) and the bound (``flash_bwd_bound``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(q.shape[2] + q.shape[1])
     do = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
-    o = fa.flash_attention_bhsd(q, k, v, **kw)
+    o, lse = fa.flash_attention_bhsd(q, k, v, return_lse=True, **kw)
     run_k = lambda: fa.flash_attention_bwd_bhsd(           # noqa: E731
-        q, k, v, o, do, **kw)
+        q, k, v, o, do, lse=lse, **kw)
     got, again = run_k(), run_k()
     expect(all(torch.equal(a, b) for a, b in zip(got, again)),
            f"flash's gradient kernel {label}: two calls differ")
@@ -738,15 +744,16 @@ def flash_bwd_record(torch, name, label, q, k, v, kw, sdpa_kw):
     err = max(e for e, _ in errs)
     del got, again
     big = q.shape[2] > 1000            # tens of ms a call
-    ms = graph_ms(torch, run_k, **(dict(iters=2, replays=3) if big else {}))
+    reps = dict(iters=2, replays=3) if big else {}
+    ms = graph_ms(torch, run_k, **reps)
+    flash_bwd_dq_cuts(torch, q, k, v, o, do, lse, kw, ms, reps)
     plain = wall_ms(torch, lambda: fa.attention_bwd(
         q, k, v, o, fa.attention_lse(q, k, **kw), do, **kw), iters=1,
         warmup=1)
     sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(  # noqa: E731
         q_, k_, v_, enable_gqa=k.shape[1] < q.shape[1], **sdpa_kw)
     lib = sdpa_bwd_ms(torch, sdpa, [x.detach().requires_grad_()
-                                    for x in (q, k, v)], do,
-                      dict(iters=2, replays=3) if big else {})
+                                    for x in (q, k, v)], do, reps)
     b_ms, b_by = flash_bwd_bound(q, k, v, **kw)
     print(f"  flash's gradient kernel {label}, device ms per call: kernel "
           f"{ms:.4f}, plain backward {plain:.4f} (wall, once), sdpa's "
@@ -759,6 +766,31 @@ def flash_bwd_record(torch, name, label, q, k, v, kw, sdpa_kw):
             "replaces": "src/repro/kernels/flash_attention.py:82",
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def flash_bwd_dq_cuts(torch, q, k, v, o, do, lse, kw, ms, reps):
+    """Prints the gradient kernel's device ms with its dq walks cut the
+    other way than ``bwd_segments`` cuts them at this shape (cut where its
+    grid has ``BWD_FILL`` blocks or more, whole under), beside ``ms``, its
+    time as cut: a reading on each side of the threshold."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    seq_k, off = kw.get("seq_k"), kw.get("q_offset", 0)
+    geo = (B, KV, Sq, Sk, Sk if seq_k is None else seq_k, causal, window,
+           off, H // KV, fa.bwd_step(hd, q.dtype))
+    cut = fa.bwd_segments(*geo)
+    flip = fa.bwd_segments(*geo, fill=0 if cut[3] > 1 else 1 << 30)
+    if flip == cut:
+        return
+    alt = graph_ms(torch, lambda: fa._launch_bwd(
+        q, k, v, o, do, lse, causal, window, seq_k, off, segments=flip),
+        **reps)
+    blocks = -(-(H // KV) * Sq // fa.BWD_HELD) * KV * B
+    print(f"  dq walks ({blocks} blocks, cut under {fa.BWD_FILL}): in "
+          f"{cut[3]} segments {ms:.4f} ms, in {flip[3]} {alt:.4f} ms",
+          flush=True)
 
 
 def max_err(got, want):
@@ -2179,10 +2211,10 @@ def flash_calls(seen):
     dtype, whether K/V are contiguous, keyword arguments), and to its
     gradient wrapper (``flash_attention_bwd_bhsd``, which
     ``FlashAttention.backward`` runs on autograd's thread), as ("backward",
-    q shape, k shape, dtype, keyword arguments), by pass-throughs in the
-    wrappers' places in their module, where ``ops`` and the backward look
-    them up at each call; the wrappers themselves run and count their
-    launches as ever."""
+    q shape, k shape, dtype, keyword arguments but the forward's ``lse``),
+    by pass-throughs in the wrappers' places in their module, where ``ops``
+    and the backward look them up at each call; the wrappers themselves run
+    and count their launches as ever."""
     import threading
 
     from repro_torch.kernels import flash_attention as fa
@@ -2199,7 +2231,7 @@ def flash_calls(seen):
 
     def recording_bwd(q, k, v, o, g, **kw):
         key = ("backward", tuple(q.shape), tuple(k.shape), q.dtype,
-               tuple(sorted(kw.items())))
+               tuple(sorted((n, x) for n, x in kw.items() if n != "lse")))
         with lock:
             seen[key] += 1
         return inner_bwd(q, k, v, o, g, **kw)
@@ -2218,8 +2250,10 @@ def hold_flash_calls(torch, seen, phase="phase 5c"):
     (non-contiguous K/V: strided views of a (B, L, KV, hd) cache, as
     ``attn_decode`` hands them) and arguments, against the plain version
     (and the bf16 sequence form also against ``attention_tiled_ref``), to
-    ``TOL`` of the query's dtype. Prints the calls and the worst error by
-    form. Then the gradient kernel at every backward call it recorded
+    ``TOL`` of the query's dtype; a call that asked for lse (``return_lse``,
+    ``FlashAttention``'s forward) also its lse against ``attention_lse``,
+    to 1e-5 (absolute and relative). Prints the calls and the worst error
+    by form. Then the gradient kernel at every backward call it recorded
     (``hold_flash_bwd_calls``)."""
     from repro_torch.kernels import flash_attention as fa
 
@@ -2229,6 +2263,7 @@ def hold_flash_calls(torch, seen, phase="phase 5c"):
     for qs, ks, qdt, kdt, contiguous, kw in sorted(
             (key for key in seen if key[0] != "backward"), key=str):
         kw = dict(kw)
+        asked = kw.pop("return_lse", False)
         B, KV, T, hd = ks
         q = torch.randn(*qs, generator=g, device="cuda").to(qdt)
         if contiguous:
@@ -2237,10 +2272,19 @@ def hold_flash_calls(torch, seen, phase="phase 5c"):
         else:
             k, v = (ring_view(torch, g, B, T, KV, T, hd, kdt)
                     for _ in range(2))
-        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        got = fa.flash_attention_bhsd(q, k, v, return_lse=asked, **kw)
+        if asked:
+            got, lse = got
+            want = fa.attention_lse(q, k, **{
+                n: x for n, x in kw.items() if n not in ("seq_q", "softcap")})
+            excess = float(((lse - want).abs() - 1e-5 * want.abs()).max())
+            expect(excess <= 1e-5, f"flash's lse at a {phase} call {qs} over "
+                   f"{ks} {dtype_name(qdt)} {kw}: off attention_lse by "
+                   f"{excess} over 1e-5 + 1e-5 |lse|")
         tol = TOL[dtype_name(qdt)]
         refs = [fa.attention_ref(q, k, v, **kw)]
-        form = "decode" if qs[2] == 1 else f"seq_{dtype_name(qdt)}"
+        form = ("decode" if qs[2] == 1 and not asked
+                else f"seq_{dtype_name(qdt)}")
         if form == "seq_bfloat16":
             refs.append(fa.attention_tiled_ref(q, k, v, **kw))
         torch.cuda.synchronize()
@@ -2267,10 +2311,11 @@ def hold_flash_calls(torch, seen, phase="phase 5c"):
 def hold_flash_bwd_calls(torch, seen, phase):
     """Flash's gradient kernel at every backward call ``flash_calls``
     recorded (``seen``: key -> calls), on fresh N(0, 1) q, k, v and upstream
-    of the same shapes, dtype and arguments, ``o`` the forward kernel's:
-    its dq, dk, dv against autograd through ``attention_ref``, each
-    relative to that gradient's max, to ``TOL`` of the dtype; then its
-    device ms a call (CUDA-graph replay) beside its bound
+    of the same shapes, dtype and arguments, ``o`` and ``lse`` the forward
+    kernel's: its dq, dk, dv against autograd through ``attention_ref``,
+    each relative to that gradient's max, to ``TOL`` of the dtype, and two
+    calls bitwise equal; then its device ms a call (CUDA-graph replay)
+    beside its bound
     (``flash_bwd_bound``). Prints each call with its launches."""
     from repro_torch.kernels import flash_attention as fa
 
@@ -2282,26 +2327,31 @@ def hold_flash_bwd_calls(torch, seen, phase):
                  for _ in range(2))
         k, v = (torch.randn(*ks, generator=g, device="cuda").to(dt)
                 for _ in range(2))
-        o = fa.flash_attention_bhsd(q, k, v, **kw)
+        o, lse = fa.flash_attention_bhsd(q, k, v, return_lse=True, **kw)
         run_k = lambda: fa.flash_attention_bwd_bhsd(       # noqa: E731
-            q, k, v, o, do, **kw)
+            q, k, v, o, do, lse=lse, **kw)
+        got, again = run_k(), run_k()
         rel = [e / scale for e, scale in
-               flash_bwd_errors(torch, q, k, v, kw, do, run_k())]
+               flash_bwd_errors(torch, q, k, v, kw, do, got)]
         tol = TOL[dtype_name(dt)]
         label = (f"flash's gradient kernel at a {phase} call {qs} over {ks} "
                  f"{dtype_name(dt)} {kw}")
         expect(max(rel) <= tol, f"{label}: dq, dk, dv errors relative to "
                f"the gradient's max {rel} > {tol}")
+        expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+               f"{label}: two calls differ")
+        del got, again
         big = qs[0] * qs[1] * qs[2] * ks[2] > 1 << 26
         ms = graph_ms(torch, run_k,
                       **(dict(iters=2, replays=2) if big else {}))
         b_ms, b_by = flash_bwd_bound(q, k, v, **kw)
         print(f"  {label}: {seen[key]} calls; dq, dk, dv max error "
               f"relative to the gradient's max "
-              + ", ".join(f"{e:.3e}" for e in rel) + f" (tol {tol:.0e}); "
-              f"device ms a call {ms:.4f}, bound {b_ms:.6f} ({b_by}, "
+              + ", ".join(f"{e:.3e}" for e in rel) + f" (tol {tol:.0e}), "
+              f"two calls bitwise equal; device ms a call {ms:.4f}, bound "
+              f"{b_ms:.6f} ({b_by}, "
               f"{100 * b_ms / ms:.1f}% of it)", flush=True)
-        del q, k, v, o, do
+        del q, k, v, o, lse, do
 
 
 def run_session(torch, pp, spec, devices, label, *, keep=False, calls=None):
@@ -4353,8 +4403,8 @@ def device_time_by_kind(kernels, kinds=KERNEL_KINDS, other="other"):
 
 def kernel_split(kernels, prefix):
     """Prints the device ms of each profiled kernel whose name holds
-    ``prefix`` (the kernels of one launch: flash's gradient's lse, dK/dV
-    and dq), its calls and its ms a call."""
+    ``prefix`` (the kernels of one launch: flash's gradient's delta,
+    dK/dV and dq), its calls and its ms a call."""
     split = [(re.search(prefix + r"\w*", e.key).group(0), e.count,
               e.self_device_time_total / 1e3)
              for e in kernels if prefix in e.key]

@@ -9,6 +9,9 @@ card's, from NVIDIA's H100 SXM data sheet (dense, without sparsity; at the
                are held to it whatever their dtype, as the reference holds
                its HLO's FLOPs to one bf16 peak)
   HBM_BW       3.35e12 B/s, the 80 GB of HBM3
+  PEAK_FLOPS_TF32  495e12 FLOP/s, TF32 on the tensor cores; fp32 work
+               that splits each product into three TF32 ones (flash's
+               gradient kernel) runs at most at a third of it
   LINK_BW      450e9 B/s per direction a GPU, NVLink 4 (900 GB/s both
                ways) to the other cards of one host
 
@@ -28,6 +31,10 @@ HBM_BW = 3.35e12           # bytes/s a card (H100 SXM data sheet)
 LINK_BW = 450e9            # bytes/s a card, each way (NVLink 4)
 # peak by the dtype of the operations (fp32 outside the tensor cores)
 PEAK_FLOPS_BY_DTYPE = {"bfloat16": PEAK_FLOPS, "float32": 67e12}
+PEAK_FLOPS_TF32 = 495e12   # TF32 FLOP/s on the tensor cores, dense
+# fp32 products taken as three TF32 ones (hi.hi' + hi.lo' + lo.hi'): the
+# peak of fp32 work on the tensor cores at about fp32's accuracy
+PEAK_FLOPS_SPLIT_TF32 = PEAK_FLOPS_TF32 / 3
 
 
 @dataclass

@@ -178,13 +178,13 @@ def lib() -> ctypes.CDLL:
             handle.repro_paged_decode.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
             handle.repro_paged_decode.restype = i32
             handle.repro_flash_attention.argtypes = (
-                [ptr] * 4 + [i32] * 11 + [ctypes.c_float, i32, i32, ptr])
+                [ptr] * 5 + [i32] * 11 + [ctypes.c_float, i32, i32, ptr])
             handle.repro_flash_attention.restype = i32
             handle.repro_flash_decode.argtypes = (
                 [ptr] * 5 + [i32] * 5 + [ctypes.c_longlong] * 6
                 + [i32, ctypes.c_float, i32, i32, i32, ptr])
             handle.repro_flash_decode.restype = i32
-            handle.repro_flash_bwd.argtypes = [ptr] * 10 + [i32] * 12 + [ptr]
+            handle.repro_flash_bwd.argtypes = [ptr] * 12 + [i32] * 16 + [ptr]
             handle.repro_flash_bwd.restype = i32
             handle.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             handle.repro_wkv6.restype = i32

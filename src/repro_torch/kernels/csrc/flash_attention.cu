@@ -15,6 +15,12 @@
 // q_off + Sq) and skips the tiles dead to them: the first of four causal
 // chunks loads a quarter of the last one's tiles.
 //
+// Both kernels also write each row's log-sum-exp, m + log(l) with l floored
+// as in the divide, when given an ``lse`` pointer: `FlashAttention` keeps it
+// for the gradient kernel (flash_bwd.cu), as the reference's forward keeps
+// its residual. The store is one float a row in the epilogue; nothing else
+// changes, and a null pointer gives the same o bit for bit.
+//
 // Two kernels, chosen by dtype:
 //
 // fp32 (`flash_fwd_f32_kernel`, recurrentgemma-2b's prefill). Bound by
@@ -74,6 +80,7 @@
 // flash_attention.py repeats this algebra in plain PyTorch.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -109,52 +116,13 @@ struct MmaTile {
       sizeof(bf16) * ((size_t)MMA_BQ * LD + 4 * (size_t)MMA_BK * LD);
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the
-// i-th, whose fragment lands in r[i].
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16, ``lo`` in the low half (the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                     int KV, int Sq, int Sk, int seq_q, int seq_k, int causal,
-                     int window, int q_off, float softcap, float scale) {
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                     int seq_q, int seq_k, int causal, int window, int q_off,
+                     float softcap, float scale) {
   using Tl = MmaTile<HD>;
   constexpr int LD = Tl::LD, KS = Tl::KS, NT = Tl::NT, ND = Tl::ND;
   constexpr int BQ = MMA_BQ, BK = MMA_BK, C8 = HD / 8;   // 16-B pieces a row
@@ -342,7 +310,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                // this stage is free for tile t + 2
   }
 
-  // finish the row sums over the quad, divide, write bf16
+  // finish the row sums over the quad, divide, write bf16 (and, if asked,
+  // the row's log-sum-exp m + log(l), l floored as in the divide)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -350,6 +319,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = wr0 + lane / 4 + 8 * h;
     if (r >= n_rows) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-20f);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((long long)b * H + (long long)kvh * G + r % G) * Sq + r / G] =
+          m[h] + logf(fmaxf(l[h], 1e-20f));
     bf16* orow = o + qh_off + ((long long)(r % G) * Sq + r / G) * HD +
                  (lane % 4) * 2;
 #pragma unroll
@@ -361,8 +333,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KV, int Sq, int Sk, int seq_q,
-                       int seq_k, int causal, int window, int q_off,
+                       float* lse, int B, int H, int KV, int Sq, int Sk,
+                       int seq_q, int seq_k, int causal, int window, int q_off,
                        float softcap, int device, cudaStream_t stream) {
   constexpr size_t smem = MmaTile<HD>::SMEM;
   static unsigned long long smem_set = 0;
@@ -373,20 +345,20 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)((n_rows + MMA_BQ - 1) / MMA_BQ), KV, B);
   flash_fwd_mma_kernel<HD><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, Sq, Sk,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Sq, Sk,
       seq_q, seq_k, causal, window, q_off, softcap,
       1.f / sqrtf(static_cast<float>(HD)));
   return cudaSuccess;
 }
 
 cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
-                         void* o, int B, int H, int KV, int Sq, int Sk,
-                         int hd, int seq_q, int seq_k, int causal, int window,
-                         int q_off, float softcap, int device,
+                         void* o, float* lse, int B, int H, int KV, int Sq,
+                         int Sk, int hd, int seq_q, int seq_k, int causal,
+                         int window, int q_off, float softcap, int device,
                          cudaStream_t s) {
 #define REPRO_MMA_CASE(HD)                                                \
   case HD:                                                                \
-    return launch_mma<HD>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,     \
+    return launch_mma<HD>(q, k, v, o, lse, B, H, KV, Sq, Sk, seq_q, seq_k, \
                           causal, window, q_off, softcap, device, s);
   switch (hd) {
     REPRO_MMA_CASE(16)
@@ -439,9 +411,9 @@ template <int HD>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int H, int KV, int Sq, int Sk, int seq_q, int seq_k,
-                     int causal, int window, int q_off, float softcap,
-                     float scale) {
+                     float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                     int seq_q, int seq_k, int causal, int window, int q_off,
+                     float softcap, float scale) {
   using T = F32Tile<HD>;
   constexpr int BQ = F32_BQ, BK = F32_BK, NJ = T::NJ, VW = T::VW;
   constexpr int NV = T::NV, QLD = T::QLD, KLD = T::KLD, PLD = T::PLD;
@@ -605,6 +577,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float lf = fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && tx == 0)     // the row's log-sum-exp, if asked
+      lse[((long long)b * H + h) * Sq + row] = m[i] + logf(lf);
 #pragma unroll
     for (int n = 0; n < NV; ++n)
 #pragma unroll
@@ -616,8 +590,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KV, int Sq, int Sk, int seq_q,
-                       int seq_k, int causal, int window, int q_off,
+                       float* lse, int B, int H, int KV, int Sq, int Sk,
+                       int seq_q, int seq_k, int causal, int window, int q_off,
                        float softcap, int device, cudaStream_t stream) {
   constexpr size_t smem = F32Tile<HD>::SMEM;
   static unsigned long long smem_set = 0;
@@ -627,20 +601,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + F32_BQ - 1) / F32_BQ, H, B);
   flash_fwd_f32_kernel<HD><<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
-      seq_q, seq_k, causal, window, q_off, softcap,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
+      Sk, seq_q, seq_k, causal, window, q_off, softcap,
       1.f / sqrtf(static_cast<float>(HD)));
   return cudaSuccess;
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
-                         void* o, int B, int H, int KV, int Sq, int Sk,
-                         int hd, int seq_q, int seq_k, int causal, int window,
-                         int q_off, float softcap, int device,
+                         void* o, float* lse, int B, int H, int KV, int Sq,
+                         int Sk, int hd, int seq_q, int seq_k, int causal,
+                         int window, int q_off, float softcap, int device,
                          cudaStream_t s) {
 #define REPRO_F32_CASE(HD)                                                \
   case HD:                                                                \
-    return launch_f32<HD>(q, k, v, o, B, H, KV, Sq, Sk, seq_q, seq_k,     \
+    return launch_f32<HD>(q, k, v, o, lse, B, H, KV, Sq, Sk, seq_q, seq_k, \
                           causal, window, q_off, softcap, device, s);
   switch (hd) {
     REPRO_F32_CASE(16)
@@ -656,24 +630,28 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Sq > 1: the register-tiled kernel for fp32, the mma.sync kernel for bf16;
-// q_off the global position of query row 0. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// Sq >= 1: the register-tiled kernel for fp32, the mma.sync kernel for
+// bf16; q_off the global position of query row 0. ``lse`` (fp32 B * H * Sq,
+// or null) takes each row's log-sum-exp of its live scores, what the
+// gradient kernel reads. Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int H,
-                                     int KV, int Sq, int Sk, int hd,
+                                     const void* v, void* o, void* lse,
+                                     int B, int H, int KV, int Sq, int Sk,
+                                     int hd,
                                      int seq_q, int seq_k, int causal,
                                      int window, int q_off, float softcap,
                                      int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == REPRO_F32)
-    err = dispatch_f32(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q, seq_k,
+    err = dispatch_f32(q, k, v, o, l, B, H, KV, Sq, Sk, hd, seq_q, seq_k,
                        causal, window, q_off, softcap, device, s);
   else if (dtype == REPRO_BF16)
-    err = dispatch_mma(q, k, v, o, B, H, KV, Sq, Sk, hd, seq_q, seq_k, causal,
-                       window, q_off, softcap, device, s);
+    err = dispatch_mma(q, k, v, o, l, B, H, KV, Sq, Sk, hd, seq_q, seq_k,
+                       causal, window, q_off, softcap, device, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;

@@ -21,19 +21,22 @@ kernel, no input needs padding to a block multiple: the kernels mask their
 ragged edges themselves.
 
 Training (``flash_attention_grad``, the ``FlashAttention`` autograd
-Function): the forward is ``flash_attention_bhsd`` as it is (the kernel on
-CUDA tensors, the plain version on CPU tensors); the backward is
-``flash_attention_bwd_bhsd``, the reference's own backward
-(``_flash_xla_bwd_inner``, ``repro/models/attention.py``): from (q, k, v, o)
-each row's log-sum-exp over its live keys and ``delta = (dO . O).sum(-1)``,
-then the probabilities recomputed key block by key block, in fp32, dq, dk,
-dv cast back to the inputs' dtypes. On CPU tensors it is the plain version
-(``attention_lse``, a blockwise pass over the keys, then ``attention_bwd``);
-on CUDA tensors the gradient kernel (``csrc/flash_bwd.cu``: lse and delta,
-then dK/dV a key tile a block, then dq a row tile a block; one launch
-counted under the ``backward`` form), whose tiles and order of sums
-``attention_bwd_tiled_ref`` repeats. The reference computes this backward
-in XLA, outside any Pallas kernel; the kernel is the port's. With
+Function) follows the reference's custom VJP (``_flash_xla``,
+``repro/models/attention.py``): its forward ``_flash_xla_fwd`` returns each
+row's log-sum-exp as a residual, and its backward ``_flash_xla_bwd_inner``
+reads it, with ``delta = (dO . O).sum(-1)``, and recomputes the
+probabilities key block by key block in fp32, dq, dk, dv cast back to the
+inputs' dtypes. On CUDA tensors the forward is the sequence kernel asked
+for that lse (``return_lse``: both sequence kernels write m + log(l) per
+row beside o), and the backward ``flash_attention_bwd_bhsd`` is the
+gradient kernel (``csrc/flash_bwd.cu``: delta, then dK/dV a key tile a
+block, then dq a row tile a block, the products on the tensor cores, bf16
+``mma.sync`` or TF32 in three parts for fp32; one launch counted under the
+``backward`` form), whose tiles, order of sums and roundings
+``attention_bwd_tiled_ref`` repeats. On CPU tensors the forward is
+``attention_ref`` and the backward the plain ``attention_lse``, a blockwise
+pass over the keys, then ``attention_bwd``. The reference computes this
+backward in XLA, outside any Pallas kernel; the kernel is the port's. With
 ``softcap > 0`` it raises, as the reference's chunked XLA path asserts.
 
 Cost accounting (``distributed.cost``): each call reports
@@ -64,9 +67,52 @@ MMA_KEYS = 32        # keys a tile of the bf16 sequence kernel
 MAX_SPLITS = 64      # key ranges a decode (row, KV head) is cut into, at most
 MIN_SPLIT_TILES = 4  # tiles a range holds, at least, when a row is cut
 BWD_KEYS = 128       # keys a block of the plain backward's passes
-BWD_BQ = 64          # (query, head) rows a tile of the gradient kernel
-BWD_BK = 32          # keys a tile of the gradient kernel's dK/dV and dq
-BWD_LSE_BK = 64      # keys a tile of its lse pass
+BWD_HELD = 64        # keys a dK/dV block, (query, head) rows a dq block of
+#                      the gradient kernel (4 warps x 16)
+BWD_MAX_SEGS = 4     # blocks the gradient kernel cuts a tile's walk into
+BWD_FILL = 512       # its dq blocks below which it cuts their walks too
+BWD_WHOLE = 1 << 30  # a segment's tiles when a walk is not cut
+
+
+def bwd_step(hd, dtype):
+    """Rows a step of the gradient kernel's dK/dV blocks, and keys a step
+    of its dq blocks, for head dim ``hd`` and the inputs' ``dtype``: in bf16
+    64 at head dims up to 64, 32 at 128, 16 at 256; in fp32 (its products'
+    TF32 halves take registers) 64 up to 32, 32 at 64, 16 from 128. Two
+    stages of them beside the held tiles fit one SM."""
+    small = 32 if dtype == torch.float32 else 64
+    return 64 if hd <= small else 32 if hd <= 2 * small else 16
+
+
+def bwd_segments(B, KV, Sq, Sk, seq_k, causal, window, q_offset, group,
+                 step, fill=BWD_FILL):
+    """How the gradient kernel cuts its walks into blocks of their own,
+    whose fp32 sums are then added in order: (seg, nseg, qseg, qnseg), row
+    tiles a dK/dV segment and segments a key tile at most, key tiles a dq
+    segment and segments a row tile at most; the kernel takes them as they
+    are. dK/dV: the most row tiles (of ``step`` rows) any key tile walks
+    (``live_query_tiles``) in at most ``BWD_MAX_SEGS`` runs of at least 2,
+    so that the tile with the most rows (causal: the first) is not one
+    block's long walk. dq: only when its grid (tiles of ``BWD_HELD`` rows x
+    KV x B) has under ``fill`` blocks, its longest ``live_key_tiles`` walk
+    likewise, in at most ceil(``fill`` / blocks) runs. A walk in one
+    segment is whole (its seg at least its length)."""
+    most = max((len(live_query_tiles(k0, k0 + BWD_HELD - 1, Sq, seq_k,
+                                     causal, window, step, q_offset, group))
+                for k0 in range(0, Sk, BWD_HELD)), default=0)
+    seg = max(2, -(-most // BWD_MAX_SEGS))
+    nseg = max(1, -(-most // seg))
+    n_rows = group * Sq
+    blocks = -(-n_rows // BWD_HELD) * KV * B
+    cut = min(BWD_MAX_SEGS, -(-fill // blocks)) if blocks else 1
+    if cut <= 1:
+        return seg, nseg, BWD_WHOLE, 1
+    most = max(len(live_key_tiles(
+        r0 // group, (min(r0 + BWD_HELD, n_rows) - 1) // group, Sq, seq_k,
+        causal, window, step, q_offset)) for r0 in range(0, n_rows, BWD_HELD))
+    qseg = max(2, -(-most // cut))
+    qnseg = max(1, -(-most // qseg))
+    return seg, nseg, qseg if qnseg > 1 else BWD_WHOLE, qnseg
 
 
 def _mask(Sq, cols, causal, window, seq_q, seq_k, q_offset, device):
@@ -101,14 +147,18 @@ def _scores(q, k, causal, window, softcap, seq_q, seq_k, q_offset=0):
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                  seq_q=None, seq_k=None, q_offset=0):
+                  seq_q=None, seq_k=None, q_offset=0, return_lse=False):
     """Plain version of ``flash_attention_bhsd``: one masked fp32 softmax
-    over the whole score matrix."""
+    over the whole score matrix. ``return_lse``: also each row's
+    log-sum-exp m + log(l) (B,H,Sq) fp32, l floored at 1e-20 (NEG_INF +
+    log(1e-20) on a row with no live key)."""
     s, mask = _scores(q, k, causal, window, softcap, seq_q, seq_k, q_offset)
     vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
-    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * mask
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
-    return (torch.einsum("bhqk,bhkd->bhqd", p, vf) / l).to(q.dtype)
+    o = (torch.einsum("bhqk,bhkd->bhqd", p, vf) / l).to(q.dtype)
+    return (o, (m + torch.log(l))[..., 0]) if return_lse else o
 
 
 def attention_split_ref(q, k, v, n_split, *, causal=True, window=0,
@@ -193,7 +243,8 @@ def live_query_tiles(key_lo, key_hi, seq_q, seq_k, causal, window, bq,
 
 
 def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
-                        softcap=0.0, seq_q=None, seq_k=None, q_offset=0):
+                        softcap=0.0, seq_q=None, seq_k=None, q_offset=0,
+                        return_lse=False):
     """The bf16 sequence kernel's algebra in plain PyTorch. Rows are the
     (query, head) pairs of a KV head, row r = query r // G of head r % G,
     in blocks of ``MMA_ROWS``; each block walks ``live_key_tiles`` in tiles of
@@ -201,7 +252,9 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
     sum per row: fp32 scores scaled by 1/sqrt(hd), softcap, masks, then P
     rounded to bf16 before P.V, fp32 accumulation, the final divide with l
     floored at 1e-20. The same function as ``attention_ref`` up to P's
-    rounding; the tests hold one to the other."""
+    rounding; the tests hold one to the other. ``return_lse``: also each
+    row's m + log(l) (B,H,Sq) fp32, what the kernel writes for the
+    gradient (the reference's ``_flash_xla_fwd`` residual)."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
@@ -213,6 +266,7 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
         .reshape(B, KV, n_rows, hd)
     kf, vf = k.float(), v.float()
     out = qr.new_zeros(B, KV, n_rows, hd)
+    lse = qr.new_empty(B, KV, n_rows)
     for r0 in range(0, n_rows, MMA_ROWS):
         rows = torch.arange(r0, min(r0 + MMA_ROWS, n_rows), device=q.device)
         local = (rows // G)[:, None]
@@ -245,50 +299,81 @@ def attention_tiled_ref(q, k, v, bk=MMA_KEYS, *, causal=True, window=0,
                 "bkrj,bkjd->bkrd", p.to(torch.bfloat16).float(), vt)
             m = m_new
         out[:, :, r0:r0 + len(rows)] = acc / l.clamp_min(1e-20)
-    return out.reshape(B, KV, Sq, G, hd).transpose(2, 3) \
+        lse[:, :, r0:r0 + len(rows)] = (m + torch.log(l.clamp_min(1e-20)))[
+            ..., 0]
+    out = out.reshape(B, KV, Sq, G, hd).transpose(2, 3) \
         .reshape(B, H, Sq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, lse.reshape(B, KV, Sq, G).transpose(2, 3).reshape(B, H, Sq)
 
 
-def attention_bwd_tiled_ref(q, k, v, o, g, *, causal=True, window=0,
+def _tf32(x, rounded=True):
+    """fp32 ``x`` to TF32's 10 explicit mantissa bits: to nearest, ties
+    away from zero (``cvt.rna.tf32.f32``'s rounding, what the gradient
+    kernel computes in two integer operations), or cut (``rounded=False``:
+    how the tensor cores read a 32-bit operand)."""
+    bits = x.view(torch.int32)
+    return (((bits + 0x1000) if rounded else bits) & -0x2000).view(
+        torch.float32)
+
+
+def _mm_tf32x3(eq, a, b):
+    """``einsum(eq, a, b)`` of fp32 operands as the gradient kernel's fp32
+    form takes it on the tensor cores: each operand split into hi =
+    tf32(x) and lo = x - hi, read to TF32 by cutting, the product lo.hi' +
+    hi.lo' + hi.hi' summed in fp32 (lo.lo' dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def attention_bwd_tiled_ref(q, k, v, o, g, lse, *, causal=True, window=0,
                             seq_k=None, q_offset=0):
     """The gradient kernel's algebra in plain PyTorch: dq, dk, dv of
-    ``attention_ref`` (no softcap) at the output gradient ``g``, in the
-    kernel's tiles and order. Rows are the (query, head) pairs of a KV
-    head, row r = query r // G of head r % G, in tiles of ``BWD_BQ``; keys
-    in tiles of ``BWD_BK`` (keys past Sk read as zeros); the scale folded
-    into q. (a) Each row tile's lse by an online pass over its
-    ``live_key_tiles`` of ``BWD_LSE_BK`` keys, and delta = (g .
-    o).sum(-1). (b) Each key tile's dK and dV summed over the row tiles of
-    ``live_query_tiles`` in order, all G heads' rows inside the tile. (c)
-    Each row tile's dq summed over its live key tiles in order, times the
-    scale. p = exp(s - lse) and ds = p (dp - delta) on live pairs, exact
-    zeros elsewhere; all in fp32, each gradient cast to its input's
-    dtype. The same function as
-    ``attention_lse`` + ``attention_bwd``; the tests hold one to the
-    other."""
+    ``attention_ref`` (no softcap) at the output ``o``, its log-sum-exp
+    ``lse`` (B,H,Sq; the forward's, ``return_lse``) and the output gradient
+    ``g``, in the kernel's tiles and order. Rows are the (query, head) pairs
+    of a KV head, row r = query r // G of head r % G; keys past Sk read as
+    zeros. delta = (g . o).sum(-1). (b) Each tile of ``BWD_HELD`` keys sums
+    its dK and dV over the steps of ``bwd_step(hd, dtype)`` rows of
+    ``live_query_tiles``, in order, all G heads' rows inside the tile. (c)
+    Each tile of ``BWD_HELD`` rows sums its dq over its ``live_key_tiles``
+    of ``bwd_step(hd, dtype)`` keys, in order. Both walks in the segments
+    of ``bwd_segments``, whose sums are added in order. On a live pair s = (q . k)
+    / sqrt(hd) in fp32 (the forward's scores), p = exp(s - lse), ds = p (dp
+    - delta) with dp = g . v; exact zeros elsewhere; dk and dq take the
+    scale at the end. The products as the kernel's tensor cores take them:
+    in bf16, P and dS rounded to bf16 before theirs, fp32 sums; in fp32,
+    each product in three TF32 parts (``_mm_tf32x3``). Each gradient is
+    cast to its input's dtype. The same function as ``attention_bwd`` up to
+    those roundings; the tests hold one to the other."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
     seq_k = Sk if seq_k is None else seq_k
     scale = 1.0 / math.sqrt(hd)
     n_rows = G * Sq
+    step = bwd_step(hd, q.dtype)
+    if q.dtype == torch.bfloat16:
+        mm = torch.einsum
+
+        def rnd(x):
+            return x.to(torch.bfloat16).float()
+    else:
+        mm, rnd = _mm_tf32x3, (lambda x: x)
 
     def rows_of(x):
-        return x.float().reshape(B, KV, G, Sq, hd).transpose(2, 3) \
-            .reshape(B, KV, n_rows, hd)
-    qs, gr = rows_of(q) * scale, rows_of(g)
+        return x.float().reshape(B, KV, G, Sq, -1).transpose(2, 3) \
+            .reshape(B, KV, n_rows, -1)
+    qr, gr = rows_of(q), rows_of(g)
     delta = (gr * rows_of(o)).sum(-1)
-    n_kt = -(-Sk // BWD_BK)
-    kp = q.new_zeros(B, KV, -(-Sk // BWD_LSE_BK) * BWD_LSE_BK, hd,
-                     dtype=torch.float32)
+    lr = rows_of(lse.float()[..., None])[..., 0]
+    n_kt = -(-Sk // BWD_HELD)
+    kp = q.new_zeros(B, KV, n_kt * BWD_HELD, hd, dtype=torch.float32)
     vp = torch.zeros_like(kp)
     kp[:, :, :Sk], vp[:, :, :Sk] = k.float(), v.float()
-    row_tiles = [torch.arange(r0, min(r0 + BWD_BQ, n_rows), device=q.device)
-                 for r0 in range(0, n_rows, BWD_BQ)]
-
-    def keys(t, bk=BWD_BK):
-        cols = torch.arange(t * bk, (t + 1) * bk, device=q.device)
-        return cols, kp[:, :, cols], vp[:, :, cols]
 
     def live(rows, cols):
         pos = (rows // G)[:, None] + q_offset
@@ -299,53 +384,51 @@ def attention_bwd_tiled_ref(q, k, v, o, g, *, causal=True, window=0,
             ok = ok & (cols[None, :] > pos - window)
         return ok
 
-    def key_tiles(rows, bk=BWD_BK):
-        return live_key_tiles(int(rows[0]) // G, int(rows[-1]) // G, Sq,
-                              seq_k, causal, window, bk, q_offset)
-
-    lse = qs.new_empty(B, KV, n_rows)
-    for rows in row_tiles:                                        # (a)
-        m = qs.new_full((B, KV, len(rows)), NEG_INF)
-        l = torch.zeros_like(m)
-        for t in key_tiles(rows, BWD_LSE_BK):
-            cols, kt, _ = keys(t, BWD_LSE_BK)
-            lv = live(rows, cols)
-            s = torch.einsum("bkrd,bkjd->bkrj", qs[:, :, rows], kt)
-            s = s.masked_fill(~lv, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            l = l * torch.exp(m - m_new) + torch.where(
-                lv, torch.exp(s - m_new[..., None]), 0.0).sum(-1)
-            m = m_new
-        lse[:, :, rows] = m + torch.log(l.clamp_min(1e-20))
-
-    def pair_grads(rows, cols, kt, vt):
+    def pair_grads(rows, cols):
+        kt, vt = kp[:, :, cols], vp[:, :, cols]
         lv = live(rows, cols)
-        s = torch.einsum("bkrd,bkjd->bkrj", qs[:, :, rows], kt)
-        p = torch.where(lv, torch.exp(s - lse[:, :, rows, None]), 0.0)
-        dp = torch.einsum("bkrd,bkjd->bkrj", gr[:, :, rows], vt)
-        return p, torch.where(lv, p * (dp - delta[:, :, rows, None]), 0.0)
+        s = mm("bkrd,bkjd->bkrj", qr[:, :, rows], kt) * scale
+        p = torch.where(lv, torch.exp(s - lr[:, :, rows, None]), 0.0)
+        dp = mm("bkrd,bkjd->bkrj", gr[:, :, rows], vt)
+        ds = torch.where(lv, p * (dp - delta[:, :, rows, None]), 0.0)
+        return rnd(p), rnd(ds)
 
+    def arange(lo, hi):
+        return torch.arange(lo, hi, device=q.device)
+
+    seg, _, qseg, _ = bwd_segments(B, KV, Sq, Sk, seq_k, causal, window,
+                                   q_offset, G, step)
     dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)
     for t in range(n_kt):                                         # (b)
-        cols, kt, vt = keys(t)
-        for u in live_query_tiles(t * BWD_BK, (t + 1) * BWD_BK - 1, Sq,
-                                  seq_k, causal, window, BWD_BQ, q_offset,
-                                  G):
-            rows = row_tiles[u]
-            p, ds = pair_grads(rows, cols, kt, vt)
-            dv[:, :, cols] += torch.einsum("bkrj,bkrd->bkjd", p,
-                                           gr[:, :, rows])
-            dk[:, :, cols] += torch.einsum("bkrj,bkrd->bkjd", ds,
-                                           qs[:, :, rows])
-    dq = torch.zeros_like(qs)
-    for rows in row_tiles:                                        # (c)
-        for t in key_tiles(rows):
-            cols, kt, vt = keys(t)
-            _, ds = pair_grads(rows, cols, kt, vt)
-            dq[:, :, rows] += torch.einsum("bkrj,bkjd->bkrd", ds, kt)
+        cols = arange(t * BWD_HELD, (t + 1) * BWD_HELD)
+        tiles = list(live_query_tiles(t * BWD_HELD, (t + 1) * BWD_HELD - 1,
+                                      Sq, seq_k, causal, window, step,
+                                      q_offset, G))
+        for s0 in range(0, len(tiles), seg):
+            part_k = kp.new_zeros(B, KV, BWD_HELD, hd)
+            part_v = torch.zeros_like(part_k)
+            for u in tiles[s0:s0 + seg]:
+                rows = arange(u * step, min((u + 1) * step, n_rows))
+                p, ds = pair_grads(rows, cols)
+                part_v += mm("bkrj,bkrd->bkjd", p, gr[:, :, rows])
+                part_k += mm("bkrj,bkrd->bkjd", ds, qr[:, :, rows])
+            dv[:, :, cols] += part_v
+            dk[:, :, cols] += part_k
+    dq = torch.zeros_like(qr)
+    for r0 in range(0, n_rows, BWD_HELD):                         # (c)
+        rows = arange(r0, min(r0 + BWD_HELD, n_rows))
+        tiles = list(live_key_tiles(r0 // G, int(rows[-1]) // G, Sq, seq_k,
+                                    causal, window, step, q_offset))
+        for s0 in range(0, len(tiles), qseg):
+            part = qr.new_zeros(B, KV, len(rows), hd)
+            for t in tiles[s0:s0 + qseg]:
+                cols = arange(t * step, (t + 1) * step)
+                _, ds = pair_grads(rows, cols)
+                part += mm("bkrj,bkjd->bkrd", ds, kp[:, :, cols])
+            dq[:, :, rows] += part
     dq = (dq * scale).reshape(B, KV, Sq, G, hd).transpose(2, 3) \
         .reshape(B, H, Sq, hd)
-    return (dq.to(q.dtype), dk[:, :, :Sk].to(k.dtype),
+    return (dq.to(q.dtype), (dk[:, :, :Sk] * scale).to(k.dtype),
             dv[:, :, :Sk].to(v.dtype))
 
 
@@ -370,8 +453,12 @@ def decode_key_splits(blocks: int, capacity: int, n_sms: int) -> int:
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
-                         seq_q=None, seq_k=None, q_offset=0):
-    """q (B,H,Sq,hd); k/v (B,KV,Sk,hd). Returns (B,H,Sq,hd) in q's dtype."""
+                         seq_q=None, seq_k=None, q_offset=0,
+                         return_lse=False):
+    """q (B,H,Sq,hd); k/v (B,KV,Sk,hd). Returns (B,H,Sq,hd) in q's dtype;
+    with ``return_lse`` also each row's log-sum-exp (B,H,Sq) fp32, which
+    the gradient takes (a one-query call then runs the sequence form,
+    whose kernels write it)."""
     B, H, Sq, hd = q.shape
     q_offset = int(q_offset)
     work = lambda: cost.flash_work(                              # noqa: E731
@@ -379,21 +466,23 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=0, softcap=0.0,
         q.element_size(), k.element_size(), causal, window, q_offset)
     with cost.counted("flashattn", work):
         if q.device.type == "meta":
-            return torch.empty_like(q)
+            o = torch.empty_like(q)
+            return (o, q.new_empty(B, H, Sq, dtype=torch.float32)) \
+                if return_lse else o
         if q.device.type == "cpu":
             return attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap, seq_q=seq_q, seq_k=seq_k,
-                                 q_offset=q_offset)
+                                 q_offset=q_offset, return_lse=return_lse)
         if q.device.type != "cuda":
             raise ValueError(f"{NAME}: no kernel for {q.device}")
         seq_q, seq_k = _check(q, k, v, seq_q, seq_k, q_offset)
-        if q.shape[2] == 1:
+        if q.shape[2] == 1 and not return_lse:
             if q_offset:
                 return _launch_decode_at(q, k, v, causal, window, softcap,
                                          seq_q, seq_k, q_offset)
             return _launch_decode(q, k, v, causal, softcap, seq_q, seq_k)
         return _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k,
-                           q_offset)
+                           q_offset, return_lse)
 
 
 def _check(q, k, v, seq_q, seq_k, q_offset=0):
@@ -419,9 +508,10 @@ def _check(q, k, v, seq_q, seq_k, q_offset=0):
     return seq_q, seq_k
 
 
-def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k, q_offset=0):
-    """Sq > 1: contiguous q, k, v; bf16 K/V beside an fp32 q are widened
-    first (the fp32 kernel reads fp32)."""
+def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k, q_offset=0,
+                return_lse=False):
+    """Sq > 1 (or any Sq with ``return_lse``): contiguous q, k, v; bf16 K/V
+    beside an fp32 q are widened first (the fp32 kernel reads fp32)."""
     if k.dtype != q.dtype:
         k, v = k.float(), v.float()
     dev = _cuda.check_cuda_tensors(NAME, (q, k, v),
@@ -429,16 +519,18 @@ def _launch_seq(q, k, v, causal, window, softcap, seq_q, seq_k, q_offset=0):
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=dev) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     err = _cuda.lib().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, KV, Sq, Sk, hd, seq_q, seq_k, int(bool(causal)), int(window),
-        q_offset, float(softcap), _cuda.DTYPE_CODES[q.dtype],
-        *_cuda.device_and_stream(dev))
+        None if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk, hd, seq_q,
+        seq_k, int(bool(causal)), int(window), q_offset, float(softcap),
+        _cuda.DTYPE_CODES[q.dtype], *_cuda.device_and_stream(dev))
     _cuda.check_launch(NAME, err, "seq_f32" if q.dtype == torch.float32
                        else "seq_bf16")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _launch_decode(q, k, v, causal, softcap, seq_q, seq_k, n_split=None):
@@ -575,14 +667,16 @@ def attention_bwd(q, k, v, o, lse, g, *, causal=True, window=0,
             torch.cat(dvs, dim=2).to(v.dtype))
 
 
-def flash_attention_bwd_bhsd(q, k, v, o, g, *, causal=True, window=0,
-                             seq_k=None, q_offset=0):
+def flash_attention_bwd_bhsd(q, k, v, o, g, *, lse=None, causal=True,
+                             window=0, seq_k=None, q_offset=0):
     """dq, dk, dv of ``flash_attention_bhsd`` (no softcap) at the output
-    ``o`` and its gradient ``g`` (B,H,Sq,hd), K/V in q's dtype; each in its
-    input's dtype. CPU tensors: the plain ``attention_lse`` +
-    ``attention_bwd``; CUDA tensors: the gradient kernel, one launch counted
-    under the ``backward`` form (three kernels: lse and delta, dK/dV, dq).
-    Reports ``cost.flash_bwd_work`` under ``flashattn``."""
+    ``o``, its log-sum-exp ``lse`` (B,H,Sq) fp32 (the forward's,
+    ``return_lse``) and its gradient ``g`` (B,H,Sq,hd), K/V in q's dtype;
+    each in its input's dtype. CPU tensors: the plain ``attention_bwd``, at
+    ``attention_lse`` where no lse is given; CUDA tensors: the gradient
+    kernel, which needs lse, one launch counted under the ``backward`` form
+    (three kernels: delta, dK/dV, dq). Reports ``cost.flash_bwd_work`` under
+    ``flashattn``."""
     B, H, Sq, hd = q.shape
     q_offset = int(q_offset)
     work = lambda: cost.flash_bwd_work(                          # noqa: E731
@@ -593,73 +687,98 @@ def flash_attention_bwd_bhsd(q, k, v, o, g, *, causal=True, window=0,
             return torch.empty_like(q), torch.empty_like(k), \
                 torch.empty_like(v)
         if q.device.type == "cpu":
-            lse = attention_lse(q, k, causal=causal, window=window,
-                                seq_k=seq_k, q_offset=q_offset)
+            if lse is None:
+                lse = attention_lse(q, k, causal=causal, window=window,
+                                    seq_k=seq_k, q_offset=q_offset)
             return attention_bwd(q, k, v, o, lse, g, causal=causal,
                                  window=window, seq_k=seq_k,
                                  q_offset=q_offset)
         if q.device.type != "cuda":
             raise ValueError(f"{NAME}: no gradient kernel for {q.device}")
-        return _launch_bwd(q, k, v, o, g, causal, window, seq_k, q_offset)
+        return _launch_bwd(q, k, v, o, g, lse, causal, window, seq_k,
+                           q_offset)
 
 
-def _launch_bwd(q, k, v, o, g, causal, window, seq_k, q_offset):
-    """Contiguous, 16-byte aligned q, k, v, o, g of one dtype."""
+def _launch_bwd(q, k, v, o, g, lse, causal, window, seq_k, q_offset,
+                segments=None):
+    """Contiguous, 16-byte aligned q, k, v, o, g of one dtype and the
+    forward's lse; the walks cut as ``bwd_segments`` cuts them, or as
+    ``segments`` (its four numbers) says."""
     _, seq_k = _check(q, k, v, None, seq_k, q_offset)
+    if lse is None:
+        raise ValueError(f"{NAME} backward: the gradient kernel takes the "
+                         f"forward's lse (flash_attention_bhsd(..., "
+                         f"return_lse=True))")
     dt = (q.dtype,)
-    dev = _cuda.check_cuda_tensors(NAME, (q, k, v, o, g),
-                                   (DTYPES, dt, dt, dt, dt))
-    if o.shape != q.shape or g.shape != q.shape or window < 0:
+    dev = _cuda.check_cuda_tensors(NAME, (q, k, v, o, g, lse),
+                                   (DTYPES, dt, dt, dt, dt, (torch.float32,)))
+    B, H, Sq, hd = q.shape
+    if o.shape != q.shape or g.shape != q.shape or window < 0 \
+            or lse.shape != (B, H, Sq):
         raise ValueError(f"{NAME} backward: q {tuple(q.shape)}, o "
-                         f"{tuple(o.shape)}, g {tuple(g.shape)}, window "
-                         f"{window}")
+                         f"{tuple(o.shape)}, g {tuple(g.shape)}, lse "
+                         f"{tuple(lse.shape)}, window {window}")
     if any(x.data_ptr() % 16 for x in (q, k, v, o, g)):
         raise ValueError(f"{NAME} backward: the kernel reads rows in 16-byte "
                          f"pieces: every input must start 16-byte aligned")
-    B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0:
         return dq, dk, dv
-    lse, delta = (torch.empty(B * H * Sq, dtype=torch.float32, device=dev)
-                  for _ in range(2))
+    seg, nseg, qseg, qnseg = segments or bwd_segments(
+        B, KV, Sq, Sk, seq_k, causal, window, q_offset, H // KV,
+        bwd_step(hd, q.dtype))
+    delta = torch.empty(B * H * Sq, dtype=torch.float32, device=dev)
+    # the segments' fp32 sums: dK and dV of every key a dK/dV segment, dq
+    # of every row a dq segment
+    kpart = torch.empty(2 * nseg * k.numel(), dtype=torch.float32,
+                        device=dev) if nseg > 1 else None
+    qpart = torch.empty(qnseg * q.numel(), dtype=torch.float32,
+                        device=dev) if qnseg > 1 else None
     err = _cuda.lib().repro_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), B, H, KV, Sq, Sk, hd, seq_k, int(bool(causal)),
-        int(window), q_offset, _cuda.DTYPE_CODES[q.dtype],
-        *_cuda.device_and_stream(dev))
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), None if kpart is None else kpart.data_ptr(),
+        None if qpart is None else qpart.data_ptr(), B, H, KV, Sq, Sk, hd,
+        seq_k, int(bool(causal)), int(window), q_offset, seg, nseg, qseg,
+        qnseg, _cuda.DTYPE_CODES[q.dtype], *_cuda.device_and_stream(dev))
     _cuda.check_launch(NAME, err, "backward")
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention_bhsd`` with a gradient: the forward is the wrapper
-    as it is (one kernel launch on CUDA tensors), the backward
-    ``flash_attention_bwd_bhsd`` (on CUDA tensors one launch of the
-    gradient kernel, handed fresh contiguous tensors: autograd's g is a
-    transposed view; on CPU tensors the plain backward). Autograd runs a
-    CUDA backward on a thread of its own; its launch counts where the
-    forward's did (``_cuda.resume``)."""
+    as it is (one kernel launch on CUDA tensors, which also writes each
+    row's lse for the backward, as the reference's ``_flash_xla_fwd``
+    saves it), the backward ``flash_attention_bwd_bhsd`` (on CUDA tensors
+    one launch of the gradient kernel, handed fresh contiguous tensors:
+    autograd's g is a transposed view; on CPU tensors the plain backward,
+    which recomputes lse). Autograd runs a CUDA backward on a thread of its
+    own; its launch counts where the forward's did (``_cuda.resume``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, seq_k, q_offset):
-        o = flash_attention_bhsd(q, k, v, causal=causal, window=window,
-                                 seq_k=seq_k, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.args = dict(causal=causal, window=window, seq_k=seq_k,
-                        q_offset=q_offset)
+        kw = dict(causal=causal, window=window, seq_k=seq_k,
+                  q_offset=q_offset)
+        if q.device.type == "cuda":
+            o, lse = flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+            ctx.save_for_backward(q, k, v, o, lse)
+        else:
+            o = flash_attention_bhsd(q, k, v, **kw)
+            ctx.save_for_backward(q, k, v, o)
+        ctx.args = kw
         ctx.running = _cuda.running()
         return o
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        if saved[0].device.type == "cuda":
-            saved = [_cuda.fresh(x) for x in saved]
-            g = _cuda.fresh(g.to(saved[0].dtype))
+        q, k, v, o, *lse = ctx.saved_tensors
+        if q.device.type == "cuda":
+            q, k, v, o = (_cuda.fresh(x) for x in (q, k, v, o))
+            g = _cuda.fresh(g.to(q.dtype))
         with _cuda.resume(ctx.running):
-            dq, dk, dv = flash_attention_bwd_bhsd(*saved, g, **ctx.args)
+            dq, dk, dv = flash_attention_bwd_bhsd(
+                q, k, v, o, g, lse=lse[0] if lse else None, **ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

@@ -741,14 +741,16 @@ FLASH_GRAD_CASES = [
 
 
 def flash_grad_case(cuda, dt, seed, B, H, KV, Sq, Sk, hd, off, kw):
-    """q, k, v, the forward kernel's o and an upstream g on the card."""
+    """q, k, v, the forward kernel's o and lse and an upstream g on the
+    card."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn(B, H, Sq, hd, generator=g, device=cuda).to(dt)
              for _ in range(2))
     k, v = (torch.randn(B, KV, Sk, hd, generator=g, device=cuda).to(dt)
             for _ in range(2))
-    o = fa.flash_attention_bhsd(q, k, v, q_offset=off, **kw)
-    return q, k, v, o, do
+    o, lse = fa.flash_attention_bhsd(q, k, v, q_offset=off, return_lse=True,
+                                     **kw)
+    return q, k, v, o, lse, do
 
 
 def hold_flash_grads(got, want, dtype):
@@ -764,28 +766,60 @@ def hold_flash_grads(got, want, dtype):
 @pytest.mark.parametrize("case", range(len(FLASH_GRAD_CASES)))
 def test_flash_grad_kernel_matches_tiled_ref_and_autograd(cuda, dtype,
                                                           case):
-    """The gradient kernel against its own tiles and order
-    (``attention_bwd_tiled_ref`` on the same card tensors) and against
-    autograd through ``attention_ref``, each gradient relative to its max;
-    one launch in the ``backward`` form, two calls bitwise equal."""
+    """The gradient kernel against its own tiles, order and roundings
+    (``attention_bwd_tiled_ref`` on the same card tensors and the forward
+    kernel's lse) and against autograd through ``attention_ref``, each
+    gradient relative to its max; one launch in the ``backward`` form, two
+    calls bitwise equal."""
     dt = TORCH_DT[dtype]
     B, H, KV, Sq, Sk, hd, off, kw = FLASH_GRAD_CASES[case]
-    q, k, v, o, do = flash_grad_case(cuda, dt, case, B, H, KV, Sq, Sk, hd,
-                                     off, kw)
+    q, k, v, o, lse, do = flash_grad_case(cuda, dt, case, B, H, KV, Sq, Sk,
+                                          hd, off, kw)
     before = dict(_cuda.forms["flash_attention_bhsd"])
-    got = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    got = fa.flash_attention_bwd_bhsd(q, k, v, o, do, lse=lse, q_offset=off,
+                                      **kw)
     assert _cuda.forms["flash_attention_bhsd"] == dict(
         before, backward=before["backward"] + 1)
-    again = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    again = fa.flash_attention_bwd_bhsd(q, k, v, o, do, lse=lse,
+                                        q_offset=off, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     hold_flash_grads(got, fa.attention_bwd_tiled_ref(
-        q, k, v, o, do, q_offset=off, **kw), dtype)
+        q, k, v, o, do, lse, q_offset=off, **kw), dtype)
     xs = [x.detach().requires_grad_() for x in (q, k, v)]
     hold_flash_grads(got, torch.autograd.grad(
         fa.attention_ref(*xs, q_offset=off, **kw), xs, do), dtype)
     if kw.get("seq_k") is not None:
         n = kw["seq_k"]
         assert all(bool((d[:, :, n:] == 0).all()) for d in got[1:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [9, 10, 11])
+def test_flash_grad_kernel_cuts_its_walks_as_the_tiled_ref(cuda, dtype,
+                                                          case):
+    """The gradient kernel takes its walks' cuts as it is given them: at
+    long causal walks, each walk whole, as ``bwd_segments`` cuts them (both
+    walks here), and with the dq walks whole (``fill`` 0), each within the
+    tolerance of the tiled ref and of autograd."""
+    dt = TORCH_DT[dtype]
+    B, H, KV, Sq, Sk, hd, off, kw = FLASH_GRAD_CASES[case]
+    q, k, v, o, lse, do = flash_grad_case(cuda, dt, case, B, H, KV, Sq, Sk,
+                                          hd, off, kw)
+    geo = (B, KV, Sq, Sk, Sk, kw["causal"], kw.get("window", 0), off,
+           H // KV, fa.bwd_step(hd, dt))
+    want = fa.attention_bwd_tiled_ref(q, k, v, o, do, lse, q_offset=off,
+                                      **kw)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(fa.attention_ref(*xs, q_offset=off, **kw),
+                               xs, do)
+    cuts = {(fa.BWD_WHOLE, 1, fa.BWD_WHOLE, 1), fa.bwd_segments(*geo),
+            fa.bwd_segments(*geo, fill=0)}
+    assert len(cuts) == 3
+    for cut in cuts:
+        got = fa._launch_bwd(q, k, v, o, do, lse, kw["causal"],
+                             kw.get("window", 0), None, off, segments=cut)
+        hold_flash_grads(got, want, dtype)
+        hold_flash_grads(got, auto, dtype)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,off", [(2, 640, 640, 0),
@@ -796,27 +830,36 @@ def test_flash_grad_kernel_at_recurrentgemmas_attention(cuda, B, Sq, Sk,
     sequence of 640, and phase 12's context-parallel chunk of 128 queries
     at 384 over 512 keys): against autograd through ``attention_ref``,
     two calls bitwise equal."""
-    kw = dict(causal=True, window=2048)
-    q, k, v, o, do = flash_grad_case(cuda, torch.float32, Sq, B, 10, 1, Sq,
-                                     Sk, 256, off, kw)
-    got = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
-    again = fa.flash_attention_bwd_bhsd(q, k, v, o, do, q_offset=off, **kw)
+    q, k, v, o, lse, do = flash_grad_case(cuda, torch.float32, Sq, B, 10, 1,
+                                          Sq, Sk, 256, off,
+                                          dict(causal=True, window=2048))
+    kw = dict(causal=True, window=2048, q_offset=off)
+    got = fa.flash_attention_bwd_bhsd(q, k, v, o, do, lse=lse, **kw)
+    again = fa.flash_attention_bwd_bhsd(q, k, v, o, do, lse=lse, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     xs = [x.detach().requires_grad_() for x in (q, k, v)]
     hold_flash_grads(got, torch.autograd.grad(
-        fa.attention_ref(*xs, q_offset=off, **kw), xs, do), "float32")
+        fa.attention_ref(*xs, **kw), xs, do), "float32")
 
 
 def test_flash_grad_kernel_rejects_bad_inputs(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v, o, do = flash_grad_case(cuda, torch.float32, 0, 1, 4, 2, 8, 8,
-                                     32, 0, {})
+    q, k, v, o, lse, do = flash_grad_case(cuda, torch.float32, 0, 1, 4, 2, 8,
+                                          8, 32, 0, {})
     before = dict(_cuda.forms["flash_attention_bhsd"])
-    bwd = fa.flash_attention_bwd_bhsd
+
+    def bwd(*xs, lse=lse):
+        return fa.flash_attention_bwd_bhsd(*xs, lse=lse)
+    with pytest.raises(ValueError):                    # no lse on the card
+        fa.flash_attention_bwd_bhsd(q, k, v, o, do)
     with pytest.raises(TypeError):                     # bf16 K/V, fp32 q
         bwd(q, k.bfloat16(), v.bfloat16(), o, do)
     with pytest.raises(TypeError):                     # bf16 upstream
         bwd(q, k, v, o, do.bfloat16())
+    with pytest.raises(TypeError):                     # lse not fp32
+        bwd(q, k, v, o, do, lse=lse.bfloat16())
+    with pytest.raises(ValueError):                    # lse of another shape
+        bwd(q, k, v, o, do, lse=lse[:, :1].contiguous())
     with pytest.raises(ValueError):                    # g not contiguous
         bwd(q, k, v, o, do.transpose(2, 3).contiguous().transpose(2, 3))
     with pytest.raises(ValueError):                    # o of another shape
@@ -828,6 +871,49 @@ def test_flash_grad_kernel_rejects_bad_inputs(cuda):
         x = torch.randn(1, 4, 8, 24, generator=g, device=cuda)
         bwd(x, x[:, :2], x[:, :2], x, x)
     assert _cuda.forms["flash_attention_bhsd"] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,off,kw", [
+    (2, 8, 4, 54, 54, 32, 0, dict(causal=True)),
+    (1, 10, 1, 96, 96, 256, 0, dict(causal=True, window=40)),
+    (4, 15, 5, 128, 512, 64, 384, dict(causal=True)),
+    (1, 3, 1, 16, 24, 16, 20, dict(causal=False, window=6, seq_k=20)),
+    (2, 6, 2, 37, 45, 128, 0, dict(causal=False, seq_q=30)),
+    (3, 4, 2, 1, 40, 64, 0, dict(causal=False)),
+])
+def test_flash_forward_writes_lse(cuda, dtype, B, H, KV, Sq, Sk, hd, off,
+                                  kw):
+    """Both sequence kernels, asked for lse, write each row's log-sum-exp
+    of its live scores (``attention_lse``; rows past ``seq_q`` against
+    ``attention_ref``'s, NEG_INF + log(1e-20) where no key is live) and an
+    output bitwise the one they give unasked; one query asked for lse runs
+    the sequence form (its o against the plain version)."""
+    dt = TORCH_DT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q = torch.randn(B, H, Sq, hd, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, KV, Sk, hd, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    kw = dict(kw, q_offset=off)
+    form = "seq_f32" if dtype == "float32" else "seq_bf16"
+    before = dict(_cuda.forms["flash_attention_bhsd"])
+    o, lse = fa.flash_attention_bhsd(q, k, v, return_lse=True, **kw)
+    assert _cuda.forms["flash_attention_bhsd"] == dict(
+        before, **{form: before[form] + 1})
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    if kw.get("seq_q") is None:
+        want = fa.attention_lse(q, k, **{n: x for n, x in kw.items()
+                                         if n != "seq_q"})
+    else:
+        _, want = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), atol=1e-5,
+                    rtol=1e-5)
+    if Sq > 1:
+        assert torch.equal(o, fa.flash_attention_bhsd(q, k, v, **kw))
+    t = 2e-5 if dtype == "float32" else 2e-2
+    assert_allclose(o.float().cpu().numpy(),
+                    fa.attention_ref(q, k, v, **kw).float().cpu().numpy(),
+                    atol=t, rtol=t)
 
 
 def test_finetune_on_card_matches_cpu(cuda):

@@ -1,10 +1,10 @@
 """Flash attention's gradient kernel (``csrc/flash_bwd.cu``) on the CPU:
 its algebra and its tile rules.
 
-``attention_bwd_tiled_ref`` repeats the kernel's tiles and order of sums
-(rows the (query, head) pairs of a KV head; lse and delta a row tile, dK/dV
-a key tile over ``live_query_tiles``, dq a row tile over
-``live_key_tiles``). It is held against ``jax.vjp`` of the reference's
+``attention_bwd_tiled_ref`` repeats the kernel's tiles, order of sums and
+roundings (rows the (query, head) pairs of a KV head; lse from the
+forward, delta a row; dK/dV a key tile over ``live_query_tiles``, dq a row
+tile over ``live_key_tiles``). It is held against ``jax.vjp`` of the reference's
 ``_flash_xla`` (its custom VJP, key blocks of 8, queries at their global
 positions, keys past ``seq_k`` at position -1) and against autograd through
 ``attention_ref``, at head dims 16-256, GQA groups of 1, 3, 5 and 10,
@@ -91,10 +91,15 @@ def rel_errors(got, want):
 
 
 def tiled(q, k, v, g, off, kw, dtype=torch.float32):
-    """``attention_bwd_tiled_ref`` at the port's forward output."""
+    """``attention_bwd_tiled_ref`` at the port's forward output and lse
+    (the kernel's algebra: ``attention_tiled_ref`` in bf16, ``attention_ref``
+    in fp32)."""
     tq, tk, tv, tg = (torch.from_numpy(a).to(dtype) for a in (q, k, v, g))
-    o = fa.attention_ref(tq, tk, tv, q_offset=off, **kw)
-    return fa.attention_bwd_tiled_ref(tq, tk, tv, o, tg, q_offset=off, **kw)
+    fwd = fa.attention_ref if dtype == torch.float32 else \
+        fa.attention_tiled_ref
+    o, lse = fwd(tq, tk, tv, q_offset=off, return_lse=True, **kw)
+    return fa.attention_bwd_tiled_ref(tq, tk, tv, o, tg, lse, q_offset=off,
+                                      **kw)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -190,8 +195,9 @@ def test_live_query_tiles_never_skip_a_live_pair(Sq, Sk, off, causal, window,
     """Every live (row, key) pair's row tile lies in its key tile's
     ``live_query_tiles``, and every tile in the range holds a live row for
     the key tile (the range is tight at row granularity); rows are the
-    (query, head) pairs, row r = query r // G."""
-    bq, bk = fa.BWD_BQ, fa.BWD_BK
+    (query, head) pairs, row r = query r // G; keys in the kernel's held
+    tiles, rows in each of its steps (``bwd_step`` of every head dim)."""
+    bk = fa.BWD_HELD
     rows = np.arange(G * Sq)
     pos = rows[:, None] // G + off
     keys = np.arange(Sk)[None, :]
@@ -200,15 +206,17 @@ def test_live_query_tiles_never_skip_a_live_pair(Sq, Sk, off, causal, window,
         live = live & (keys <= pos)
     if window > 0:
         live = live & (keys > pos - window)
-    n_tiles = -(-G * Sq // bq)
-    for t in range(-(-Sk // bk)):
-        tiles = fa.live_query_tiles(t * bk, (t + 1) * bk - 1, Sq, seq_k,
-                                    causal, window, bq, off, G)
-        held = live[:, t * bk:(t + 1) * bk].any(-1)
-        want = sorted({int(r) // bq for r in rows[held]})
-        assert list(tiles) == list(range(want[0], want[-1] + 1)) \
-            if want else len(tiles) == 0, t
-        assert all(0 <= u < n_tiles for u in tiles)
+    for bq in sorted({fa.bwd_step(hd, dt) for hd in fa.HEAD_DIMS
+                      for dt in fa.DTYPES}):
+        n_tiles = -(-G * Sq // bq)
+        for t in range(-(-Sk // bk)):
+            tiles = fa.live_query_tiles(t * bk, (t + 1) * bk - 1, Sq, seq_k,
+                                        causal, window, bq, off, G)
+            held = live[:, t * bk:(t + 1) * bk].any(-1)
+            want = sorted({int(r) // bq for r in rows[held]})
+            assert list(tiles) == list(range(want[0], want[-1] + 1)) \
+                if want else len(tiles) == 0, (bq, t)
+            assert all(0 <= u < n_tiles for u in tiles)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
