@@ -208,15 +208,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    card: ``WKV6`` at 8 x 64 x 512 x 64 in fp32 and bf16 and, in fp32, with
    logw at its two ends (-e^5 and -1e-6), at a tensor-parallel rank's 4 x
    16 x 512 x 64 and at the reduced K = 16 (4 x 4 x 40 x 16), ``RGLRU`` at
-   8 x 2560 x 2560 and ``FlashAttention`` at recurrentgemma-2b's 8 x 10/1 x
+   8 and 4 x 2560 x 2560 and ``FlashAttention`` at recurrentgemma-2b's 8 x 10/1 x
    2560, hd 256, window 2048, fp32; each gradient at a seeded upstream
    against autograd through the plain version, relative to its max, to
    ``TOL``; one launch a forward, and a backward's (WKV6's gradient kernel:
-   one; RGLRU's reverse scan: one; flash's gradient kernel: one), which
+   one; RGLRU's gradient kernel: one; flash's gradient kernel: one), which
    autograd runs on its own thread, counted in the forward's ``ops.tally``;
    each backward's time a call beside its forward kernel's. WKV6's gradient
-   kernel also against its own order of operations
-   (``wkv6_bwd_serial_ref``) at 2 x 8 x 45 x 64 with dS absent. Flash's
+   kernel also against its own algorithm (``wkv6_bwd_chunk_ref``) and
+   the token-serial oracle (``wkv6_bwd_serial_ref``) at 2 x 8 x 45 x 64
+   with dS absent; RG-LRU's gradient kernel (``rglru_bwd``) bitwise its
+   plain version (``rglru_bwd_ref``) at both shapes, and at 8 x 2560
+   timed beside its bound (4 x 2560's time is (f)'s record). Flash's
    gradient kernel at 8 x 10/1 x 2560 (the ``flash_attention_bhsd_bwd``
    record) and at phase 12's context-parallel chunks of rank 3, 4 x 10/1
    x 128 over 512 keys at offset 384 (hd 256, window 2048, fp32) and 4 x
@@ -236,18 +239,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    peak memory. (d) Each step's launches (``ops.tally``) and the counters
    (zeroed before, read after): wkv6's prefill form twice a ``rwkv`` layer
    (forward and remat's recompute) and its backward form once, rglru three
-   times an ``rglru`` layer (forward, recompute, the backward's reverse
-   scan), flash's fp32 sequence form twice an ``attn_local`` layer and its
+   times an ``rglru`` layer (forward, recompute, and its gradient kernel,
+   the ``backward`` form), flash's fp32 sequence form twice an
+   ``attn_local`` layer and its
    gradient kernel once, nothing else. (e) One more step of each under
    ``torch.profiler`` (the device alone), device time by kind
-   (``TRAIN_KINDS``) and by each of flash's three gradient kernels
-   (``kernel_split``); flash and its gradient kernel held at every
-   distinct call of (c) (``hold_flash_calls``). (f) rglru and flash's
-   fp32 form timed at recurrentgemma-2b's 4 x 2560, records of their own.
-   (g) WKV6's gradient kernel at rwkv6-7b's 8 x 64 x 512 x 64 in fp32 and
-   bf16: held to autograd through the plain version, two calls bitwise
-   equal, timed beside the plain backward (``_bwd_plain`` on the card) and
-   its bound; the bf16 one is the ``wkv6_bhtk_bwd`` record.
+   (``TRAIN_KINDS``) and by each of flash's and WKV6's three gradient
+   kernels (``kernel_split``); flash and its gradient kernel held at every
+   distinct call of (c) (``hold_flash_calls``). (f) rglru, its gradient
+   kernel (bitwise ``rglru_bwd_ref``, the ``rglru_btc_bwd`` record) and
+   flash's fp32 form timed at recurrentgemma-2b's 4 x 2560, records of
+   their own. (g) WKV6's gradient kernel at rwkv6-7b's 8 x 64 x 512 x 64
+   in fp32 and bf16 and at phase 11a's 4 x 64 x 512 x 64 in bf16: held to
+   autograd through the plain version, two calls bitwise equal, timed
+   beside the plain backward (``_bwd_plain`` on the card) and its bound at
+   the split-TF32 rate (the record's: the kernel's products run there) and,
+   printed beside it, at the fp32 FMA rate; the bf16 8 x 64 one is the
+   ``wkv6_bhtk_bwd`` record.
 11. Sharding and cost accounting on a one-rank NCCL mesh (1, 1) over
    ("data", "model"), the card being one GPU (multi-rank numerics are the
    CPU tests' ``tests/test_torch_mesh_train.py``). (a) ``launch/train.py``
@@ -348,7 +356,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase 8's serves'; phase 9's two likewise; phase 10's wkv6 prefill
    launches are added to phase 6's record, its shape, its wkv6 backward
    launches are the ``wkv6_bhtk_bwd`` record's, its rglru and flash
-   launches are the 4 x 2560 records', and its flash gradient launches
+   launches are the 4 x 2560 records' (rglru's gradient kernel's the
+   ``rglru_btc_bwd`` record's, with 11a's and 12's rank 0's), and its
+   flash gradient launches
    the ``flash_attention_bhsd_bwd`` record's (fp32, recurrentgemma-2b);
    phase 11's mesh runs add theirs to the records of the kernels and
    forms they ran (recurrentgemma-2b's gradient launches to
@@ -421,7 +431,7 @@ RG_BATCH, RG_PROMPT, RG_GEN = 8, 2560, 32
 RGLRU_TOL = 1e-5                                 # test_kernels.py's own
 # the port's kernels, as the profiler names them
 PORT_KERNELS = ("decode_attention_", "flash_fwd_", "flash_bwd_", "wkv6_",
-                "rglru_kernel")
+                "rglru_kernel", "rglru_bwd_kernel")
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
 # the campaign phase (5b): the session's im-rp defaults, two cycles, in the
@@ -1613,6 +1623,44 @@ def time_rglru(torch, g, B, T, C, label):
           f"{ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} ({b_by}); wall "
           f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}; "
           f"err {err:.3e}", flush=True)
+    return {"route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru.py:44", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def time_rglru_bwd(torch, g, B, T, C, label):
+    """RG-LRU's gradient kernel (``rglru_bwd``) at (B, T, C) fp32 from the
+    forward kernel's h at a seeded upstream: da, db and dh0 bitwise the
+    plain version's (``rglru_bwd_ref``), then both's device time per call,
+    inputs rotating past 100 MB, and the bound (``cost.rglru_bwd_work``).
+    Returns the kernel's record without its name."""
+    from repro_torch.distributed import cost
+    from repro_torch.kernels import rglru
+
+    n_ops, n_bytes = cost.rglru_bwd_work(B, T, C)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+    sets = []
+    for _ in range(-(-100_000_000 // n_bytes)):
+        a, b, h0 = rglru_inputs(torch, g, B, T, C)
+        sets.append((a, rglru.rglru_btc(a, b, h0)[0], h0,
+                     torch.randn(B, T, C, generator=g, device="cuda"),
+                     torch.randn(B, C, generator=g, device="cuda")))
+        del b
+    got, want = rglru.rglru_bwd(*sets[0]), rglru.rglru_bwd_ref(*sets[0])
+    err = max(max_err(x, y) for x, y in zip(got, want))
+    expect(all(torch.equal(x, y) for x, y in zip(got, want)),
+           f"rglru gradient {label} {B}x{T}x{C}: da, db, dh0 not bitwise "
+           f"rglru_bwd_ref's (max err {err:.3e})")
+    del got, want
+    turn = itertools.cycle(sets)
+    ms = graph_ms(torch, lambda: rglru.rglru_bwd(*next(turn)))
+    plain = graph_ms(torch, lambda: rglru.rglru_bwd_ref(*next(turn)),
+                     iters=2, replays=2)
+    print(f"  rglru gradient kernel {label} {B}x{T}x{C} fp32, device ms per "
+          f"call: kernel {ms:.4f}, plain {plain:.4f}, bound {b_ms:.4f} "
+          f"({b_by}, {n_bytes / 1e6:.0f} MB), {ms / b_ms:.2f}x it; da, db, "
+          f"dh0 bitwise rglru_bwd_ref's", flush=True)
     return {"route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru.cu",
             "replaces": "src/repro/kernels/rglru.py:44", "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -4493,6 +4541,7 @@ def phase_moe(torch):
 # elementwise ops and reductions of the norms, gates and AdamW
 TRAIN_KINDS = (("wkv6 gradient kernel", ("wkv6_bwd",)),
                ("wkv6 kernel", ("wkv6_",)),
+               ("rglru gradient kernel", ("rglru_bwd",)),
                ("rglru kernel", ("rglru_kernel",)),
                ("flash gradient kernel", ("flash_bwd_",)),
                ("flash kernel", ("flash_fwd_",)),
@@ -4572,34 +4621,44 @@ def phase10_functions(torch):
     ins = wkv_inputs(torch, g, 2, 8, 45, 64, f32)
     dy = torch.randn(2, 8, 45, 64, generator=g, device="cuda")
     got = rwkv6.wkv6_bwd_bhtk(*ins, dy, None)
-    want = rwkv6.wkv6_bwd_serial_ref(*ins, dy, None)
-    for name, a, b in zip(GRAD_NAMES, got, want):
-        check(f"WKV6's gradient kernel 2x8x45x64 fp32, dS absent, d{name} "
-              f"vs wkv6_bwd_serial_ref / max |d|",
-              max_err(a, b) / (float(b.abs().max()) or 1.0), TOL["float32"])
+    for ref in (rwkv6.wkv6_bwd_chunk_ref, rwkv6.wkv6_bwd_serial_ref):
+        want = ref(*ins, dy, None)
+        for name, a, b in zip(GRAD_NAMES, got, want):
+            check(f"WKV6's gradient kernel 2x8x45x64 fp32, dS absent, d{name}"
+                  f" vs {ref.__name__} / max |d|",
+                  max_err(a, b) / (float(b.abs().max()) or 1.0),
+                  TOL["float32"])
     del ins, dy, got, want
-    B, T, C = RG_BATCH, RG_PROMPT, 2560
-    ins = rglru_inputs(torch, g, B, T, C)
-    ups = tuple(torch.randn(*x.shape, generator=g, device="cuda")
-                for x in (ins[0], ins[2]))
-    fwd = graph_ms(torch, lambda: rglru.rglru_btc(*ins), iters=4, replays=3)
-    label = f"RGLRU {B}x{T}x{C} fp32"
-    out[label] = function_parity(torch, label, rglru.rglru_grad,
-                                 rglru.rglru_ref, ins, ups, fwd, 1)
     from repro_torch.distributed import cost
-    launch_ms, launch_by = bound_ms(cost.rglru_work(B, T, C)[1],
-                                    cost.rglru_work(B, T, C)[0], "float32")
-    # the backward call: a, h and gh read, da and db written (fp32, B x T x
-    # C each), h0 and gT read, dh0 written (B x C); the reverse scan's 2
-    # operations an element and da's product
-    call_ms, call_by = bound_ms(4 * (5 * B * T * C + 3 * B * C),
-                                3 * B * T * C, "float32")
-    print(f"  RGLRU's reverse scan is the forward kernel at the same shape: "
-          f"{fwd:.4f} ms a call (device); bounds: its launch {launch_ms:.4f} "
-          f"ms ({launch_by}), the backward call {call_ms:.4f} ms "
-          f"({call_by})", flush=True)
-    del ins, ups
-    H, S, hd, W = 10, RG_PROMPT, 256, 2048
+    T, C = RG_PROMPT, 2560
+    for B in (RG_BATCH, SSM_TRAINS["recurrentgemma-2b"][0]):
+        ins = rglru_inputs(torch, g, B, T, C)
+        ups = tuple(torch.randn(*x.shape, generator=g, device="cuda")
+                    for x in (ins[0], ins[2]))
+        fwd = graph_ms(torch, lambda: rglru.rglru_btc(*ins), iters=4,
+                       replays=3)
+        label = f"RGLRU {B}x{T}x{C} fp32"
+        out[label] = function_parity(torch, label, rglru.rglru_grad,
+                                     rglru.rglru_ref, ins, ups, fwd, 1)
+        h = rglru.rglru_btc(*ins)[0]
+        got = rglru.rglru_bwd(ins[0], h, ins[2], *ups)
+        want = rglru.rglru_bwd_ref(ins[0], h, ins[2], *ups)
+        expect(all(torch.equal(x, y) for x, y in zip(got, want)),
+               f"{label}: rglru_bwd's da, db, dh0 not bitwise "
+               f"rglru_bwd_ref's")
+        timing = ""
+        if B == RG_BATCH:   # the training shape is timed in 10f's record
+            call_ms, call_by = bound_ms(cost.rglru_bwd_work(B, T, C)[1],
+                                        cost.rglru_bwd_work(B, T, C)[0],
+                                        "float32")
+            k_ms = graph_ms(torch, lambda: rglru.rglru_bwd(
+                ins[0], h, ins[2], *ups), iters=5, replays=4)
+            timing = (f"; {k_ms:.4f} ms a call (device) against its bound "
+                      f"{call_ms:.4f} ms ({call_by})")
+        print(f"  {label}: the gradient kernel's da, db and dh0 bitwise "
+              f"rglru_bwd_ref's{timing}", flush=True)
+        del ins, ups, h, got, want
+    B, H, S, hd, W = RG_BATCH, 10, RG_PROMPT, 256, 2048
     ins = tuple(torch.randn(B, n, S, hd, generator=g, device="cuda")
                 for n in (H, 1, 1))
     ups = torch.randn(B, H, S, hd, generator=g, device="cuda")
@@ -4642,8 +4701,9 @@ def phase10_functions(torch):
 def ssm_step_launches(cfg):
     """One train step's launches with remat "full": wkv6's prefill form
     twice a ``rwkv`` layer (forward, recompute) and its backward form once,
-    rglru three times an ``rglru`` layer (forward, recompute, the
-    backward's reverse scan), flash's fp32 sequence form twice an
+    rglru three times an ``rglru`` layer (forward, recompute, and its
+    gradient kernel, the ``backward`` form), flash's fp32 sequence form
+    twice an
     ``attn_local`` layer (the residual stream is fp32: ``emb_scale``) and
     its gradient kernel once."""
     kinds = cfg.layer_kinds
@@ -4655,7 +4715,8 @@ def ssm_step_launches(cfg):
                      ("wkv6_bhtk", "prefill"): 2 * n_wkv,
                      ("wkv6_bhtk", "backward"): n_wkv})
     if n_rg:
-        want["rglru_btc"] = n_rg
+        want.update({"rglru_btc": n_rg,
+                     ("rglru_btc", "backward"): n_rg // 3})
     if n_fa:
         want.update({"flash_attention_bhsd": 3 * n_fa,
                      ("flash_attention_bhsd", "seq_f32"): 2 * n_fa,
@@ -4664,13 +4725,16 @@ def ssm_step_launches(cfg):
 
 
 def backward_split(counts, forms):
-    """``counts`` (launches by kernel) with wkv6's and flash's split into
-    their forward forms (``wkv6_bhtk``, ``flash_attention_bhsd``) and their
-    gradient kernels (``wkv6_bhtk_bwd``, ``flash_attention_bhsd_bwd``),
+    """``counts`` (launches by kernel) with wkv6's, rglru's and flash's
+    split into their forward forms (``wkv6_bhtk``, ``rglru_btc``,
+    ``flash_attention_bhsd``) and their gradient kernels
+    (``wkv6_bhtk_bwd``, ``rglru_btc_bwd``, ``flash_attention_bhsd_bwd``),
     from ``forms`` (``ops.forms``)."""
     n = forms["wkv6_bhtk"]["backward"]
+    r = forms["rglru_btc"]["backward"]
     m = forms["flash_attention_bhsd"]["backward"]
     return dict(counts, wkv6_bhtk=counts["wkv6_bhtk"] - n, wkv6_bhtk_bwd=n,
+                rglru_btc=counts["rglru_btc"] - r, rglru_btc_bwd=r,
                 flash_attention_bhsd=counts["flash_attention_bhsd"] - m,
                 flash_attention_bhsd_bwd=m)
 
@@ -4682,13 +4746,18 @@ def time_wkv6_bwd(torch, g, B, H, T, K, dt, label):
     device time a call (CUDA graph replays, calls rotating over enough
     input sets to fill twice the 50 MB L2), the plain backward's
     (``_bwd_plain`` on the card, between events) and the bound, its work
-    from ``distributed.cost.wkv6_bwd_work`` at the fp32 rate. Returns the
-    kernel's record without its name."""
+    from ``distributed.cost.wkv6_bwd_work`` with the products at the
+    split-TF32 rate, where the kernel runs them (the record's) and,
+    printed, at the fp32 FMA rate. Returns the kernel's record without its
+    name."""
     from repro_torch.distributed import cost
     from repro_torch.kernels import rwkv6
 
+    from repro_torch.distributed.roofline import PEAK_FLOPS_SPLIT_TF32
+
     n_ops, n_bytes = cost.wkv6_bwd_work(B, H, T, K, torch.finfo(dt).bits // 8)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "float32", PEAK_FLOPS_SPLIT_TF32)
+    fma_ms, fma_by = bound_ms(n_bytes, n_ops, "float32")
     sets = [(*wkv_inputs(torch, g, B, H, T, K, dt),
              torch.randn(B, H, T, K, generator=g, device="cuda").to(dt),
              torch.randn(B, H, K, K, generator=g, device="cuda"))
@@ -4713,9 +4782,10 @@ def time_wkv6_bwd(torch, g, B, H, T, K, dt, label):
                     warmup=1)
     print(f"  WKV6's gradient kernel, {label} {B}x{H}x{T}x{K} {name}, device "
           f"ms per call: kernel {ms:.4f}, plain backward {plain:.2f}, bound "
-          f"{b_ms:.4f} ({b_by}; {n_ops / 1e9:.2f} GFLOP, "
-          f"{n_bytes / 1e6:.0f} MB); {rwkv6.bwd_groups(B * H, K, 132)} row "
-          f"group(s) a (b, h) on 132 SMs; two calls bitwise equal; err "
+          f"{b_ms:.4f} at the split-TF32 rate ({b_by}; {n_ops / 1e9:.2f} "
+          f"GFLOP, {n_bytes / 1e6:.0f} MB), {100 * b_ms / ms:.1f}% of it; "
+          f"{fma_ms:.4f} at the fp32 FMA rate ({fma_by}); chunks of "
+          f"{rwkv6.BWD_CHUNK} tokens; two calls bitwise equal; err "
           f"{err:.3e}", flush=True)
     return {"route": "cuda",
             "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
@@ -4910,6 +4980,7 @@ def ssm_train(torch, arch):
                            cpu=False)
     device_time_by_kind(kernels, TRAIN_KINDS, TRAIN_OTHER)
     kernel_split(kernels, "flash_bwd_")
+    kernel_split(kernels, "wkv6_bwd_")
     print(f"  the profiled step and its summary took "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     del params, opt_state, step_fn, batch
@@ -4941,15 +5012,19 @@ def phase_ssm_train(torch):
     B, S = SSM_TRAINS["recurrentgemma-2b"]
     records = [dict(time_rglru(torch, g, B, S, 2560, "train"),
                     name="rglru_btc_train"),
+               dict(time_rglru_bwd(torch, g, B, S, 2560, "train"),
+                    name="rglru_btc_bwd"),
                dict(time_flash256(torch, g, B, S, "train"),
                     name="flash_attention_bhsd_hd256_train")] + bwd_records
-    print("phase 10g: WKV6's gradient kernel at rwkv6-7b's training shape",
-          flush=True)
+    print("phase 10g: WKV6's gradient kernel at rwkv6-7b's training shape "
+          "and at phase 11a's", flush=True)
     B, S = SSM_TRAINS["rwkv6-7b"]
     time_wkv6_bwd(torch, g, B, 64, S, 64, torch.float32, "train")
     records.append(dict(time_wkv6_bwd(torch, g, B, 64, S, 64,
                                       torch.bfloat16, "train"),
                         name="wkv6_bhtk_bwd"))
+    B, S, _ = MESH_TRAINS["rwkv6-7b"]
+    time_wkv6_bwd(torch, g, B, 64, S, 64, torch.bfloat16, "phase 11a")
     print("  backwards, ms a call (between events): " + "; ".join(
         f"{k} {v:.2f}" for k, v in bwd.items()), flush=True)
     print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s",
@@ -4958,6 +5033,7 @@ def phase_ssm_train(torch):
         "wkv6_bhtk": counts["rwkv6-7b"]["wkv6_bhtk"],
         "wkv6_bhtk_bwd": counts["rwkv6-7b"]["wkv6_bhtk_bwd"],
         "rglru_btc_train": rg["rglru_btc"],
+        "rglru_btc_bwd": rg["rglru_btc_bwd"],
         "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"],
         "flash_attention_bhsd_bwd": rg["flash_attention_bhsd_bwd"]}
 
@@ -5293,6 +5369,7 @@ def phase_mesh(torch):
             launches["smollm-360m"]["flash_attention_bhsd_bwd"],
         "wkv6_bhtk": rw["wkv6_bhtk"], "wkv6_bhtk_bwd": rw["wkv6_bhtk_bwd"],
         "rglru_btc_train": rg["rglru_btc"],
+        "rglru_btc_bwd": rg["rglru_btc_bwd"],
         "flash_attention_bhsd_hd256_train": rg["flash_attention_bhsd"],
         "flash_attention_bhsd_bwd": rg["flash_attention_bhsd_bwd"]}
 
@@ -6384,7 +6461,9 @@ def phase_tp(torch):
                first["chatglm3-6b"][fa] + pre[glm][fa],
            "wkv6_bhtk_tp": first["rwkv6-7b"][wkv] + pre[rw][wkv],
            "wkv6_bhtk_bwd_tp": first["rwkv6-7b"][("wkv6_bhtk", "backward")],
-           "rglru_btc_tp": first["recurrentgemma-2b"][rg] + pre[rgm][rg],
+           "rglru_btc_tp": first["recurrentgemma-2b"][rg] + pre[rgm][rg]
+           - first["recurrentgemma-2b"][(rg, "backward")],
+           "rglru_btc_bwd": first["recurrentgemma-2b"][(rg, "backward")],
            "flash_attention_bhsd_cp_rg_r3":
                launches["recurrentgemma-2b"][-1][f32] + last[rgm][f32],
            "flash_attention_bhsd_cp_smollm":

@@ -152,6 +152,13 @@ def rglru_work(B, T, C):
     return 2 * B * T * C, 4 * (3 * B * T * C + 2 * B * C)
 
 
+def rglru_bwd_work(B, T, C):
+    """(flops, bytes) of one rglru gradient call: the reverse recurrence's
+    multiply and add and da's product an element; a, h and gh read and da,
+    db written, h0 and gT read and dh0 written, all fp32."""
+    return 3 * B * T * C, 4 * (5 * B * T * C + 3 * B * C)
+
+
 def paged_work(B, KV, G, hd, live, maxp, elem):
     """(flops, bytes) of one paged decode over ``live`` cached tokens: 4·hd
     a (query head, token); q read and the output written, the live tokens'

@@ -13,7 +13,8 @@ it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
 form it took (flash: the decode form, the fp32 / bf16 sequence form or
 the gradient kernel, ``backward``; wkv6: the decode (T = 1) or the
-prefill kernel, or the gradient kernel, ``backward``). ``by_namespace``
+prefill kernel, or the gradient kernel, ``backward``; rglru: its gradient
+kernel, ``backward``, the forward scan having no form). ``by_namespace``
 splits the counts by the param-set namespace whose weights the launching
 thread is running (``namespace``; the payload's task functions enter it),
 so a run can show which model ran. ``tally`` counts the launches one
@@ -54,7 +55,8 @@ launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
             "wkv6_bhtk": 0, "rglru_btc": 0}
 forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0,
                                   "backward": 0},
-         "wkv6_bhtk": {"decode": 0, "prefill": 0, "backward": 0}}
+         "wkv6_bhtk": {"decode": 0, "prefill": 0, "backward": 0},
+         "rglru_btc": {"backward": 0}}
 
 by_namespace: dict[str, dict[str, int]] = {}
 
@@ -188,10 +190,12 @@ def lib() -> ctypes.CDLL:
             handle.repro_flash_bwd.restype = i32
             handle.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
             handle.repro_wkv6.restype = i32
-            handle.repro_wkv6_bwd.argtypes = [ptr] * 18 + [i32] * 7 + [ptr]
+            handle.repro_wkv6_bwd.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
             handle.repro_wkv6_bwd.restype = i32
             handle.repro_rglru.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
             handle.repro_rglru.restype = i32
+            handle.repro_rglru_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+            handle.repro_rglru_bwd.restype = i32
             handle.repro_error_string.argtypes = [i32]
             handle.repro_error_string.restype = ctypes.c_char_p
             _lib = handle

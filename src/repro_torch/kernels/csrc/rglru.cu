@@ -1,4 +1,4 @@
-// RG-LRU gated linear recurrence, for Hopper (sm_90a).
+// RG-LRU gated linear recurrence and its gradient, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/rglru.py (`rglru_btc`, body
 // `_kernel`). Same contract: a/b (B,T,C) fp32, h0 (B,C) fp32; h (B,T,C) fp32
@@ -23,6 +23,19 @@
 // B*C threads (20,480 at the prefill, 160 blocks for 132 SMs) the kernel
 // is latency-bound; splitting T across blocks with a second pass (a scan
 // of the per-block (prod a, h) pairs) is the later redesign.
+//
+// The gradient (`rglru_bwd_kernel`, `RGLRU.backward` in kernels/rglru.py):
+// with g_t = dL/dh_t through every later step, g_{T} = gT,
+//   g_t = a_{t+1} g_{t+1} + gh_t   (a_T = 1),
+//   db_t = g_t,  da_t = g_t h_{t-1}  (h_{-1} = h0),  dh0 = a_0 g_0.
+// gh (B,T,C) and gT (B,C) may be absent (null: zeros). One thread owns a
+// (b, c) channel and walks t = T-1 .. 0, reading a_{t+1}, gh_t and h_{t-1}
+// backwards in groups of U loads in flight, as the forward does, and
+// writing da_t and db_t: 5 B T C fp32 moved, 3 operations an element, so
+// bytes bound it (0.31 ms at 8 x 2560 x 2560). Each step rounds as the
+// plain version (`rglru_bwd_ref`) does, __fadd_rn(__fmul_rn(a, g), gh)
+// and __fmul_rn(g, h), so the gradients are bitwise the plain version's.
+// No flip, concatenation or temporary around it: one launch a backward.
 
 #include "common.cuh"
 
@@ -84,6 +97,64 @@ rglru_kernel(const float* __restrict__ a, const float* __restrict__ b,
   h_T[row * C + c] = hv;
 }
 
+
+// The gradient: one thread a (b, c) channel, t = T-1 .. 0 (see the top).
+__global__ void __launch_bounds__(THREADS)
+rglru_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                 const float* __restrict__ h0, const float* __restrict__ gh,
+                 const float* __restrict__ gT, float* __restrict__ da,
+                 float* __restrict__ db, float* __restrict__ dh0, int T,
+                 int C) {
+  const int c = blockIdx.x * THREADS + threadIdx.x;
+  if (c >= C) return;
+  const long long row = blockIdx.y;
+  const long long base = row * T * C + c;      // (b, 0, c)
+  const float hinit = h0[row * C + c];
+  float g = gT != nullptr ? gT[row * C + c] : 0.f;
+
+  // token t's a_{t+1}, gh_t and h_{t-1}
+  auto load = [&](int t, float& an, float& gv, float& hp) {
+    const long long off = base + (long long)t * C;
+    an = t + 1 < T ? a[off + C] : 1.f;
+    gv = gh != nullptr ? gh[off] : 0.f;
+    hp = t > 0 ? h[off - C] : hinit;
+  };
+  auto back = [&](int t, float an, float gv, float hp) {
+    const long long off = base + (long long)t * C;
+    g = step(an, g, gv);
+    db[off] = g;
+    da[off] = __fmul_rn(g, hp);
+  };
+
+  const int rag = T % U;                       // tokens 0 .. rag-1 last
+  float an[U], gv[U], hp[U];
+  if (T >= U) {
+#pragma unroll
+    for (int i = 0; i < U; ++i) load(T - 1 - i, an[i], gv[i], hp[i]);
+  }
+  for (int t1 = T - 1; t1 >= rag; t1 -= U) {  // tokens t1 .. t1-U+1
+    float ac[U], gc[U], hc[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      ac[i] = an[i];
+      gc[i] = gv[i];
+      hc[i] = hp[i];
+    }
+    if (t1 - U >= rag) {                       // next group, in flight
+#pragma unroll
+      for (int i = 0; i < U; ++i) load(t1 - U - i, an[i], gv[i], hp[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) back(t1 - i, ac[i], gc[i], hc[i]);
+  }
+  for (int t = rag - 1; t >= 0; --t) {         // the ragged head
+    float a1, g1, h1;
+    load(t, a1, g1, h1);
+    back(t, a1, g1, h1);
+  }
+  dh0[row * C + c] = __fmul_rn(a[base], g);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched).
@@ -97,5 +168,24 @@ extern "C" int repro_rglru(const void* a, const void* b, const void* h0,
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(h0), static_cast<float*>(h),
       static_cast<float*>(h_T), T, C);
+  return cudaGetLastError();
+}
+
+// The gradient of repro_rglru at the upstream gh (B,T,C) and gT (B,C),
+// either null for zero, from the forward's a, h (B,T,C) and h0 (B,C): da,
+// db (B,T,C) and dh0 (B,C), all fp32. Returns cudaGetLastError() after
+// the launch (0 = launched).
+extern "C" int repro_rglru_bwd(const void* a, const void* h, const void* h0,
+                               const void* gh, const void* gT, void* da,
+                               void* db, void* dh0, int B, int T, int C,
+                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + THREADS - 1) / THREADS, B);
+  rglru_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(h0), static_cast<const float*>(gh),
+      static_cast<const float*>(gT), static_cast<float*>(da),
+      static_cast<float*>(db), static_cast<float*>(dh0), T, C);
   return cudaGetLastError();
 }

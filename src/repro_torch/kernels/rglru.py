@@ -10,13 +10,18 @@ Returns h (B, T, C) and h_T (B, C), both fp32.
 ``rglru_btc`` takes the plain version for CPU tensors and launches the CUDA
 kernel (``csrc/rglru.cu``, one thread per channel walking the tokens in
 order, any T >= 1) for CUDA tensors. ``rglru_grad`` is the same function
-with a gradient (``RGLRU``): its backward is the same recurrence run
-backwards in time, so it calls ``rglru_btc`` again, on flipped inputs.
+with a gradient (``RGLRU``): its backward, ``rglru_bwd``, is the same
+recurrence run backwards in time with da, db and dh0 taken on the way,
+one launch of the gradient kernel (``rglru_bwd_kernel``, one thread per
+channel walking the tokens from the last) on CUDA tensors and its plain
+version ``rglru_bwd_ref`` on CPU tensors; ``_cuda.forms`` counts that
+launch under ``rglru_btc``'s ``backward`` form.
 
 Cost accounting (``distributed.cost``): each call reports
-``cost.rglru_work`` under the ``rgscan`` tag to an active counter,
-whatever implements it, and on the ``meta`` device returns empty outputs
-of the right shapes and dtypes (the dry run's path).
+``cost.rglru_work`` (a backward ``cost.rglru_bwd_work``) under the
+``rgscan`` tag to an active counter, whatever implements it, and on the
+``meta`` device returns empty outputs of the right shapes and dtypes (the
+dry run's path).
 """
 
 from __future__ import annotations
@@ -77,6 +82,69 @@ def _launch(a, b, h0):
 # training: the gradient
 # ---------------------------------------------------------------------------
 
+def rglru_bwd_ref(a, h, h0, gh, gT):
+    """Plain version of ``rglru_bwd``: with g_T = gT, g_t = a_{t+1} g_{t+1}
+    + gh_t (a_T = 1), a multiply then an add per token, t = T-1 .. 0; db_t
+    = g_t, da_t = g_t h_{t-1} (h_{-1} = h0), dh0 = a_0 g_0. gh and gT may
+    be None (zeros). The kernel rounds each step as this does."""
+    B, T, C = a.shape
+    af, hf, h0f = a.float(), h.float(), h0.float()
+    g = torch.zeros_like(h0f) if gT is None else gT.float()
+    gh = torch.zeros_like(af) if gh is None else gh.float()
+    da, db = torch.empty_like(af), torch.empty_like(af)
+    one = torch.ones_like(h0f)
+    for t in reversed(range(T)):
+        g = (af[:, t + 1] if t + 1 < T else one) * g + gh[:, t]
+        db[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else h0f)
+    return da, db, af[:, 0] * g
+
+
+def rglru_bwd(a, h, h0, gh, gT):
+    """The gradients (da, db (B,T,C), dh0 (B,C), fp32) of ``rglru_btc`` at
+    the upstream gh (B,T,C) and gT (B,C), either None for zero, from the
+    forward's a, h (B,T,C) and h0 (B,C), all fp32. CPU tensors:
+    ``rglru_bwd_ref``; CUDA tensors: the gradient kernel, one launch
+    counted under the ``backward`` form."""
+    with cost.counted("rgscan", lambda: cost.rglru_bwd_work(*a.shape)):
+        if a.device.type == "meta":
+            return (torch.empty_like(a, dtype=torch.float32),
+                    torch.empty_like(a, dtype=torch.float32),
+                    torch.empty_like(h0, dtype=torch.float32))
+        if a.device.type == "cpu":
+            return rglru_bwd_ref(a, h, h0, gh, gT)
+        if a.device.type != "cuda":
+            raise ValueError(f"rglru_bwd: no kernel for {a.device}")
+        return _launch_bwd(a, h, h0, gh, gT)
+
+
+def _launch_bwd(a, h, h0, gh, gT):
+    name = "rglru_btc"
+    f32 = (torch.float32,)
+    tensors = [a, h, h0] + [x for x in (gh, gT) if x is not None]
+    dev = _cuda.check_cuda_tensors(name, tensors, (f32,) * len(tensors))
+    B, T, C = a.shape
+    if h.shape != a.shape or h0.shape != (B, C) or T < 1 or B > 65535 \
+            or (gh is not None and gh.shape != a.shape) \
+            or (gT is not None and gT.shape != (B, C)):
+        raise ValueError(
+            f"{name} backward: shapes a {tuple(a.shape)}, h "
+            f"{tuple(h.shape)}, h0 {tuple(h0.shape)}, gh "
+            f"{None if gh is None else tuple(gh.shape)}, gT "
+            f"{None if gT is None else tuple(gT.shape)}")
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), \
+        torch.empty_like(h0)
+    if B * C == 0:
+        return da, db, dh0
+    err = _cuda.lib().repro_rglru_bwd(
+        a.data_ptr(), h.data_ptr(), h0.data_ptr(),
+        None if gh is None else gh.data_ptr(),
+        None if gT is None else gT.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dh0.data_ptr(), B, T, C, *_cuda.device_and_stream(dev))
+    _cuda.check_launch(name, err, "backward")
+    return da, db, dh0
+
+
 class RGLRU(torch.autograd.Function):
     """``rglru_btc`` with a gradient. The forward is the wrapper as it is
     (one kernel launch on CUDA tensors). With g_t the loss's gradient with
@@ -84,9 +152,12 @@ class RGLRU(torch.autograd.Function):
 
       g_t = gh_t + a_{t+1} g_{t+1},   g_{T-1} = gh_{T-1} + gT,
 
-    an RG-LRU recurrence in reversed time with decay a_next and input gh,
-    started from gT: one more ``rglru_btc`` call (one launch). Then db = g,
-    da = g h_{t-1} (h_{-1} = h0) and dh0 = a_0 g_0."""
+    an RG-LRU recurrence in reversed time; db = g, da = g h_{t-1} (h_{-1} =
+    h0) and dh0 = a_0 g_0. The backward is ``rglru_bwd``: on CUDA tensors
+    one launch of the gradient kernel, which walks the tokens from the last
+    and writes the three gradients itself (no flipped copies); autograd
+    runs it on a thread of its own, and its launch counts where the
+    forward's did (``_cuda.resume``)."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
@@ -98,15 +169,13 @@ class RGLRU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gh, gT):
         a, h0, h = ctx.saved_tensors
-        gh = torch.zeros_like(h) if gh is None else gh.float()
-        gT = torch.zeros_like(h0) if gT is None else gT.float()
-        a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+        gh, gT = (None if x is None else x.float() for x in (gh, gT))
+        if a.device.type == "cuda":
+            a, h0, h = (_cuda.fresh(x) for x in (a, h0, h))
+            gh, gT = (None if x is None else _cuda.fresh(x)
+                      for x in (gh, gT))
         with _cuda.resume(ctx.running):
-            g = rglru_btc(a_next.flip(1).contiguous(),
-                          gh.flip(1).contiguous(), gT.contiguous())[0]
-        g = g.flip(1)
-        h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
-        return g * h_prev, g, a[:, 0] * g[:, 0]
+            return rglru_bwd(a, h, h0, gh, gT)
 
 
 def rglru_grad(a, b, h0):

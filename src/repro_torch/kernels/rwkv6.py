@@ -15,10 +15,13 @@ kernel (``csrc/wkv6.cu``, token-serial) for CUDA tensors: the decode kernel
 at T = 1, the prefill kernel at T > 1 (``wkv6_serial_ref`` repeats its
 order of operations). ``wkv6_grad`` is the same function with a gradient
 (``WKV6``): the kernel's forward, and a backward (``wkv6_bwd_bhtk``) that
-launches the gradient kernel (``csrc/wkv6_bwd.cu``: checkpoints, each
-chunk rebuilt, a token-serial reverse walk; ``wkv6_bwd_serial_ref``
-repeats its order of operations) on CUDA tensors and recomputes
-``wkv6_ref``'s chunks under autograd on CPU tensors. ``_cuda.forms``
+launches the gradient kernel (``csrc/wkv6_bwd.cu``: chunks of
+``BWD_CHUNK`` tokens, the states at their boundaries carried by one pass,
+then every chunk's gradients at once, the products through a state on the
+tensor cores; ``wkv6_bwd_chunk_ref`` repeats its algorithm) on CUDA
+tensors and recomputes ``wkv6_ref``'s chunks under autograd on CPU
+tensors; ``wkv6_bwd_serial_ref`` is a token-serial oracle of the same
+gradients. ``_cuda.forms``
 counts the three forms apart: decode, prefill and backward.
 
 Cost accounting (``distributed.cost``): each forward call reports
@@ -184,11 +187,13 @@ def _launch(r, k, v, logw, u, s0):
 # ---------------------------------------------------------------------------
 
 GRAD_CHUNK = 32     # tokens the plain backward recomputes at a time
-BWD_CHUNK = 16      # tokens between the gradient kernel's checkpoints
-# the gradient kernel's tile: a thread's rows and columns of S and G, and
-# the warps of a (b, h); its row groups (blocks a (b, h)) it may take
-BWD_TILE = {64: (4, 4, 8), 16: (2, 4, 1)}
-BWD_GROUPS = {64: (1, 2, 4, 8), 16: (1,)}
+BWD_CHUNK = 16      # tokens a chunk of the gradient kernel (its CHUNK)
+
+
+def bwd_chunks(T):
+    """Chunks of ``BWD_CHUNK`` tokens the gradient kernel cuts T into, the
+    last one padded: its carry writes the state at each."""
+    return -(-T // BWD_CHUNK)
 
 
 def _chain(x, dim):
@@ -199,97 +204,145 @@ def _chain(x, dim):
     return out
 
 
-def _halves(x, dim):
-    """Sum over ``dim`` (a power of two long) by halves: element i with
-    i + n/2 first, as a warp's halving exchanges add its lanes."""
-    while x.shape[dim] > 1:
-        half = x.shape[dim] // 2
-        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
-    return x.squeeze(dim)
-
-
-def _adjacent(x, dim):
-    """Sum over ``dim`` (a power of two long) in adjacent pairs:
-    ((x0 + x1) + (x2 + x3)) + ..."""
-    while x.shape[dim] > 1:
-        x = x.unflatten(dim, (x.shape[dim] // 2, 2))
-        x = x.select(dim + 1, 0) + x.select(dim + 1, 1)
-    return x.squeeze(dim)
-
-
-def wkv6_bwd_serial_ref(r, k, v, logw, u, s0, dy, dS, *, groups=1):
-    """The gradient kernel's order of operations in plain PyTorch, token by
-    token in fp32: the six gradients of ``wkv6_bhtk`` at the upstream
-    (dy, dS), either None for zero, as ``wkv6_bwd_bhtk`` returns them.
-
-    A forward pass keeps the state before every chunk of ``BWD_CHUNK``
-    tokens; then, last chunk first, the chunk's states S_{t-1} are rebuilt
-    from its checkpoint and its tokens taken backwards from G = dL/dS_t:
-    dr_t = S_{t-1} dy_t + (u k_t)(v_t . dy_t), dk_t = G v_t + (u r_t)(v_t .
-    dy_t) and dlogw_t = w_t rowsum(G S_{t-1}), each row's sum over its
-    columns taken as the kernel's lanes take it (each lane's columns in
-    turn, the lanes of a row by halves); dv_t's sum over the rows of G k_t
-    likewise (each thread's rows in turn, a warp's row lanes by halves),
-    then the warps of each of ``groups`` row groups in adjacent pairs and
-    the groups in adjacent pairs, plus beta_t dy_t; then G = (G - d_t G) +
-    r_t dy_t^T. A decay step of S or G takes d_t = 1 - w_t as
-    -expm1(logw_t), dlogw's factor w_t as exp(logw_t). du adds r_t k_t
-    (v_t . dy_t) over the tokens backwards, then over b in order; ds0 is
-    the last G. The adjacent pairs make the result the same at every
-    ``groups``; the tests hold it to ``wkv6_ref``'s autograd."""
+def wkv6_bwd_serial_ref(r, k, v, logw, u, s0, dy, dS):
+    """A token-serial oracle of ``wkv6_bwd_bhtk``'s six gradients in fp32
+    at the upstream (dy, dS), either None for zero: every state S_{t-1}
+    kept from a forward walk, then G = dL/dS_t walked back from dS, dr_t =
+    S_{t-1} dy_t + (u k_t)(v_t . dy_t), dk_t = G v_t + (u r_t)(v_t . dy_t),
+    dv_t = G^T k_t + beta_t dy_t, dlogw_t = w_t rowsum(G S_{t-1}), G =
+    (G - d_t G) + r_t dy_t^T; a decay step S - d S with d = -expm1(logw),
+    dlogw's factor w = exp(logw) itself. du adds r_t k_t (v_t . dy_t) over
+    the tokens backwards, then over b in order; ds0 is the last G."""
     B, H, T, K = r.shape
-    RT, CT, NW = BWD_TILE[K]
-    CL = K // CT
-    RL = 32 // CL
-    C = BWD_CHUNK
     rf, kf, vf = r.float(), k.float(), v.float()
     w = logw.float().exp()
-    d = -torch.expm1(logw.float())                  # 1 - w_t
+    d = -torch.expm1(logw.float())
     yf = torch.zeros_like(rf) if dy is None else dy.float()
     uf = u.float()[None, :, None, :]
-    beta = (rf * uf * kf).sum(-1)                                   # (B,H,T)
-    vdy = (vf * yf).sum(-1)
-
-    def step(S, t):
-        return (S - d[:, :, t, :, None] * S) \
+    vdy = (vf * yf).sum(-1, keepdim=True)
+    S, prev = s0.float(), []
+    for t in range(T):
+        prev.append(S)
+        S = (S - d[:, :, t, :, None] * S) \
             + kf[:, :, t, :, None] * vf[:, :, t, None, :]
-
-    def rows(x):    # (B,H,K,K) -> (B,H,K): a row's sum, the kernel's order
-        return _halves(_chain(x.unflatten(-1, (CL, CT)), -1), -1)
-
-    starts = range(0, T, C)
-    ck = [s0.float()]
-    for t0 in starts[:-1]:
-        S = ck[-1]
-        for t in range(t0, t0 + C):
-            S = step(S, t)
-        ck.append(S)
-    G = torch.zeros_like(ck[0]) if dS is None else dS.float().clone()
-    dr, dk, dlw, dvs = (torch.empty(B, H, T, K, dtype=torch.float32,
-                                    device=r.device) for _ in range(4))
+    G = torch.zeros_like(S) if dS is None else dS.float().clone()
+    dr, dk, dlw, dvs = (torch.empty_like(rf) for _ in range(4))
     du = torch.zeros(B, H, K, dtype=torch.float32, device=r.device)
-    for t0, S in zip(reversed(starts), reversed(ck)):
-        prev = []
-        for t in range(t0, min(t0 + C, T)):
-            prev.append(S)
-            S = step(S, t)
-        for t in reversed(range(t0, min(t0 + C, T))):
-            Sp = prev[t - t0]
-            dr[:, :, t] = rows(Sp * yf[:, :, t, None, :]) \
-                + uf[:, :, 0] * kf[:, :, t] * vdy[:, :, t, None]
-            dk[:, :, t] = rows(G * vf[:, :, t, None, :]) \
-                + uf[:, :, 0] * rf[:, :, t] * vdy[:, :, t, None]
-            dlw[:, :, t] = w[:, :, t] * rows(G * Sp)
-            part = _chain((G * kf[:, :, t, :, None]).unflatten(
-                2, (NW, RL, RT)), 4)                          # (B,H,NW,RL,K)
-            part = _halves(part, 3).unflatten(2, (groups, NW // groups))
-            dvs[:, :, t] = _adjacent(_adjacent(part, 3), 2)
-            du = du + rf[:, :, t] * kf[:, :, t] * vdy[:, :, t, None]
-            G = (G - d[:, :, t, :, None] * G) \
-                + rf[:, :, t, :, None] * yf[:, :, t, None, :]
-    dv = dvs + beta[..., None] * yf
+    for t in reversed(range(T)):
+        Sp = prev[t]
+        dr[:, :, t] = (Sp * yf[:, :, t, None, :]).sum(-1)
+        dk[:, :, t] = (G * vf[:, :, t, None, :]).sum(-1)
+        dvs[:, :, t] = (G * kf[:, :, t, :, None]).sum(-2)
+        dlw[:, :, t] = w[:, :, t] * (G * Sp).sum(-1)
+        du = du + rf[:, :, t] * kf[:, :, t] * vdy[:, :, t]
+        G = (G - d[:, :, t, :, None] * G) \
+            + rf[:, :, t, :, None] * yf[:, :, t, None, :]
+    dr = dr + uf * kf * vdy
+    dk = dk + uf * rf * vdy
+    dv = dvs + (rf * uf * kf).sum(-1, keepdim=True) * yf
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw,
             _chain(du, 0), G)
+
+
+def _deficit(y, d):
+    """1 - (1 - y)(1 - d), the deficit of a decay product one token on: y +
+    d - y d; exactly 1 once a factor is 0 (d = 1)."""
+    return torch.where((d == 1) | (y == 1), 1.0, (y + d) - y * d)
+
+
+def wkv6_bwd_chunk_ref(r, k, v, logw, u, s0, dy, dS):
+    """The gradient kernel's algorithm in plain PyTorch, fp32: the six
+    gradients of ``wkv6_bhtk`` at the upstream (dy, dS), either None for
+    zero, in chunks of ``BWD_CHUNK`` tokens, the last padded
+    with zero tokens (w = 1).
+
+    The carry: S before every chunk, walked forward, S <- A S + (B k)^T V
+    (B_t the decay after token t in the chunk, A the whole chunk's), and G
+    after every chunk, walked back from dS, G <- A G + (A' r)^T dY (A'_t
+    the decay before t); ds0 is G before the first. A is carried as its
+    deficit y = 1 - A (``_deficit``) and applied as S - y S: A itself near
+    1 would lose the low bits of 1 - A in fp32 alike at every chunk. Then every chunk at
+    once from its S and G: M[b, a] = dy_b . v_a, S dy_t and G v_t; on
+    each channel (i) a walk over a < b for every b: H_b = H_b - d_a H_b +
+    k_a M[b, a] (kept before each a: H_b(a)), gamma_b likewise through G
+    v_a, A'_b; (ii) a walk over b > t for every t with f = F[t, b] (the
+    decay of the tokens between), adding f r_b times H_b(t) (pi), S dy_b
+    (alpha) and M[b, t] (dk's pair term), and P[t, b] = sum_i k_t f r_b;
+    f ends as B_t. Then dr = A' S dy_t + H + u k_t (v_t . dy_t), dk = B G
+    v_t + dk's pair term + u r_t (v_t . dy_t), dlogw = w_t (A' (B X +
+    alpha) + B gamma + pi) with X = rowsum(S G), dv = (B k) G + P dY +
+    beta_t dy_t, du the chunks' sums over b and chunks. Every decay is a
+    run of steps x - d x, d = -expm1(logw), one token at a time; dlogw's
+    factor w = exp(logw)."""
+    B, H, T, K = r.shape
+    C = BWD_CHUNK
+    n = bwd_chunks(T)
+    pad = n * C - T
+
+    def padded(x):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+    rf, kf, vf, lw = (padded(x) for x in (r, k, v, logw))
+    yf = torch.zeros_like(rf) if dy is None else padded(dy)
+    rc, kc, vc, yc, dc, wc = (x.unflatten(2, (n, C)) for x in (
+        rf, kf, vf, yf, -torch.expm1(lw), lw.exp()))     # (B,H,n,C,K)
+    S = [s0.float()]
+    for c in range(n - 1):
+        x, kb = torch.ones_like(S[0][..., 0]), torch.empty_like(kc[:, :, c])
+        y = torch.zeros_like(x)
+        for t in reversed(range(C)):
+            kb[:, :, t] = x * kc[:, :, c, t]
+            x = x - dc[:, :, c, t] * x
+            y = _deficit(y, dc[:, :, c, t])
+        S.append((S[-1] - y[..., None] * S[-1])
+                 + kb.transpose(-1, -2) @ vc[:, :, c])
+    G = [torch.zeros_like(S[0]) if dS is None else dS.float()]
+    for c in reversed(range(n)):
+        x, ra = torch.ones_like(S[0][..., 0]), torch.empty_like(rc[:, :, c])
+        y = torch.zeros_like(x)
+        for t in range(C):
+            ra[:, :, t] = x * rc[:, :, c, t]
+            x = x - dc[:, :, c, t] * x
+            y = _deficit(y, dc[:, :, c, t])
+        G.append((G[-1] - y[..., None] * G[-1])
+                 + ra.transpose(-1, -2) @ yc[:, :, c])
+    ds0 = G.pop()
+    S, G = torch.stack(S, 2), torch.stack(G[::-1], 2)  # (B,H,n,K,K)
+    M = yc @ vc.transpose(-1, -2)                      # [b][a]
+    SdY, GV = yc @ S.transpose(-1, -2), vc @ G.transpose(-1, -2)  # [t][i]
+    lane = torch.arange(C, device=r.device)[:, None]
+    hh, gam, ap = torch.zeros_like(rc), torch.zeros_like(rc), \
+        torch.ones_like(rc)
+    kept = []
+    for a in range(C):
+        m = lane > a
+        kept.append(hh)
+        da, ka = dc[:, :, :, a, None], kc[:, :, :, a, None]
+        hh = torch.where(m, (hh - da * hh) + ka * M[..., a, None], hh)
+        gam = torch.where(m, (gam - da * gam) + ka * GV[:, :, :, a, None],
+                          gam)
+        ap = torch.where(m, ap - da * ap, ap)
+    kept = torch.stack(kept, 3)                        # [.., a][b][i]
+    f = torch.ones_like(rc)
+    pi, alpha, dki = (torch.zeros_like(rc) for _ in range(3))
+    P = torch.zeros_like(M)                            # [t][b]
+    for b in range(C):
+        m = lane < b
+        rfb = torch.where(m, f * rc[:, :, :, b, None], 0.0)
+        pi = pi + rfb * kept[:, :, :, :, b]
+        alpha = alpha + rfb * SdY[:, :, :, b, None]
+        dki = dki + rfb * M[:, :, :, b, :, None]
+        P[..., b] = (kc * rfb).sum(-1)
+        f = torch.where(m, f - dc[:, :, :, b, None] * f, f)
+    uc = u.float()[None, :, None, None, :]
+    vdy = torch.diagonal(M, dim1=-2, dim2=-1)[..., None]
+    X = (S * G).sum(-1)[:, :, :, None]
+    dr = ap * SdY + hh + uc * kc * vdy
+    dk = f * GV + dki + uc * rc * vdy
+    dlw = wc * (ap * (f * X + alpha) + f * gam + pi)
+    dv = (f * kc) @ G + P @ yc + (rc * uc * kc).sum(-1, keepdim=True) * yc
+    du = _chain(_chain((rc * kc * vdy).sum(3), 2), 0)
+    dr, dk, dv, dlw = (x.flatten(2, 3)[:, :, :T] for x in (dr, dk, dv, dlw))
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlw, du, ds0)
 
 
 def wkv6_bwd_bhtk(r, k, v, logw, u, s0, dy, dS):
@@ -297,8 +350,9 @@ def wkv6_bwd_bhtk(r, k, v, logw, u, s0, dy, dS):
     the upstream dy (B,H,T,K) and dS (B,H,K,K), either None for zero; each
     in its input's dtype. CPU tensors: ``wkv6_ref``'s chunks recomputed
     under autograd (``_bwd_plain``); CUDA tensors: the gradient kernel, one
-    launch counted under the ``backward`` form (two kernels: the reverse
-    walk, then the sums over row groups and over b)."""
+    launch counted under the ``backward`` form (three kernels: the carry of
+    the chunks' boundary states, the chunk pass, du's sum over b and the
+    chunks).""" 
     B, H, T, K = r.shape
     with cost.counted("wkvscan",
                       lambda: cost.wkv6_bwd_work(B, H, T, K,
@@ -351,15 +405,6 @@ def _bwd_plain(r, k, v, logw, u, s0, dy, dS):
     return dr, dk, dv, dlogw, du.to(u.dtype), dS.to(s0.dtype)
 
 
-def bwd_groups(BH, K, sms):
-    """Row groups (blocks a (b, h)) the gradient kernel takes for ``BH``
-    (b, h) pairs on ``sms`` SMs: the fewest of ``BWD_GROUPS[K]`` that give
-    two blocks an SM, else the most. The gradients are bitwise the same at
-    every choice."""
-    choices = BWD_GROUPS[K]
-    return next((g for g in choices if BH * g >= 2 * sms), choices[-1])
-
-
 def _launch_bwd(r, k, v, logw, u, s0, dy, dS):
     name = "wkv6_bhtk"
     f32 = (torch.float32,)
@@ -385,30 +430,29 @@ def _launch_bwd(r, k, v, logw, u, s0, dy, dS):
     if K not in HEAD_DIMS or T < 1:
         raise ValueError(f"{name} backward: head dim {K} not in {HEAD_DIMS} "
                          f"or T={T}")
-    if any(x.data_ptr() % 16 for x in (s0, dS) if x is not None):
-        raise ValueError(f"{name} backward: the kernel reads the states in "
-                         f"16-byte pieces: s0 and dS must start 16-byte "
-                         f"aligned")
+    if any(x.data_ptr() % 16 for x in tensors if x.dim() > 2):
+        raise ValueError(f"{name} backward: the kernel copies its inputs in "
+                         f"16-byte pieces: r, k, v, logw, s0, dy and dS must "
+                         f"start 16-byte aligned")
     f = dict(dtype=torch.float32, device=dev)
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlogw, ds0 = torch.empty_like(logw), torch.empty_like(s0)
     if B * H == 0:
         return dr, dk, dv, dlogw, torch.zeros(H, K, **f), ds0
+    n_ch = bwd_chunks(T)
     du = torch.empty(H, K, **f)
-    groups = bwd_groups(B * H, K, _cuda.sm_count(dev))
-    n_ck = (T - 1) // BWD_CHUNK
-    ckpt = torch.empty(n_ck, B, H, K, K, **f)
-    dvp = torch.empty(groups, B, H, T, K, **f)
-    beta = torch.empty(B, H, T, **f)
-    du_part = torch.empty(B, H, K, **f)
+    # the states at the chunk boundaries: 2 x 4 K^2 / BWD_CHUNK bytes a
+    # token and head (537 MB at 8 x 64 x 512 x 64), linear in T
+    S_at = torch.empty(B, H, n_ch, K, K, **f)
+    G_at = torch.empty(B, H, n_ch, K, K, **f)
+    du_part = torch.empty(B, H, n_ch, K, **f)
     err = _cuda.lib().repro_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0.data_ptr(), None if dy is None else dy.data_ptr(),
         None if dS is None else dS.data_ptr(), dr.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
-        ckpt.data_ptr(), dvp.data_ptr(), beta.data_ptr(), du_part.data_ptr(),
-        B, H, T, K, groups, _cuda.DTYPE_CODES[r.dtype],
-        *_cuda.device_and_stream(dev))
+        S_at.data_ptr(), G_at.data_ptr(), du_part.data_ptr(), B, H, T, K,
+        _cuda.DTYPE_CODES[r.dtype], *_cuda.device_and_stream(dev))
     _cuda.check_launch(name, err, "backward")
     return dr, dk, dv, dlogw, du, ds0
 

@@ -488,9 +488,10 @@ def test_wkv6_grad_kernel_matches_plain(cuda, dtype, B, H, T, K, ends,
                                         absent):
     """The gradient kernel at rwkv6-7b's training shape and a rank's local
     shape, at short and ragged T, with logw at its two ends, dy or dS
-    absent: against autograd through ``wkv6_ref`` and against its own order
-    of operations (``wkv6_bwd_serial_ref``, where T is short), one launch
-    in the ``backward`` form, two calls bitwise equal."""
+    absent: against autograd through ``wkv6_ref``, against its own
+    algorithm (``wkv6_bwd_chunk_ref``) and the token-serial oracle
+    (``wkv6_bwd_serial_ref``, where T is short), one launch in the
+    ``backward`` form, two calls bitwise equal."""
     dt = TORCH_DT[dtype]
     g = torch.Generator(device=cuda).manual_seed(B * T + K)
     args, dy, dS = wkv_grad_case(g, cuda, B, H, T, K, dt, ends)
@@ -507,6 +508,7 @@ def test_wkv6_grad_kernel_matches_plain(cuda, dtype, B, H, T, K, ends,
     want = torch.autograd.grad(outs, xs, ups, allow_unused=True)
     hold_grads(got, [torch.zeros_like(x) if w is None else w
                      for x, w in zip(xs, want)], dtype)
+    hold_grads(got, rwkv6.wkv6_bwd_chunk_ref(*args, dy, dS), dtype)
     if T <= 70:
         hold_grads(got, rwkv6.wkv6_bwd_serial_ref(*args, dy, dS), dtype)
 
@@ -527,18 +529,29 @@ def test_wkv6_grad_kernel_keeps_small_decays(cuda, logw):
                "float32")
 
 
-@pytest.mark.parametrize("B,H,T,K", [(2, 2, 40, 64), (8, 64, 100, 64)])
-def test_wkv6_grad_kernel_is_the_same_at_every_row_split(cuda, B, H, T, K,
-                                                         monkeypatch):
-    """The kernel's gradients are bitwise the same whatever number of row
-    groups a (b, h) splits into."""
+@pytest.mark.parametrize("B,H,T,K", [(2, 2, 40, 64), (8, 64, 100, 64),
+                                     (1, 3, 45, 16)])
+def test_wkv6_grad_kernel_is_the_same_at_every_row_split(cuda, B, H, T, K):
+    """The kernel's grid is set by the shapes alone and no sum runs across
+    its blocks but in a fixed order: each (b, h) of a batch taken alone
+    (another grid, another du sum) gives bitwise the batch's dr, dk, dv,
+    dlogw and ds0, and at B = 1 its du too."""
     g = torch.Generator(device=cuda).manual_seed(T)
     args, dy, dS = wkv_grad_case(g, cuda, B, H, T, K, torch.float32, False)
-    outs = []
-    for n in rwkv6.BWD_GROUPS[K]:
-        monkeypatch.setattr(rwkv6, "bwd_groups", lambda *a, n=n: n)
-        outs.append(rwkv6.wkv6_bwd_bhtk(*args, dy, dS))
-    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
+    whole = rwkv6.wkv6_bwd_bhtk(*args, dy, dS)
+    r, k, v, logw, u, s0 = args
+    for b in range(B):
+        for h in range(H):
+            one = rwkv6.wkv6_bwd_bhtk(
+                *(x[b:b + 1, h:h + 1].contiguous()
+                  for x in (r, k, v, logw)), u[h:h + 1].contiguous(),
+                s0[b:b + 1, h:h + 1].contiguous(),
+                dy[b:b + 1, h:h + 1].contiguous(),
+                dS[b:b + 1, h:h + 1].contiguous())
+            for i in (0, 1, 2, 3, 5):
+                assert torch.equal(one[i][0, 0], whole[i][b, h]), (b, h, i)
+            if B == 1:
+                assert torch.equal(one[4][0], whole[4][h])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -620,6 +633,76 @@ def test_rglru_rejects_bad_inputs(cuda):
         rglru.rglru_btc(a.transpose(1, 2).contiguous().transpose(1, 2), a,
                         h0)
     assert _cuda.launches["rglru_btc"] == before
+
+
+def rglru_grad_case(g, device, B, T, C):
+    """rglru inputs (a = sigmoid(N(0,1)), h from the kernel's forward) and
+    the upstream gh, gT."""
+    a = torch.sigmoid(torch.randn(B, T, C, generator=g, device=device))
+    b = 0.3 * torch.randn(B, T, C, generator=g, device=device)
+    h0 = torch.randn(B, C, generator=g, device=device)
+    h, _ = rglru.rglru_btc(a, b, h0)
+    return (a, b, h0, h, torch.randn(B, T, C, generator=g, device=device),
+            torch.randn(B, C, generator=g, device=device))
+
+
+@pytest.mark.parametrize("absent", [None, "gh", "gT"])
+@pytest.mark.parametrize("B,T,C", [(8, 2560, 2560), (4, 2560, 2560),
+                                   (8, 1, 2560), (2, 96, 40), (3, 17, 130),
+                                   (1, 300, 24)])
+def test_rglru_grad_kernel_matches_plain_bitwise(cuda, B, T, C, absent):
+    """The gradient kernel at recurrentgemma-2b's training shapes (8 and 4
+    x 2560 x 2560), T = 1, ragged T and C, with gh or gT absent: da, db
+    and dh0 bitwise those of ``rglru_bwd_ref`` on the same inputs, one
+    launch in ``rglru_btc``'s ``backward`` form."""
+    g = torch.Generator(device=cuda).manual_seed(T + C)
+    a, _, h0, h, gh, gT = rglru_grad_case(g, cuda, B, T, C)
+    gh, gT = (None if absent == n else x for n, x in (("gh", gh), ("gT", gT)))
+    before = dict(_cuda.forms["rglru_btc"])
+    n = _cuda.launches["rglru_btc"]
+    got = rglru.rglru_bwd(a, h, h0, gh, gT)
+    assert _cuda.forms["rglru_btc"] == dict(before,
+                                            backward=before["backward"] + 1)
+    assert _cuda.launches["rglru_btc"] == n + 1
+    want = rglru.rglru_bwd_ref(a, h, h0, gh, gT)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and torch.equal(x, y)
+
+
+def test_rglru_function_launches_the_gradient_kernel(cuda):
+    """``RGLRU`` on the card: one forward launch and one backward launch
+    (the ``backward`` form), which autograd's thread counts in the
+    forward's tally; the gradients those of autograd through
+    ``rglru_ref``."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a, b, h0, _, gh, gT = rglru_grad_case(g, cuda, 2, 77, 130)
+    xs = [x.detach().requires_grad_() for x in (a, b, h0)]
+    with ops.tally() as counts:
+        outs = rglru.rglru_grad(*xs)
+    got = torch.autograd.grad(outs, xs, (gh, gT))
+    torch.cuda.synchronize()
+    assert counts == {"rglru_btc": 2, ("rglru_btc", "backward"): 1}
+    want = torch.autograd.grad(rglru.rglru_ref(*xs), xs, (gh, gT))
+    for x, y in zip(got, want):
+        assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5,
+                        rtol=1e-5)
+
+
+def test_rglru_grad_kernel_rejects_bad_inputs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a, _, h0, h, gh, gT = rglru_grad_case(g, cuda, 2, 5, 16)
+    before = dict(_cuda.forms["rglru_btc"])
+    bwd = rglru.rglru_bwd
+    with pytest.raises(TypeError):                     # bf16 gh
+        bwd(a, h, h0, gh.bfloat16(), gT)
+    with pytest.raises(ValueError):                    # gT of another width
+        bwd(a, h, h0, gh, gT[:, :8])
+    with pytest.raises(ValueError):                    # gh not contiguous
+        bwd(a, h, h0, gh.transpose(1, 2).contiguous().transpose(1, 2), gT)
+    with pytest.raises(ValueError):                    # h of another length
+        bwd(a, h[:, :4].contiguous(), h0, gh, gT)
+    assert _cuda.forms["rglru_btc"] == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

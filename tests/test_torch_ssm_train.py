@@ -462,12 +462,14 @@ def test_remat_runs_each_kernel_again_in_the_backward(remat, monkeypatch):
     """The kernels' calls in one ``lm_loss`` forward and backward of each
     arch (the wrappers' CPU path, counted as the card counts launches):
     without remat one wkv6 call a ``rwkv`` layer, two rglru calls an
-    ``rglru`` layer (forward, reverse scan) and one flash call an
+    ``rglru`` layer (forward, and the backward's ``rglru_bwd``: the
+    gradient kernel's launch on the card) and one flash call an
     ``attn_local`` layer; with remat "full" each layer's forward runs again
     in the backward, one more call of each."""
     calls = {"wkv6": 0, "rglru": 0, "flash": 0}
     for mod, name, key in ((rwkv6, "wkv6_bhtk", "wkv6"),
                            (rglru, "rglru_btc", "rglru"),
+                           (rglru, "rglru_bwd", "rglru"),
                            (fa, "flash_attention_bhsd", "flash")):
         def counted(*a, _inner=getattr(mod, name), _key=key, **kw):
             calls[_key] += 1

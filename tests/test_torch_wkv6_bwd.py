@@ -1,19 +1,21 @@
-"""WKV6's gradient kernel's order of operations on the CPU
-(``wkv6_bwd_serial_ref``: checkpoints every 16 tokens, each chunk's states
-rebuilt from its checkpoint, a token-serial reverse walk, decay steps
-S - d S with d = -expm1(logw), each row's and column's sums in the
-kernel's lane and warp order, the row groups added in adjacent pairs)
-against autograd through the port's plain version, the CPU backward
-(``WKV6`` on CPU tensors, ``wkv6_ref``'s chunks recomputed under autograd)
-and ``jax.vjp`` of the reference's XLA scan (``wkv6_chunked``, off the logw
-floor) and token-serial oracle (``repro.kernels.ref.wkv6_ref``, at the
-floor). Then the row-group split, zero decays, the meta device's shapes and
-the cost formula. The kernel itself runs on the card:
-tests/test_torch_cuda.py.
+"""WKV6's token-serial gradient oracle on the CPU (``wkv6_bwd_serial_ref``:
+every state kept, a reverse walk, decay steps S - d S with d =
+-expm1(logw), dlogw's factor w = exp(logw)) against autograd through the
+port's plain version, the CPU backward (``WKV6`` on CPU tensors,
+``wkv6_ref``'s chunks recomputed under autograd) and ``jax.vjp`` of the
+reference's XLA scan (``wkv6_chunked``, off the logw floor) and token-serial
+oracle (``repro.kernels.ref.wkv6_ref``, at the floor). Then the gradient
+kernel's chunk plan and its algorithm's bits against the grid, zero
+decays, the meta device's shapes and the cost formula. The kernel's own
+algorithm (``wkv6_bwd_chunk_ref``) is held in test_torch_wkv6_bwd_chunk.py;
+the kernel itself runs on the card: tests/test_torch_cuda.py.
 
 Inputs come from numpy seeds. Tolerances are relative to each gradient's
 max: 2e-5 in fp32 and 2e-2 in bf16 (``tests/test_kernels.py``'s, as
 ``tests/test_torch_ssm_train.py`` holds ``WKV6``)."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -154,23 +156,47 @@ def test_serial_ref_at_the_logw_floor_matches_the_serial_oracle(K, T):
 
 @pytest.mark.parametrize("K,T", [(64, 33), (64, 70), (16, 45)])
 def test_row_groups_give_bitwise_the_same_gradients(K, T):
-    """Every row-group split the kernel may take sums dv over the same tree
-    of warps: the gradients are bitwise equal at every count."""
-    args, dy, dS = torch_case(wkv_case(T, 2, 2, T, K))
-    outs = [rwkv6.wkv6_bwd_serial_ref(*args, dy, dS, groups=g)
-            for g in rwkv6.BWD_GROUPS[K]]
-    for out in outs[1:]:
-        assert all(torch.equal(a, b) for a, b in zip(outs[0], out))
+    """The gradient kernel's grid is set by the shapes alone and its sums
+    run in a fixed order, so no (b, h) sees another: its algorithm
+    (``wkv6_bwd_chunk_ref``) on each (b, h) alone gives bitwise the
+    batch's dr, dk, dv, dlogw and ds0 (and, at B = 1, du)."""
+    for B, H in ((2, 2), (1, 3)):
+        args, dy, dS = torch_case(wkv_case(T + B, B, H, T, K))
+        whole = rwkv6.wkv6_bwd_chunk_ref(*args, dy, dS)
+        r, k, v, logw, u, s0 = args
+        for b in range(B):
+            for h in range(H):
+                one = rwkv6.wkv6_bwd_chunk_ref(
+                    *(x[b:b + 1, h:h + 1] for x in (r, k, v, logw)),
+                    u[h:h + 1], s0[b:b + 1, h:h + 1], dy[b:b + 1, h:h + 1],
+                    dS[b:b + 1, h:h + 1])
+                for i in (0, 1, 2, 3, 5):
+                    assert torch.equal(one[i][0, 0], whole[i][b, h])
+                if B == 1:
+                    assert torch.equal(one[4][0], whole[4][h])
 
 
 def test_bwd_groups_fill_the_card():
-    """The fewest row groups that give two blocks an SM, else the most:
-    one at rwkv6-7b's 8 x 64 heads, eight at a tensor-parallel rank's
-    4 x 16, two at the mesh run's 4 x 64; K = 16 never splits."""
-    assert rwkv6.bwd_groups(8 * 64, 64, 132) == 1
-    assert rwkv6.bwd_groups(4 * 16, 64, 132) == 8
-    assert rwkv6.bwd_groups(4 * 64, 64, 132) == 2
-    assert rwkv6.bwd_groups(2 * 4, 16, 132) == 1
+    """The gradient kernel's chunk plan: chunks of ``BWD_CHUNK`` tokens,
+    the last one padded; its chunk pass takes a block a (b, h, chunk),
+    which fills the 132 SMs three blocks deep at rwkv6-7b's 8 x 64 heads,
+    a tensor-parallel rank's 4 x 16 and the mesh run's 4 x 64 over 512
+    tokens."""
+    C = rwkv6.BWD_CHUNK
+    assert C == 16
+    assert [rwkv6.bwd_chunks(T) for T in (1, C, C + 1, 45, 512)] == \
+        [1, 1, 2, 3, -(-512 // C)]
+    for BH in (8 * 64, 4 * 16, 4 * 64):
+        assert BH * rwkv6.bwd_chunks(512) >= 3 * 132
+
+
+def test_kernel_chunk_is_the_wrappers():
+    """The kernel is built for one chunk size, ``CHUNK`` in
+    ``csrc/wkv6_bwd.cu``, and the wrapper sizes the boundary states'
+    scratch by ``BWD_CHUNK``: the two must agree."""
+    src = (Path(rwkv6.__file__).parent / "csrc" / "wkv6_bwd.cu").read_text()
+    sizes = re.findall(r"constexpr int CHUNK = (\d+);", src)
+    assert sizes == [str(rwkv6.BWD_CHUNK)]
 
 
 @pytest.mark.parametrize("logw", [-float(np.exp(5.0)), -1e30,

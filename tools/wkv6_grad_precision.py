@@ -4,10 +4,11 @@ CPU.
 
   PYTHONPATH=src python3 tools/wkv6_grad_precision.py
 
-The gradient kernel (``kernels/csrc/wkv6_bwd.cu``) walks the recurrence
-token by token in fp32, and ``kernels/rwkv6.py::wkv6_bwd_serial_ref``
-repeats its order of operations. Two choices in that walk decide how far
-it lands from the exact gradient:
+The gradient kernel (``kernels/csrc/wkv6_bwd.cu``) works in chunks of
+``rwkv6.BWD_CHUNK`` tokens in fp32, and ``kernels/rwkv6.py::
+wkv6_bwd_chunk_ref`` repeats its algorithm; ``wkv6_bwd_serial_ref`` walks
+the recurrence token by token. Two choices in either decide how far it
+lands from the exact gradient:
 
 - a decay step as w S, w = exp(logw) rounded to fp32, or as S - d S with
   d = 1 - w taken as -expm1(logw): near logw = -1e-6 the rounding of w is
@@ -18,11 +19,13 @@ it lands from the exact gradient:
 It prints (1) at the logw ends (-e^5 and -1e-6 on alternating channels,
 1 x 4 x 512 x 64) each of the six gradients' max error over its max
 against an fp64 token-serial autograd, for the CPU backward's chunked
-algebra (autograd through ``wkv6_ref``), the kernel's order, and the
+algebra (autograd through ``wkv6_ref``), the kernel's chunk algorithm,
+the token-serial oracle, and the
 token-serial forms that take the other choices; (2) ``chip_smoke.py``'s
 phase 10b on the CPU: reduced rwkv6-7b in fp32 with remat "full", 5 AdamW
-steps with the CPU backward and then with each token-serial form, the
-worst leaf's max weight difference (phase 10b holds 1e-4).
+steps with the CPU backward and then with the kernel's algorithm and each
+token-serial form, the worst leaf's max weight difference (phase 10b holds
+1e-4).
 """
 
 from __future__ import annotations
@@ -104,9 +107,11 @@ def at_the_logw_ends():
     xs = [x.clone().requires_grad_() for x in args]
     with torch.enable_grad():
         chunked = torch.autograd.grad(rwkv6.wkv6_ref(*xs), xs, (dy, dS))
-    forms = {"chunked (the CPU backward's algebra)": chunked,
-             "the kernel's order (wkv6_bwd_serial_ref)":
-                 rwkv6.wkv6_bwd_serial_ref(*args, dy, dS)}
+    forms = {"chunked (the CPU backward's algebra)": chunked}
+    forms["the kernel's algorithm (wkv6_bwd_chunk_ref)"] = \
+        rwkv6.wkv6_bwd_chunk_ref(*args, dy, dS)
+    forms["the token-serial oracle (wkv6_bwd_serial_ref)"] = \
+        rwkv6.wkv6_bwd_serial_ref(*args, dy, dS)
     for decay, factor in (("w", "w"), ("d", "w"), ("d", "1-d")):
         forms[f"token-serial, decay {decay} S, dlogw's factor {factor}"] = \
             serial_grads(*args, dy, dS, decay, factor)
@@ -151,7 +156,9 @@ def phase_10b_on_the_cpu():
     print("(2) phase 10b on the CPU: reduced rwkv6-7b, 5 fp32 AdamW steps, "
           "each form against the CPU backward's, the worst leaf's max "
           "weight difference")
-    for name, bwd in (("the kernel's order",
+    for name, bwd in (("the kernel's algorithm",
+                       lambda *a: rwkv6.wkv6_bwd_chunk_ref(*a)),
+                      ("the token-serial oracle",
                        lambda *a: rwkv6.wkv6_bwd_serial_ref(*a)),
                       ("decay d S, dlogw's factor w", serial("d", "w")),
                       ("decay d S, dlogw's factor 1-d", serial("d", "1-d")),
