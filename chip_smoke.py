@@ -157,7 +157,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    card), one prefill of 8 x 2560 tokens (past the 2048 window, so the
    window mask, the ring's rotation and its wrap at decode all run) and 31
    greedy decode steps. The counters must show the rglru kernel once per
-   RG-LRU layer and the flash kernel once per local-attention layer, per
+   RG-LRU layer (its staged form at the prefill, its serial form at a
+   decode step) and the flash kernel once per local-attention layer, per
    prefill (its fp32 sequence form) and per decode step (its decode form,
    over the bf16 ring in place), and the other two kernels not at all.
    Then the full-width fp32 per-layer check over a prompt past the window,
@@ -239,8 +240,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    peak memory. (d) Each step's launches (``ops.tally``) and the counters
    (zeroed before, read after): wkv6's prefill form twice a ``rwkv`` layer
    (forward and remat's recompute) and its backward form once, rglru three
-   times an ``rglru`` layer (forward, recompute, and its gradient kernel,
-   the ``backward`` form), flash's fp32 sequence form twice an
+   times an ``rglru`` layer (forward and recompute in the staged form, 10b's
+   24 tokens in the serial one, and its gradient kernel, the ``backward``
+   form), flash's fp32 sequence form twice an
    ``attn_local`` layer and its
    gradient kernel once, nothing else. (e) One more step of each under
    ``torch.profiler`` (the device alone), device time by kind
@@ -249,7 +251,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    distinct call of (c) (``hold_flash_calls``). (f) rglru, its gradient
    kernel (bitwise ``rglru_bwd_ref``, the ``rglru_btc_bwd`` record) and
    flash's fp32 form timed at recurrentgemma-2b's 4 x 2560, records of
-   their own. (g) WKV6's gradient kernel at rwkv6-7b's 8 x 64 x 512 x 64
+   their own; rglru's forward also at phase 11a's 4 x 512 x 2560,
+   printed. (g) WKV6's gradient kernel at rwkv6-7b's 8 x 64 x 512 x 64
    in fp32 and bf16 and at phase 11a's 4 x 64 x 512 x 64 in bf16: held to
    autograd through the plain version, two calls bitwise equal, timed
    beside the plain backward (``_bwd_plain`` on the card) and its bound at
@@ -377,8 +380,10 @@ Phase 2 holds the flash kernel's bf16 sequence form (``mma.sync``) against
 both the plain version and the tiled algebra it repeats
 (``attention_tiled_ref``) and times it at three protein shapes beside
 sdpa. It also holds the wkv6 kernels (2b: prefill and decode, the prefill
-one also against ``wkv6_serial_ref``), the rglru kernel and the flash
-kernel at head dim 256 (2c) against their plain versions and times them;
+one also against ``wkv6_serial_ref``), the rglru kernel (2c: bitwise its
+plain version, in the form each shape takes, ``staged`` from one ring
+stage of tokens up and ``serial`` below it or at C % 4 != 0) and the flash
+kernel at head dim 256 against their plain versions and times them;
 2c also holds the flash kernel's decode form (one query over strided ring
 views, bf16 K/V beside an fp32 q, every head dim, groups of 1 to 20 query
 heads) and its fp32 sequence form (every head dim, ragged lengths, window,
@@ -431,7 +436,7 @@ RG_BATCH, RG_PROMPT, RG_GEN = 8, 2560, 32
 RGLRU_TOL = 1e-5                                 # test_kernels.py's own
 # the port's kernels, as the profiler names them
 PORT_KERNELS = ("decode_attention_", "flash_fwd_", "flash_bwd_", "wkv6_",
-                "rglru_kernel", "rglru_bwd_kernel")
+                "rglru_kernel", "rglru_staged_kernel", "rglru_bwd_kernel")
 # session defaults (repro/session.py): receptor 24 + peptide 6, 6 candidates
 RECEPTOR, PEPTIDE, N_CAND, TOP_K = 24, 6, 6, 3
 # the campaign phase (5b): the session's im-rp defaults, two cycles, in the
@@ -1443,28 +1448,39 @@ def phase_rglru_flash256(torch):
     recurrentgemma-2b's prefill and decode shapes, in fp32 as the path runs
     them. Returns the two kernel records for the JSON line."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rglru
+    from repro_torch.kernels import ops, rglru
 
     print("phase 2c: rglru and flash head dim 256 parity on the card",
           flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     B, P, C = RG_BATCH, RG_PROMPT, 2560
-    cases = [  # label, (B, T, C), kwargs
-        (f"prefill {B}x{P}x{C}, h0 = 0", (B, P, C), {"h0": False}),
-        (f"decode {B}x1x{C}", (B, 1, C), {}),
-        ("T=32 C=8", (1, 32, 8), {}), ("T=96 C=40", (2, 96, 40), {}),
-        ("T=64 C=128", (2, 64, 128), {}), ("T=50 C=24", (1, 50, 24), {}),
-        ("ragged T=17 C=130", (3, 17, 130), {}),
+    L = rglru.STAGE_TOKENS
+    cases = [  # label, (B, T, C), kwargs, the form the wrapper takes
+        (f"prefill {B}x{P}x{C}, h0 = 0", (B, P, C), {"h0": False}, "staged"),
+        (f"decode {B}x1x{C}", (B, 1, C), {}, "serial"),
+        ("T=32 C=8", (1, 32, 8), {}, "staged"),
+        ("T=96 C=40", (2, 96, 40), {}, "staged"),
+        ("T=64 C=128", (2, 64, 128), {}, "staged"),
+        ("T=50 C=24", (1, 50, 24), {}, "staged"),
+        (f"T={L - 1} C={C}", (2, L - 1, C), {}, "serial"),
+        (f"T={2 * L + 1} C=48, a short last tile", (3, 2 * L + 1, 48), {},
+         "staged"),
+        ("ragged T=17 C=130", (3, 17, 130), {}, "serial"),
     ]
-    for label, shape, kw in cases:
+    for label, shape, kw, form in cases:
         args = rglru_inputs(torch, g, *shape, **kw)
-        h, h_T = rglru.rglru_btc(*args)
+        with ops.tally() as n:
+            h, h_T = rglru.rglru_btc(*args)
         h_ref, hT_ref = rglru.rglru_ref(*args)
         torch.cuda.synchronize()
-        same = bool(torch.equal(h, h_ref) and torch.equal(h_T, hT_ref))
-        check_close(f"rglru {label} h (bitwise equal: {same})", h, h_ref,
-                    RGLRU_TOL, RGLRU_TOL)
-        check_close(f"rglru {label} h_T", h_T, hT_ref, RGLRU_TOL, RGLRU_TOL)
+        err = max(max_err(h, h_ref), max_err(h_T, hT_ref))
+        expect(dict(n) == {"rglru_btc": 1, ("rglru_btc", form): 1},
+               f"rglru {label}: launches {dict(n)}, not one {form}")
+        expect(torch.equal(h, h_ref) and torch.equal(h_T, hT_ref),
+               f"rglru {label}: h, h_T not bitwise rglru_ref's (max err "
+               f"{err:.3e})")
+        print(f"  rglru {label}: the {form} form, h and h_T bitwise "
+              f"rglru_ref's", flush=True)
 
     W, H = 2048, 10
     flash_cases = [  # label, (B, Sq, Sk), kwargs
@@ -1493,7 +1509,7 @@ def phase_rglru_flash256(torch):
     # in phase 2b; the record holds the prefill shape
     records = [dict(time_rglru(torch, g, B, P, C, "prefill"),
                     name="rglru_btc")]
-    time_rglru(torch, g, B, 1, C, "decode")
+    time_rglru(torch, g, B, 1, C, "decode", "serial")
     records.append(dict(time_flash256(torch, g, B, P, "prefill"),
                         name="flash_attention_bhsd_hd256"))
     records.append(time_flash_decode(torch, g, B, H, W, 256))
@@ -1600,29 +1616,61 @@ def cp_records(torch, g):
     return records
 
 
-def time_rglru(torch, g, B, T, C, label):
-    """rglru at (B, T, C) fp32: the kernel held to the plain version, then
-    the kernel's and the plain version's device time per call, inputs
-    rotating past 100 MB, and the bound. Returns the
-    kernel's record without its name."""
-    from repro_torch.kernels import rglru
-
+def time_rglru(torch, g, B, T, C, label, form="staged"):
+    """rglru at (B, T, C) fp32: one launch in ``form`` (``staged``, or
+    ``serial`` at decode), h and h_T bitwise the plain version's, then the
+    kernel's and the plain version's device time per call, inputs rotating
+    past 100 MB, and the bound; in the staged form also, launched through
+    the library (uncounted), the serial kernel's time and the staged
+    kernel's with the ring the plan's other rule would give (rings of 2 all
+    resident where the plan runs waves of ``WAVE_DEPTH``, else
+    ``WAVE_DEPTH``). Returns the kernel's record without its name."""
     from repro_torch.distributed import cost
+    from repro_torch.kernels import _cuda, ops, rglru
+
     n_ops, n_bytes = cost.rglru_work(B, T, C)
     b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
     sets = [rglru_inputs(torch, g, B, T, C, h0=T == 1)
             for _ in range(-(-100_000_000 // n_bytes))]
-    err = max_err(rglru.rglru_btc(*sets[0])[0], rglru.rglru_ref(*sets[0])[0])
-    check(f"rglru {label} {B}x{T}x{C} fp32 vs rglru_ref", err, RGLRU_TOL)
+    with ops.tally() as n:
+        got = rglru.rglru_btc(*sets[0])
+    want = rglru.rglru_ref(*sets[0])
+    err = max(max_err(x, y) for x, y in zip(got, want))
+    expect(dict(n) == {"rglru_btc": 1, ("rglru_btc", form): 1},
+           f"rglru {label} {B}x{T}x{C}: launches {dict(n)}, not one {form}")
+    expect(all(torch.equal(x, y) for x, y in zip(got, want)),
+           f"rglru {label} {B}x{T}x{C}: h, h_T not bitwise rglru_ref's "
+           f"(max err {err:.3e})")
+    del got, want
     turn = itertools.cycle(sets)
     run_k = lambda: rglru.rglru_btc(*next(turn))              # noqa: E731
     run_p = lambda: rglru.rglru_ref(*next(turn))              # noqa: E731
     ms = graph_ms(torch, run_k)
     plain = graph_ms(torch, run_p, iters=2, replays=2)
-    print(f"  rglru {label} {B}x{T}x{C} fp32, device ms per call: kernel "
-          f"{ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} ({b_by}); wall "
-          f"per back-to-back call: kernel {wall_ms(torch, run_k):.4f}; "
-          f"err {err:.3e}", flush=True)
+    others = ""
+    if form == "staged":
+        depth = rglru.staged_plan(B, T, C, _cuda.sm_count(sets[0][0].device)
+                                  ).depth
+        other = 2 if depth == rglru.WAVE_DEPTH else rglru.WAVE_DEPTH
+        for name, extra in (("the serial kernel", ()),
+                            (f"rings of {other}", (other,))):
+            def run_lib(extra=extra):
+                a, b, h0 = next(turn)
+                h, h_T = torch.empty_like(a), torch.empty_like(h0)
+                lib = _cuda.lib()
+                launch = lib.repro_rglru_staged if extra else lib.repro_rglru
+                expect(launch(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                              h.data_ptr(), h_T.data_ptr(), B, T, C, *extra,
+                              *_cuda.device_and_stream(a.device)) == 0,
+                       f"rglru {name}: launch failed")
+            o_ms = graph_ms(torch, run_lib)
+            others += f", {name} {o_ms:.4f} ({100 * b_ms / o_ms:.1f}%)"
+        others += f" (the plan's rings: {depth})"
+    print(f"  rglru {label} {B}x{T}x{C} fp32, the {form} form, device ms "
+          f"per call: kernel {ms:.4f}, plain {plain:.4f}, bound {b_ms:.6f} "
+          f"({b_by}), {100 * b_ms / ms:.1f}% of it{others}; wall per "
+          f"back-to-back call: kernel {wall_ms(torch, run_k):.4f}; h, h_T "
+          f"bitwise rglru_ref's", flush=True)
     return {"route": "cuda", "source": "src/repro_torch/kernels/csrc/rglru.cu",
             "replaces": "src/repro/kernels/rglru.py:44", "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -3967,8 +4015,9 @@ def phase_rg_serving(torch):
           f"step ({r['decode_tok_s']:.1f} tokens/s over {G - 1} steps); peak"
           f" memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
-    print(f"  launches {counts}, flash by form {forms}; row 0 tokens "
-          f"{toks[0, :8].tolist()}", flush=True)
+    rg_forms = dict(ops.forms["rglru_btc"])
+    print(f"  launches {counts}, flash by form {forms}, rglru by form "
+          f"{rg_forms}; row 0 tokens {toks[0, :8].tolist()}", flush=True)
     expect(toks.shape == (B, G), f"tokens {tuple(toks.shape)}")
     expect(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
            "a token outside the vocabulary")
@@ -3980,6 +4029,10 @@ def phase_rg_serving(torch):
     want = flash_forms(decode=kinds.count("attn_local") * (G - 1),
                        seq_f32=kinds.count("attn_local"))
     expect(forms == want, f"flash forms {forms}, expected {want}")
+    # the prefill's scans in the staged form, the decode steps' serial
+    want = {"staged": kinds.count("rglru"),
+            "serial": kinds.count("rglru") * (G - 1), "backward": 0}
+    expect(rg_forms == want, f"rglru forms {rg_forms}, expected {want}")
     counts.update(flash_attention_bhsd_hd256=forms["seq_f32"],
                   flash_attention_bhsd_hd256_decode=forms["decode"])
 
@@ -4542,7 +4595,7 @@ def phase_moe(torch):
 TRAIN_KINDS = (("wkv6 gradient kernel", ("wkv6_bwd",)),
                ("wkv6 kernel", ("wkv6_",)),
                ("rglru gradient kernel", ("rglru_bwd",)),
-               ("rglru kernel", ("rglru_kernel",)),
+               ("rglru kernel", ("rglru_kernel", "rglru_staged_kernel")),
                ("flash gradient kernel", ("flash_bwd_",)),
                ("flash kernel", ("flash_fwd_",)),
                ("GEMMs", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
@@ -4698,14 +4751,23 @@ def phase10_functions(torch):
     return out, records
 
 
-def ssm_step_launches(cfg):
-    """One train step's launches with remat "full": wkv6's prefill form
-    twice a ``rwkv`` layer (forward, recompute) and its backward form once,
-    rglru three times an ``rglru`` layer (forward, recompute, and its
-    gradient kernel, the ``backward`` form), flash's fp32 sequence form
-    twice an
-    ``attn_local`` layer (the residual stream is fp32: ``emb_scale``) and
-    its gradient kernel once."""
+def rglru_form(T):
+    """The form ``rglru_btc`` takes at T tokens on the path's fresh
+    tensors, whose lru widths (64 reduced, 2560 and a rank's 640) are
+    multiples of 4: ``staged`` from one stage of the ring up, else
+    ``serial``."""
+    from repro_torch.kernels import rglru
+    return "staged" if T >= rglru.STAGE_TOKENS else "serial"
+
+
+def ssm_step_launches(cfg, S):
+    """One train step's launches at S tokens with remat "full": wkv6's
+    prefill form twice a ``rwkv`` layer (forward, recompute) and its
+    backward form once, rglru three times an ``rglru`` layer (forward and
+    recompute in ``rglru_form(S)``, and its gradient kernel, the
+    ``backward`` form), flash's fp32 sequence form twice an ``attn_local``
+    layer (the residual stream is fp32: ``emb_scale``) and its gradient
+    kernel once."""
     kinds = cfg.layer_kinds
     n_wkv, n_rg = kinds.count("rwkv"), 3 * kinds.count("rglru")
     n_fa = kinds.count("attn_local")
@@ -4716,6 +4778,7 @@ def ssm_step_launches(cfg):
                      ("wkv6_bhtk", "backward"): n_wkv})
     if n_rg:
         want.update({"rglru_btc": n_rg,
+                     ("rglru_btc", rglru_form(S)): 2 * n_rg // 3,
                      ("rglru_btc", "backward"): n_rg // 3})
     if n_fa:
         want.update({"flash_attention_bhsd": 3 * n_fa,
@@ -4828,7 +4891,7 @@ def ssm_train_agreement(torch):
                     tallies.append(dict(counts))
             out[dev] = losses, dict(params.named_parameters())
         (gl, gp), (cl, cp) = out["cuda"], out["cpu"]
-        want = ssm_step_launches(cfg)
+        want = ssm_step_launches(cfg, S)
         expect(all(c == want for c in tallies), f"{arch} reduced: card "
                f"steps' launches {tallies}, not {want} a step")
         print(f"  {arch} reduced, {SSM_AGREE_STEPS} steps fp32, remat full, "
@@ -4949,7 +5012,7 @@ def ssm_train(torch, arch):
     peak = torch.cuda.max_memory_allocated()
     counts = dict(ops.launches)
     forms = {k: dict(v) for k, v in ops.forms.items()}
-    want = ssm_step_launches(cfg)
+    want = ssm_step_launches(cfg, S)
     expect(len(steps) == SSM_TRAIN_STEPS
            and all(c == want for c, _ in steps),
            f"{arch}: steps' launches {[c for c, _ in steps]}, not {want}")
@@ -5006,9 +5069,11 @@ def phase_ssm_train(torch):
               flush=True)
         counts[arch] = ssm_train(torch, arch)
     rg = counts["recurrentgemma-2b"]
-    print("phase 10f: the kernels at recurrentgemma-2b's training shape",
-          flush=True)
+    print("phase 10f: the kernels at recurrentgemma-2b's training shape "
+          "(rglru's forward also at phase 11a's)", flush=True)
     g = torch.Generator(device="cuda").manual_seed(37)
+    B, S, _ = MESH_TRAINS["recurrentgemma-2b"]
+    time_rglru(torch, g, B, S, 2560, "phase 11a")
     B, S = SSM_TRAINS["recurrentgemma-2b"]
     records = [dict(time_rglru(torch, g, B, S, 2560, "train"),
                     name="rglru_btc_train"),
@@ -5056,11 +5121,12 @@ def mesh_cfg(arch, layers):
                        n_layers=reps * len(kinds))
 
 
-def mesh_step_launches(cfg):
-    """One train step's launches with remat "full": the SSM archs' rule
-    (``ssm_step_launches``) and flash's bf16 sequence form twice an
-    ``attn`` layer (forward, recompute) and its gradient kernel once."""
-    want = ssm_step_launches(cfg)
+def mesh_step_launches(cfg, S):
+    """One train step's launches at S tokens with remat "full": the SSM
+    archs' rule (``ssm_step_launches``) and flash's bf16 sequence form
+    twice an ``attn`` layer (forward, recompute) and its gradient kernel
+    once."""
+    want = ssm_step_launches(cfg, S)
     n = cfg.layer_kinds.count("attn")
     if n:
         want.update({"flash_attention_bhsd": 3 * n,
@@ -5126,17 +5192,17 @@ def mesh_train(torch, arch, mesh):
     expect(all(sharding.is_dtensor(p) for p in sim["params"].parameters()),
            f"{arch}: a parameter of the mesh run is not a DTensor")
     expect(tallies == [c for c, _ in none["steps"]] and all(
-        c == mesh_step_launches(cfg) for c in tallies),
+        c == mesh_step_launches(cfg, S) for c in tallies),
            f"{arch}: the mesh steps' launches {tallies}, the unsharded "
            f"run's {[c for c, _ in none['steps']]}, the rule "
-           f"{mesh_step_launches(cfg)}")
+           f"{mesh_step_launches(cfg, S)}")
     walls = {k: statistics.median([w for _, w in r["steps"]][1:])
              for k, r in runs.items()}
     g = sim["gathers"]
     print(f"  {arch}: losses none {[round(x, 5) for x in none['losses']]}, "
           f"mesh {[round(x, 5) for x in sim['losses']]}; step wall median "
           f"none {walls['none']:.1f} ms, mesh {walls['sim']:.1f} ms; "
-          f"{mesh_step_launches(cfg)} a step in both; a mesh step "
+          f"{mesh_step_launches(cfg, S)} a step in both; a mesh step "
           f"{g['uses']:.0f} gathered uses (an all-gather each on a mesh of "
           f"more than one rank; remat's recompute gathers again) and "
           f"{g['reductions']:.0f} gradient reductions (a reduce-scatter "
@@ -6022,7 +6088,7 @@ def tp_serve_records(torch, g, H, C):
                                   "TP rank decode"),
                         name="wkv6_bhtk_tp_decode"))
     records.append(dict(time_rglru(torch, g, TP_BATCH, 1, C,
-                                   "TP rank decode"),
+                                   "TP rank decode", "serial"),
                         name="rglru_btc_tp_decode"))
     return records
 
@@ -6485,6 +6551,16 @@ def phase_tp(torch):
            "flash_attention_bhsd_ep_llama4": pre[ep][fa],
            "flash_attention_bhsd_ep_llama4_decode": dec[ep][fd]}
     expect(all(n > 0 for n in out.values()), f"phase 12 launches {out}")
+    # rglru's scans at the rank's 4 x 512 x 640 in the staged form (training
+    # and the prefill), its decode steps' in the serial form
+    rg_train, rg_pre, rg_dec = (
+        {f: c.get((rg, f), 0) for f in ("staged", "serial", "backward")}
+        for c in (first["recurrentgemma-2b"], pre[rgm], dec[rgm]))
+    expect(rg_train["serial"] == rg_pre["serial"] == rg_dec["staged"] == 0
+           and min(rg_train["staged"], rg_train["backward"], rg_pre["staged"],
+                   rg_dec["serial"]) > 0,
+           f"phase 12 rglru forms: training {rg_train}, prefill {rg_pre}, "
+           f"decode {rg_dec}")
     print(f"  launches on the path (rank 0, the configs' dtypes): {out}; "
           f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return records, out

@@ -13,14 +13,14 @@ it launches its kernel and nowhere else, so a run can show that its main
 path went through the kernels. ``forms`` splits a kernel's count by the
 form it took (flash: the decode form, the fp32 / bf16 sequence form or
 the gradient kernel, ``backward``; wkv6: the decode (T = 1) or the
-prefill kernel, or the gradient kernel, ``backward``; rglru: its gradient
-kernel, ``backward``, the forward scan having no form). ``by_namespace``
-splits the counts by the param-set namespace whose weights the launching
-thread is running (``namespace``; the payload's task functions enter it),
-so a run can show which model ran. ``tally`` counts the launches one
-thread makes inside a block, so a run can read one task's launches while
-others run. All are updated under a lock: the executor's worker threads
-launch kernels at the same time.
+prefill kernel, or the gradient kernel, ``backward``; rglru: the staged
+or the serial forward kernel, or the gradient kernel, ``backward``).
+``by_namespace`` splits the counts by the param-set namespace whose
+weights the launching thread is running (``namespace``; the payload's task
+functions enter it), so a run can show which model ran. ``tally`` counts
+the launches one thread makes inside a block, so a run can read one task's
+launches while others run. All are updated under a lock: the executor's
+worker threads launch kernels at the same time.
 Autograd runs a CUDA backward on a thread of its own; a backward that
 launches (``RGLRU``'s, ``WKV6``'s, ``FlashAttention``'s, or a
 rematerialized layer's forward run again) counts in the namespace and
@@ -56,7 +56,7 @@ launches = {"paged_decode_bkgh": 0, "flash_attention_bhsd": 0,
 forms = {"flash_attention_bhsd": {"decode": 0, "seq_f32": 0, "seq_bf16": 0,
                                   "backward": 0},
          "wkv6_bhtk": {"decode": 0, "prefill": 0, "backward": 0},
-         "rglru_btc": {"backward": 0}}
+         "rglru_btc": {"staged": 0, "serial": 0, "backward": 0}}
 
 by_namespace: dict[str, dict[str, int]] = {}
 
@@ -194,6 +194,9 @@ def lib() -> ctypes.CDLL:
             handle.repro_wkv6_bwd.restype = i32
             handle.repro_rglru.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
             handle.repro_rglru.restype = i32
+            handle.repro_rglru_staged.argtypes = [ptr] * 5 + [i32] * 5 + [
+                ptr]
+            handle.repro_rglru_staged.restype = i32
             handle.repro_rglru_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
             handle.repro_rglru_bwd.restype = i32
             handle.repro_error_string.argtypes = [i32]

@@ -1,7 +1,10 @@
 // Shared helpers for the port's hand-written kernels: element conversion,
-// the masking constant and the dtype codes the Python wrappers pass.
+// the masking constant and the dtype codes the Python wrappers pass, warp
+// reductions, cp.async, and the mbarrier / tensor-map helpers of a ring fed
+// by the copy engine (TMA).
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its encoder's types (no driver link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,6 +59,131 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- mbarriers and bulk asynchronous copies (sm_90) --------------------------
+//
+// A ring of stages in shared memory fed by the copy engine: each stage has a
+// "full" mbarrier (count 1) and an "empty" one (count: the consumers that
+// arrive). For stage s of the ring's slot s % depth, in round r = s / depth:
+//   producer: if r > 0, mbar_wait(empty, (r - 1) & 1); one thread calls
+//             mbar_expect(full, bytes) (it arrives and adds the bytes the
+//             copies will bring), then issues the copies (tma_load_3d(...,
+//             full)), whose boxes sum to exactly those bytes;
+//   consumer: mbar_wait(full, r & 1); read the stage; mbar_arrive(empty).
+// A wait on parity p returns once the barrier's phase of parity p has
+// completed: a fresh barrier is in phase 0, so a wait on 1 returns at once
+// and a wait on 0 blocks until the first phase completes. One thread inits
+// every barrier, then mbar_init_fence() and __syncthreads() before use.
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the inits visible to the copy engine (the async proxy).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arrive once and expect ``bytes`` more of bulk copies in this phase.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Block until the barrier's phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 3-D tensor map, at element coordinates (x, y, z) (x the
+// innermost), copied global -> shared by the copy engine, completing on
+// ``bar``'s expected bytes: the whole box's, elements past the tensor's
+// edge arriving as zeros. ``dst`` 128-byte aligned; ``map`` a kernel
+// parameter (``const __grid_constant__ CUtensorMap``).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The driver's tensor-map encoder, looked up once through the runtime (no
+// link against the driver library); null where the driver has none.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of the contiguous fp32 array ``base`` of shape (n2, n1, n0)
+// (n0 innermost) in boxes of (b2, b1, b0) elements, no swizzle: a box
+// lands in shared memory as b2 x b1 rows of b0 floats. ``base`` and n0 * 4
+// must be multiples of 16 bytes, each box extent at most 256.
+inline cudaError_t tile_map_3d(CUtensorMap* map, const float* base,
+                               long long n2, long long n1, long long n0,
+                               int b2, int b1, int b0) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1,
+                              (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 4,
+                                 (cuuint64_t)(n0 * n1) * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1,
+                             (cuuint32_t)b2};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<float*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Raise ``kernel``'s dynamic shared memory limit past the 48 KB default to

@@ -15,9 +15,7 @@
 
 #include <cuda_bf16.h>
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+#include "common.cuh"   // smem_addr
 
 // Four 8 x 8 matrices of 16-bit elements (or 8 x 4 of 32-bit ones); lanes
 // 8i..8i+7 give the row addresses of the i-th, whose fragment lands in

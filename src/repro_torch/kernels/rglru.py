@@ -7,9 +7,16 @@ Layouts (the TPU kernel's):
   h0    (B, C)     fp32 incoming state
 Returns h (B, T, C) and h_T (B, C), both fp32.
 
-``rglru_btc`` takes the plain version for CPU tensors and launches the CUDA
-kernel (``csrc/rglru.cu``, one thread per channel walking the tokens in
-order, any T >= 1) for CUDA tensors. ``rglru_grad`` is the same function
+``rglru_btc`` takes the plain version for CPU tensors and launches a CUDA
+kernel (``csrc/rglru.cu``) for CUDA tensors, in one of two forms, both
+bitwise the plain version, counted in ``_cuda.forms["rglru_btc"]``:
+``staged`` (``rglru_staged_kernel``: a block a tile of ``WIDTH`` channels
+of one row, fed by the copy engine (tensor-map boxes) through a ring of
+stages in shared memory as deep as ``staged_plan`` says) where
+``staged_fits`` (T >= ``STAGE_TOKENS``, C % 4 == 0, a and b 16-byte
+aligned), ``serial`` (``rglru_kernel``: one thread per channel)
+elsewhere, as at decode (T = 1). ``rglru_staged_ref`` walks the staged
+form's tiles and stages in its order. ``rglru_grad`` is the same function
 with a gradient (``RGLRU``): its backward, ``rglru_bwd``, is the same
 recurrence run backwards in time with da, db and dh0 taken on the way,
 one launch of the gradient kernel (``rglru_bwd_kernel``, one thread per
@@ -25,6 +32,8 @@ dry run's path).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +52,81 @@ def rglru_ref(a, b, h0):
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+# the staged form's layout (``csrc/rglru.cu``): tokens a ring stage,
+# channels a tile, the bytes of a and b the whole grid's rings aim to hold
+# (Little's law: 3.35 TB/s x ~0.6 us of DRAM latency), the ring of a grid
+# that runs in waves (8 stages of 16 KB: 131 KB, so one block an SM), the
+# deepest ring (12 stages: 197 KB, within a block's 227 KB)
+STAGE_TOKENS = 32
+WIDTH = 64
+FLIGHT_BYTES = 2 << 20
+WAVE_DEPTH = 8
+MAX_DEPTH = 12
+
+
+class StagedPlan(NamedTuple):
+    depth: int         # stages in the ring
+    grid: tuple        # (ceil(C / WIDTH), B) blocks
+    smem: int          # dynamic shared memory a block, bytes
+
+
+def staged_tiles(C):
+    """The channel ranges [c0, c1) of the staged form's grid's x axis."""
+    return [(c0, min(c0 + WIDTH, C)) for c0 in range(0, C, WIDTH)]
+
+
+def staged_plan(B, T, C, sms):
+    """The staged form's layout at (B, T, C) on a card of ``sms`` SMs, from
+    those alone: a block a tile of ``WIDTH`` channels of one row. A grid of
+    more than two blocks an SM runs in waves of one block an SM, each with
+    a ring of ``WAVE_DEPTH`` stages; a smaller grid is resident at once,
+    with rings deep enough to hold ``FLIGHT_BYTES`` of a and b across it
+    (``STAGE_TOKENS`` x ``WIDTH`` x 8 B a stage), at least 2 stages, so
+    fewer blocks than SMs get deeper rings. Never deeper than
+    ``MAX_DEPTH`` or T's stages. Shared memory: the ring, 16 B of barriers
+    a stage, 128 B to align it. Any depth gives the same bits. On the H100
+    (PERF.md §6): 320 blocks ran 0.2133 ms with rings of 8 against 0.2203
+    with 2-4, which keep them all resident; 160 blocks ran 0.1061 with
+    rings of 2 against 0.1142 with 3 and 0.1185 with 8 (two waves); 40
+    blocks 0.0089 with 3-4 against 0.0107 with 2."""
+    grid = (-(-C // WIDTH), B)
+    blocks = grid[0] * B
+    stage = STAGE_TOKENS * WIDTH * 8
+    depth = WAVE_DEPTH if blocks > 2 * sms else \
+        max(2, -(-FLIGHT_BYTES // (blocks * stage)))
+    depth = max(1, min(depth, MAX_DEPTH, -(-T // STAGE_TOKENS)))
+    return StagedPlan(depth, grid, depth * (stage + 16) + 128)
+
+
+def staged_fits(a, b):
+    """Whether the staged form takes these inputs: T >= one stage, C % 4
+    == 0, and a and b 16-byte aligned, as their tensor maps need (a row's
+    stride and the bases multiples of 16 bytes)."""
+    _, T, C = a.shape
+    return T >= STAGE_TOKENS and C % 4 == 0 \
+        and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+
+
+def rglru_staged_ref(a, b, h0):
+    """The staged form's order: for each row and tile (``staged_tiles``),
+    the stages of ``STAGE_TOKENS`` tokens one after another, each token a
+    multiply then an add over the tile's channels. Bitwise ``rglru_ref``:
+    each channel's steps are the same."""
+    B, T, C = a.shape
+    af, bf = a.float(), b.float()
+    h = torch.empty_like(af)
+    h_T = torch.empty_like(h0, dtype=torch.float32)
+    for r in range(B):
+        for c0, c1 in staged_tiles(C):
+            hv = h0[r, c0:c1].float()
+            for t0 in range(0, T, STAGE_TOKENS):
+                for t in range(t0, min(t0 + STAGE_TOKENS, T)):
+                    hv = af[r, t, c0:c1] * hv + bf[r, t, c0:c1]
+                    h[r, t, c0:c1] = hv
+            h_T[r, c0:c1] = hv
+    return h, h_T
 
 
 def rglru_btc(a, b, h0):
@@ -71,10 +155,16 @@ def _launch(a, b, h0):
     h_T = torch.empty_like(h0)
     if B * C == 0:
         return h, h_T
-    err = _cuda.lib().repro_rglru(
-        a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
-        h_T.data_ptr(), B, T, C, *_cuda.device_and_stream(dev))
-    _cuda.check_launch(name, err)
+    ptrs = (a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
+            h_T.data_ptr(), B, T, C)
+    if staged_fits(a, b):
+        plan = staged_plan(B, T, C, _cuda.sm_count(dev))
+        err = _cuda.lib().repro_rglru_staged(
+            *ptrs, plan.depth, *_cuda.device_and_stream(dev))
+        _cuda.check_launch(name, err, "staged")
+    else:
+        err = _cuda.lib().repro_rglru(*ptrs, *_cuda.device_and_stream(dev))
+        _cuda.check_launch(name, err, "serial")
     return h, h_T
 
 

@@ -32,16 +32,19 @@ A port of the JAX package's ``repro.launch.train`` over the port's
   residual stream is split over ``model`` along the sequence, and
   attention whose heads do not divide ``model`` computes each rank's
   chunk of the queries (``sharding.seq_split``, ``context_parallel``).
-  Expert parallelism is not ported (ROADMAP Queue 1): MoE experts compute
-  whole on every ``model`` rank. A checkpoint restores across meshes,
-  ``none`` included.
+  MoE layers split their capacity form as the reference's constraints
+  do (``sharding.moe_split``): llama4's experts along E, each ``model``
+  rank computing its shard of them; qwen3's groups over dp and ``model``
+  where they divide both, the experts gathered whole over ``data``. A
+  checkpoint restores across meshes, ``none`` included.
 * Every arch of ``configs.registry.ARCH_IDS`` trains, the ``rwkv`` and
   ``rglru`` layers through their kernels' autograd Functions
   (``kernels.rwkv6.WKV6``: the scan kernel forward, its gradient kernel
-  backward; ``kernels.rglru.RGLRU``: the scan kernel both ways), each
-  layer rematerialized as the config's ``remat`` says. Attention with a
-  logit softcap raises before any weight is built:
-  ``kernels.flash_attention.FlashAttention`` refuses it.
+  backward; ``kernels.rglru.RGLRU``: the scan kernel forward, its
+  gradient kernel backward), each layer rematerialized as the config's
+  ``remat`` says. Attention with a logit softcap raises before any
+  weight is built: ``kernels.flash_attention.FlashAttention`` refuses
+  it.
 * The weights are drawn from seed 0 on the device, as the reference draws
   ``PRNGKey(0)``, so a card and the CPU start from other weights.
 """

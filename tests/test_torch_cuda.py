@@ -5,8 +5,9 @@ machine without JAX:
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: paged decode and rglru 1e-5 in fp32, flash and wkv6 y 2e-5 in
-fp32, all 2e-2 in bf16, the wkv6 state atol 1e-4 / rtol 1e-3 (the CPU
+Tolerances: paged decode and rglru's gradient through autograd 1e-5 in
+fp32 (rglru's kernels bitwise their plain versions), flash and wkv6 y 2e-5
+in fp32, all 2e-2 in bf16, the wkv6 state atol 1e-4 / rtol 1e-3 (the CPU
 tests' own); gradients 2e-5 (fp32) / 2e-2 (bf16) of each gradient's max;
 log-likelihoods 1e-3 (sums of 24 fp32 log-probs computed in two
 orders)."""
@@ -599,26 +600,64 @@ def test_wkv6_grad_kernel_rejects_bad_inputs(cuda):
     assert _cuda.forms["wkv6_bhtk"] == before
 
 
-@pytest.mark.parametrize("B,T,C", [(8, 2560, 2560), (8, 1, 2560),
-                                   (1, 32, 8), (2, 96, 40), (2, 64, 128),
-                                   (1, 50, 24), (3, 17, 130)])
-def test_rglru_matches_plain_and_counts_launches(cuda, B, T, C):
-    """recurrentgemma-2b's prefill and decode shapes, the reference kernel
-    test's edge shapes and a ragged one, from a nonzero h0."""
+RG_STAGE = rglru.STAGE_TOKENS
+
+
+@pytest.mark.parametrize("B,T,C,form", [
+    (8, 2560, 2560, "staged"), (4, 2560, 2560, "staged"),
+    (4, 512, 2560, "staged"), (4, 512, 640, "staged"),
+    (4, RG_STAGE - 1, 2560, "serial"), (4, RG_STAGE, 2560, "staged"),
+    (4, RG_STAGE + 1, 2560, "staged"), (4, 2 * RG_STAGE + 1, 2560, "staged"),
+    (1, 2 * RG_STAGE + 1, 1624, "staged"), (4, 100, 2600, "staged"),
+    (1, 100, 1624, "staged"), (3, 100, 48, "staged"), (3, 100, 40, "staged"),
+    (8, 1, 2560, "serial"), (4, 1, 640, "serial"),
+    (1, 32, 8, "staged"), (2, 96, 40, "staged"), (2, 64, 128, "staged"),
+    (1, 50, 24, "staged"), (3, 17, 130, "serial"), (3, 64, 130, "serial")])
+def test_rglru_matches_plain_and_counts_launches(cuda, B, T, C, form):
+    """recurrentgemma-2b's prefill, train, mesh-step and tensor-parallel
+    rank shapes and its decode, T around a ring stage (rings of 2 to 4
+    stages), short last tiles of the 64 channels (C 2600, 1624,
+    48, 40), the reference kernel test's edge shapes and ragged ones, from
+    a nonzero h0: h and h_T bitwise ``rglru_ref``'s, one launch in the form
+    the shape takes (``staged`` where T >= a stage and C % 4 == 0), and a
+    second call the same bits."""
     g = torch.Generator(device=cuda).manual_seed(T)
     a = torch.sigmoid(torch.randn(B, T, C, generator=g, device=cuda))
     b = 0.3 * torch.randn(B, T, C, generator=g, device=cuda)
     h0 = torch.randn(B, C, generator=g, device=cuda)
     before = _cuda.launches["rglru_btc"]
+    forms = dict(_cuda.forms["rglru_btc"])
     h, h_T = rglru.rglru_btc(a, b, h0)
     assert _cuda.launches["rglru_btc"] == before + 1
+    assert _cuda.forms["rglru_btc"] == dict(forms, **{form: forms[form] + 1})
     h_ref, hT_ref = rglru.rglru_ref(a, b, h0)
     assert _cuda.launches["rglru_btc"] == before + 1
     assert h.dtype == h_T.dtype == torch.float32
-    assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(), atol=1e-5,
-                    rtol=1e-5)
-    assert_allclose(h_T.cpu().numpy(), hT_ref.cpu().numpy(), atol=1e-5,
-                    rtol=1e-5)
+    assert torch.equal(h, h_ref) and torch.equal(h_T, hT_ref)
+    again = rglru.rglru_btc(a, b, h0)
+    assert torch.equal(again[0], h) and torch.equal(again[1], h_T)
+
+
+def test_rglru_unaligned_view_takes_the_serial_form(cuda):
+    """A contiguous view 4 bytes off an aligned base cannot be bulk-copied:
+    it takes the serial form, bitwise ``rglru_ref``; 16 bytes off, the
+    staged form."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, T, C = 2, 3 * RG_STAGE, 64
+    for off, form in ((1, "serial"), (4, "staged")):
+        flat = torch.randn(2 * B * T * C + off, generator=g, device=cuda)
+        a = flat[off:off + B * T * C].sigmoid_().view(B, T, C)
+        b = flat[off + B * T * C:].view(B, T, C)
+        assert (a.data_ptr() % 16 == 0) == (b.data_ptr() % 16 == 0) \
+            == (form == "staged")
+        assert a.is_contiguous() and b.is_contiguous()
+        h0 = torch.randn(B, C, generator=g, device=cuda)
+        forms = dict(_cuda.forms["rglru_btc"])
+        h, h_T = rglru.rglru_btc(a, b, h0)
+        assert _cuda.forms["rglru_btc"] == dict(forms,
+                                                **{form: forms[form] + 1})
+        want, want_T = rglru.rglru_ref(a, b, h0)
+        assert torch.equal(h, want) and torch.equal(h_T, want_T)
 
 
 def test_rglru_rejects_bad_inputs(cuda):
@@ -670,8 +709,9 @@ def test_rglru_grad_kernel_matches_plain_bitwise(cuda, B, T, C, absent):
 
 
 def test_rglru_function_launches_the_gradient_kernel(cuda):
-    """``RGLRU`` on the card: one forward launch and one backward launch
-    (the ``backward`` form), which autograd's thread counts in the
+    """``RGLRU`` on the card: one forward launch (the ``serial`` form, C
+    130) and one backward launch (the ``backward`` form), which autograd's
+    thread counts in the
     forward's tally; the gradients those of autograd through
     ``rglru_ref``."""
     from repro_torch.kernels import ops
@@ -682,7 +722,8 @@ def test_rglru_function_launches_the_gradient_kernel(cuda):
         outs = rglru.rglru_grad(*xs)
     got = torch.autograd.grad(outs, xs, (gh, gT))
     torch.cuda.synchronize()
-    assert counts == {"rglru_btc": 2, ("rglru_btc", "backward"): 1}
+    assert counts == {"rglru_btc": 2, ("rglru_btc", "serial"): 1,
+                      ("rglru_btc", "backward"): 1}
     want = torch.autograd.grad(rglru.rglru_ref(*xs), xs, (gh, gT))
     for x, y in zip(got, want):
         assert_allclose(x.cpu().numpy(), y.cpu().numpy(), atol=1e-5,
